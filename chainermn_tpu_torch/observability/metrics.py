@@ -1,0 +1,232 @@
+"""Per-rank metrics registry — counters, gauges, exact-merge histograms.
+
+Every subsystem of the port (so far the serving scheduler) publishes
+named instruments into one process-wide registry; snapshots are plain
+dicts.
+
+Design constraints, in order:
+
+* **Hot-path cheap** — ``Counter.inc`` / ``Histogram.observe`` are a lock,
+  an add, a ``bisect``.  No host↔device sync, no allocation, no string
+  formatting.
+* **Fixed histogram edges** — chosen at creation, so two histograms of
+  one name (two ranks, two runs) merge exactly by adding bucket counts.
+* **JSON all the way down** — ``snapshot()`` returns plain dicts of
+  str/int/float.
+
+Instruments are identified by name alone; re-requesting a name returns the
+same instrument, and requesting it as a different type (or a histogram with
+different edges) raises — a silent second instrument would fork the data.
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+import os
+from typing import Dict, Optional, Sequence, Tuple
+
+
+def _env_float(name: str, default: float) -> float:
+    """Tolerant env-number read for the serving knobs: unset or malformed
+    values fall back to the default, so a typo'd knob degrades to the
+    shipped behaviour instead of crashing a publisher at construction."""
+    try:
+        return float(os.environ.get(name, str(default)))
+    except ValueError:
+        return float(default)
+
+
+#: Default histogram edges, in milliseconds (sub-ms to 30 s); the
+#: upper-open overflow bucket is implicit.
+DEFAULT_MS_EDGES: Tuple[float, ...] = (
+    0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0,
+    250.0, 500.0, 1000.0, 2500.0, 5000.0, 10000.0, 30000.0,
+)
+
+
+class Counter:
+    """Monotonic float counter (events, bytes)."""
+
+    kind = "counter"
+
+    def __init__(self, name: str, lock: threading.Lock):
+        self.name = name
+        self._lock = lock
+        self._value = 0.0
+
+    def inc(self, n: float = 1.0) -> None:
+        if n < 0:
+            raise ValueError(f"counter {self.name}: inc by negative {n}")
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+    def to_dict(self) -> dict:
+        return {"type": "counter", "value": self.value}
+
+
+class Gauge:
+    """Last-written value (queue depths, dead-rank counts, loss)."""
+
+    kind = "gauge"
+
+    def __init__(self, name: str, lock: threading.Lock):
+        self.name = name
+        self._lock = lock
+        self._value: Optional[float] = None
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._value = float(v)
+
+    @property
+    def value(self) -> Optional[float]:
+        with self._lock:
+            return self._value
+
+    def to_dict(self) -> dict:
+        return {"type": "gauge", "value": self.value}
+
+
+class Histogram:
+    """Fixed-edge histogram: ``len(edges)+1`` integer buckets (the last is
+    the overflow), plus exact ``sum``/``count``/``min``/``max``.
+
+    Bucket ``i`` counts observations ``v <= edges[i]`` (cumulative counts
+    are derived at render time); the overflow bucket counts
+    ``v > edges[-1]``.  Because the edges are part of the instrument's
+    identity, two ranks' histograms of the same name merge exactly.
+    """
+
+    kind = "histogram"
+
+    def __init__(self, name: str, lock: threading.Lock,
+                 edges: Sequence[float] = DEFAULT_MS_EDGES):
+        edges = tuple(float(e) for e in edges)
+        if not edges or list(edges) != sorted(set(edges)):
+            raise ValueError(
+                f"histogram {name}: edges must be non-empty, strictly "
+                f"increasing, got {edges}"
+            )
+        self.name = name
+        self.edges = edges
+        self._lock = lock
+        self._counts = [0] * (len(edges) + 1)
+        self._sum = 0.0
+        self._count = 0
+        self._min: Optional[float] = None
+        self._max: Optional[float] = None
+
+    def observe(self, v: float) -> None:
+        v = float(v)
+        i = bisect.bisect_left(self.edges, v)
+        with self._lock:
+            self._counts[i] += 1
+            self._sum += v
+            self._count += 1
+            self._min = v if self._min is None else min(self._min, v)
+            self._max = v if self._max is None else max(self._max, v)
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    def to_dict(self) -> dict:
+        with self._lock:
+            return {
+                "type": "histogram",
+                "edges": list(self.edges),
+                "counts": list(self._counts),
+                "sum": self._sum,
+                "count": self._count,
+                "min": self._min,
+                "max": self._max,
+            }
+
+
+class NoopInstrument:
+    """No-op stand-in for any registry instrument.  Publishers that latch
+    the ``CMN_OBS`` master switch at construction (the serving scheduler)
+    hold one of these instead of a real instrument when the switch is
+    off."""
+
+    def inc(self, n: float = 1.0) -> None:
+        pass
+
+    def set(self, v: float) -> None:
+        pass
+
+    def observe(self, v: float) -> None:
+        pass
+
+
+class MetricsRegistry:
+    """Named-instrument registry.  One instance per process
+    (:func:`registry`); tests may build their own."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._instruments: Dict[str, object] = {}
+
+    # ------------------------------------------------------------ factories
+    def _get(self, name: str, cls, **kwargs):
+        with self._lock:
+            inst = self._instruments.get(name)
+            if inst is None:
+                # Each instrument gets its own lock: hot-path updates must
+                # not contend on the registry lock, which guards only the
+                # name table.
+                inst = self._instruments[name] = cls(
+                    name, threading.Lock(), **kwargs
+                )
+                return inst
+        if not isinstance(inst, cls):
+            raise ValueError(
+                f"metric {name!r} already registered as {inst.kind}, "
+                f"requested {cls.kind}"
+            )
+        if kwargs.get("edges") is not None and \
+                tuple(float(e) for e in kwargs["edges"]) != inst.edges:
+            raise ValueError(
+                f"histogram {name!r} already registered with edges "
+                f"{inst.edges}; a second edge set would break the exact "
+                f"merge of snapshots"
+            )
+        return inst
+
+    def counter(self, name: str) -> Counter:
+        return self._get(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
+
+    def histogram(self, name: str,
+                  edges: Sequence[float] = DEFAULT_MS_EDGES) -> Histogram:
+        return self._get(name, Histogram, edges=edges)
+
+    # ------------------------------------------------------------ snapshots
+    def snapshot(self) -> Dict[str, dict]:
+        """JSON-serializable state of every instrument, by name."""
+        with self._lock:
+            insts = list(self._instruments.items())
+        return {name: inst.to_dict() for name, inst in insts}
+
+
+#: Process-wide registry (lazy).
+_registry: Optional[MetricsRegistry] = None
+_registry_lock = threading.Lock()
+
+
+def registry() -> MetricsRegistry:
+    """THE per-process registry every subsystem publishes into."""
+    global _registry
+    with _registry_lock:
+        if _registry is None:
+            _registry = MetricsRegistry()
+    return _registry

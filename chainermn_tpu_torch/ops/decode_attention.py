@@ -1,0 +1,393 @@
+"""Decode attention: the paged kernel of the serving engine and the fused
+kernel of :func:`~chainermn_tpu_torch.models.lm_generate`.
+
+Both are single-position (or, for the paged kernel, few-position)
+attention against a KV cache, bound by the bytes of K and V they read.
+Each has three parts:
+
+* a kernel written by hand for Hopper in CUDA C++
+  (``chainermn_tpu_torch/csrc/decode_attention.cu``; its header says what
+  bounds it and how its design answers that);
+* a plain PyTorch version (``*_reference``) that follows the Pallas
+  kernel's arithmetic step by step, edge cases included;
+* a wrapper that validates its inputs and then runs the plain version for
+  tensors on the CPU, or launches the kernel for tensors on a CUDA device.
+  There is no fallback: a CUDA tensor the kernel does not take raises.
+  Each wrapper counts its kernel launches in a plain integer attribute,
+  ``paged_decode_attention.launches`` and ``fused_decode_attention.launches``.
+
+Layouts and semantics are the JAX package's
+(``chainermn_tpu/ops/decode_attention.py``):
+
+* :func:`fused_decode_attention` — queries ``(B, H, Dh)`` against a
+  kv-head-major cache ``(B, KH, L, Dh)``; position ``p`` of row ``b`` is
+  attendable iff ``p < valid_len[b]``.  The kernel streams the panel in
+  tiles with an online softmax instead of staging the whole panel, which
+  equals the Pallas one-shot softmax up to fp32 rounding.  ``valid_len <=
+  0`` reproduces the Pallas result over an all-masked row: the mean of V
+  over the whole panel.
+* :func:`paged_decode_attention` — S slots read one block pool
+  ``(KH, num_blocks, block_len, Dh)`` through per-slot block tables
+  ``(S, max_blocks)``.  A 4-D query ``(S, T, H, Dh)`` is the speculative
+  verify chunk: offset ``t`` attends positions ``< valid_len[s] + t``.  A
+  fully masked row (``valid_len == 0``) gives zeros.
+
+int8 caches carry fp32 scales per (kv head, position): the k scale
+multiplies the scores, the v scale the probabilities after the normalizer
+is summed, as in the Pallas kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+#: longest fused-kernel cache the model dispatches to the kernel (the JAX
+#: package's VMEM budget; the CUDA kernel streams tiles and has no such
+#: limit, but the model keeps the same dispatch so both packages take the
+#: same branch).
+MAX_FUSED_LEN = 16384
+
+#: most query positions per slot in the paged kernel's verify mode.
+MAX_VERIFY_T = 16
+
+#: finite stand-in for -inf, as in the Pallas kernels.
+NEG_INF = -1e30
+
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+_Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+_lib_cache = {}
+
+
+def _lib():
+    lib = _lib_cache.get("lib")
+    if lib is None:
+        from chainermn_tpu_torch.ops import _kernels
+
+        lib = _kernels.load("decode_attention")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.cmn_paged_decode_attention.argtypes = (
+            [ptr] * 8 + [i32] * 10 + [ptr]
+        )
+        lib.cmn_paged_decode_attention.restype = i32
+        lib.cmn_fused_decode_attention.argtypes = (
+            [ptr] * 7 + [i32] * 7 + [ptr]
+        )
+        lib.cmn_fused_decode_attention.restype = i32
+        lib.cmn_cuda_error_string.argtypes = [i32]
+        lib.cmn_cuda_error_string.restype = ctypes.c_char_p
+        _lib_cache["lib"] = lib
+    return lib
+
+
+# ---------------------------------------------------------------- plain
+def fused_decode_attention_reference(q, kc, vc, valid_len, k_scale=None,
+                                     v_scale=None):
+    """Plain PyTorch version of the fused kernel: the Pallas one-shot
+    softmax over the whole panel (``_decode_kernel``)."""
+    B, H, Dh = q.shape
+    _, KH, L, _ = kc.shape
+    G = H // KH
+    qg = q.reshape(B, KH, G, Dh).float() * (1.0 / math.sqrt(Dh))
+    s = torch.einsum("bkgd,bkld->bkgl", qg, kc.float())
+    if k_scale is not None:
+        s = s * k_scale[:, :, None, :]
+    pos = torch.arange(L, device=q.device)
+    valid = valid_len.to(device=q.device, dtype=torch.int64)
+    s = torch.where(pos[None, None, None, :] < valid[:, None, None, None],
+                    s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)
+    if v_scale is not None:
+        p = p * v_scale[:, :, None, :]
+    o = torch.einsum("bkgl,bkld->bkgd", p, vc.float())
+    o = o / torch.clamp_min(l, 1e-30)[..., None]
+    return o.reshape(B, H, Dh).to(q.dtype)
+
+
+def paged_decode_attention_reference(q, k_pool, v_pool, block_tables,
+                                     valid_len, k_scale=None, v_scale=None):
+    """Plain PyTorch version of the paged kernel: the Pallas online-softmax
+    recurrence over logical blocks (``_paged_kernel``), blocks wholly past
+    the last query row's bound skipped, masked probabilities zeroed."""
+    multi = q.dim() == 4
+    if multi:
+        S, T, H, Dh = q.shape
+    else:
+        S, H, Dh = q.shape
+        T = 1
+    KH, NB, BL, _ = k_pool.shape
+    G = H // KH
+    R = T * G
+    MB = block_tables.shape[1]
+    dev = q.device
+    qg = q.reshape(S, T, KH, G, Dh).permute(0, 2, 1, 3, 4) \
+        .reshape(S, KH, R, Dh).float() * (1.0 / math.sqrt(Dh))
+    tbl = block_tables.to(device=dev, dtype=torch.int64)
+    valid = valid_len.to(device=dev, dtype=torch.int64)
+    toff = torch.arange(R, device=dev) // G
+    m = torch.full((S, KH, R), NEG_INF, device=dev)
+    l = torch.zeros((S, KH, R), device=dev)
+    acc = torch.zeros((S, KH, R, Dh), device=dev)
+    for mi in range(MB):
+        base = mi * BL
+        live = (base < valid + (T - 1))[:, None, None]  # (S, 1, 1)
+        blk = tbl[:, mi]
+        k = k_pool[:, blk].float().transpose(0, 1)  # (S, KH, BL, Dh)
+        v = v_pool[:, blk].float().transpose(0, 1)
+        s = torch.einsum("skrd,skjd->skrj", qg, k)
+        if k_scale is not None:
+            s = s * k_scale[:, blk].transpose(0, 1)[:, :, None, :]
+        pos = base + torch.arange(BL, device=dev)
+        mask = pos[None, None, None, :] < (
+            valid[:, None, None, None] + toff[None, None, :, None]
+        )
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None]) * mask.float()
+        l_new = alpha * l + p.sum(dim=-1)
+        if v_scale is not None:
+            p = p * v_scale[:, blk].transpose(0, 1)[:, :, None, :]
+        acc_new = alpha[..., None] * acc + torch.einsum(
+            "skrj,skjd->skrd", p, v
+        )
+        m = torch.where(live, m_new, m)
+        l = torch.where(live, l_new, l)
+        acc = torch.where(live[..., None], acc_new, acc)
+    out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+    out = out.reshape(S, KH, T, G, Dh).permute(0, 2, 1, 3, 4) \
+        .reshape(S, T, H, Dh)
+    return out if multi else out[:, 0]
+
+
+# ------------------------------------------------------------- checks
+def _check_quant(kv_dtype, k_scale, v_scale, scale_shape):
+    quant = kv_dtype == torch.int8
+    if quant and (k_scale is None or v_scale is None):
+        raise ValueError("int8 cache needs k_scale and v_scale")
+    if not quant and (k_scale is not None or v_scale is not None):
+        raise ValueError(
+            f"k_scale/v_scale given for a {kv_dtype} cache (scales belong "
+            "to int8 caches only)"
+        )
+    if quant:
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if tuple(sc.shape) != tuple(scale_shape):
+                raise ValueError(
+                    f"{name} must be {tuple(scale_shape)}, got "
+                    f"{tuple(sc.shape)}"
+                )
+    return quant
+
+
+def _check_cuda(tensors, q, kv_dtype, Dh):
+    """The kernel's own contract, checked before any pointer leaves
+    Python."""
+    dev = q.device
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(
+                f"{name} is on {t.device}, q on {dev}: all inputs must be "
+                "on one device"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _Q_CODES:
+        raise TypeError(
+            f"q dtype {q.dtype} not supported by the CUDA kernel "
+            f"(one of {list(_Q_CODES)})"
+        )
+    if kv_dtype not in _KV_CODES:
+        raise TypeError(
+            f"cache dtype {kv_dtype} not supported by the CUDA kernel "
+            f"(one of {list(_KV_CODES)})"
+        )
+    if Dh not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(
+            f"head dim {Dh} not supported by the CUDA kernel (one of "
+            f"{SUPPORTED_HEAD_DIMS})"
+        )
+    for name in ("k", "v"):
+        t = tensors[name]
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"{name} cache must be 16-byte aligned (the kernel reads "
+                "it with 16-byte loads)"
+            )
+    for name in ("k_scale", "v_scale"):
+        t = tensors.get(name)
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc:
+        msg = _lib().cmn_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error "
+                           f"{rc} ({msg})")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+# ------------------------------------------------------------ wrappers
+def fused_decode_attention(q, kc, vc, valid_len, k_scale=None,
+                           v_scale=None):
+    """Single-position attention against a kv-head-major cache.
+
+    Args:
+      q: ``(B, H, Dh)`` queries of the current position.
+      kc/vc: ``(B, KH, L, Dh)`` cache panels (float, or int8 with scales).
+      valid_len: ``(B,)`` int32; positions ``< valid_len[b]`` attendable.
+      k_scale/v_scale: ``(B, KH, L)`` float32, exactly when the cache is
+        int8.
+
+    Returns ``(B, H, Dh)`` in ``q``'s dtype.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel.
+    """
+    if q.dim() != 3 or kc.dim() != 4:
+        raise ValueError(
+            f"q must be (B, H, Dh) and the cache (B, KH, L, Dh), got "
+            f"{tuple(q.shape)} and {tuple(kc.shape)}"
+        )
+    B, H, Dh = q.shape
+    _, KH, L, _ = kc.shape
+    if tuple(kc.shape) != (B, KH, L, Dh) or vc.shape != kc.shape:
+        raise ValueError(
+            f"cache shapes {tuple(kc.shape)}/{tuple(vc.shape)} do not "
+            f"match q {tuple(q.shape)}"
+        )
+    if H % KH:
+        raise ValueError(f"H ({H}) must be a multiple of KH ({KH})")
+    if vc.dtype != kc.dtype:
+        raise TypeError(f"k/v cache dtypes differ: {kc.dtype} vs {vc.dtype}")
+    if tuple(valid_len.shape) != (B,):
+        raise ValueError(f"valid_len must be ({B},), got "
+                         f"{tuple(valid_len.shape)}")
+    quant = _check_quant(kc.dtype, k_scale, v_scale, (B, KH, L))
+    if q.device.type == "cpu":
+        tensors = (kc, vc, valid_len, k_scale, v_scale)
+        if any(t is not None and t.device.type != "cpu" for t in tensors):
+            raise ValueError("q is on the CPU but other inputs are not")
+        return fused_decode_attention_reference(
+            q, kc, vc, valid_len, k_scale, v_scale
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_cuda({"q": q, "k": kc, "v": vc, "valid_len": valid_len,
+                 "k_scale": k_scale, "v_scale": v_scale}, q, kc.dtype, Dh)
+    if valid_len.dtype != torch.int32:
+        raise TypeError(f"valid_len must be int32, got {valid_len.dtype}")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _lib().cmn_fused_decode_attention(
+        q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+        _ptr(k_scale) if quant else None, _ptr(v_scale) if quant else None,
+        valid_len.data_ptr(), out.data_ptr(),
+        B, H, KH, L, Dh, _Q_CODES[q.dtype], _KV_CODES[kc.dtype], stream,
+    )
+    _raise_on(rc, "fused decode attention")
+    fused_decode_attention.launches += 1
+    return out
+
+
+fused_decode_attention.launches = 0
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, valid_len,
+                           k_scale=None, v_scale=None):
+    """Attention of S decode slots against a block-pooled (paged) cache.
+
+    Args:
+      q: ``(S, H, Dh)``, or ``(S, T, H, Dh)`` for a T-position speculative
+        verify chunk (``T <= MAX_VERIFY_T``): offset ``t`` of slot ``s``
+        attends positions ``< valid_len[s] + t``.
+      k_pool/v_pool: ``(KH, num_blocks, block_len, Dh)`` pools (float, or
+        int8 with scales).
+      block_tables: ``(S, max_blocks)`` int32 logical -> physical block
+        map; every entry the slot's bound reaches must be a valid block id.
+      valid_len: ``(S,)`` int32, the first query position's bound; ``0``
+        marks an idle slot (its offset-0 rows are all masked: zeros).
+      k_scale/v_scale: ``(KH, num_blocks, block_len)`` float32, exactly
+        when the pool is int8.
+
+    Returns ``q``'s shape and dtype.  CPU tensors run the plain version;
+    CUDA tensors launch the kernel.
+    """
+    if q.dim() == 4:
+        S, T, H, Dh = q.shape
+    elif q.dim() == 3:
+        S, H, Dh = q.shape
+        T = 1
+    else:
+        raise ValueError(f"q must be (S, H, Dh) or (S, T, H, Dh), got "
+                         f"{tuple(q.shape)}")
+    if k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
+        raise ValueError(
+            f"pools must be (KH, num_blocks, block_len, Dh) and equal, got "
+            f"{tuple(k_pool.shape)} and {tuple(v_pool.shape)}"
+        )
+    KH, NB, BL, pdh = k_pool.shape
+    if pdh != Dh:
+        raise ValueError(f"pool head dim {pdh} != q head dim {Dh}")
+    if H % KH:
+        raise ValueError(f"H ({H}) must be a multiple of KH ({KH})")
+    if v_pool.dtype != k_pool.dtype:
+        raise TypeError(
+            f"k/v pool dtypes differ: {k_pool.dtype} vs {v_pool.dtype}"
+        )
+    if block_tables.dim() != 2 or block_tables.shape[0] != S:
+        raise ValueError(
+            f"block_tables must be (S={S}, max_blocks), got "
+            f"{tuple(block_tables.shape)}"
+        )
+    if tuple(valid_len.shape) != (S,):
+        raise ValueError(f"valid_len must be ({S},), got "
+                         f"{tuple(valid_len.shape)}")
+    if T > MAX_VERIFY_T:
+        raise ValueError(f"T ({T}) exceeds MAX_VERIFY_T ({MAX_VERIFY_T})")
+    quant = _check_quant(k_pool.dtype, k_scale, v_scale, (KH, NB, BL))
+    MB = block_tables.shape[1]
+    if q.device.type == "cpu":
+        tensors = (k_pool, v_pool, block_tables, valid_len, k_scale,
+                   v_scale)
+        if any(t is not None and t.device.type != "cpu" for t in tensors):
+            raise ValueError("q is on the CPU but other inputs are not")
+        return paged_decode_attention_reference(
+            q, k_pool, v_pool, block_tables, valid_len, k_scale, v_scale
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_cuda({"q": q, "k": k_pool, "v": v_pool,
+                 "block_tables": block_tables, "valid_len": valid_len,
+                 "k_scale": k_scale, "v_scale": v_scale},
+                q, k_pool.dtype, Dh)
+    for name, t in (("block_tables", block_tables),
+                    ("valid_len", valid_len)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _lib().cmn_paged_decode_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        _ptr(k_scale) if quant else None, _ptr(v_scale) if quant else None,
+        block_tables.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
+        S, T, H, KH, Dh, NB, BL, MB,
+        _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype], stream,
+    )
+    _raise_on(rc, "paged decode attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

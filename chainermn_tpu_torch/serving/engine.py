@@ -1,0 +1,498 @@
+"""Fixed-shape continuous-batching decode engine over the paged KV pool.
+
+The serving loop is one decode step whose shapes never change:
+``capacity`` slots × 1 token, every iteration.  Slot churn (requests
+finishing, new prompts admitted) changes only the contents of the step's
+inputs (block tables, positions, live mask), never their shapes or
+dtypes.  Idle slots ride along masked: their cache writes land in the
+reserved parking block 0 and their sampled tokens are discarded.
+
+One step = the model's paged decode branch, which under
+``decode_attention="fused"`` runs the hand-written paged kernel
+(:func:`~chainermn_tpu_torch.ops.paged_decode_attention`) once per layer,
+then per-slot sampling.
+
+**Speculative decoding** (``draft_model``/``spec_k``): the hot loop
+becomes one *round*: ``k`` sequential draft proposals per slot (plus one
+backfill step for the last proposal's K/V), then one target verify
+forward over all ``k + 1`` positions (the paged kernel's multi-query
+mode), greedy prefix acceptance per slot.  Greedy output is exactly the
+target's own generation; sampling slots accept zero drafts and sample
+the verify step's position-0 logits.  The draft owns its own pools but
+shares the target's block tables and allocator, so admission, prefix
+sharing, eviction and rollback stay one accounting decision.
+
+**Prefix sharing** (``prefix_cache=True``): the engine owns a
+:class:`~chainermn_tpu_torch.serving.prefix_cache.PrefixCache` over its
+allocator; the scheduler maps cached prompt blocks at admission and
+copies shared partial blocks through :meth:`DecodeEngine.cow_copy`.
+
+Prefill runs one slot's chunk per call, in sizes drawn from a small fixed
+**ladder** (``prefill_chunk`` and its halves down to 8).
+
+PyTorch runs eagerly, so there is no compiled program to count.  The
+``*_compiles`` properties count the distinct input signatures (shapes and
+dtypes) each program has been called with: the decode step must stay at
+one under slot churn, exactly the JAX engine's one-compile contract, and
+the signature is what a CUDA graph of the step would be captured for.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from chainermn_tpu_torch.ops.decode_attention import MAX_VERIFY_T
+from chainermn_tpu_torch.serving.kv_pool import PagedKVPool
+from chainermn_tpu_torch.serving.prefix_cache import PrefixCache
+from chainermn_tpu_torch.utils.device import resolve_device
+
+_MASK64 = (1 << 64) - 1
+
+
+def lane_seed(seed: int, position: int) -> int:
+    """The sampling generator's seed for one token: a splitmix64 mix of
+    the request's seed and the absolute position of the token it
+    conditions on."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + int(position) + 1) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) & ((1 << 63) - 1)
+
+
+class _Signatures:
+    """The distinct input signatures one engine program has seen."""
+
+    def __init__(self):
+        self._seen = set()
+
+    def note(self, *args) -> None:
+        self._seen.add(tuple(
+            (a.shape, a.dtype.str) if isinstance(a, np.ndarray)
+            else type(a).__name__
+            for a in args
+        ))
+
+    def __len__(self) -> int:
+        return len(self._seen)
+
+
+class DecodeEngine:
+    """Continuous-batching decode over a :class:`PagedKVPool`.
+
+    Args:
+      model: a :class:`~chainermn_tpu_torch.models.TransformerLM` holding
+        its weights (load trained ones with ``load_state_dict``, e.g. from
+        :func:`~chainermn_tpu_torch.utils.params_from_flax`).  "fused"
+        runs the paged kernel in the hot loop, "einsum" the gathered plain
+        attention.
+      capacity: decode slots per step (the fixed batch dimension).
+      num_blocks: physical blocks in the pool (block 0 stays reserved).
+      block_len: positions per block.
+      max_blocks_per_slot: block-table width; caps a request at
+        ``max_blocks_per_slot * block_len`` positions.  Defaults to
+        covering ``model.max_len`` (+ ``spec_k``).
+      prefill_chunk: largest prompt-tokens-per-prefill-call geometry.
+      prefill_ladder: the allowed prefill chunk sizes (its max must equal
+        ``prefill_chunk``); defaults to ``prefill_chunk`` and its halves
+        down to 8.
+      top_k: engine-wide sampling truncation (0 = off).
+      draft_model: optional draft ``TransformerLM`` for speculative
+        decoding (same vocab).  Requires ``spec_k``.
+      spec_k: draft proposals per round (0 = speculation off).
+      prefix_cache: share identical prompt prefixes through a refcounted
+        block trie (on by default).
+      mesh: the tensor-parallel engine is not ported yet and raises.
+      device: where the pools live and the steps run; must be the
+        model's device.  None means the current CUDA device and raises
+        where there is none (pass ``device="cpu"`` for the plain path).
+
+    Sampling keys each token by (the request's seed, the absolute
+    position it conditions on) through :func:`lane_seed` and a
+    ``torch.Generator``, so a request's samples depend only on its seed
+    and its own positions, never on co-scheduling, slot placement or
+    eviction.  The bits cannot equal the JAX engine's
+    ``fold_in(PRNGKey(seed), position)`` samples: the two frameworks'
+    generators differ.
+    """
+
+    def __init__(self, model, capacity: int, num_blocks: int,
+                 block_len: int = 16,
+                 max_blocks_per_slot: Optional[int] = None,
+                 prefill_chunk: int = 32, top_k: int = 0,
+                 prefill_ladder: Optional[List[int]] = None,
+                 draft_model=None, spec_k: int = 0,
+                 prefix_cache: bool = True, mesh=None, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the tensor-parallel (mesh=) engine is not ported yet "
+                "(ROADMAP Queue 1, serving fleet: TP engine)"
+            )
+        dev = resolve_device(device, "DecodeEngine")
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        if top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {top_k}")
+        if (draft_model is None) != (spec_k == 0):
+            raise ValueError(
+                "speculative decoding needs BOTH draft_model and "
+                f"spec_k >= 1 (got draft_model={draft_model is not None}, "
+                f"spec_k={spec_k})"
+            )
+        for name, m in (("model", model), ("draft_model", draft_model)):
+            if m is not None and m.device != dev:
+                raise ValueError(
+                    f"{name} parameters are on {m.device}, the engine "
+                    f"runs on {dev}: move the model first"
+                )
+        if draft_model is not None:
+            if draft_model.vocab != model.vocab:
+                raise ValueError(
+                    f"draft vocab {draft_model.vocab} != target vocab "
+                    f"{model.vocab}: proposals would be meaningless"
+                )
+            if not 1 <= spec_k <= MAX_VERIFY_T - 1:
+                raise ValueError(
+                    f"spec_k must be in [1, {MAX_VERIFY_T - 1}] "
+                    f"(verify chunk is k + 1 positions), got {spec_k}"
+                )
+        if prefill_chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1, got {prefill_chunk}"
+            )
+        if prefill_ladder is None:
+            ladder = {prefill_chunk}
+            c = prefill_chunk // 2
+            while c >= 8:
+                ladder.add(c)
+                c //= 2
+        else:
+            ladder = set(int(c) for c in prefill_ladder)
+            if not ladder or min(ladder) < 1:
+                raise ValueError(f"bad prefill_ladder {prefill_ladder}")
+            if max(ladder) != prefill_chunk:
+                raise ValueError(
+                    f"prefill_ladder max ({max(ladder)}) must equal "
+                    f"prefill_chunk ({prefill_chunk}): the scheduler's "
+                    "padding bound at submit() assumes it"
+                )
+        self.mesh = None
+        self.device = dev
+        self.model = model
+        self.draft_model = draft_model
+        self.capacity = capacity
+        self.block_len = block_len
+        self.spec_k = spec_k
+        self.top_k = top_k
+        self.prefill_chunk = prefill_chunk
+        #: allowed prefill chunk geometries, ascending.
+        self.prefill_ladder = tuple(sorted(ladder))
+        self.pool = PagedKVPool(model, num_blocks, block_len, device=dev)
+        self.pools = self.pool.pools
+        if draft_model is not None:
+            dpool = PagedKVPool(draft_model, num_blocks, block_len,
+                                device=dev)
+            self.draft_pools = dpool.pools
+            #: device bytes per block across target + draft pools.
+            self.pool.bytes_per_block += dpool.bytes_per_block
+        else:
+            self.draft_pools = None
+        self.max_blocks = (
+            max_blocks_per_slot if max_blocks_per_slot is not None
+            else max(1, math.ceil((model.max_len + spec_k) / block_len))
+        )
+        #: prefix trie over this engine's allocator (None = sharing off).
+        self.prefix = (
+            PrefixCache(block_len, self.pool.allocator)
+            if prefix_cache else None
+        )
+        #: per-slot sampling seeds and temperatures, written at admission.
+        self.seeds = np.zeros((capacity,), np.int64)
+        self.temp = np.zeros((capacity,), np.float32)
+        self._sigs: Dict[str, _Signatures] = {
+            n: _Signatures() for n in
+            ("decode_step", "prefill", "spec_round", "cow", "kv_gather",
+             "kv_put")
+        }
+
+    # ----------------------------------------------------------- helpers
+    def _up(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _pick(self, logits: torch.Tensor, slots, positions) -> torch.Tensor:
+        """Tokens for ``logits`` ``(n, V)`` of ``slots`` conditioned at
+        absolute ``positions``: greedy where the slot's temperature is
+        <= 0, else temperature (and engine top-k) sampling."""
+        nxt = torch.argmax(logits, dim=-1)
+        slots = np.asarray(slots)
+        temps = self.temp[slots]
+        for i in np.flatnonzero(temps > 0):
+            scaled = logits[i] / max(float(temps[i]), 1e-6)
+            if self.top_k:
+                k = min(self.top_k, scaled.shape[-1])
+                kth = torch.topk(scaled, k).values[-1]
+                scaled = torch.where(scaled >= kth, scaled,
+                                     torch.full_like(scaled, -math.inf))
+            g = torch.Generator(device=self.device)
+            g.manual_seed(lane_seed(self.seeds[slots[i]], positions[i]))
+            nxt[i] = torch.multinomial(torch.softmax(scaled, dim=-1), 1,
+                                       generator=g)[0]
+        return nxt
+
+    # ------------------------------------------------------------- slots
+    def seed_slot(self, slot: int, seed: int, temperature: float) -> None:
+        """Arm a slot's sampling seed and temperature (admission only)."""
+        self.seeds[slot] = int(seed)
+        self.temp[slot] = float(temperature)
+
+    # ----------------------------------------------------------- prefill
+    @torch.no_grad()
+    def prefill(self, slot: int, chunk: np.ndarray, p0: int,
+                table: np.ndarray, last_idx: int = -1) -> Optional[int]:
+        """Run one prefill chunk for ``slot``.
+
+        ``chunk`` is one of the ``prefill_ladder`` geometries,
+        right-padded past the prompt (pad positions are masked until real
+        tokens overwrite them; pads past the allocation fall through the
+        zero tail of ``table`` into parking block 0).  ``p0`` may start
+        mid-block (a prefix-cache hit resumes at the first unmatched
+        token).  ``last_idx >= 0`` marks the final chunk: the first
+        generated token is sampled from the logits at that in-chunk index
+        and returned.
+        """
+        chunk = np.asarray(chunk, np.int32)
+        if chunk.ndim != 1 or chunk.shape[0] not in self.prefill_ladder:
+            raise ValueError(
+                f"chunk must be 1-D with a ladder size "
+                f"{self.prefill_ladder}, got {chunk.shape}"
+            )
+        table = np.asarray(table, np.int32)[None]
+        self._sigs["prefill"].note(chunk, table)
+        toks = self._up(chunk[None]).long()
+        tbl = self._up(table)
+        h, _ = self.model(toks, return_hidden=True, cache=self.pools,
+                          decode_pos=int(p0), block_tables=tbl)
+        if self.draft_model is not None:
+            self.draft_model(toks, return_hidden=True,
+                             cache=self.draft_pools, decode_pos=int(p0),
+                             block_tables=tbl)
+        if last_idx < 0:
+            return None
+        # The LM head (fp32) at the sampled position only.
+        logits = self.model.head(h[:, last_idx])
+        return int(self._pick(logits, [slot], [int(p0) + last_idx])[0])
+
+    # ------------------------------------------------------------ decode
+    def _controls(self, tokens, pos, tables, active):
+        tokens = np.asarray(tokens, np.int32)
+        pos = np.asarray(pos, np.int32)
+        tables = np.asarray(tables, np.int32)
+        active = np.asarray(active, bool)
+        return (tokens, pos, tables, active), (
+            self._up(tokens).long(), self._up(pos), self._up(tables),
+            self._up(active),
+        )
+
+    @torch.no_grad()
+    def step(self, tokens: np.ndarray, pos: np.ndarray,
+             tables: np.ndarray, active: np.ndarray) -> np.ndarray:
+        """One fixed-capacity decode iteration.
+
+        Args (host arrays, shapes fixed by construction):
+          tokens: ``(capacity,)`` int32, each slot's last token.
+          pos: ``(capacity,)`` int32, the position this step writes.
+          tables: ``(capacity, max_blocks)`` int32 block tables.
+          active: ``(capacity,)`` bool, live slots.
+
+        Returns ``(capacity,)`` int32 tokens (garbage at inactive slots).
+        """
+        host, (tok, p, tbl, act) = self._controls(tokens, pos, tables,
+                                                  active)
+        self._sigs["decode_step"].note(*host)
+        logits, _ = self.model(tok[:, None], cache=self.pools,
+                               decode_pos=p, block_tables=tbl,
+                               slot_mask=act)
+        nxt = self._pick(logits[:, 0], np.arange(self.capacity), host[1])
+        return nxt.to(torch.int32).cpu().numpy()
+
+    @torch.no_grad()
+    def spec_step(self, tokens: np.ndarray, pos: np.ndarray,
+                  tables: np.ndarray, active: np.ndarray
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """One speculative round (same fixed shapes as :meth:`step`).  The
+        slot at ``pos`` must have block-table coverage up to ``pos +
+        spec_k`` (the verify chunk's writes).
+
+        Returns ``(tokens, n_accept)``: ``(capacity, spec_k + 1)`` int32
+        round tokens and ``(capacity,)`` int32 accepted draft counts; slot
+        ``s`` emits ``tokens[s, :n_accept[s] + 1]``.
+        """
+        if self.draft_model is None:
+            raise RuntimeError(
+                "spec_step on a non-speculative engine: construct with "
+                "draft_model/spec_k"
+            )
+        k = self.spec_k
+        host, (tok, p, tbl, act) = self._controls(tokens, pos, tables,
+                                                  active)
+        self._sigs["spec_round"].note(*host)
+        # k + 1 draft steps: the last only backfills the final proposal's
+        # K/V into the draft pools.
+        cur, drafts = tok, []
+        for i in range(k + 1):
+            dlogits, _ = self.draft_model(
+                cur[:, None], cache=self.draft_pools, decode_pos=p + i,
+                block_tables=tbl, slot_mask=act,
+            )
+            cur = torch.argmax(dlogits[:, 0], dim=-1)
+            drafts.append(cur)
+        chunk = torch.stack([tok] + drafts[:k], dim=1)  # (S, k + 1)
+        logits, _ = self.model(chunk, cache=self.pools, decode_pos=p,
+                               block_tables=tbl, slot_mask=act)
+        g = torch.argmax(logits, dim=-1)
+        agree = (g[:, :k] == chunk[:, 1:]).to(torch.int32)
+        n_accept = torch.cumprod(agree, dim=1).sum(dim=1)
+        g[:, 0] = self._pick(logits[:, 0], np.arange(self.capacity),
+                             host[1])
+        n_accept = torch.where(
+            self._up(self.temp) > 0, torch.zeros_like(n_accept), n_accept
+        )
+        return (g.to(torch.int32).cpu().numpy(),
+                n_accept.to(torch.int32).cpu().numpy())
+
+    # ----------------------------------------------------- prefix sharing
+    def _all_pools(self):
+        yield from self.pools
+        if self.draft_pools is not None:
+            yield from self.draft_pools
+
+    @torch.no_grad()
+    def cow_copy(self, src: int, dst: int) -> None:
+        """Copy physical block ``src`` onto ``dst`` across every layer of
+        every pool (target + draft): the device half of copy-on-write."""
+        self._sigs["cow"].note(int(src), int(dst))
+        for layer in self._all_pools():
+            for t in layer.values():
+                t[:, dst] = t[:, src]
+
+    def drop_prefix_cache(self) -> int:
+        """Release every trie-held block reference; returns the number of
+        blocks released."""
+        return self.prefix.clear() if self.prefix is not None else 0
+
+    # ------------------------------------------------------- kv migration
+    @staticmethod
+    def _to_host(t: torch.Tensor) -> np.ndarray:
+        # numpy has no bfloat16: ship its bits as int16 (byte-preserving).
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return t.cpu().numpy()
+
+    def read_block(self, block: int) -> dict:
+        """One physical block's KV contents as host numpy arrays:
+        ``{"target": [per-layer {name: (KH, block_len, Dh)}], "draft":
+        same or None}``.  bf16 pools come back as their int16 bits."""
+        self._sigs["kv_gather"].note(int(block))
+
+        def one(layer):
+            return {n: self._to_host(t[:, block]) for n, t in layer.items()}
+
+        return {
+            "target": [one(p) for p in self.pools],
+            "draft": (None if self.draft_pools is None
+                      else [one(p) for p in self.draft_pools]),
+        }
+
+    @torch.no_grad()
+    def write_block(self, block: int, data: dict) -> None:
+        """Install :meth:`read_block` data into physical ``block`` across
+        every layer of every pool; the block then re-reads byte for byte
+        as the source's :meth:`read_block`."""
+        if (data.get("draft") is not None) != (self.draft_model is not None):
+            raise ValueError(
+                "migration payload draft pools do not match this engine "
+                f"(payload draft={data.get('draft') is not None}, engine "
+                f"draft={self.draft_model is not None})"
+            )
+        self._sigs["kv_put"].note(int(block))
+        pairs = list(zip(self.pools, data["target"]))
+        if self.draft_pools is not None:
+            pairs += list(zip(self.draft_pools, data["draft"]))
+        for layer, payload in pairs:
+            for n, t in layer.items():
+                src = torch.from_numpy(np.ascontiguousarray(payload[n]))
+                if t.dtype == torch.bfloat16:
+                    src = src.view(torch.bfloat16)
+                t[:, block] = src.to(self.device)
+
+    def sync(self) -> None:
+        """Block until every queued operation on the pools has finished."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------- introspection
+    @property
+    def decode_compiles(self) -> int:
+        """Distinct input signatures of the hot-loop program (the
+        speculative round on a speculative engine, else the decode step):
+        must stay 1 under arbitrary slot churn."""
+        return self.verify_compiles if self.spec_k else \
+            len(self._sigs["decode_step"])
+
+    @property
+    def verify_compiles(self) -> int:
+        """Speculative round signatures (0 on a plain engine)."""
+        return len(self._sigs["spec_round"])
+
+    @property
+    def cow_compiles(self) -> int:
+        """Copy-on-write block-copy signatures (must stay <= 1)."""
+        return len(self._sigs["cow"])
+
+    @property
+    def gather_compiles(self) -> int:
+        return len(self._sigs["kv_gather"])
+
+    @property
+    def put_compiles(self) -> int:
+        return len(self._sigs["kv_put"])
+
+    @property
+    def prefill_compiles(self) -> int:
+        """At most ``len(prefill_ladder)``."""
+        return len(self._sigs["prefill"])
+
+    def free_blocks(self) -> int:
+        return self.pool.allocator.free_blocks
+
+    def stats(self) -> dict:
+        """Host-side engine state; never touches a device buffer."""
+        free = self.pool.allocator.free_blocks
+        allocatable = self.pool.num_blocks - 1  # block 0 reserved
+        out = {
+            "capacity": self.capacity,
+            "num_blocks": self.pool.num_blocks,
+            "block_len": self.block_len,
+            "free_blocks": free,
+            "blocks_in_use": allocatable - free,
+            "block_occupancy": (
+                (allocatable - free) / allocatable if allocatable else 0.0
+            ),
+            "decode_compiles": self.decode_compiles,
+            "prefill_compiles": self.prefill_compiles,
+        }
+        if self.prefix is not None:
+            out["prefix_cached_blocks"] = self.prefix.cached_blocks
+        if self.spec_k:
+            out["spec_k"] = self.spec_k
+            out["verify_compiles"] = self.verify_compiles
+        return out
+
+    def alloc_blocks(self, n: int) -> Optional[List[int]]:
+        return self.pool.allocator.alloc(n)
+
+    def release_blocks(self, blocks) -> None:
+        self.pool.allocator.free(blocks)

@@ -1,0 +1,82 @@
+"""The port stands alone: no file of ``chainermn_tpu_torch`` imports JAX,
+Flax or the JAX package, and its entry points refuse to fall back to the
+CPU silently."""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import chainermn_tpu_torch
+
+pytestmark = pytest.mark.tier1
+
+PKG = pathlib.Path(chainermn_tpu_torch.__file__).resolve().parent
+REPO = PKG.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chainermn_tpu"}
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", None)
+        ) in ("import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", sorted(
+    [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]
+), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_imports(path):
+    bad = [(root, line) for root, line in _imported_roots(path)
+           if root in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_root_match_is_exact():
+    """``chainermn_tpu_torch`` itself must not count as the JAX
+    package."""
+    roots = {r for r, _ in _imported_roots(
+        PKG / "serving" / "scheduler.py")}
+    assert "chainermn_tpu_torch" in roots
+    assert "chainermn_tpu" not in roots
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(no_cuda):
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.serving import DecodeEngine
+    from chainermn_tpu_torch.utils import params_from_flax
+
+    kw = dict(vocab=32, n_layers=1, d_model=32, n_heads=2, d_ff=64,
+              max_len=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TransformerLM(**kw)
+    model = TransformerLM(**kw, device="cpu")
+    with pytest.raises(RuntimeError, match="DecodeEngine"):
+        DecodeEngine(model, capacity=2, num_blocks=4)
+    with pytest.raises(RuntimeError, match="params_from_flax"):
+        params_from_flax({"embed": {"embedding": np.zeros((2, 2))}})
+
+
+def test_model_and_engine_devices_must_agree():
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.serving import DecodeEngine
+
+    model = TransformerLM(vocab=32, n_layers=1, d_model=32, n_heads=2,
+                          d_ff=64, max_len=16, device="cpu")
+    with pytest.raises(ValueError, match="parameters are on"):
+        DecodeEngine(model, capacity=2, num_blocks=4, device="meta")
