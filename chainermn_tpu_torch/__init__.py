@@ -1,8 +1,9 @@
 """chainermn_tpu_torch: the PyTorch and CUDA port of ``chainermn_tpu``.
 
 The package sits beside the JAX package and mirrors its layout (``ops/``,
-``models/``, ``serving/``, ``observability/``, ``resilience/``,
-``utils/``).  It imports ``torch`` and numpy only: nothing of JAX and
+``models/``, ``serving/``, ``comm/``, ``optimizers/``, ``datasets/``,
+``iterators/``, ``observability/``, ``resilience/``, ``utils/``,
+``examples/``).  It imports ``torch`` and numpy only: nothing of JAX and
 nothing of the JAX package.  Its hot ops are kernels written by hand for
 NVIDIA Hopper (``csrc/``), built with ``nvcc`` at first use.
 
@@ -12,7 +13,11 @@ running on the CPU.
 
 Ported so far: generation (``models.lm_generate``) and continuous-batching
 serving (``serving.DecodeEngine`` + ``serving.Scheduler``) over the paged
-and fused decode-attention kernels.
+and fused decode-attention kernels; ``TransformerLM`` training, single
+card and data-parallel (``comm.create_communicator``,
+``optimizers.create_multi_node_optimizer``, ``models.lm_loss``,
+``python -m chainermn_tpu_torch.examples.train_lm``), over the
+flash-attention forward and backward kernels.
 """
 
 __version__ = "0.1.0"

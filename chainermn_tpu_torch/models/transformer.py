@@ -34,9 +34,18 @@ same way, but no copy of a cache is ever made.  Paged writes of idle
 slots land in the reserved parking block 0, which no live slot reads; the
 JAX model writes their own old value back there instead.
 
-Not ported in this slice: mixture-of-experts FFNs, packed rows
-(``segment_ids``), rolling (ring-buffer) decode, the flash-attention
-kernel (``attention="flash"`` raises until it is), beam search and
+Training (the no-cache branch): ``segment_ids`` train packed rows --
+attention masked within each document and positions restarting at each
+document boundary (:func:`segment_positions`); ``attention="flash"`` runs
+the hand-written flash-attention kernels forward and backward
+(:mod:`chainermn_tpu_torch.ops.flash_attention`), ``"xla"`` the eager
+materialized-score :func:`reference_attention`, and ``"auto"`` the
+former on a CUDA device and the latter on the CPU; ``remat=True``
+recomputes each block in the backward (``torch.utils.checkpoint``).
+:func:`lm_loss` is the data-parallel optimizer's loss.
+
+Not ported yet: mixture-of-experts FFNs, the chunked LM-head loss
+(``lm_loss_chunked``), rolling (ring-buffer) decode, beam search and
 speculative generation.
 """
 
@@ -48,6 +57,7 @@ from typing import List, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from chainermn_tpu_torch.ops.decode_attention import (
     MAX_FUSED_LEN,
@@ -55,6 +65,11 @@ from chainermn_tpu_torch.ops.decode_attention import (
     NEG_INF,
     fused_decode_attention,
     paged_decode_attention,
+)
+from chainermn_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    reference_attention,
+    resolve_attention,
 )
 from chainermn_tpu_torch.ops.rope import apply_rope, rope_tables
 from chainermn_tpu_torch.utils.device import resolve_device
@@ -81,31 +96,16 @@ def _is_scalar(pos) -> bool:
     return not isinstance(pos, torch.Tensor) or pos.dim() == 0
 
 
-def reference_attention(q, k, v, causal: bool = False, window=None):
-    """Plain softmax attention over ``(B, T, H, D)`` in fp32, cast back to
-    ``q``'s dtype; ``k``/``v`` may carry fewer (grouped) heads.  The
-    counterpart of the JAX package's ``reference_attention`` (without
-    segment ids)."""
-    B, T, H, D = q.shape
-    S, KH = k.shape[1], k.shape[2]
-    if H % KH:
-        raise ValueError(f"q heads {H} must be a multiple of kv heads {KH}")
-    if KH != H:
-        k = k.repeat_interleave(H // KH, dim=2)
-        v = v.repeat_interleave(H // KH, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(D)
-    qi = torch.arange(T, device=q.device)[:, None]
-    ki = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= ki <= qi
-    if window is not None:
-        if window < 1:
-            raise ValueError(f"window must be >= 1, got {window}")
-        mask &= (qi - ki < window) & (ki - qi < window)
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Per-document position restart for packed rows ``(B, T)``: each
+    token's index minus its (contiguous) segment's start."""
+    B, T = segment_ids.shape
+    idx = torch.arange(T, device=segment_ids.device)[None, :].expand(B, T)
+    is_new = torch.ones((B, T), dtype=torch.bool, device=segment_ids.device)
+    is_new[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
+    starts = torch.cummax(torch.where(is_new, idx, torch.zeros_like(idx)),
+                          dim=1).values
+    return idx - starts
 
 
 def _attend_kv_major(q, kc, vc, q_pos, window, ks_c=None, vs_c=None):
@@ -177,8 +177,10 @@ class DecoderBlock(nn.Module):
         self.ff2 = nn.Linear(d_ff, d_model, **fk)
 
     def forward(self, h, cache=None, decode_pos=None, rope=None,
-                block_tables=None, slot_mask=None):
-        """Full path: ``h`` ``(B, T, D)`` -> ``(B, T, D)``.  Decode path
+                block_tables=None, slot_mask=None, segment_ids=None):
+        """Full path: ``h`` ``(B, T, D)`` -> ``(B, T, D)``, causal
+        attention within ``segment_ids`` (``(B, T)`` int32, or None).
+        Decode path
         (``cache`` given): attends against the cache after writing this
         chunk's K/V at ``decode_pos`` (an int, or ``(B,)`` per-row
         positions); ``block_tables``/``slot_mask`` select the paged
@@ -196,14 +198,11 @@ class DecoderBlock(nn.Module):
             q = apply_rope(q, tables=rope)
             k = apply_rope(k, tables=rope)
         if cache is None:
-            if self.attention == "flash":
-                raise NotImplementedError(
-                    "attention='flash' needs the flash-attention kernel, "
-                    "not ported yet (ROADMAP Queue 2, K1-K3); use 'auto' "
-                    "or 'xla'"
-                )
-            a = reference_attention(q, k, v, causal=True,
-                                    window=self.window or None)
+            attend = flash_attention if resolve_attention(
+                self.attention, T, device=q.device) == "flash" \
+                else reference_attention
+            a = attend(q, k, v, causal=True, segment_ids=segment_ids,
+                       window=self.window or None)
         else:
             a = self._decode(q, k, v, cache, decode_pos, block_tables,
                              slot_mask)
@@ -348,12 +347,14 @@ class TransformerLM(nn.Module):
     Args mirror the JAX model's fields: ``vocab``, ``n_layers``,
     ``d_model``, ``n_heads``, ``d_ff``, ``max_len`` (the learned position
     table's length), ``dtype`` (compute), ``param_dtype`` (storage),
-    ``attention`` (``"auto"``/``"xla"`` take the plain eager path;
-    ``"flash"`` raises until its kernel is ported), ``n_kv_heads`` (0 =
+    ``attention`` (``"flash"``: the flash-attention kernels; ``"xla"``:
+    eager materialized scores; ``"auto"``: flash on a CUDA device, xla on
+    the CPU), ``n_kv_heads`` (0 =
     ``n_heads``), ``kv_dtype`` (cache storage; ``torch.int8`` stores
     symmetric-absmax int8 with fp32 scales; None = ``dtype``), ``window``
     (sliding-window size, 0 = full), ``decode_attention`` (``"einsum"`` or
-    ``"fused"``), ``pos_enc`` (``"learned"`` or ``"rope"``).
+    ``"fused"``), ``pos_enc`` (``"learned"`` or ``"rope"``), ``remat``
+    (recompute each block in the backward of a training forward).
 
     ``device`` places the parameters; None means the current CUDA device
     and raises where there is none.  Parameters are initialized from
@@ -366,7 +367,7 @@ class TransformerLM(nn.Module):
                  attention: str = "auto", n_kv_heads: int = 0,
                  kv_dtype=None, window: int = 0,
                  decode_attention: str = "einsum", pos_enc: str = "learned",
-                 device=None, seed: int = 0):
+                 remat: bool = False, device=None, seed: int = 0):
         super().__init__()
         device = resolve_device(device, "TransformerLM")
         if pos_enc not in ("learned", "rope"):
@@ -395,6 +396,7 @@ class TransformerLM(nn.Module):
         self.kv_dtype = kv_dtype
         self.attention, self.window = attention, window
         self.decode_attention, self.pos_enc = decode_attention, pos_enc
+        self.remat = remat
         fk = dict(device=device, dtype=param_dtype)
         self.embed = nn.Embedding(vocab, d_model, **fk)
         if pos_enc == "learned":
@@ -444,22 +446,35 @@ class TransformerLM(nn.Module):
         if self.pos_enc == "learned":
             self.pos.normal_(0.0, 0.02, generator=g)
 
-    def forward(self, tokens, return_hidden: bool = False, cache=None,
-                decode_pos=None, block_tables=None, slot_mask=None):
+    def forward(self, tokens, segment_ids=None, return_hidden: bool = False,
+                cache=None, decode_pos=None, block_tables=None,
+                slot_mask=None):
         """``(B, T)`` tokens -> ``(B, T, vocab)`` fp32 logits (or the
-        pre-head hidden states with ``return_hidden``).  With a ``cache``
-        (from :meth:`init_cache`, or the serving engine's pools with
-        ``block_tables``), returns ``(output, cache)``; ``decode_pos`` is
-        the chunk's first position, an int or ``(B,)`` per row."""
+        pre-head hidden states with ``return_hidden``).
+
+        ``segment_ids`` (``(B, T)`` int, from
+        :func:`~chainermn_tpu_torch.datasets.pack_sequences`) trains
+        packed rows: attention within each document, positions restarting
+        at each document boundary.
+
+        With a ``cache`` (from :meth:`init_cache`, or the serving engine's
+        pools with ``block_tables``), returns ``(output, cache)``;
+        ``decode_pos`` is the chunk's first position, an int or ``(B,)``
+        per row."""
         B, T = tokens.shape
         dev = self.device
         h = F.embedding(tokens, self.embed.weight).to(self.dtype)
         if cache is not None:
+            segment_ids = None
             if _is_scalar(decode_pos):
                 pos_arr = int(decode_pos) + torch.arange(T, device=dev)
             else:
                 pos_arr = decode_pos.to(device=dev, dtype=torch.long)[:, None] \
                     + torch.arange(T, device=dev)
+        elif segment_ids is not None:
+            segment_ids = torch.as_tensor(segment_ids, device=dev) \
+                .to(torch.int32)
+            pos_arr = segment_positions(segment_ids)
         else:
             pos_arr = torch.arange(T, device=dev)
         rope = None
@@ -470,10 +485,16 @@ class TransformerLM(nn.Module):
                 h = h + self.pos[pos_arr].to(self.dtype)
         else:
             rope = rope_tables(pos_arr, self.head_dim)
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            h = blk(h, None if cache is None else cache[i], decode_pos,
-                    rope=rope, block_tables=block_tables,
-                    slot_mask=slot_mask)
+            if cache is not None:
+                h = blk(h, cache[i], decode_pos, rope=rope,
+                        block_tables=block_tables, slot_mask=slot_mask)
+            elif remat:
+                h = checkpoint(blk, h, rope=rope, segment_ids=segment_ids,
+                               use_reentrant=False)
+            else:
+                h = blk(h, rope=rope, segment_ids=segment_ids)
         h = _layer_norm(h, self.ln_f, self.dtype)
         out = h if return_hidden else self.head(h)
         return out if cache is None else (out, cache)
@@ -620,3 +641,31 @@ def lm_generate(model: TransformerLM, prompt, n_new: int,
         tok = pick(logits[:, 0])
         out.append(tok)
     return torch.stack(out, dim=1).to(torch.int32)
+
+
+def lm_loss(model: TransformerLM):
+    """``loss_fn(model, batch) -> (loss, {"ppl_log": loss})`` for the
+    data-parallel optimizer: the token-mean cross-entropy of the fp32
+    logits over targets ``>= 0`` (``-1`` = padding, ignored).  A 3-tuple
+    batch ``(tokens, targets, segment_ids)`` trains packed rows (see
+    :func:`~chainermn_tpu_torch.datasets.pack_sequences`).  Batches may be
+    numpy arrays or tensors; they move to the model's device."""
+    if not isinstance(model, TransformerLM):
+        raise TypeError(f"lm_loss expects a TransformerLM, got "
+                        f"{type(model).__name__}")
+
+    def loss_fn(m: TransformerLM, batch):
+        tokens, targets, *rest = batch
+        dev = m.device
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        targets = torch.as_tensor(targets, device=dev).long()
+        seg = torch.as_tensor(rest[0], device=dev) if rest else None
+        logits = m(tokens, segment_ids=seg)
+        mask = (targets >= 0).to(torch.float32)
+        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                             targets.clamp_min(0).reshape(-1),
+                             reduction="none").view_as(mask)
+        loss = (ce * mask).sum() / mask.sum().clamp_min(1.0)
+        return loss, {"ppl_log": loss.detach()}
+
+    return loss_fn

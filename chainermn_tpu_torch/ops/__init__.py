@@ -14,6 +14,19 @@ from chainermn_tpu_torch.ops.decode_attention import (
     paged_decode_attention,
     paged_decode_attention_reference,
 )
+from chainermn_tpu_torch.ops.flash_attention import (
+    FlashAttentionFunction,
+    flash_attention,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_reference,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_dq_reference,
+    flash_attention_fwd,
+    flash_attention_fwd_reference,
+    flash_attention_lse,
+    reference_attention,
+    resolve_attention,
+)
 from chainermn_tpu_torch.ops.rope import apply_rope, rope_tables
 
 __all__ = [
@@ -23,6 +36,17 @@ __all__ = [
     "fused_decode_attention_reference",
     "paged_decode_attention",
     "paged_decode_attention_reference",
+    "FlashAttentionFunction",
+    "flash_attention",
+    "flash_attention_bwd_dkv",
+    "flash_attention_bwd_dkv_reference",
+    "flash_attention_bwd_dq",
+    "flash_attention_bwd_dq_reference",
+    "flash_attention_fwd",
+    "flash_attention_fwd_reference",
+    "flash_attention_lse",
+    "reference_attention",
+    "resolve_attention",
     "apply_rope",
     "rope_tables",
 ]

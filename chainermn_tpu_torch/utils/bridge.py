@@ -1,5 +1,6 @@
-"""Carry trained weights across: Flax parameter trees -> the port's
-``state_dict``.
+"""Carry weights across: Flax parameter trees -> the port's
+``state_dict`` (:func:`params_from_flax`), and the port's parameters or
+gradients back into the Flax layout (:func:`params_to_flax`).
 
 The input is the JAX package's ``TransformerLM`` parameter tree with
 every leaf as a numpy array (``jax.tree_util.tree_map(np.asarray,
@@ -92,4 +93,58 @@ def params_from_flax(params: Dict, device=None) -> Dict[str, torch.Tensor]:
         i += 1
     _ln(out, "ln_f", params["ln_f"], dev)
     _dense(out, "lm_head", params["lm_head"], dev)
+    return out
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy() \
+        if t.dtype == torch.bfloat16 else t.detach().cpu().numpy()
+
+
+def _dense_back(sd, name: str, out_axes) -> Dict:
+    w = _np(sd[f"{name}.weight"])
+    return {"kernel": w.T.reshape(w.shape[1], *out_axes),
+            "bias": _np(sd[f"{name}.bias"]).reshape(out_axes)}
+
+
+def _ln_back(sd, name: str) -> Dict:
+    return {"scale": _np(sd[f"{name}.weight"]),
+            "bias": _np(sd[f"{name}.bias"])}
+
+
+def params_to_flax(tensors: Dict[str, torch.Tensor], n_heads: int,
+                   n_kv_heads: int = 0) -> Dict:
+    """The inverse of :func:`params_from_flax`: the port's
+    ``TransformerLM`` parameters -- or their gradients, as
+    ``{name: p.grad}`` -- in the Flax tree layout as numpy arrays (bf16
+    read back as float32), so they compare leaf by leaf with the JAX
+    package's under Flax names."""
+    sd = dict(tensors)
+    V, D = sd["embed.weight"].shape
+    H = n_heads
+    KH = n_kv_heads or H
+    Dh = D // H
+    out: Dict = {"embed": {"embedding": _np(sd["embed.weight"])}}
+    if "pos" in sd:
+        out["pos"] = _np(sd["pos"])
+    i = 0
+    while f"blocks.{i}.ln1.weight" in sd:
+        pre = f"blocks.{i}"
+        b = {"ln1": _ln_back(sd, f"{pre}.ln1"),
+             "ln2": _ln_back(sd, f"{pre}.ln2")}
+        if f"{pre}.qkv.weight" in sd:
+            b["qkv"] = _dense_back(sd, f"{pre}.qkv", (3, H, Dh))
+        else:
+            b["q"] = _dense_back(sd, f"{pre}.q", (H, Dh))
+            b["kv"] = _dense_back(sd, f"{pre}.kv", (2, KH, Dh))
+        pw = _np(sd[f"{pre}.proj.weight"])  # (D, H*Dh)
+        b["proj"] = {"kernel": pw.T.reshape(H, Dh, D),
+                     "bias": _np(sd[f"{pre}.proj.bias"])}
+        F_ = sd[f"{pre}.ff1.weight"].shape[0]
+        b["ff1"] = _dense_back(sd, f"{pre}.ff1", (F_,))
+        b["ff2"] = _dense_back(sd, f"{pre}.ff2", (D,))
+        out[f"block_{i}"] = b
+        i += 1
+    out["ln_f"] = _ln_back(sd, "ln_f")
+    out["lm_head"] = _dense_back(sd, "lm_head", (V,))
     return out

@@ -30,9 +30,41 @@ Phases, each printing one JSON line on stdout:
 6. ``generation``: ``lm_generate`` at batch 8, prompt 128, 64 new tokens.
 7. ``agreement``: the engine and ``lm_generate`` on the same requests with
    the model in fp32, so that bf16 near-ties cannot flip tokens.
+8. ``flash_parity``: the flash-attention kernels (forward, dK/dV, dQ)
+   through their autograd Function, ``(o, lse)`` forward and ``(dq, dk,
+   dv)`` backward with a nonzero lse cotangent, against their plain
+   versions: causal, non-causal, window, packed segments with fully masked
+   rows, cross-attention with kv segments, GQA 12->4, MQA, ragged T = 1000,
+   head dims 32/64/128, fp32 and bf16; then each kernel alone at the
+   training path's shapes.  Tolerances relative to the largest reference
+   value: fp32 1e-4 (sums in another order); bf16 2e-2 (one bf16 rounding
+   of O(1) values; P and dS are rounded to bf16 as tensor-core operands),
+   lse 1e-3.
+9. ``flash_timing``: as phase 4, for each flash kernel at the training
+   path's shapes (batch 8, 12 heads, T 2048, Dh 64, bf16, causal); the
+   library yardstick is ``F.scaled_dot_product_attention(is_causal=True)``:
+   its forward for the forward kernel, its backward (forward + backward
+   minus forward) for the two backward kernels together.
+10. ``training``: the LM benchmark's default model (benchmarks/lm.py: batch
+   8, seq 2048, 12 layers, d_model 768, 12 heads, d_ff 3072, vocab 32768,
+   learned positions, bf16 compute over fp32 params, AdamW 3e-4, remat
+   on, a bf16 gradient wire) through the training entry path
+   (``create_communicator`` -> ``create_multi_node_optimizer(adamw)`` ->
+   ``make_train_step(lm_loss(model))``) on a fixed seeded batch (targets =
+   tokens): 2 warm-up and 5 timed steps with ``attention="flash"``, then
+   the same with the eager ``attention="xla"``; then the ``train_lm``
+   example for 3 steps.  One more step of each arm runs under
+   ``torch.profiler`` (``training_trace``: device time by kernel, busy
+   share).
+11. ``training_agreement``: a 2-layer fp32 model (d_model 128, 4 heads,
+   T 256, packed rows) trained 3 steps with the flash kernels and 3 with
+   the plain path from the same weights: losses within rtol 1e-5,
+   parameters within atol 1e-4 (fp32 sums in another order, through
+   three Adam steps of lr 1e-3).
 
 The launch counters are set to 0 just before each drive of the main path
-(phases 5 and 6) and read just after it.  Then come the ``kernels`` line,
+(phases 5, 6 and the timed steps of 10) and read just after it.  Then
+come the ``kernels`` line,
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  A
 failed check raises and exits non-zero before the last line; without a
 CUDA device the script exits 2 at once.
@@ -62,12 +94,24 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
             torch.int8: 1979e12}
 
-#: each kernel of the slice, and the TPU kernel it replaces.
+#: the LM benchmark's default model (benchmarks/lm.py:39-46).
+LM = dict(vocab=32768, n_layers=12, d_model=768, n_heads=12, d_ff=3072,
+          max_len=2048)
+LM_BATCH = 8
+
+#: each kernel of the port, the TPU kernel it replaces, and its source.
 KERNELS = {
+    "flash_attention_fwd": "chainermn_tpu/ops/flash_attention.py:191",
+    "flash_attention_bwd_dkv": "chainermn_tpu/ops/flash_attention.py:427",
+    "flash_attention_bwd_dq": "chainermn_tpu/ops/flash_attention.py:493",
     "paged_decode_attention": "chainermn_tpu/ops/decode_attention.py:196",
     "fused_decode_attention": "chainermn_tpu/ops/decode_attention.py:101",
 }
-SOURCE = "chainermn_tpu_torch/csrc/decode_attention.cu"
+SOURCES = {k: "chainermn_tpu_torch/csrc/flash_attention.cu"
+           for k in list(KERNELS)[:3]}
+SOURCES.update({k: "chainermn_tpu_torch/csrc/decode_attention.cu"
+                for k in list(KERNELS)[3:]})
+FLASH = list(KERNELS)[:3]
 
 
 def emit(obj) -> None:
@@ -588,6 +632,482 @@ def phase_agreement(dev, seed):
     return row
 
 
+# ------------------------------------------------------------ flash parity
+FLASH_TOL = {torch.float32: dict(o=1e-4, lse=1e-4, grad=1e-4),
+             torch.bfloat16: dict(o=2e-2, lse=1e-3, grad=2e-2)}
+
+
+def seg_runs(rows, T):
+    """Segment ids ``(len(rows), T)`` from per-row (id, length) runs."""
+    out = torch.zeros((len(rows), T), dtype=torch.int32)
+    for r, runs in enumerate(rows):
+        at = 0
+        for sid, n in runs:
+            out[r, at:at + n] = sid
+            at += n
+    return out
+
+
+# name -> (B, T, S, H, KH, kwargs of flash_attention_lse)
+FLASH_CASES = {
+    "causal": (2, 256, 256, 4, 4, dict(causal=True)),
+    "noncausal": (2, 192, 192, 4, 4, dict()),
+    "window": (2, 256, 256, 4, 4, dict(causal=True, window=48)),
+    "packed_fully_masked": (2, 200, 200, 4, 4, dict(
+        segment_ids=seg_runs([[(1, 70), (9, 60), (2, 70)], [(3, 200)]], 200),
+        kv_segment_ids=seg_runs([[(1, 100), (2, 100)],
+                                 [(3, 150), (0, 50)]], 200))),
+    "cross_kv_segments": (2, 96, 160, 4, 4, dict(
+        segment_ids=seg_runs([[(1, 50), (2, 46)], [(1, 96)]], 96),
+        kv_segment_ids=seg_runs([[(1, 80), (2, 70), (0, 10)],
+                                 [(1, 150), (0, 10)]], 160))),
+    "gqa_12_4": (1, 256, 256, 12, 4, dict(causal=True)),
+    "mqa": (1, 192, 192, 4, 1, dict(causal=True, window=40)),
+    "ragged_1000": (1, 1000, 1000, 2, 2, dict(causal=True)),
+}
+
+
+def rel_err(a, b, mask=None):
+    """max |a - b| over max(1, max |b|), and max |a - b|."""
+    a, b = a.float(), b.float()
+    if mask is not None:
+        a, b = a[mask], b[mask]
+    err = (a - b).abs().max().item()
+    return err / max(1.0, b.abs().max().item()), err
+
+
+def flash_case_check(fa, g, dev, name, D, dtype):
+    """Kernels through the autograd Function vs the plain versions."""
+    B, T, S, H, KH, kw = FLASH_CASES[name]
+    q, k, v = (torch.randn(shape, generator=g).to(dev, dtype)
+               for shape in ((B, T, H, D), (B, S, KH, D), (B, S, KH, D)))
+    do = torch.randn((B, T, H, D), generator=g).to(dev, dtype)
+    dlse = torch.randn((B, H, T), generator=g).to(dev)
+    kw = {key: (val.to(dev) if isinstance(val, torch.Tensor) else val)
+          for key, val in kw.items()}
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o, lse = fa.flash_attention_lse(*qkv, **kw)
+    dq, dk, dv = torch.autograd.grad((o, lse), qkv, (do, dlse))
+    seg_q, seg_kv = fa._validate(q, k, v, kw.get("causal", False),
+                                 kw.get("segment_ids"),
+                                 kw.get("kv_segment_ids"), kw.get("window"))
+    args = (seg_q, seg_kv, kw.get("causal", False), kw.get("window"))
+    o_r, lse_r = fa.flash_attention_fwd_reference(q, k, v, *args)
+    delta = ((do.float() * o_r.float()).sum(-1).transpose(1, 2)
+             - dlse).contiguous()
+    dk_r, dv_r = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse_r,
+                                                      delta, *args)
+    dq_r = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse_r, delta,
+                                               *args)
+    torch.cuda.synchronize()
+    live = lse_r > -1e29
+    out = {"o": rel_err(o, o_r)[0], "lse": rel_err(lse, lse_r, live)[0],
+           "dq": rel_err(dq, dq_r)[0], "dk": rel_err(dk, dk_r)[0],
+           "dv": rel_err(dv, dv_r)[0]}
+    tol = FLASH_TOL[dtype]
+    for key, e in out.items():
+        t = tol["grad"] if key.startswith("d") else tol[key]
+        check(e <= t, f"flash case {name} D{D} {dtype}: {key} relative "
+              f"error {e} > {t}")
+    if not bool(live.all()):
+        check(bool((lse[~live] == -1e30).all()
+                   and (o.transpose(1, 2)[~live] == 0).all()
+                   and (dq.transpose(1, 2)[~live] == 0).all()),
+              f"flash case {name}: a fully masked row is not o = 0, "
+              "lse = -1e30, dq = 0")
+    return out
+
+
+def flash_main_shape():
+    """(B, T, H, D) of the training path's attention."""
+    return (LM_BATCH, LM["max_len"], LM["n_heads"],
+            LM["d_model"] // LM["n_heads"])
+
+
+def flash_main_inputs(g, dev):
+    """The training path's shapes: q/k/v as views of one fused qkv
+    projection output (the layout the model hands the kernels), and
+    dO."""
+    B, T, H, D = flash_main_shape()
+    qkv = torch.randn((B, T, 3, H, D), generator=g).to(dev, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = torch.randn((B, T, H, D), generator=g).to(dev, torch.bfloat16)
+    return dict(q=q, k=k, v=v, do=do)
+
+
+def phase_flash_parity(fa, dev, seed):
+    g = torch.Generator().manual_seed(seed + 4)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (32, 64, 128):
+            for name in FLASH_CASES:
+                err = flash_case_check(fa, g, dev, name, D, dtype)
+                rows.append({"case": name, "D": D,
+                             "dtype": str(dtype).replace("torch.", ""),
+                             **err})
+    # Each kernel alone at the training path's shapes, the backward
+    # kernels fed the plain forward's lse and delta (the same on both
+    # sides, so each kernel is held alone).
+    a = flash_main_inputs(g, dev)
+    q, k, v, do = a["q"], a["k"], a["v"], a["do"]
+    o_r, lse_r = fa.flash_attention_fwd_reference(q, k, v, None, None, True)
+    delta = (do.float() * o_r.float()).sum(-1).transpose(1, 2).contiguous()
+    o, lse = fa.flash_attention_fwd(q, k, v, None, None, True)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse_r, delta, None,
+                                        None, True)
+    dk_r, dv_r = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse_r,
+                                                      delta, None, None,
+                                                      True)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse_r, delta, None, None,
+                                   True)
+    dq_r = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse_r, delta,
+                                               None, None, True)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[torch.bfloat16]
+    main = {}
+    for kname, pairs in (
+            ("flash_attention_fwd", (("o", o, o_r, tol["o"]),
+                                     ("lse", lse, lse_r, tol["lse"]))),
+            ("flash_attention_bwd_dkv", (("dk", dk, dk_r, tol["grad"]),
+                                         ("dv", dv, dv_r, tol["grad"]))),
+            ("flash_attention_bwd_dq", (("dq", dq, dq_r, tol["grad"]),))):
+        worst = 0.0
+        for out_name, got, want, t in pairs:
+            rel, err = rel_err(got, want)
+            check(rel <= t, f"{kname} at the training shapes: {out_name} "
+                  f"relative error {rel} > {t}")
+            worst = max(worst, err)
+        main[kname] = worst
+    emit({"phase": "flash_parity", "cases": rows,
+          "tolerance": {"fp32": FLASH_TOL[torch.float32],
+                        "bf16": FLASH_TOL[torch.bfloat16],
+                        "measure": "max |err| / max(1, max |reference|)"},
+          "main_shape_max_abs_err": main})
+    return main
+
+
+# ------------------------------------------------------------ flash timing
+def flash_bounds(B, T, H, D, itemsize=2):
+    """Bytes and operations of each kernel at causal (B, T, H, D): each
+    input read once and each output written once; 2 operations per
+    multiply-add over the admitted (q, k) pairs -- two products in the
+    forward, four in dK/dV, three in dQ (the score product recomputed)."""
+    pairs = B * H * T * (T + 1) // 2
+    x = B * T * H * D * itemsize  # one of q, k, v, dO, o, dq, dk, dv
+    row = B * H * T * 4           # one fp32 per-row vector (lse, delta)
+    return {
+        "flash_attention_fwd": bound(4 * x + row, 4 * D * pairs,
+                                     torch.bfloat16),
+        "flash_attention_bwd_dkv": bound(6 * x + 2 * row, 8 * D * pairs,
+                                         torch.bfloat16),
+        "flash_attention_bwd_dq": bound(5 * x + 2 * row, 6 * D * pairs,
+                                        torch.bfloat16),
+    }
+
+
+def sdpa_times(a):
+    """SDPA forward, and forward + backward, on the kernels' inputs in
+    SDPA's (B, H, T, D) layout.  Graph replay like the kernels; the
+    backward is captured through autograd."""
+    lib = {n: a[n].transpose(1, 2).contiguous().requires_grad_(True)
+           for n in ("q", "k", "v")}
+    lib["do"] = a["do"].transpose(1, 2).contiguous()
+    copies = copies_for(lib)
+    for c in copies[1:]:
+        for n in ("q", "k", "v"):
+            c[n] = c[n].detach().requires_grad_(True)
+
+    def fwd(x):
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(x["q"], x["k"], x["v"],
+                                                  is_causal=True)
+
+    def fwd_bwd(x):
+        out = F.scaled_dot_product_attention(x["q"], x["k"], x["v"],
+                                             is_causal=True)
+        return torch.autograd.grad(out, (x["q"], x["k"], x["v"]), x["do"])
+
+    return time_ms(fwd, copies, 50), time_ms(fwd_bwd, copies, 20), fwd(lib)
+
+
+def phase_flash_timing(fa, dev, seed):
+    B, T, H, D = flash_main_shape()
+    g = torch.Generator().manual_seed(seed + 6)
+    m = flash_main_inputs(g, dev)
+    a = {n: m[n].contiguous() for n in ("q", "k", "v", "do")}
+    o_r, lse = fa.flash_attention_fwd_reference(a["q"], a["k"], a["v"],
+                                                None, None, True)
+    a["lse"] = lse
+    a["delta"] = (a["do"].float() * o_r.float()).sum(-1).transpose(1, 2) \
+        .contiguous()
+    del o_r
+    bounds = flash_bounds(B, T, H, D)
+    f_ms, fb_ms, lib_o = sdpa_times(a)
+    want = fa.flash_attention_fwd_reference(a["q"], a["k"], a["v"], None,
+                                            None, True)[0]
+    lib_err = (lib_o.transpose(1, 2).float() - want.float()).abs().max() \
+        .item()
+    check(lib_err <= 2e-2, f"SDPA yardstick disagrees: {lib_err}")
+    del want, lib_o
+    fwd_in = {n: a[n] for n in ("q", "k", "v")}
+    calls = {
+        "flash_attention_fwd": (
+            fwd_in,
+            lambda x: fa.flash_attention_fwd(x["q"], x["k"], x["v"], None,
+                                             None, True),
+            lambda x: fa.flash_attention_fwd_reference(
+                x["q"], x["k"], x["v"], None, None, True)),
+        "flash_attention_bwd_dkv": (
+            a,
+            lambda x: fa.flash_attention_bwd_dkv(
+                x["q"], x["k"], x["v"], x["do"], x["lse"], x["delta"],
+                None, None, True),
+            lambda x: fa.flash_attention_bwd_dkv_reference(
+                x["q"], x["k"], x["v"], x["do"], x["lse"], x["delta"],
+                None, None, True)),
+        "flash_attention_bwd_dq": (
+            a,
+            lambda x: fa.flash_attention_bwd_dq(
+                x["q"], x["k"], x["v"], x["do"], x["lse"], x["delta"],
+                None, None, True),
+            lambda x: fa.flash_attention_bwd_dq_reference(
+                x["q"], x["k"], x["v"], x["do"], x["lse"], x["delta"],
+                None, None, True)),
+    }
+    out = {}
+    for name, (inp, kernel, plain) in calls.items():
+        copies = copies_for(inp)
+        # Turns: plain, kernel, kernel, plain.
+        p1 = time_ms(plain, copies, 3)
+        k1 = time_ms(kernel, copies, 20)
+        k2 = time_ms(kernel, copies, 20)
+        p2 = time_ms(plain, copies, 3)
+        k_eager = eager_ms(kernel, copies, 20)
+        bound_ms, bound_by = bounds[name]
+        lib_ms = f_ms if name == "flash_attention_fwd" else fb_ms - f_ms
+        row = dict(kernel=name, kernel_ms=min(k1, k2),
+                   kernel_ms_runs=[k1, k2], kernel_eager_ms=k_eager,
+                   plain_ms=min(p1, p2), plain_ms_runs=[p1, p2],
+                   library_ms=lib_ms,
+                   library=("sdpa forward" if name == "flash_attention_fwd"
+                            else "sdpa backward (fwd+bwd - fwd), covers "
+                                 "dK/dV and dQ together"),
+                   library_max_abs_err=lib_err,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   bound_fraction=bound_ms / min(k1, k2),
+                   shape=dict(B=B, T=T, H=H, KH=H, D=D, dtype="bfloat16",
+                              causal=True),
+                   copies=len(copies))
+        emit({"phase": "flash_timing", **row})
+        out[name] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- training
+def flash_launches(fa):
+    return {k: getattr(fa, k).launches for k in FLASH}
+
+
+def reset_flash(fa):
+    for k in FLASH:
+        getattr(fa, k).launches = 0
+
+
+def trace_step(step, state, batch):
+    """One more training step under ``torch.profiler``: device time by
+    kernel (self time, summed over launches), grouped into the flash
+    kernels, matrix products and the rest, and the device's busy share of
+    the step's wall time (one stream, so kernel times do not overlap).
+    The profiler's own host cost stretches the wall time a little."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for e in prof.key_averages():
+        # Device-side events only: a host op's entry repeats the time of
+        # the kernels it launched.
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            kernels.append((e.key, us / 1e3, e.count))
+    kernels.sort(key=lambda k: -k[1])
+    device_ms = sum(k[1] for k in kernels)
+
+    def group(name):
+        n = name.lower()
+        if "flash_" in n:
+            return "flash_kernels"
+        if any(t in n for t in ("gemm", "cutlass", "xmma", "nvjet", "matmul")):
+            return "matrix_products"
+        return "other"
+
+    groups = {}
+    for name, ms, _ in kernels:
+        groups[group(name)] = groups.get(group(name), 0.0) + ms
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                busy_share=device_ms / wall_ms if wall_ms else None,
+                groups_ms=groups,
+                top=[dict(name=n[:90], ms=ms, launches=c)
+                     for n, ms, c in kernels[:15]])
+
+
+def train_arm(fa, dev, card, seed, impl, comm, batch, warmup=2, timed=5):
+    import gc
+
+    from chainermn_tpu_torch.models import TransformerLM, lm_loss
+    from chainermn_tpu_torch.optimizers import (
+        adamw,
+        create_multi_node_optimizer,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM(**LM, attention=impl, remat=True, device=dev,
+                          seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = create_multi_node_optimizer(adamw(3e-4), comm)
+    state = opt.init(model)
+    step = opt.make_train_step(lm_loss(model), has_aux=True)
+    losses = []
+    for _ in range(warmup):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    reset_flash(fa)
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))  # syncs: the step is done
+        times.append(time.perf_counter() - t0)
+    launches = flash_launches(fa)
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "training_trace", "attention": impl, "card": card,
+          **trace_step(step, state, batch)})
+    check(all(math.isfinite(x) for x in losses),
+          f"training {impl}: non-finite loss {losses}")
+    tokens = batch[0].numel()
+    step_ms = sorted(times)[len(times) // 2] * 1e3
+    row = dict(phase="training", attention=impl, card=card,
+               params=n_params, batch=list(batch[0].shape),
+               warmup_steps=warmup, timed_steps=timed, losses=losses,
+               step_ms_median=step_ms,
+               step_ms_runs=[t * 1e3 for t in times],
+               tokens_per_s=tokens / (step_ms / 1e3),
+               peak_memory_gb=peak / 1e9, launches=launches,
+               launches_per_step={k: v / timed for k, v in launches.items()})
+    emit(row)
+    del model, opt, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_training(fa, dev, card, seed):
+    from chainermn_tpu_torch.comm import create_communicator
+
+    comm = create_communicator("xla", device=dev,
+                               allreduce_grad_dtype=torch.bfloat16)
+    rng = np.random.RandomState(seed)
+    toks = torch.from_numpy(rng.randint(
+        0, LM["vocab"], size=(LM_BATCH, LM["max_len"]))).to(dev)
+    batch = (toks, toks)  # benchmarks/lm.py: targets = tokens
+    flash = train_arm(fa, dev, card, seed, "flash", comm, batch)
+    L = LM["n_layers"]  # remat: the forward runs twice per layer
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L,
+            "flash_attention_bwd_dq": L}
+    for k, n in want.items():
+        check(flash["launches_per_step"][k] == n,
+              f"training: {k} launched {flash['launches_per_step'][k]} "
+              f"times per step, expected {n} ({L} layers, remat)")
+    check(flash["losses"][-1] < flash["losses"][0],
+          f"training: flash loss did not fall: {flash['losses']}")
+    eager = train_arm(fa, dev, card, seed, "xla", comm, batch)
+    check(all(v == 0 for v in eager["launches"].values()),
+          "training: the eager arm launched a flash kernel")
+    ratio = flash["step_ms_median"] / eager["step_ms_median"]
+    emit({"phase": "training_summary", "card": card,
+          "flash_step_ms": flash["step_ms_median"],
+          "eager_step_ms": eager["step_ms_median"],
+          "flash_over_eager_step_ratio": ratio,
+          "flash_tokens_per_s": flash["tokens_per_s"],
+          "eager_tokens_per_s": eager["tokens_per_s"],
+          "flash_peak_memory_gb": flash["peak_memory_gb"],
+          "eager_peak_memory_gb": eager["peak_memory_gb"]})
+
+    # The example entry point itself, at its own small defaults.
+    from chainermn_tpu_torch.examples import train_lm
+
+    t0 = time.perf_counter()
+    loss = train_lm.main(["--steps", "3"])
+    check(math.isfinite(loss), f"train_lm example: loss {loss}")
+    emit({"phase": "train_lm_example", "steps": 3, "final_loss": loss,
+          "wall_s": time.perf_counter() - t0})
+    return flash
+
+
+def phase_training_agreement(fa, dev, seed):
+    """The flash kernels (fp32 instantiations) against the plain path,
+    both on the card, through three optimizer steps from the same
+    weights."""
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.models import TransformerLM, lm_loss
+    from chainermn_tpu_torch.optimizers import (
+        adamw,
+        create_multi_node_optimizer,
+    )
+
+    cfg = dict(vocab=1024, n_layers=2, d_model=128, n_heads=4, d_ff=512,
+               max_len=256, pos_enc="rope")
+    rng = np.random.RandomState(seed + 5)
+    batches = []
+    for _ in range(3):
+        tok = rng.randint(0, 1024, size=(4, 256))
+        tgt = rng.randint(0, 1024, size=(4, 256))
+        seg = np.ones((4, 256), np.int32)
+        seg[:, 100:] = 2  # two packed documents per row
+        batches.append(tuple(torch.from_numpy(x).to(dev)
+                             for x in (tok, tgt, seg)))
+    comm = create_communicator("xla", device=dev)
+    runs = {}
+    for impl in ("flash", "xla"):
+        model = TransformerLM(**cfg, dtype=torch.float32, attention=impl,
+                              device=dev, seed=seed)
+        opt = create_multi_node_optimizer(
+            adamw(1e-3, eps=1e-6, weight_decay=0.01), comm)
+        state = opt.init(model)
+        step = opt.make_train_step(lm_loss(model), has_aux=True)
+        before = flash_launches(fa)
+        losses = [float(step(state, b)[1]["loss"]) for b in batches]
+        used = {k: flash_launches(fa)[k] - before[k] for k in FLASH}
+        runs[impl] = (losses, {n: p.detach().clone()
+                               for n, p in model.named_parameters()}, used)
+    check(all(v == 3 * cfg["n_layers"] for v in runs["flash"][2].values()),
+          f"training_agreement: flash arm launches {runs['flash'][2]}")
+    check(all(v == 0 for v in runs["xla"][2].values()),
+          "training_agreement: the plain arm launched a kernel")
+    lf, lx = runs["flash"][0], runs["xla"][0]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lf, lx))
+    param_err = max((runs["flash"][1][n] - runs["xla"][1][n]).abs().max()
+                    .item() for n in runs["xla"][1])
+    emit({"phase": "training_agreement", "dtype": "float32",
+          "losses_flash": lf, "losses_plain": lx,
+          "loss_max_rel_diff": loss_rel, "param_max_abs_diff": param_err,
+          "tolerance": {"loss_rtol": 1e-5, "param_atol": 1e-4}})
+    check(loss_rel <= 1e-5 and param_err <= 1e-4,
+          f"training_agreement: losses {lf} vs {lx}, parameters differ "
+          f"by {param_err}")
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -598,8 +1118,14 @@ def main() -> int:
               "the card", file=sys.stderr)
         return 2
 
+    import importlib
+
     from chainermn_tpu_torch.ops import _kernels
     from chainermn_tpu_torch.ops import decode_attention as ops
+
+    # The module (``chainermn_tpu_torch.ops`` re-exports a function of the
+    # same name).
+    fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -625,20 +1151,25 @@ def main() -> int:
     _, mb = engine_geometry(draw_requests(
         np.random.RandomState(args.seed), 16, FULL["vocab"]))
     errs = phase_parity(ops, dev, args.seed, mb)
+    errs.update(phase_flash_parity(fa, dev, args.seed))
     timing = phase_timing(ops, dev, args.seed, mb)
+    timing.update(phase_flash_timing(fa, dev, args.seed))
 
     serve = drive_serving(ops, dev, smi, args.seed, "bf16_mha", 16)
     drive_serving(ops, dev, smi, args.seed + 10, "int8_gqa", 6,
                   n_kv_heads=4, kv_dtype=torch.int8)
     gen = phase_generation(ops, dev, smi, args.seed)
     phase_agreement(dev, args.seed)
+    train = phase_training(fa, dev, smi, args.seed)
+    phase_training_agreement(fa, dev, args.seed)
 
     launches = {"paged_decode_attention":
                 serve["launches"]["paged_decode_attention"],
                 "fused_decode_attention":
-                gen["launches"]["fused_decode_attention"]}
+                gen["launches"]["fused_decode_attention"],
+                **train["launches"]}
     emit({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE,
+        {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": KERNELS[k], "launches": launches[k],
          "max_abs_err": errs[k], "ms": timing[k]["kernel_ms"],
          "plain_ms": timing[k]["plain_ms"],

@@ -72,6 +72,40 @@ def test_entry_points_raise_without_cuda(no_cuda):
         params_from_flax({"embed": {"embedding": np.zeros((2, 2))}})
 
 
+def test_training_entry_points_raise_without_cuda(no_cuda, monkeypatch):
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.examples import train_lm
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.optimizers import (
+        adamw,
+        create_multi_node_optimizer,
+    )
+
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    with pytest.raises(RuntimeError, match="create_communicator"):
+        create_communicator("xla")
+    # The default --device is the card: no silent CPU run.
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_lm.main(["--steps", "1"])
+    # A model and a communicator on different devices do not mix.
+    comm = create_communicator("xla", device="cpu")
+    comm.device = torch.device("cuda", 0)
+    model = TransformerLM(vocab=32, n_layers=1, d_model=32, n_heads=2,
+                          d_ff=64, max_len=16, device="cpu")
+    with pytest.raises(ValueError, match="communicator reduces on cuda"):
+        create_multi_node_optimizer(adamw(1e-3), comm).init(model)
+
+
+def test_flash_wrappers_refuse_other_devices():
+    from chainermn_tpu_torch.ops import flash_attention_fwd
+
+    q = torch.zeros((1, 4, 2, 32), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="q is on the CPU"):
+        flash_attention_fwd(torch.zeros(1, 4, 2, 32), q, q)
+
+
 def test_model_and_engine_devices_must_agree():
     from chainermn_tpu_torch.models import TransformerLM
     from chainermn_tpu_torch.serving import DecodeEngine

@@ -10,9 +10,13 @@ only PyTorch:
 
 Tolerances: fp32 1e-4 (sums over up to a few thousand positions taken in
 another order); bf16 outputs 2e-2 (one bf16 rounding of O(1) values; both
-sides compute in fp32 from the same bf16 inputs).
+sides compute in fp32 from the same bf16 inputs).  The flash kernels'
+tolerances are relative to the largest reference value (gradients grow
+with the sequence): fp32 1e-4; bf16 2e-2 (the kernels also round P and dS
+to bf16 as operands of their tensor-core products), lse 1e-3.
 """
 
+import importlib
 import math
 
 import pytest
@@ -21,6 +25,10 @@ import torch
 from chainermn_tpu_torch.ops import decode_attention as tda
 
 pytestmark = pytest.mark.cuda
+
+# The module (``chainermn_tpu_torch.ops`` re-exports a function of the
+# same name).
+tfa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -147,3 +155,136 @@ def test_cuda_wrappers_reject_what_the_kernel_does_not_take(dev):
         tda.fused_decode_attention(q[..., :48].contiguous(),
                                    k[..., :48].contiguous(),
                                    v[..., :48].contiguous(), valid)
+
+
+# ------------------------------------------------------- flash K1-K3
+FLASH_TOL = {torch.float32: dict(o=1e-4, lse=1e-4, grad=1e-4),
+             torch.bfloat16: dict(o=2e-2, lse=1e-3, grad=2e-2)}
+
+
+def _runs(rows, T):
+    out = torch.zeros((len(rows), T), dtype=torch.int32)
+    for r, runs in enumerate(rows):
+        at = 0
+        for sid, n in runs:
+            out[r, at:at + n] = sid
+            at += n
+    return out
+
+
+# name -> (B, T, S, H, KH, kwargs)
+FLASH_CASES = {
+    "causal": (2, 256, 256, 4, 4, dict(causal=True)),
+    "noncausal": (2, 192, 192, 4, 4, dict()),
+    "window": (2, 256, 256, 4, 4, dict(causal=True, window=48)),
+    "packed_fully_masked": (2, 200, 200, 4, 4, dict(
+        segment_ids=_runs([[(1, 70), (9, 60), (2, 70)], [(3, 200)]], 200),
+        kv_segment_ids=_runs([[(1, 100), (2, 100)],
+                              [(3, 150), (0, 50)]], 200))),
+    "cross_kv_segments": (2, 96, 160, 4, 4, dict(
+        segment_ids=_runs([[(1, 50), (2, 46)], [(1, 96)]], 96),
+        kv_segment_ids=_runs([[(1, 80), (2, 70), (0, 10)],
+                              [(1, 150), (0, 10)]], 160))),
+    "gqa_12_4": (1, 256, 256, 12, 4, dict(causal=True)),
+    "mqa": (1, 192, 192, 4, 1, dict(causal=True, window=40)),
+    "ragged_1000": (1, 1000, 1000, 2, 2, dict(causal=True)),
+}
+
+
+def flash_case(dev, name, D, dtype, seed=0):
+    B, T, S, H, KH, kw = FLASH_CASES[name]
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g).to(dev, dtype)
+               for shape in ((B, T, H, D), (B, S, KH, D), (B, S, KH, D)))
+    do = torch.randn((B, T, H, D), generator=g).to(dev, dtype)
+    dlse = torch.randn((B, H, T), generator=g).to(dev)
+    kw = {key: (val.to(dev) if isinstance(val, torch.Tensor) else val)
+          for key, val in kw.items()}
+    return q, k, v, do, dlse, kw
+
+
+def flash_check(q, k, v, do, dlse, kw):
+    """Kernels through the autograd Function against the plain versions
+    on the same inputs; returns the max |err| of each output relative to
+    the largest reference value (at least 1)."""
+    qk = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o, lse = tfa.flash_attention_lse(*qk, **kw)
+    dq, dk, dv = torch.autograd.grad((o, lse), qk, (do, dlse))
+    seg_q, seg_kv = tfa._validate(q, k, v, kw.get("causal", False),
+                                  kw.get("segment_ids"),
+                                  kw.get("kv_segment_ids"),
+                                  kw.get("window"))
+    args = (seg_q, seg_kv, kw.get("causal", False), kw.get("window"))
+    o_r, lse_r = tfa.flash_attention_fwd_reference(q, k, v, *args)
+    delta = ((do.float() * o_r.float()).sum(-1).transpose(1, 2)
+             - dlse).contiguous()
+    dk_r, dv_r = tfa.flash_attention_bwd_dkv_reference(q, k, v, do, lse_r,
+                                                       delta, *args)
+    dq_r = tfa.flash_attention_bwd_dq_reference(q, k, v, do, lse_r, delta,
+                                                *args)
+    torch.cuda.synchronize()
+    live = lse_r > -1e29
+
+    def rel(a, b, mask=None):
+        a, b = a.float(), b.float()
+        if mask is not None:
+            a, b = a[mask], b[mask]
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1.0)).item()
+
+    return dict(o=rel(o, o_r), lse=rel(lse, lse_r, live),
+                dq=rel(dq, dq_r), dk=rel(dk, dk_r), dv=rel(dv, dv_r),
+                dead_exact=bool((lse[~live] == -1e30).all()
+                                and (o.transpose(1, 2)[~live] == 0).all()
+                                and (dq.transpose(1, 2)[~live] == 0).all()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("name", list(FLASH_CASES))
+def test_flash_kernels_match_plain(dev, name, D, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = (tfa.flash_attention_fwd.launches,
+              tfa.flash_attention_bwd_dkv.launches,
+              tfa.flash_attention_bwd_dq.launches)
+    err = flash_check(*flash_case(dev, name, D, dtype))
+    assert (tfa.flash_attention_fwd.launches,
+            tfa.flash_attention_bwd_dkv.launches,
+            tfa.flash_attention_bwd_dq.launches) == tuple(
+                b + 1 for b in before)
+    tol = FLASH_TOL[dtype]
+    for key in ("o", "lse"):
+        assert err[key] <= tol[key], (key, err)
+    for key in ("dq", "dk", "dv"):
+        assert err[key] <= tol["grad"], (key, err)
+    assert err["dead_exact"], (
+        "a fully masked row must give o = 0, lse = -1e30 and dq = 0")
+
+
+def test_flash_wrappers_never_run_the_plain_version(dev, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called on CUDA tensors")
+
+    for name in ("flash_attention_fwd_reference",
+                 "flash_attention_bwd_dkv_reference",
+                 "flash_attention_bwd_dq_reference"):
+        monkeypatch.setattr(tfa, name, boom)
+    q, k, v, do, dlse, kw = flash_case(dev, "causal", 64, torch.bfloat16)
+    qk = [t.requires_grad_(True) for t in (q, k, v)]
+    o, lse = tfa.flash_attention_lse(*qk, **kw)
+    torch.autograd.grad((o, lse), qk, (do, dlse))
+    torch.cuda.synchronize()
+
+
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(dev):
+    q = torch.zeros((1, 64, 2, 48), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 48"):
+        tfa.flash_attention_fwd(q, q, q)
+    q = torch.zeros((1, 64, 2, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float16"):
+        tfa.flash_attention_fwd(q, q, q)
+    q = torch.zeros((1, 64, 2, 64), device=dev)
+    with pytest.raises(TypeError, match="differs"):
+        tfa.flash_attention_fwd(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="one device"):
+        tfa.flash_attention_fwd(q, q.cpu(), q)
