@@ -84,13 +84,6 @@ struct Params {
   float scale;
 };
 
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -148,32 +141,35 @@ __host__ __device__ inline size_t take(size_t& at, size_t bytes) {
   return r;
 }
 
+// The fp32 path: tiles of kRows rows on both sides.
+constexpr int kRows = 32;
+
 // Byte offsets of one fp32-path kernel's shared-memory buffers; the host
 // sizes the launch with the same struct.  which: 0 fwd, 1 dK/dV, 2 dQ.
-template <typename T, int BT, int D>
+template <int D>
 struct Smem {
-  static constexpr int ldt = D + 8;   // T operand tiles (q, k, v, dO)
-  static constexpr int lds = BT + 4;  // fp32 score tiles (S, dP)
-  static constexpr int ldp = BT + 8;  // T probability tiles (P, dS)
-  static constexpr int ldo = D + 4;   // fp32 accumulators (O, dK, dV, dQ)
+  static constexpr int ldt = D + 8;      // operand tiles (q, k, v, dO)
+  static constexpr int lds = kRows + 4;  // score tiles (S, dP)
+  static constexpr int ldp = kRows + 8;  // probability tiles (P, dS)
+  static constexpr int ldo = D + 4;      // accumulators (O, dK, dV, dQ)
   size_t q, k, v, dout, s, dp, p, ds, acc, acc2, r0, r1, r2, sq, sk, total;
   __host__ __device__ explicit Smem(int which) {
     size_t at = 0;
-    q = take(at, sizeof(T) * BT * ldt);
-    k = take(at, sizeof(T) * BT * ldt);
-    v = take(at, sizeof(T) * BT * ldt);
-    dout = which ? take(at, sizeof(T) * BT * ldt) : 0;
-    s = take(at, sizeof(float) * BT * lds);
-    dp = which ? take(at, sizeof(float) * BT * lds) : 0;
-    p = take(at, sizeof(T) * BT * ldp);
-    ds = which ? take(at, sizeof(T) * BT * ldp) : 0;
-    acc = take(at, sizeof(float) * BT * ldo);
-    acc2 = which == 1 ? take(at, sizeof(float) * BT * ldo) : 0;
-    r0 = take(at, sizeof(float) * BT);
-    r1 = take(at, sizeof(float) * BT);
-    r2 = take(at, sizeof(float) * BT);
-    sq = take(at, sizeof(int) * BT);
-    sk = take(at, sizeof(int) * BT);
+    q = take(at, sizeof(float) * kRows * ldt);
+    k = take(at, sizeof(float) * kRows * ldt);
+    v = take(at, sizeof(float) * kRows * ldt);
+    dout = which ? take(at, sizeof(float) * kRows * ldt) : 0;
+    s = take(at, sizeof(float) * kRows * lds);
+    dp = which ? take(at, sizeof(float) * kRows * lds) : 0;
+    p = take(at, sizeof(float) * kRows * ldp);
+    ds = which ? take(at, sizeof(float) * kRows * ldp) : 0;
+    acc = take(at, sizeof(float) * kRows * ldo);
+    acc2 = which == 1 ? take(at, sizeof(float) * kRows * ldo) : 0;
+    r0 = take(at, sizeof(float) * kRows);
+    r1 = take(at, sizeof(float) * kRows);
+    r2 = take(at, sizeof(float) * kRows);
+    sq = take(at, sizeof(int) * kRows);
+    sk = take(at, sizeof(int) * kRows);
     total = at;
   }
 };
@@ -227,16 +223,16 @@ __device__ __forceinline__ void mm(float* C, int ldc, const float* A,
 }
 
 // ------------------------------------------------------------- forward
-template <typename T, int BT, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
-  using L = Smem<T, BT, D>;
+  using L = Smem<D>;
   extern __shared__ __align__(128) char smem[];
   const L lay(0);
-  T* Qs = reinterpret_cast<T*>(smem + lay.q);
-  T* Ks = reinterpret_cast<T*>(smem + lay.k);
-  T* Vs = reinterpret_cast<T*>(smem + lay.v);
+  float* Qs = reinterpret_cast<float*>(smem + lay.q);
+  float* Ks = reinterpret_cast<float*>(smem + lay.k);
+  float* Vs = reinterpret_cast<float*>(smem + lay.v);
   float* Ss = reinterpret_cast<float*>(smem + lay.s);
-  T* Ps = reinterpret_cast<T*>(smem + lay.p);
+  float* Ps = reinterpret_cast<float*>(smem + lay.p);
   float* Os = reinterpret_cast<float*>(smem + lay.acc);
   float* m_s = reinterpret_cast<float*>(smem + lay.r0);
   float* l_s = reinterpret_cast<float*>(smem + lay.r1);
@@ -244,41 +240,43 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   int* sq = reinterpret_cast<int*>(smem + lay.sq);
   int* sk = reinterpret_cast<int*>(smem + lay.sk);
 
-  const int nq = (p.T + BT - 1) / BT;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * BT;  // longest causal rows first
+  const int nq = (p.T + kRows - 1) / kRows;
+  // Longest causal rows first.
+  const int q0 = (nq - 1 - (int)blockIdx.x) * kRows;
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
   const int kh = h / (p.H / p.KH);
-  const T* Qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* Kg = static_cast<const T*>(p.k) + b * p.k_sb + kh * p.k_sh;
-  const T* Vg = static_cast<const T*>(p.v) + b * p.v_sb + kh * p.v_sh;
+  const float* Qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* Kg = static_cast<const float*>(p.k) + b * p.k_sb + kh * p.k_sh;
+  const float* Vg = static_cast<const float*>(p.v) + b * p.v_sb + kh * p.v_sh;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  load_rows<T, BT, D>(Qs, L::ldt, Qg, p.q_st, q0, p.T);
-  load_segments(sq, p.seg_q, q0, p.T, b, BT);
-  for (int i = threadIdx.x; i < BT; i += kThreads) {
+  load_rows<float, kRows, D>(Qs, L::ldt, Qg, p.q_st, q0, p.T);
+  load_segments(sq, p.seg_q, q0, p.T, b, kRows);
+  for (int i = threadIdx.x; i < kRows; i += kThreads) {
     m_s[i] = kNegInf;
     l_s[i] = 0.f;
   }
-  for (int i = threadIdx.x; i < BT * L::ldo; i += kThreads) Os[i] = 0.f;
+  for (int i = threadIdx.x; i < kRows * L::ldo; i += kThreads) Os[i] = 0.f;
 
   int lo, hi;
-  k_tile_range(p, q0, BT, lo, hi);
+  k_tile_range(p, q0, kRows, lo, hi);
   for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * BT;
+    const int k0 = kt * kRows;
     __syncthreads();  // the previous tile's P.V is done with K/V/P
-    load_rows<T, BT, D>(Ks, L::ldt, Kg, p.k_st, k0, p.S);
-    load_rows<T, BT, D>(Vs, L::ldt, Vg, p.v_st, k0, p.S);
-    load_segments(sk, p.seg_k, k0, p.S, b, BT);
+    load_rows<float, kRows, D>(Ks, L::ldt, Kg, p.k_st, k0, p.S);
+    load_rows<float, kRows, D>(Vs, L::ldt, Vg, p.v_st, k0, p.S);
+    load_segments(sk, p.seg_k, k0, p.S, b, kRows);
     __syncthreads();
-    mm<false, true, BT, BT, D>(Ss, L::lds, Qs, L::ldt, Ks, L::ldt, false);
+    mm<false, true, kRows, kRows, D>(Ss, L::lds, Qs, L::ldt, Ks, L::ldt,
+                                     false);
     __syncthreads();
-    for (int r = warp; r < BT; r += kWarps) {
+    for (int r = warp; r < kRows; r += kWarps) {
       const int qp = q0 + r;
-      float sv[BT / 32];
-      bool ok[BT / 32];
+      float sv[kRows / 32];
+      bool ok[kRows / 32];
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < BT / 32; ++j) {
+      for (int j = 0; j < kRows / 32; ++j) {
         const int c = lane + 32 * j;
         ok[j] = admitted(p, qp, k0 + c, sq[r], sk[c]);
         sv[j] = ok[j] ? Ss[r * L::lds + c] * p.scale : kNegInf;
@@ -289,11 +287,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
       const float m_new = fmaxf(m_old, mx);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < BT / 32; ++j) {
+      for (int j = 0; j < kRows / 32; ++j) {
         const int c = lane + 32 * j;
         const float e = ok[j] ? expf(sv[j] - m_new) : 0.f;
         sum += e;
-        Ps[r * L::ldp + c] = from_f<T>(e);
+        Ps[r * L::ldp + c] = e;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -304,25 +302,26 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
       }
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < BT * D; i += kThreads) {
+    for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
       const int r = i / D, d = i % D;
       Os[r * L::ldo + d] *= a_s[r];
     }
     __syncthreads();
-    mm<false, false, BT, D, BT>(Os, L::ldo, Ps, L::ldp, Vs, L::ldt, true);
+    mm<false, false, kRows, D, kRows>(Os, L::ldo, Ps, L::ldp, Vs, L::ldt,
+                                      true);
   }
   __syncthreads();
 
-  T* Og = static_cast<T*>(p.out);
-  for (int i = threadIdx.x; i < BT * D; i += kThreads) {
+  float* Og = static_cast<float*>(p.out);
+  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
     const int r = i / D, d = i % D, qp = q0 + r;
     if (qp >= p.T) continue;
     const bool alive = m_s[r] > kNegInf * 0.5f;
     const float l = fmaxf(l_s[r], 1e-30f);
     Og[(((size_t)b * p.T + qp) * p.H + h) * D + d] =
-        from_f<T>(alive ? Os[r * L::ldo + d] / l : 0.f);
+        alive ? Os[r * L::ldo + d] / l : 0.f;
   }
-  for (int r = threadIdx.x; r < BT; r += kThreads) {
+  for (int r = threadIdx.x; r < kRows; r += kThreads) {
     const int qp = q0 + r;
     if (qp >= p.T) continue;
     const bool alive = m_s[r] > kNegInf * 0.5f;
@@ -332,30 +331,29 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 }
 
 // Scores of the staged q/dO tile against the staged k/v tile -> P and
-// dS = P * (dP - delta) in T, rows with lse = NEG_INF and masked pairs 0.
-template <typename T, int BT, int D>
+// dS = P * (dP - delta), rows with lse = NEG_INF and masked pairs 0.
+template <int D>
 __device__ __forceinline__ void probs_and_dscores(
     const Params& p, int q0, int k0, const float* Ss, const float* dPs,
     const float* lse_s, const float* delta_s, const int* sq, const int* sk,
-    T* Ps, T* dSs) {
-  using L = Smem<T, BT, D>;
-  for (int i = threadIdx.x; i < BT * BT; i += kThreads) {
-    const int r = i / BT, c = i % BT;
+    float* Ps, float* dSs) {
+  using L = Smem<D>;
+  for (int i = threadIdx.x; i < kRows * kRows; i += kThreads) {
+    const int r = i / kRows, c = i % kRows;
     const float lse = lse_s[r];
     float pv = 0.f;
     if (lse > kNegInf * 0.5f && admitted(p, q0 + r, k0 + c, sq[r], sk[c]))
       pv = expf(Ss[r * L::lds + c] * p.scale - lse);
     const float ds = pv * (dPs[r * L::lds + c] - delta_s[r]);
-    Ps[r * L::ldp + c] = from_f<T>(pv);
-    dSs[r * L::ldp + c] = from_f<T>(ds);
+    Ps[r * L::ldp + c] = pv;
+    dSs[r * L::ldp + c] = ds;
   }
 }
 
-template <typename T, int BT, int D>
 __device__ __forceinline__ void load_row_stats(const Params& p, int b, int h,
                                                int q0, float* lse_s,
                                                float* delta_s) {
-  for (int i = threadIdx.x; i < BT; i += kThreads) {
+  for (int i = threadIdx.x; i < kRows; i += kThreads) {
     const int qp = q0 + i;
     const size_t off = ((size_t)b * p.H + h) * p.T + qp;
     lse_s[i] = qp < p.T ? p.lse[off] : kNegInf;
@@ -364,19 +362,19 @@ __device__ __forceinline__ void load_row_stats(const Params& p, int b, int h,
 }
 
 // --------------------------------------------------------- dK/dV kernel
-template <typename T, int BT, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
-  using L = Smem<T, BT, D>;
+  using L = Smem<D>;
   extern __shared__ __align__(128) char smem[];
   const L lay(1);
-  T* Qs = reinterpret_cast<T*>(smem + lay.q);
-  T* Ks = reinterpret_cast<T*>(smem + lay.k);
-  T* Vs = reinterpret_cast<T*>(smem + lay.v);
-  T* dOs = reinterpret_cast<T*>(smem + lay.dout);
+  float* Qs = reinterpret_cast<float*>(smem + lay.q);
+  float* Ks = reinterpret_cast<float*>(smem + lay.k);
+  float* Vs = reinterpret_cast<float*>(smem + lay.v);
+  float* dOs = reinterpret_cast<float*>(smem + lay.dout);
   float* Ss = reinterpret_cast<float*>(smem + lay.s);
   float* dPs = reinterpret_cast<float*>(smem + lay.dp);
-  T* Ps = reinterpret_cast<T*>(smem + lay.p);
-  T* dSs = reinterpret_cast<T*>(smem + lay.ds);
+  float* Ps = reinterpret_cast<float*>(smem + lay.p);
+  float* dSs = reinterpret_cast<float*>(smem + lay.ds);
   float* dKs = reinterpret_cast<float*>(smem + lay.acc);
   float* dVs = reinterpret_cast<float*>(smem + lay.acc2);
   float* lse_s = reinterpret_cast<float*>(smem + lay.r0);
@@ -384,122 +382,130 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   int* sq = reinterpret_cast<int*>(smem + lay.sq);
   int* sk = reinterpret_cast<int*>(smem + lay.sk);
 
-  const int k0 = blockIdx.x * BT;
+  const int k0 = blockIdx.x * kRows;
   const int b = blockIdx.y / p.KH, kh = blockIdx.y % p.KH;
   const int G = p.H / p.KH;
-  const T* Kg = static_cast<const T*>(p.k) + b * p.k_sb + kh * p.k_sh;
-  const T* Vg = static_cast<const T*>(p.v) + b * p.v_sb + kh * p.v_sh;
+  const float* Kg = static_cast<const float*>(p.k) + b * p.k_sb + kh * p.k_sh;
+  const float* Vg = static_cast<const float*>(p.v) + b * p.v_sb + kh * p.v_sh;
 
-  load_rows<T, BT, D>(Ks, L::ldt, Kg, p.k_st, k0, p.S);
-  load_rows<T, BT, D>(Vs, L::ldt, Vg, p.v_st, k0, p.S);
-  load_segments(sk, p.seg_k, k0, p.S, b, BT);
-  for (int i = threadIdx.x; i < BT * L::ldo; i += kThreads) {
+  load_rows<float, kRows, D>(Ks, L::ldt, Kg, p.k_st, k0, p.S);
+  load_rows<float, kRows, D>(Vs, L::ldt, Vg, p.v_st, k0, p.S);
+  load_segments(sk, p.seg_k, k0, p.S, b, kRows);
+  for (int i = threadIdx.x; i < kRows * L::ldo; i += kThreads) {
     dKs[i] = 0.f;
     dVs[i] = 0.f;
   }
 
   int lo, hi;
-  q_tile_range(p, k0, BT, lo, hi);
+  q_tile_range(p, k0, kRows, lo, hi);
   // The GQA group's query heads in turn: their sum stays in fp32 and is
   // rounded once at the end.
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
-    const T* Qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const T* dOg = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+    const float* Qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const float* dOg =
+        static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
     for (int qt = lo; qt < hi; ++qt) {
-      const int q0 = qt * BT;
+      const int q0 = qt * kRows;
       __syncthreads();  // the previous tile's products are done
-      load_rows<T, BT, D>(Qs, L::ldt, Qg, p.q_st, q0, p.T);
-      load_rows<T, BT, D>(dOs, L::ldt, dOg, p.do_st, q0, p.T);
-      load_segments(sq, p.seg_q, q0, p.T, b, BT);
-      load_row_stats<T, BT, D>(p, b, h, q0, lse_s, delta_s);
+      load_rows<float, kRows, D>(Qs, L::ldt, Qg, p.q_st, q0, p.T);
+      load_rows<float, kRows, D>(dOs, L::ldt, dOg, p.do_st, q0, p.T);
+      load_segments(sq, p.seg_q, q0, p.T, b, kRows);
+      load_row_stats(p, b, h, q0, lse_s, delta_s);
       __syncthreads();
-      mm<false, true, BT, BT, D>(Ss, L::lds, Qs, L::ldt, Ks, L::ldt, false);
-      mm<false, true, BT, BT, D>(dPs, L::lds, dOs, L::ldt, Vs, L::ldt,
-                                 false);
+      mm<false, true, kRows, kRows, D>(Ss, L::lds, Qs, L::ldt, Ks, L::ldt,
+                                       false);
+      mm<false, true, kRows, kRows, D>(dPs, L::lds, dOs, L::ldt, Vs, L::ldt,
+                                       false);
       __syncthreads();
-      probs_and_dscores<T, BT, D>(p, q0, k0, Ss, dPs, lse_s, delta_s, sq, sk,
-                                  Ps, dSs);
+      probs_and_dscores<D>(p, q0, k0, Ss, dPs, lse_s, delta_s, sq, sk, Ps,
+                           dSs);
       __syncthreads();
       // dV[k][d] += sum_q P[q][k] dO[q][d];  dK[k][d] += sum_q dS[q][k] q[q][d]
-      mm<true, false, BT, D, BT>(dVs, L::ldo, Ps, L::ldp, dOs, L::ldt, true);
-      mm<true, false, BT, D, BT>(dKs, L::ldo, dSs, L::ldp, Qs, L::ldt, true);
+      mm<true, false, kRows, D, kRows>(dVs, L::ldo, Ps, L::ldp, dOs, L::ldt,
+                                       true);
+      mm<true, false, kRows, D, kRows>(dKs, L::ldo, dSs, L::ldp, Qs, L::ldt,
+                                       true);
     }
   }
   __syncthreads();
 
-  T* dKg = static_cast<T*>(p.out);
-  T* dVg = static_cast<T*>(p.out2);
-  for (int i = threadIdx.x; i < BT * D; i += kThreads) {
+  float* dKg = static_cast<float*>(p.out);
+  float* dVg = static_cast<float*>(p.out2);
+  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
     const int r = i / D, d = i % D, kp = k0 + r;
     if (kp >= p.S) continue;
     const size_t off = (((size_t)b * p.S + kp) * p.KH + kh) * D + d;
-    dKg[off] = from_f<T>(dKs[r * L::ldo + d] * p.scale);
-    dVg[off] = from_f<T>(dVs[r * L::ldo + d]);
+    dKg[off] = dKs[r * L::ldo + d] * p.scale;
+    dVg[off] = dVs[r * L::ldo + d];
   }
 }
 
 // ------------------------------------------------------------ dQ kernel
-template <typename T, int BT, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
-  using L = Smem<T, BT, D>;
+  using L = Smem<D>;
   extern __shared__ __align__(128) char smem[];
   const L lay(2);
-  T* Qs = reinterpret_cast<T*>(smem + lay.q);
-  T* Ks = reinterpret_cast<T*>(smem + lay.k);
-  T* Vs = reinterpret_cast<T*>(smem + lay.v);
-  T* dOs = reinterpret_cast<T*>(smem + lay.dout);
+  float* Qs = reinterpret_cast<float*>(smem + lay.q);
+  float* Ks = reinterpret_cast<float*>(smem + lay.k);
+  float* Vs = reinterpret_cast<float*>(smem + lay.v);
+  float* dOs = reinterpret_cast<float*>(smem + lay.dout);
   float* Ss = reinterpret_cast<float*>(smem + lay.s);
   float* dPs = reinterpret_cast<float*>(smem + lay.dp);
-  T* Ps = reinterpret_cast<T*>(smem + lay.p);
-  T* dSs = reinterpret_cast<T*>(smem + lay.ds);
+  float* Ps = reinterpret_cast<float*>(smem + lay.p);
+  float* dSs = reinterpret_cast<float*>(smem + lay.ds);
   float* dQs = reinterpret_cast<float*>(smem + lay.acc);
   float* lse_s = reinterpret_cast<float*>(smem + lay.r0);
   float* delta_s = reinterpret_cast<float*>(smem + lay.r1);
   int* sq = reinterpret_cast<int*>(smem + lay.sq);
   int* sk = reinterpret_cast<int*>(smem + lay.sk);
 
-  const int nq = (p.T + BT - 1) / BT;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * BT;
+  const int nq = (p.T + kRows - 1) / kRows;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * kRows;
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
   const int kh = h / (p.H / p.KH);
-  const T* Qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* dOg = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const T* Kg = static_cast<const T*>(p.k) + b * p.k_sb + kh * p.k_sh;
-  const T* Vg = static_cast<const T*>(p.v) + b * p.v_sb + kh * p.v_sh;
+  const float* Qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* dOg =
+      static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float* Kg = static_cast<const float*>(p.k) + b * p.k_sb + kh * p.k_sh;
+  const float* Vg = static_cast<const float*>(p.v) + b * p.v_sb + kh * p.v_sh;
 
-  load_rows<T, BT, D>(Qs, L::ldt, Qg, p.q_st, q0, p.T);
-  load_rows<T, BT, D>(dOs, L::ldt, dOg, p.do_st, q0, p.T);
-  load_segments(sq, p.seg_q, q0, p.T, b, BT);
-  load_row_stats<T, BT, D>(p, b, h, q0, lse_s, delta_s);
-  for (int i = threadIdx.x; i < BT * L::ldo; i += kThreads) dQs[i] = 0.f;
+  load_rows<float, kRows, D>(Qs, L::ldt, Qg, p.q_st, q0, p.T);
+  load_rows<float, kRows, D>(dOs, L::ldt, dOg, p.do_st, q0, p.T);
+  load_segments(sq, p.seg_q, q0, p.T, b, kRows);
+  load_row_stats(p, b, h, q0, lse_s, delta_s);
+  for (int i = threadIdx.x; i < kRows * L::ldo; i += kThreads) dQs[i] = 0.f;
 
   int lo, hi;
-  k_tile_range(p, q0, BT, lo, hi);
+  k_tile_range(p, q0, kRows, lo, hi);
   for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * BT;
+    const int k0 = kt * kRows;
     __syncthreads();
-    load_rows<T, BT, D>(Ks, L::ldt, Kg, p.k_st, k0, p.S);
-    load_rows<T, BT, D>(Vs, L::ldt, Vg, p.v_st, k0, p.S);
-    load_segments(sk, p.seg_k, k0, p.S, b, BT);
+    load_rows<float, kRows, D>(Ks, L::ldt, Kg, p.k_st, k0, p.S);
+    load_rows<float, kRows, D>(Vs, L::ldt, Vg, p.v_st, k0, p.S);
+    load_segments(sk, p.seg_k, k0, p.S, b, kRows);
     __syncthreads();
-    mm<false, true, BT, BT, D>(Ss, L::lds, Qs, L::ldt, Ks, L::ldt, false);
-    mm<false, true, BT, BT, D>(dPs, L::lds, dOs, L::ldt, Vs, L::ldt, false);
+    mm<false, true, kRows, kRows, D>(Ss, L::lds, Qs, L::ldt, Ks, L::ldt,
+                                     false);
+    mm<false, true, kRows, kRows, D>(dPs, L::lds, dOs, L::ldt, Vs, L::ldt,
+                                     false);
     __syncthreads();
-    probs_and_dscores<T, BT, D>(p, q0, k0, Ss, dPs, lse_s, delta_s, sq, sk,
-                                Ps, dSs);
+    probs_and_dscores<D>(p, q0, k0, Ss, dPs, lse_s, delta_s, sq, sk, Ps,
+                         dSs);
     __syncthreads();
     // dQ[q][d] += sum_k dS[q][k] K[k][d]
-    mm<false, false, BT, D, BT>(dQs, L::ldo, dSs, L::ldp, Ks, L::ldt, true);
+    mm<false, false, kRows, D, kRows>(dQs, L::ldo, dSs, L::ldp, Ks, L::ldt,
+                                      true);
   }
   __syncthreads();
 
-  T* dQg = static_cast<T*>(p.out);
-  for (int i = threadIdx.x; i < BT * D; i += kThreads) {
+  float* dQg = static_cast<float*>(p.out);
+  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
     const int r = i / D, d = i % D, qp = q0 + r;
     if (qp >= p.T) continue;
     dQg[(((size_t)b * p.T + qp) * p.H + h) * D + d] =
-        from_f<T>(dQs[r * L::ldo + d] * p.scale);
+        dQs[r * L::ldo + d] * p.scale;
   }
 }
 
@@ -1053,21 +1059,21 @@ int launch_one(K kernel, bool& opted_in, size_t smem, dim3 grid,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int BT, int D>
-int launch_typed(int which, const Params& p, cudaStream_t stream) {
+template <int D>
+int launch_f32(int which, const Params& p, cudaStream_t stream) {
   static bool opted_in[3] = {false, false, false};
-  const size_t smem = Smem<T, BT, D>(which).total;
-  const int nq = (p.T + BT - 1) / BT;
-  const int nk = (p.S + BT - 1) / BT;
+  const size_t smem = Smem<D>(which).total;
+  const int nq = (p.T + kRows - 1) / kRows;
+  const int nk = (p.S + kRows - 1) / kRows;
   switch (which) {
     case 0:
-      return launch_one(flash_fwd_kernel<T, BT, D>, opted_in[0], smem,
+      return launch_one(flash_fwd_kernel<D>, opted_in[0], smem,
                         dim3(nq, p.B * p.H), p, stream);
     case 1:
-      return launch_one(flash_bwd_dkv_kernel<T, BT, D>, opted_in[1], smem,
+      return launch_one(flash_bwd_dkv_kernel<D>, opted_in[1], smem,
                         dim3(nk, p.B * p.KH), p, stream);
     case 2:
-      return launch_one(flash_bwd_dq_kernel<T, BT, D>, opted_in[2], smem,
+      return launch_one(flash_bwd_dq_kernel<D>, opted_in[2], smem,
                         dim3(nq, p.B * p.H), p, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -1097,7 +1103,7 @@ int launch_bf16(int which, const Params& p, cudaStream_t stream) {
 template <int D>
 int launch_dim(int which, const Params& p, int dtype, cudaStream_t stream) {
   switch (dtype) {
-    case kF32: return launch_typed<float, 32, D>(which, p, stream);
+    case kF32: return launch_f32<D>(which, p, stream);
     case kBF16: return launch_bf16<D>(which, p, stream);
     default: return (int)cudaErrorInvalidValue;
   }

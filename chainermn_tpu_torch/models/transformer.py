@@ -199,7 +199,7 @@ class DecoderBlock(nn.Module):
             k = apply_rope(k, tables=rope)
         if cache is None:
             attend = flash_attention if resolve_attention(
-                self.attention, T, device=q.device) == "flash" \
+                self.attention, device=q.device) == "flash" \
                 else reference_attention
             a = attend(q, k, v, causal=True, segment_ids=segment_ids,
                        window=self.window or None)

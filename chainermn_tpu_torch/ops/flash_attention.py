@@ -465,13 +465,12 @@ def _reference_attention_lse(q, k, v, causal=False, segment_ids=None,
                                          window)
 
 
-def resolve_attention(impl: str, *lengths: int, causal: bool = True,
-                      device=None) -> str:
+def resolve_attention(impl: str, device=None) -> str:
     """``"flash"``/``"xla"`` pass through; ``"auto"`` is ``"flash"`` on a
     CUDA device and ``"xla"`` (the eager materialized-score path) on the
     CPU, as the reference picks ``"xla"`` off-TPU.  The TPU's measured
-    crossover lengths do not carry over; an H100 crossover is not measured
-    yet, so ``lengths`` and ``causal`` do not change the choice."""
+    crossover lengths do not carry over, and an H100 crossover is not
+    measured yet, so the sequence length does not enter the choice."""
     if impl not in ("flash", "xla", "auto"):
         raise ValueError(
             f"attention={impl!r}: expected 'flash', 'xla' or 'auto'")

@@ -213,15 +213,10 @@ def test_sampling_is_seeded_and_top_k_one_is_greedy(rope_pair):
 
 
 def test_unported_paths_raise():
-    """``attention="flash"`` is ported (on the CPU it runs the flash
-    kernels' plain versions and equals the eager path); rolling decode
-    still raises."""
-    tm = TransformerLM(**KW, dtype=torch.float32, device="cpu",
-                       attention="flash")
-    tx = TransformerLM(**KW, dtype=torch.float32, device="cpu",
-                       attention="xla")
-    toks = torch.from_numpy(_tokens(2, 12)).long()
-    torch.testing.assert_close(tm(toks), tx(toks), atol=LOGIT_ATOL, rtol=0)
+    """Rolling decode is not ported and raises.  (``attention="flash"`` is
+    ported; its checks against the JAX package are in
+    ``test_torch_flash_attention.py`` and ``test_torch_training.py``.)"""
+    tm = TransformerLM(**KW, dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match="rolling"):
         lm_generate(tm, torch.zeros((1, 4), dtype=torch.long), 2,
                     rolling=True)
