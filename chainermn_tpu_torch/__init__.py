@@ -17,7 +17,11 @@ and fused decode-attention kernels; ``TransformerLM`` training, single
 card and data-parallel (``comm.create_communicator``,
 ``optimizers.create_multi_node_optimizer``, ``models.lm_loss``,
 ``python -m chainermn_tpu_torch.examples.train_lm``), over the
-flash-attention forward and backward kernels.
+flash-attention forward and backward kernels; ResNet data-parallel
+training with cross-rank sync-BN (``models.ResNet50``,
+``models.resnet_loss``, ``optimizers.sgd``, ``make_train_step(...,
+stateful=True)``, ``python -m chainermn_tpu_torch.examples.train_imagenet``),
+whose frozen-BN arm runs the fused 1×1-conv + affine + ReLU kernel.
 """
 
 __version__ = "0.1.0"

@@ -69,6 +69,13 @@ class ProcessGroupCommunicator(CommunicatorBase):
     def inter_rank(self) -> int:
         return self.rank // self.intra_size
 
+    @property
+    def axis_name(self):
+        """The process group of this communicator's ranks: what a model
+        takes as ``axis_name`` for collectives inside its forward
+        (sync-BN), as the JAX package passes its mesh axis name."""
+        return dist.group.WORLD if self.group is None else self.group
+
     def _src(self, root: int) -> int:
         return root if self.group is None else \
             dist.get_global_rank(self.group, root)

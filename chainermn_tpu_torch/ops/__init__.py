@@ -6,6 +6,13 @@ CUDA host (:mod:`chainermn_tpu_torch.ops._kernels`); on the CPU each
 wrapper runs its plain version.
 """
 
+from chainermn_tpu_torch.ops.conv_fused import (
+    MatmulAffineFunction,
+    conv1x1_bn_relu,
+    matmul_affine,
+    matmul_affine_fwd,
+    matmul_affine_reference,
+)
 from chainermn_tpu_torch.ops.decode_attention import (
     MAX_FUSED_LEN,
     MAX_VERIFY_T,
@@ -30,6 +37,11 @@ from chainermn_tpu_torch.ops.flash_attention import (
 from chainermn_tpu_torch.ops.rope import apply_rope, rope_tables
 
 __all__ = [
+    "MatmulAffineFunction",
+    "conv1x1_bn_relu",
+    "matmul_affine",
+    "matmul_affine_fwd",
+    "matmul_affine_reference",
     "MAX_FUSED_LEN",
     "MAX_VERIFY_T",
     "fused_decode_attention",

@@ -16,7 +16,9 @@ The call shape is the JAX package's::
 
 with two differences that PyTorch imposes: the state holds the model (its
 parameters are updated in place) and the torch optimizer, and a loss
-function takes the model where the JAX one takes a parameter tree.
+function takes the model where the JAX one takes a parameter tree.  The
+model state of a stateful model (sync-BN running statistics) is its
+buffers, which the training forward updates in place.
 """
 
 from __future__ import annotations
@@ -32,7 +34,19 @@ import torch.nn as nn
 from chainermn_tpu_torch.comm.base import CommunicatorBase
 
 __all__ = ["MultiNodeOptimizer", "TrainState", "adamw",
-           "create_multi_node_optimizer"]
+           "create_multi_node_optimizer", "sgd"]
+
+
+def sgd(learning_rate: float, momentum: Optional[float] = None,
+        nesterov: bool = False):
+    """``optax.sgd`` as a torch optimizer factory: ``trace = g + momentum
+    · trace``, ``p -= lr · trace`` (``nesterov``: ``p -= lr · (g +
+    momentum · trace)``), no dampening, no weight decay -- which is
+    ``torch.optim.SGD`` with ``dampening=0``; plain SGD when ``momentum``
+    is None."""
+    return functools.partial(torch.optim.SGD, lr=learning_rate,
+                             momentum=momentum or 0.0, dampening=0.0,
+                             nesterov=nesterov, weight_decay=0.0)
 
 
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
@@ -58,6 +72,11 @@ class TrainState:
     @property
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
+
+    @property
+    def model_state(self) -> Dict[str, torch.Tensor]:
+        """The model's buffers (e.g. sync-BN running statistics)."""
+        return dict(self.model.named_buffers())
 
 
 def _split(x, k: int):
@@ -129,13 +148,16 @@ class MultiNodeOptimizer:
         """``step(state, batch) -> (state, metrics)``.
 
         ``loss_fn(model, batch)`` returns a scalar, or ``(scalar,
-        aux_dict)`` with ``has_aux``.  ``accum_steps=k`` splits the batch
-        into ``k`` equal microbatches whose losses and gradients are
-        mean-accumulated (each weighs ``1/k``, the JAX package's
-        contract) before the one gradient all-reduce and the update.
+        aux_dict)`` with ``has_aux``, or ``(scalar, (aux_dict,
+        model_state))`` with ``stateful`` (the model's buffers, updated in
+        place by its forward -- sync-BN running statistics).
+        ``accum_steps=k`` splits the batch into ``k`` equal microbatches
+        whose losses and gradients are mean-accumulated (each weighs
+        ``1/k``, the JAX package's contract) before the one gradient
+        all-reduce and the update; the model state threads through the
+        microbatches in order, as the JAX ``lax.scan`` threads it.
         ``metrics["loss"]`` and the aux scalars are averaged over ranks."""
-        for flag, what, item in ((stateful, "stateful", "7"),
-                                 (augment is not None, "augment", "7"),
+        for flag, what, item in ((augment is not None, "augment", "7"),
                                  (health_check, "health_check", "12")):
             if flag:
                 raise NotImplementedError(
@@ -151,7 +173,10 @@ class MultiNodeOptimizer:
             loss_sum, aux_sum = None, {}
             for mb in _microbatches(batch, accum_steps):
                 out = loss_fn(model, mb)
-                loss, aux = out if has_aux else (out, {})
+                if stateful:
+                    loss, (aux, _) = out
+                else:
+                    loss, aux = out if has_aux else (out, {})
                 (loss / accum_steps).backward()
                 loss = loss.detach()
                 loss_sum = loss if loss_sum is None else loss_sum + loss

@@ -1,6 +1,8 @@
 """Carry weights across: Flax parameter trees -> the port's
-``state_dict`` (:func:`params_from_flax`), and the port's parameters or
-gradients back into the Flax layout (:func:`params_to_flax`).
+``state_dict`` (:func:`params_from_flax` for ``TransformerLM``,
+:func:`resnet_params_from_flax` for ``ResNet``), and the port's parameters
+or gradients back into the Flax layout (:func:`params_to_flax`,
+:func:`resnet_params_to_flax`).
 
 The input is the JAX package's ``TransformerLM`` parameter tree with
 every leaf as a numpy array (``jax.tree_util.tree_map(np.asarray,
@@ -20,7 +22,8 @@ Flax                                         port
 ``ln_f``, ``lm_head.kernel (D, V)``          ``ln_f``, ``lm_head.weight (V, D)``
 ==========================================  ================================
 
-Biases flatten the same way as their kernels' output axes.
+Biases flatten the same way as their kernels' output axes.  The ResNet
+mapping is described beside its two functions below.
 """
 
 from __future__ import annotations
@@ -148,3 +151,103 @@ def params_to_flax(tensors: Dict[str, torch.Tensor], n_heads: int,
     out["ln_f"] = _ln_back(sd, "ln_f")
     out["lm_head"] = _dense_back(sd, "lm_head", (V,))
     return out
+
+
+# ------------------------------------------------------------------ ResNet
+# Flax module names -> the port's: a block ``BottleneckBlock_i`` or
+# ``BasicBlock_i`` is ``blocks.i``; inside it ``Conv_j`` is ``conv{j}`` and
+# ``MultiNodeBatchNormalization_j`` is ``bn{j}``; every other name (``fc1``,
+# ``fc3``, ``proj_f``, ``proj``, ``proj_bn``, ``conv_init``,
+# ``conv_init_s2d``, ``bn_init``, ``head``) is the same.  Leaves: a 4-D conv
+# ``kernel`` (HWIO) is ``weight`` (OIHW); the ``head`` Dense ``kernel`` (in,
+# out) is ``weight`` (out, in); a ``FusedConv1x1`` ``kernel`` (Cin, Cout)
+# and every ``scale``/``bias`` keep name and layout; ``batch_stats``
+# ``mean``/``var`` are buffers of the same names.
+_BLOCKS = ("BottleneckBlock_", "BasicBlock_")
+
+
+def _port_module(name: str) -> str:
+    for pre in _BLOCKS:
+        if name.startswith(pre):
+            return f"blocks.{name[len(pre):]}"
+    if name.startswith("Conv_"):
+        return f"conv{name[5:]}"
+    if name.startswith("MultiNodeBatchNormalization_"):
+        return f"bn{name[len('MultiNodeBatchNormalization_'):]}"
+    return name
+
+
+def _flax_module(name: str) -> str:
+    if name.startswith("conv") and name[4:].isdigit():
+        return f"Conv_{name[4:]}"
+    if name.startswith("bn") and name[2:].isdigit():
+        return f"MultiNodeBatchNormalization_{name[2:]}"
+    return name
+
+
+def _walk(tree: Dict, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _walk(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def resnet_params_from_flax(params: Dict, batch_stats: Dict = None,
+                            device=None) -> Dict[str, torch.Tensor]:
+    """The port's ``ResNet`` ``state_dict`` from the JAX package's
+    ``ResNet`` variables as numpy trees (``params`` and, for the BN
+    buffers, ``batch_stats``).  ``device`` None means the current CUDA
+    device (raises where there is none).  Load it with
+    ``model.load_state_dict(...)``."""
+    dev = resolve_device(device, "resnet_params_from_flax")
+    out: Dict[str, torch.Tensor] = {}
+    for tree in (params, batch_stats or {}):
+        for path, leaf in _walk(tree):
+            mods, leaf_name = path[:-1], path[-1]
+            key = ".".join(_port_module(m) for m in mods)
+            arr = np.asarray(leaf)
+            if leaf_name == "kernel" and arr.ndim == 4:
+                out[f"{key}.weight"] = _tensor(arr.transpose(3, 2, 0, 1), dev)
+            elif leaf_name == "kernel" and mods[-1] == "head":
+                out[f"{key}.weight"] = _tensor(arr.T, dev)
+            else:
+                out[f"{key}.{leaf_name}"] = _tensor(arr, dev)
+    return out
+
+
+def resnet_params_to_flax(tensors: Dict[str, torch.Tensor]):
+    """The inverse of :func:`resnet_params_from_flax`: the port's
+    ``ResNet`` tensors (parameters, buffers, or gradients as ``{name:
+    p.grad}``) as ``(params, batch_stats)`` Flax trees of numpy arrays
+    (bf16 read back as float32); BN buffers (``mean``, ``var``) go to
+    ``batch_stats``, everything else to ``params``."""
+    def has(*names):
+        return any(f".{n}." in k for k in tensors for n in names)
+
+    # Only the basic block has a second module and never a third.
+    basic = has("conv1", "bn1") and not has("conv2", "bn2", "fc1")
+    block = "BasicBlock_" if basic else "BottleneckBlock_"
+    params: Dict = {}
+    stats: Dict = {}
+    for key, t in tensors.items():
+        parts = key.split(".")
+        leaf = parts[-1]
+        mods, i = [], 0
+        while i < len(parts) - 1:
+            if parts[i] == "blocks":
+                mods.append(f"{block}{parts[i + 1]}")
+                i += 2
+            else:
+                mods.append(_flax_module(parts[i]))
+                i += 1
+        arr = _np(t)
+        if leaf == "weight" and arr.ndim == 4:
+            leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+        elif leaf == "weight":  # the head
+            leaf, arr = "kernel", arr.T
+        node = stats if leaf in ("mean", "var") else params
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = arr
+    return params, stats

@@ -33,6 +33,8 @@ from chainermn_tpu_torch.optimizers import (
     create_multi_node_optimizer,
 )
 
+from torch_process_state import restore_process_state  # noqa: E402,F401
+
 pytestmark = pytest.mark.tier1
 
 REPO = pathlib.Path(__file__).resolve().parent.parent

@@ -11,6 +11,8 @@ import torch
 
 import chainermn_tpu_torch
 
+from torch_process_state import restore_process_state  # noqa: E402,F401
+
 pytestmark = pytest.mark.tier1
 
 PKG = pathlib.Path(chainermn_tpu_torch.__file__).resolve().parent

@@ -15,7 +15,8 @@ each element to |err| <= rtol |ref| + atol rms(its reference row over the
 head dim), as ``chip_smoke.py`` does: fp32 rtol 1e-5, atol 1e-4 (sums in
 another order); bf16 rtol 2^-7 (each side rounds its output to bf16), atol
 3e-2 (P and dS rounded to bf16 as tensor-core operands); lse |err| <=
-1e-5 |ref| + 1e-5.
+1e-5 |ref| + 1e-5.  The fused 1x1-conv kernel (K6) uses the same measure
+over its output rows, with ``chip_smoke.py``'s ``K6_TOL``.
 """
 
 import importlib
@@ -24,6 +25,7 @@ import math
 import pytest
 import torch
 
+from chainermn_tpu_torch.ops import conv_fused as tcf
 from chainermn_tpu_torch.ops import decode_attention as tda
 
 pytestmark = pytest.mark.cuda
@@ -302,3 +304,92 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(dev):
         tfa.flash_attention_fwd(q, q.bfloat16(), q)
     with pytest.raises(ValueError, match="one device"):
         tfa.flash_attention_fwd(q, q.cpu(), q)
+
+
+# ---------------------------------------------------------- fused conv K6
+#: (N, Cin, Cout) of every K6 launch of a ResNet-50 training step at batch
+#: 256, 224 px, and ragged shapes that divide no tile.
+K6_SHAPES = [
+    (802816, 64, 64), (802816, 64, 256), (802816, 256, 64),
+    (802816, 256, 128), (200704, 128, 512), (200704, 256, 512),
+    (200704, 512, 128), (200704, 512, 256), (50176, 256, 1024),
+    (50176, 512, 1024), (50176, 1024, 256), (50176, 1024, 512),
+    (12544, 512, 2048), (12544, 1024, 2048), (12544, 2048, 512),
+    (1000, 24, 40), (37, 8, 16), (77, 20, 13),
+]
+#: as ``chip_smoke.K6_TOL``: |err| <= rtol |ref| + atol rms(its ref row).
+K6_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),
+          torch.bfloat16: dict(rtol=2 ** -7, atol=1e-4)}
+
+
+def _k6_inputs(dev, N, K, C, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((N, K), generator=g, device=dev).to(dtype)
+    w = (torch.randn((K, C), generator=g, device=dev) / K ** 0.5).to(dtype)
+    s = torch.rand((C,), generator=g, device=dev) + 0.5
+    b = torch.randn((C,), generator=g, device=dev) * 0.1
+    return x, w, s, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "affine"])
+@pytest.mark.parametrize("shape", K6_SHAPES,
+                         ids=["x".join(map(str, s)) for s in K6_SHAPES])
+def test_matmul_affine_matches_plain(dev, shape, relu, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _k6_inputs(dev, *shape, dtype)
+    before = tcf.matmul_affine_fwd.launches
+    got = tcf.matmul_affine_fwd(*args, relu)
+    assert tcf.matmul_affine_fwd.launches == before + 1
+    want = tcf.matmul_affine_reference(*args, relu)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _excess(got, want, K6_TOL[dtype]["rtol"]) <= K6_TOL[dtype]["atol"]
+    if relu:
+        assert float(got.float().min()) >= 0.0
+
+
+def test_matmul_affine_reads_strided_rows(dev):
+    """A row stride larger than Cin (a column slice of a wider matrix)
+    is read in place, and the strided 1x1 conv's subsample is right."""
+    x, w, s, b = _k6_inputs(dev, 300, 48, 40, torch.bfloat16)
+    wide = torch.zeros((300, 64), device=dev, dtype=torch.bfloat16)
+    wide[:, :48] = x
+    got = tcf.matmul_affine_fwd(wide[:, :48], w, s, b)
+    want = tcf.matmul_affine_reference(x, w, s, b)
+    assert _excess(got, want, 2 ** -7) <= K6_TOL[torch.bfloat16]["atol"]
+    x4 = torch.randn((2, 48, 7, 9), device=dev).to(torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    got = tcf.conv1x1_bn_relu(x4, w, s, b, strides=(2, 2))
+    want = tcf.conv1x1_bn_relu(x4.cpu(), w.cpu(), s.cpu(), b.cpu(),
+                               strides=(2, 2))
+    assert got.shape == (2, 4, 5, 40)
+    assert _excess(got.cpu(), want, 2 ** -7) <= K6_TOL[torch.bfloat16][
+        "atol"]
+
+
+def test_matmul_affine_wrapper_never_runs_the_plain_version(dev,
+                                                            monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called on CUDA tensors")
+
+    monkeypatch.setattr(tcf, "matmul_affine_reference", boom)
+    x, w, s, b = _k6_inputs(dev, 256, 64, 64, torch.bfloat16)
+    xs = x.clone().requires_grad_(True)
+    tcf.matmul_affine(xs, w, s, b, True, "pallas").float().sum().backward()
+    torch.cuda.synchronize()
+
+
+def test_matmul_affine_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    x, w, s, b = _k6_inputs(dev, 64, 32, 16, torch.bfloat16)
+    with pytest.raises(TypeError, match="float16"):
+        tcf.matmul_affine_fwd(x.half(), w.half(), s, b)
+    with pytest.raises(TypeError, match="differs"):
+        tcf.matmul_affine_fwd(x, w.float(), s, b)
+    with pytest.raises(TypeError, match="float32"):
+        tcf.matmul_affine_fwd(x, w, s.bfloat16(), b)
+    with pytest.raises(ValueError, match="one device"):
+        tcf.matmul_affine_fwd(x, w, s.cpu(), b)
+    with pytest.raises(ValueError, match="x2d"):
+        tcf.matmul_affine_fwd(x, w[:16], s, b)

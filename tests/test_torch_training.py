@@ -39,6 +39,8 @@ from chainermn_tpu_torch.optimizers import (
 )
 from chainermn_tpu_torch.utils import params_from_flax, params_to_flax
 
+from torch_process_state import restore_process_state  # noqa: E402,F401
+
 pytestmark = pytest.mark.tier1
 
 GRAD_TOL = dict(atol=2e-5, rtol=1e-4)
@@ -225,8 +227,7 @@ def test_unported_optimizer_options_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             create_multi_node_optimizer(adamw(1e-3), comm, **kw)
     opt = create_multi_node_optimizer(adamw(1e-3), comm)
-    for kw in (dict(stateful=True), dict(health_check=True),
-               dict(augment=lambda b: b)):
+    for kw in (dict(health_check=True), dict(augment=lambda b: b)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             opt.make_train_step(lambda m, b: 0.0, **kw)
 
