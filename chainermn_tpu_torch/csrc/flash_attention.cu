@@ -17,9 +17,9 @@
 // about 0.03 ms at 3.35 TB/s, so the tensor cores, not the memory, are the
 // limit.
 //
-// Design.  Each CTA (four warps) owns one 64-row tile of one (batch, head)
-// and loops over the tiles of the other side that the masks admit -- the
-// loop takes the place of the TPU's sequential grid axis:
+// Design.  Each CTA owns one tile of one (batch, head) and loops over the
+// tiles of the other side that the masks admit -- the loop takes the place
+// of the TPU's sequential grid axis:
 //   * forward: a q tile loops over kv tiles with an online softmax (running
 //     max, normalizer, fp32 accumulator); writes O and the per-row
 //     logsumexp;
@@ -28,34 +28,83 @@
 //     writes per-kv-head gradients rounded once (no fp32 per-query-head
 //     partials, no atomics: deterministic);
 //   * dQ: a q tile loops over kv tiles accumulating dQ += dS K.
-// bf16 inputs run on the tensor cores with everything about a warp's 16
-// rows in registers (see the bf16 section); fp32 inputs run exact fp32 on
-// the CUDA cores over shared-memory tiles of 32 rows.  Head dims 32, 64 and
-// 128 are instantiated.  q, k, v and dO are read through (batch, seq,
-// head) strides with a contiguous head dim, so the model's fused qkv
-// projection needs no copy.
+// fp32 inputs run exact fp32 on the CUDA cores over shared-memory tiles of
+// 32 rows.  Head dims 32, 64 and 128 are instantiated.  q, k, v and dO are
+// read through (batch, seq, head) strides with a contiguous head dim, so
+// the model's fused qkv projection needs no copy.
 //
-// One mask definition serves all three kernels (admitted() and the tile
-// ranges below), as the Pallas kernels share _mask_scores/_k_block_range/
+// bf16 forward and dK/dV: TMA-fed, warp-specialised wgmma (hopper.cuh).
+// What held them back.  On an H100 SXM at 700 W an earlier design (four
+// warps of mma.sync fed by ldmatrix from cp.async double buffers, two
+// __syncthreads per tile) ran at 11% and 15% of the operation bound:
+// mma.sync cannot reach Hopper's tensor-core rate, and every warp spent its
+// issue slots on copies and barriers.  Moving the products to wgmma alone
+// gained 5%, because the work around them then set the pace: mask branches
+// on every score of every tile, exp2f's denormal fix-ups, each tile's P.V
+// waited for before the next tile's scores, and -- worst -- wgmmas that
+// ptxas serialized (C7518) because a branch it could not prove
+// warp-uniform (a barrier poll, a lane-0 arrive, the mask's short circuit)
+// ran while a product was in flight.  The design:
+//   * A CTA is three warpgroups.  One producer warp, its warpgroup cut to
+//     40 registers by setmaxnreg, keeps a ring of up to four stages of
+//     shared-memory tiles filled by TMA: 4-D tensor maps over
+//     (D, heads, seq, batch) built from the wrapper's strides, so the
+//     fused-qkv views load with no copy, GQA is the head coordinate and
+//     rows past T or S arrive as zeros; mbarriers count the bytes.  It
+//     copies the per-row segment ids (and, for dK/dV, -lse log2(e) and
+//     delta) beside each tile.
+//   * Two consumer warpgroups (232 registers each) run wgmma, each on a
+//     64-row slice.  Forward: a 128-row q tile against kv tiles of 128
+//     rows; S = Q K^T reads both operands from shared memory; P stays in
+//     registers as the A operand of O += P V, with V read MN-major
+//     (wgmma's transpose bit).  At D = 128 the kv tile stays 128: S (64
+//     registers), O (64) and P (32) fit the register budget and three
+//     stages of K and V fit shared memory.  K and V stages have barriers
+//     of their own: K is released after the tile's softmax, V after its
+//     P.V.  dK/dV: a 128-row kv tile against q tiles of 64 rows; S^T = K
+//     Q^T and dP^T = V dO^T read shared memory; P^T and dS^T stay in
+//     registers as the A operands of dV += P^T dO and dK += dS^T q, with
+//     dO and q MN-major; dK and dV stay in fp32 registers and are rounded
+//     once at the end.
+//   * Tile i's P.V (its dV/dK up to D = 64) runs while tile i + 1's
+//     scores and elementwise work do.
+//   * Only tiles that straddle the causal diagonal, a window edge, a
+//     segment boundary or a ragged tail check admitted() per element; the
+//     two cases are compiled apart.  The softmax scale folds into one FFMA
+//     before ex2.approx.ftz (masked scores give exactly 0).
+//   * The two consumer warpgroups take turns to issue their products
+//     (named barriers; FlashAttention-3's ping-pong), so that one's softmax
+//     runs while the other's products have the tensor cores.
+//   * Every branch taken while a wgmma is in flight is warp-uniform (the
+//     warpgroup index is broadcast by a shuffle, arrivals are predicated,
+//     the mask is bitwise, loads are waited for before products issue, the
+//     first tile is peeled off the loop), so ptxas keeps the wgmmas
+//     asynchronous.
+// Forward CTAs start with the longest causal rows of their head (the
+// grid's x axis runs backwards, as FlashAttention-3's does); dK/dV's kv
+// tile 0, which sees the most q tiles, comes first.
+// The bf16 dQ kernel keeps the earlier design: a 64-row tile per four
+// warps, mma.sync m16n8k16 fed by ldmatrix, cp.async double buffers.
+//
+// One mask definition serves every kernel (admitted() and the tile ranges
+// below), as the Pallas kernels share _mask_scores/_k_block_range/
 // _q_block_range: causal q >= k, window |q - k| < window, segment equality,
 // and the ragged tails q < T, k < S (any T and S; the last tile is masked,
-// not required to divide).  The tile ranges are transposes of each other
-// and only skip tiles with no admitted pair.  Masked pairs contribute p = 0
-// explicitly; a row with no admitted key keeps its max at NEG_INF and
-// writes o = 0 and lse = NEG_INF (-1e30, finite on purpose); the backward
-// gives p = 0 on rows whose lse is NEG_INF, so exp(NEG_INF - NEG_INF) = 1
-// never reaches a sum.  The softmax scale 1/sqrt(D) multiplies the fp32
-// scores (and dK, dQ at the end), equal to the reference's pre-scaled q up
-// to fp32 rounding.
-//
-// Known limits, left for later work: products are mma.sync, not wgmma;
-// tiles stream through cp.async double buffers, not TMA; dK/dV and dQ
-// recompute the scores separately (two kernels, no atomics) as the
-// reference does.
+// not required to divide).  The tile ranges are transposes of each other,
+// take the q and kv tile sizes separately, and only skip tiles with no
+// admitted pair.  Masked pairs contribute p = 0 explicitly; a row with no
+// admitted key keeps its max at NEG_INF and writes o = 0 and lse = NEG_INF
+// (-1e30, finite on purpose); the backward gives p = 0 on rows whose lse is
+// NEG_INF, so exp(NEG_INF - NEG_INF) = 1 never reaches a sum.  The softmax
+// scale 1/sqrt(D) multiplies the fp32 scores (and dK, dQ at the end), equal
+// to the reference's pre-scaled q up to fp32 rounding.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -96,42 +145,55 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // ------------------------------------------------------------ the masks
 // Whether query position qp may attend key position kp (segment ids sq, sk;
-// both 0 when unsegmented).  The one mask definition of all three kernels.
+// both 0 when unsegmented).  The one mask definition of all three kernels;
+// bitwise, not short-circuit, so that it compiles to predicates and not to
+// branches (the wgmma kernels evaluate it while a product is in flight).
 __device__ __forceinline__ bool admitted(const Params& p, int qp, int kp,
                                          int sq, int sk) {
-  return qp < p.T && kp < p.S && (!p.causal || kp <= qp) &&
-         (p.window <= 0 || (qp - kp < p.window && kp - qp < p.window)) &&
-         sq == sk;
+  return (qp < p.T) & (kp < p.S) & (!p.causal | (kp <= qp)) &
+         ((p.window <= 0) | ((qp - kp < p.window) & (kp - qp < p.window))) &
+         (sq == sk);
 }
 
-// [lo, hi) kv tiles that the q tile starting at q0 can attend (forward and
-// dQ).  The transpose of q_tile_range; both skip only tiles in which no
-// pair is admitted.
-__device__ __forceinline__ void k_tile_range(const Params& p, int q0, int bt,
-                                             int& lo, int& hi) {
-  const int q_last = min(q0 + bt, p.T) - 1;
+// [lo, hi) kv tiles of bk rows that the q tile of bq rows starting at q0
+// can attend (forward and dQ).  The transpose of q_tile_range; both skip
+// only tiles in which no pair is admitted.
+__device__ __forceinline__ void k_tile_range(const Params& p, int q0, int bq,
+                                             int bk, int& lo, int& hi) {
+  const int q_last = min(q0 + bq, p.T) - 1;
   int k_first = 0, k_last = p.S - 1;
   if (p.causal) k_last = min(k_last, q_last);
   if (p.window > 0) {
     k_first = max(k_first, q0 - p.window + 1);
     k_last = min(k_last, q_last + p.window - 1);
   }
-  lo = k_first / bt;
-  hi = k_last < k_first ? lo : k_last / bt + 1;
+  lo = k_first / bk;
+  hi = k_last < k_first ? lo : k_last / bk + 1;
 }
 
-// [lo, hi) q tiles that can attend the kv tile starting at k0 (dK/dV).
-__device__ __forceinline__ void q_tile_range(const Params& p, int k0, int bt,
-                                             int& lo, int& hi) {
-  const int k_last = min(k0 + bt, p.S) - 1;
+// [lo, hi) q tiles of bq rows that can attend the kv tile of bk rows
+// starting at k0 (dK/dV).
+__device__ __forceinline__ void q_tile_range(const Params& p, int k0, int bk,
+                                             int bq, int& lo, int& hi) {
+  const int k_last = min(k0 + bk, p.S) - 1;
   int q_first = 0, q_last = p.T - 1;
   if (p.causal) q_first = max(q_first, k0);
   if (p.window > 0) {
     q_first = max(q_first, k0 - p.window + 1);
     q_last = min(q_last, k_last + p.window - 1);
   }
-  lo = q_first / bt;
-  hi = q_last < q_first ? lo : q_last / bt + 1;
+  lo = q_first / bq;
+  hi = q_last < q_first ? lo : q_last / bq + 1;
+}
+
+// Whether admitted() holds for every pair of q rows [q0, q0 + bq) and kv
+// rows [k0, k0 + bk): then the tile needs no mask work.
+__device__ __forceinline__ bool tile_unmasked(const Params& p, int q0, int bq,
+                                              int k0, int bk) {
+  const int q1 = q0 + bq - 1, k1 = k0 + bk - 1;
+  return p.seg_q == nullptr && q1 < p.T && k1 < p.S &&
+         (!p.causal || k1 <= q0) &&
+         (p.window <= 0 || (q1 - k0 < p.window && k1 - q0 < p.window));
 }
 
 // ------------------------------------------------------- shared memory
@@ -259,7 +321,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   for (int i = threadIdx.x; i < kRows * L::ldo; i += kThreads) Os[i] = 0.f;
 
   int lo, hi;
-  k_tile_range(p, q0, kRows, lo, hi);
+  k_tile_range(p, q0, kRows, kRows, lo, hi);
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * kRows;
     __syncthreads();  // the previous tile's P.V is done with K/V/P
@@ -397,7 +459,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   }
 
   int lo, hi;
-  q_tile_range(p, k0, kRows, lo, hi);
+  q_tile_range(p, k0, kRows, kRows, lo, hi);
   // The GQA group's query heads in turn: their sum stays in fp32 and is
   // rounded once at the end.
   for (int g = 0; g < G; ++g) {
@@ -478,7 +540,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   for (int i = threadIdx.x; i < kRows * L::ldo; i += kThreads) dQs[i] = 0.f;
 
   int lo, hi;
-  k_tile_range(p, q0, kRows, lo, hi);
+  k_tile_range(p, q0, kRows, kRows, lo, hi);
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * kRows;
     __syncthreads();
@@ -510,24 +572,21 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
 }
 
 // =================================================================== bf16
-// The tensor-core path.  One warp owns 16 rows of its CTA's 64-row tile
-// and keeps everything about them in registers: the operand fragments of
-// its own rows, the 16 x 64 scores and probabilities, and its fp32
-// accumulators (the FlashAttention-2 layout).  Shared memory holds only the
-// tiles of the other side, read by ldmatrix; products are mma.sync
-// m16n8k16 (bf16 operands, fp32 accumulation).  The score accumulators
-// become the next product's A operand in place (probabilities and dS
-// rounded to bf16 there).  Scores are kept in log2 units so that exp2 does
-// the softmax.
+// The tensor-core path.  Scores are kept in log2 units so that exp2 does
+// the softmax; probabilities and dS are rounded to bf16 where they become
+// the next product's A operand, in registers.
+//
+// The dQ kernel: one warp owns 16 rows of its CTA's 64-row tile and keeps
+// everything about them in registers (the FlashAttention-2 layout); shared
+// memory holds the tiles of the other side, read by ldmatrix; products are
+// mma.sync m16n8k16.  The forward and dK/dV kernels further down are
+// warp-specialised wgmma kernels (see the head of this file).
 
 using bf16 = __nv_bfloat16;
-constexpr int kTile = 64;  // rows per tile, both sides
+using hopper::smem_addr;
+constexpr int kTile = 64;  // rows per tile of the dQ kernel, both sides
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile(
@@ -650,12 +709,14 @@ __device__ __forceinline__ void gemm_nn(float (&c)[NT][4],
   }
 }
 
-// A 16 x 64 tile held as accumulators, as the A operand of the next
-// product (its 64 columns become k), rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4],
-                                         const float (&c)[8][4]) {
+// A 16 x 16KS tile held as accumulators, as the A operand of the next
+// product (its 16KS columns become k), rounded to bf16.  The same layout
+// serves mma.sync and wgmma (hopper.cuh).
+template <int KS>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[KS][4],
+                                         const float (&c)[2 * KS][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
     a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
     a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
@@ -669,17 +730,7 @@ __device__ __forceinline__ void zero(float (&c)[NT][4]) {
   for (int i = 0; i < NT; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
 }
 
-// Whether admitted() holds for every pair of q rows [q0, q0 + 64) and kv
-// rows [k0, k0 + 64): then the tile needs no mask work.
-__device__ __forceinline__ bool tile_unmasked(const Params& p, int q0,
-                                              int k0) {
-  const int q1 = q0 + kTile - 1, k1 = k0 + kTile - 1;
-  return p.seg_q == nullptr && q1 < p.T && k1 < p.S &&
-         (!p.causal || k1 <= q0) &&
-         (p.window <= 0 || (q1 - k0 < p.window && k1 - q0 < p.window));
-}
-
-// Dynamic shared memory of the bf16 kernels: `tiles` operand tiles of
+// Dynamic shared memory of the dQ kernel: `tiles` operand tiles of
 // 64 x (D + 8), then two buffers of three 64-entry per-row arrays.
 __host__ __device__ constexpr size_t bf16_smem(int tiles, int D) {
   return (size_t)tiles * kTile * (D + 8) * sizeof(bf16) +
@@ -689,107 +740,377 @@ __host__ __device__ constexpr size_t bf16_smem(int tiles, int D) {
 // Element e of accumulator tile nt sits at row g (e < 2) or g + 8 and
 // column nt * 8 + 2 * tig + (e & 1), g = lane / 4, tig = lane % 4.
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
-  constexpr int LD = D + 8, KS = D / 16, ND = D / 8, NS = kTile / 8;
-  extern __shared__ __align__(128) char smem[];
-  // Q, then two buffers of (K, V) tiles and of kv segment ids: the next
-  // kv tile loads while the current one is used.
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* KVs = Qs + kTile * LD;  // buffer j: K at 2j, V at 2j + 1 tiles
-  int* sks = reinterpret_cast<int*>(KVs + 4 * kTile * LD);
+// ------------------------------------ warp-specialised wgmma (K1, K2)
+constexpr int kConsumers = 2;  // consumer warpgroups, 64 rows each
+constexpr int kWsThreads = (kConsumers + 1) * 128;  // + the producer's
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+// Shared memory one block may opt in to on sm_90, and the 1024 bytes the
+// kernels keep spare to align their base to a swizzle atom.
+constexpr size_t kSmemOptIn = 232448, kAlignSlack = 1024;
+constexpr int kMaxStages = 4;
 
-  const int nq = (p.T + kTile - 1) / kTile;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * kTile;  // longest rows first
+// The depth of a ring of `per_stage`-byte stages beside `fixed` bytes: as
+// deep as shared memory allows, up to kMaxStages.  (On an H100, two stages
+// starved dK/dV, which holds one stage for its overlapped dV/dK while the
+// next loads -- 35% slower; four and eight timed the same.)
+constexpr int ring_depth(size_t fixed, size_t per_stage) {
+  return (kSmemOptIn - kAlignSlack - fixed) / per_stage < kMaxStages
+             ? (int)((kSmemOptIn - kAlignSlack - fixed) / per_stage)
+             : kMaxStages;
+}
+
+// Walks a ring: stage s, and the parity of the pass over it.
+template <int N>
+struct RingPos {
+  int s = 0, ph = 0;
+  __device__ __forceinline__ void next() {
+    if (++s == N) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+};
+
+// How a bf16 tile with head dim D sits in shared memory (hopper.cuh): boxes
+// of box_cols columns, each a run of `rows` swizzled rows of row_bytes.
+template <int D>
+struct Tiles {
+  static constexpr int box_cols = D < 64 ? D : 64;
+  static constexpr int boxes = D / box_cols;
+  static constexpr uint32_t row_bytes = box_cols * sizeof(bf16);
+  static constexpr uint32_t atom = 8 * row_bytes;  // eight swizzled rows
+  static constexpr uint64_t swizzle =
+      D < 64 ? hopper::kSwizzle64 : hopper::kSwizzle128;
+};
+
+// Descriptor of the K-major operand formed by the 64 rows from r0 of a
+// tile of `rows` rows, at k step kk (columns 16kk .. 16kk + 15).
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int rows, int r0,
+                                           int kk) {
+  using T = Tiles<D>;
+  const int col = kk * 16;
+  return hopper::make_desc(tile + (col / T::box_cols) * rows * T::box_cols +
+                               r0 * T::box_cols + col % T::box_cols,
+                           16, T::atom, T::swizzle);
+}
+
+// Descriptor of the MN-major operand formed by rows 16kk .. 16kk + 15 (the
+// reduction axis) of a tile of `rows` rows, all D columns.
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int rows,
+                                            int kk) {
+  using T = Tiles<D>;
+  return hopper::make_desc(tile + kk * 16 * T::box_cols,
+                           rows * T::row_bytes, T::atom, T::swizzle);
+}
+
+// Rows row0 .. row0 + rows of head `head` of batch b, through `map`, into
+// a tile; rows * D * 2 bytes land on `bar`.
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int rows, int head,
+                                          int row0, int b) {
+  using T = Tiles<D>;
+#pragma unroll
+  for (int j = 0; j < T::boxes; ++j)
+    hopper::tma_load_4d(dst + j * rows * T::box_cols, map, bar,
+                        j * T::box_cols, head, row0, b);
+}
+
+// The first 1024-aligned byte at or after p, a shared-memory pointer.  An
+// offset from p (not integer arithmetic on the address) keeps the pointer
+// known as shared, so that its loads are LDS, not generic.
+__device__ __forceinline__ char* align_1024(char* p) {
+  return p + ((1024u - (hopper::smem_addr(p) & 1023u)) & 1023u);
+}
+
+// 2^x, one MUFU.EX2; x far below -126 gives +0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The forward's online softmax over one tile of raw scores sc (rows row[],
+// kv positions k0 + column): updates the running max m (log2 units) and
+// normalizer l, leaves the tile's probabilities in sc and returns the
+// factor alpha by which the accumulator must be rescaled.  kMasked: the
+// tile straddles a mask edge, so every pair is checked with admitted();
+// a masked score becomes exactly kNegInf and its probability exactly 0.
+template <bool kMasked, int NS>
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[NS][4], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    const Params& p, const int (&row)[2], const int (&sq)[2], int k0,
+    const int* sk, float sl2, int tig) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      if (kMasked) {
+        const int c = nt * 8 + 2 * tig + (e & 1);
+        if (!admitted(p, row[i], k0 + c, sq[i], sk[c])) sc[nt][e] = kNegInf;
+      }
+      mx[i] = fmaxf(mx[i], sc[nt][e]);
+    }
+  }
+  float nm[2];  // -(the new max), the exponent's offset
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float t = quad_max(mx[i]);
+    if (kMasked) t = t > kNegInf * 0.5f ? t * sl2 : kNegInf;
+    else t *= sl2;
+    const float m_new = fmaxf(m[i], t);
+    alpha[i] = ex2(m[i] - m_new);  // 1 while nothing is admitted
+    m[i] = m_new;
+    l[i] *= alpha[i];
+    nm[i] = -m_new;
+  }
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      float pv = ex2(fmaf(sc[nt][e], sl2, nm[i]));
+      if (kMasked && sc[nt][e] == kNegInf) pv = 0.f;
+      l[i] += pv;
+      sc[nt][e] = pv;
+    }
+  }
+}
+
+// dK/dV's elementwise work on one tile: st (S^T, raw) becomes P^T and dpt
+// (dP^T) becomes dS^T = P^T * (dP^T - delta).  Columns are the tile's q
+// rows, whose stats sit in shared memory: nl2_s holds -lse * log2(e) per
+// row (kNegInf for a row whose lse is NEG_INF, so that its p is 0), dl_s
+// its delta.
+template <bool kMasked, int NS>
+__device__ __forceinline__ void probs_and_dscores_t(
+    float (&st)[NS][4], float (&dpt)[NS][4], const float* nl2_s,
+    const float* dl_s, const Params& p, int q0, const int (&key)[2],
+    const int (&sk)[2], const int* sq_s, float sl2, int tig) {
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+    const int c0 = nt * 8 + 2 * tig;
+    const float2 nl2 = *reinterpret_cast<const float2*>(nl2_s + c0);
+    const float2 dl = *reinterpret_cast<const float2*>(dl_s + c0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1, j = e & 1;
+      float pv = ex2(fmaf(st[nt][e], sl2, j ? nl2.y : nl2.x));
+      if (kMasked && !admitted(p, q0 + c0 + j, key[i], sq_s[c0 + j], sk[i]))
+        pv = 0.f;
+      dpt[nt][e] = pv * (dpt[nt][e] - (j ? dl.y : dl.x));
+      st[nt][e] = pv;
+    }
+  }
+}
+
+// Byte offsets of the forward kernel's shared memory (from a 1024-aligned
+// base; the launch adds kAlignSlack bytes for the alignment): the CTA's q
+// tile, then a ring of K tiles, of V tiles and of their kv segment ids, and
+// the barriers.  K and V have barriers of their own: a K stage is free
+// once the tile's scores and softmax are done, its V stage only after
+// the P.V product that runs during the next tile.
+template <int D>
+struct FwdSmem {
+  static constexpr int BM = 64 * kConsumers;  // q rows per CTA
+  static constexpr int BN = 128;              // kv rows per stage
+  static constexpr size_t tile = BN * D * sizeof(bf16);
+  static constexpr int stages =
+      ring_depth(BM * D * sizeof(bf16) + 8, 2 * tile + BN * sizeof(int) + 32);
+  static constexpr size_t q = 0;
+  static constexpr size_t k = q + BM * D * sizeof(bf16);
+  static constexpr size_t v = k + stages * tile;
+  static constexpr size_t seg = v + stages * tile;
+  static constexpr size_t bars = seg + stages * BN * sizeof(int);
+  // q_full, k_full[stages], v_full[stages], k_empty[stages], v_empty[stages]
+  static constexpr size_t total = bars + (1 + 4 * stages) * 8 + kAlignSlack;
+  static_assert(stages >= 2 && total <= kSmemOptIn, "ring does not fit");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Params p) {
+  using L = FwdSmem<D>;
+  constexpr int BM = L::BM, BN = L::BN, ST = L::stages, KS = D / 16,
+                ND = D / 8, NS = BN / 8;
+  extern __shared__ char smem_raw[];
+  char* smem = align_1024(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
+  int* sks = reinterpret_cast<int*>(smem + L::seg);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + ST;
+  uint64_t* k_empty = v_full + ST;
+  uint64_t* v_empty = k_empty + ST;
+
+  const int nq = (p.T + BM - 1) / BM;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * BM;  // longest rows first
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
   const int kh = h / (p.H / p.KH);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const bf16* Qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* Kg = static_cast<const bf16*>(p.k) + b * p.k_sb + kh * p.k_sh;
-  const bf16* Vg = static_cast<const bf16*>(p.v) + b * p.v_sb + kh * p.v_sh;
+  int lo, hi;
+  k_tile_range(p, q0, BM, BN, lo, hi);
+  const int n = hi - lo;
+  const int wg = hopper::warpgroup_index(), warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&k_full[s], 32);  // the producer warp's lanes
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&k_empty[s], 4 * kConsumers);  // consumer warps
+      hopper::mbar_init(&v_empty[s], 4 * kConsumers);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
 
-  load_rows<bf16, kTile, D>(Qs, LD, Qg, p.q_st, q0, p.T);
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  if (wg == kConsumers) {
+    // The producer: one warp issues every load; the warpgroup's registers
+    // go to the consumers.
+    hopper::regs_release<kProducerRegs>();
+    if (warp != 0 || n == 0) return;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(q_full, BM * D * sizeof(bf16));
+      load_tile<D>(Qs, &tq, q_full, BM, h, q0, b);
+    }
+    RingPos<ST> r;
+    for (int it = 0; it < n; ++it, r.next()) {
+      const int k0 = (lo + it) * BN;
+      hopper::mbar_wait(&k_empty[r.s], r.ph ^ 1);
+      int* sk = sks + r.s * BN;
+      for (int i = lane; i < BN; i += 32)
+        sk[i] = (p.seg_k != nullptr && k0 + i < p.S)
+                    ? p.seg_k[(size_t)b * p.S + k0 + i]
+                    : 0;
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&k_full[r.s], L::tile);
+        load_tile<D>(Ks + r.s * BN * D, &tk, &k_full[r.s], BN, kh, k0, b);
+      } else {
+        hopper::mbar_arrive(&k_full[r.s]);  // this lane's segment ids are in
+      }
+      hopper::mbar_wait(&v_empty[r.s], r.ph ^ 1);
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&v_full[r.s], L::tile);
+        load_tile<D>(Vs + r.s * BN * D, &tv, &v_full[r.s], BN, kh, k0, b);
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: rows qw .. qw + 63 of the q tile.
+  hopper::regs_claim<kConsumerRegs>();
+  const int g = lane >> 2, tig = lane & 3;
+  const int qw = q0 + 64 * wg;
+  const int row[2] = {qw + warp * 16 + g, qw + warp * 16 + g + 8};
   int sq[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
     sq[i] = (p.seg_q != nullptr && row[i] < p.T)
                 ? p.seg_q[(size_t)b * p.T + row[i]]
                 : 0;
-  __syncthreads();
-  uint32_t qa[KS][4];
-  load_a<KS>(qa, Qs + warp * 16 * LD, LD);
-
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float o[ND][4];
   zero(o);
   const float sl2 = p.scale * kLog2e;
-  int lo, hi;
-  k_tile_range(p, q0, kTile, lo, hi);
-  auto stage = [&](int kt, int buf) {
-    bf16* dst = KVs + 2 * buf * kTile * LD;
-    load_rows_async<D>(dst, LD, Kg, p.k_st, kt * kTile, p.S);
-    load_rows_async<D>(dst + kTile * LD, LD, Vg, p.v_st, kt * kTile, p.S);
-    load_segments(sks + buf * kTile, p.seg_k, kt * kTile, p.S, b, kTile);
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    hopper::mbar_arrive_if(bar, lane == 0);
   };
-  if (lo < hi) stage(lo, 0);
-  cp_async_commit();
-  for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * kTile, buf = (kt - lo) & 1;
-    if (kt + 1 < hi) stage(kt + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's copies have landed
-    __syncthreads();     // ... everyone's
-    const bf16* Ks = KVs + 2 * buf * kTile * LD;
-    const bf16* Vs = Ks + kTile * LD;
-    const int* sk = sks + buf * kTile;
-    float s[NS][4];
-    zero(s);
-    gemm_nt<KS, NS>(s, qa, Ks, LD);
-    const bool full = tile_unmasked(p, q0, k0);
-    float mx[2] = {kNegInf, kNegInf};
+  // The loop below issues tile i's scores and tile i - 1's P.V together
+  // and runs tile i's softmax while P.V does.  Its body has no branch on
+  // whether a P.V is pending (tile 0 is peeled off): ptxas's analysis does
+  // not see that two such branches agree, and on the path where they would
+  // not, the rescale of O would touch a product in flight -- it then
+  // serializes every wgmma (C7515).  A slice with no admitted pair in a
+  // tile is computed like any other, its probabilities all 0.
+  float sc[NS][4], alpha[2];
+  uint32_t pa[BN / 16][4];  // P of the tile whose P.V is next
+  auto scores = [&](int s) {
+    zero(sc);
+    hopper::fence_acc(sc);
+    hopper::wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
+    for (int kk = 0; kk < KS; ++kk)
+      hopper::wgmma_ss<0, 0>(sc, desc_k<D>(Qs, BM, 64 * wg, kk),
+                             desc_k<D>(Ks + s * BN * D, BN, 0, kk), kk);
+    hopper::wgmma_commit();
+  };
+  auto softmax = [&](int k0, int s) {  // S is done
+    hopper::fence_acc(sc);
+    const int* sk = sks + s * BN;
+    if (tile_unmasked(p, qw, 64, k0, BN)) {
+      online_softmax<false>(sc, m, l, alpha, p, row, sq, k0, sk, sl2, tig);
+    } else {
+      online_softmax<true>(sc, m, l, alpha, p, row, sq, k0, sk, sl2, tig);
+    }
+    release(&k_empty[s]);  // K and its segment ids are read
+  };
+  auto pv = [&](int s) {  // O += P V, V of stage s
+    hopper::wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, c = nt * 8 + 2 * tig + (e & 1);
-        float x = s[nt][e] * sl2;
-        if (!full && !admitted(p, row[i], k0 + c, sq[i], sk[c])) x = kNegInf;
-        s[nt][e] = x;
-        mx[i] = fmaxf(mx[i], x);
+    for (int kk = 0; kk < BN / 16; ++kk)
+      hopper::wgmma_rs<1>(o, pa[kk], desc_mn<D>(Vs + s * BN * D, BN, kk), 1);
+    hopper::wgmma_commit();
+  };
+  // The two consumer warpgroups take turns to issue their products (named
+  // barriers 1 and 2; FlashAttention-3's ping-pong), so that while one
+  // runs its softmax the other's products have the tensor cores.
+  // Warpgroup 0 goes first; warpgroup 1's last turn hands over to no one.
+  auto my_turn = [&]() { hopper::named_sync(1 + wg, 256); };
+  auto your_turn = [&]() { hopper::named_arrive(2 - wg, 256); };
+  if (n > 0) {
+    hopper::mbar_wait(q_full, 0);
+    if (wg == 1) your_turn();
+    RingPos<ST> r;
+    hopper::mbar_wait(&k_full[0], 0);
+    my_turn();
+    scores(0);
+    your_turn();
+    hopper::wgmma_wait<0>();
+    softmax(lo * BN, 0);  // O is still 0: no rescale
+    acc_to_a(pa, sc);
+    int prev = 0, prev_ph = 0;
+    r.next();
+    for (int it = 1; it < n; ++it, r.next()) {
+      const int k0 = (lo + it) * BN;
+      // Loads are waited for before products issue: a polling loop while
+      // a wgmma is in flight is a divergent path.
+      hopper::mbar_wait(&k_full[r.s], r.ph);
+      hopper::mbar_wait(&v_full[prev], prev_ph);
+      my_turn();
+      scores(r.s);
+      pv(prev);
+      your_turn();
+      hopper::wgmma_wait<1>();  // S is done; P.V may still run
+      softmax(k0, r.s);
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(o);
+      release(&v_empty[prev]);
+#pragma unroll
+      for (int dt = 0; dt < ND; ++dt) {
+        o[dt][0] *= alpha[0];
+        o[dt][1] *= alpha[0];
+        o[dt][2] *= alpha[1];
+        o[dt][3] *= alpha[1];
       }
+      acc_to_a(pa, sc);
+      prev = r.s;
+      prev_ph = r.ph;
     }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = exp2f(m[i] - m_new);  // 1 while nothing is admitted
-      m[i] = m_new;
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const float pv =
-            s[nt][e] > kNegInf * 0.5f ? exp2f(s[nt][e] - m[i]) : 0.f;
-        l[i] += pv;
-        s[nt][e] = pv;
-      }
-    }
-#pragma unroll
-    for (int dt = 0; dt < ND; ++dt) {
-      o[dt][0] *= alpha[0];
-      o[dt][1] *= alpha[0];
-      o[dt][2] *= alpha[1];
-      o[dt][3] *= alpha[1];
-    }
-    uint32_t pa[4][4];
-    acc_to_a(pa, s);
-    gemm_nn<4, ND>(o, pa, Vs, LD);
-    __syncthreads();  // every warp is done with this buffer before reuse
+    hopper::mbar_wait(&v_full[prev], prev_ph);
+    my_turn();
+    pv(prev);
+    if (wg == 0) your_turn();
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(o);
   }
 
   bf16* Og = static_cast<bf16*>(p.out);
@@ -853,7 +1174,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(Params p) {
   zero(dq);
   const float sl2 = p.scale * kLog2e;
   int lo, hi;
-  k_tile_range(p, q0, kTile, lo, hi);
+  k_tile_range(p, q0, kTile, kTile, lo, hi);
   auto stage = [&](int kt, int buf) {
     bf16* dst = KVs + 2 * buf * kTile * LD;
     load_rows_async<D>(dst, LD, Kg, p.k_st, kt * kTile, p.S);
@@ -886,7 +1207,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(Params p) {
       load_a<KS>(da, dOs + warp * 16 * LD, LD);
       gemm_nt<KS, NS>(dp, da, Vs, LD);
     }
-    const bool full = tile_unmasked(p, q0, k0);
+    const bool full = tile_unmasked(p, q0, kTile, k0, kTile);
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt) {
 #pragma unroll
@@ -916,113 +1237,237 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(Params p) {
   }
 }
 
+// Byte offsets of the dK/dV kernel's shared memory (from a 1024-aligned
+// base): the CTA's K and V tiles, then a ring of q and dO tiles with the
+// q rows' segment ids and stats, and the barriers.
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16(Params p) {
-  constexpr int LD = D + 8, KS = D / 16, ND = D / 8, NS = kTile / 8;
-  extern __shared__ __align__(128) char smem[];
-  // K and V, then two buffers of (q, dO) tiles and of the q rows' segment
-  // ids, lse and delta: the next q tile loads while the current one is used.
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kTile * LD;
-  bf16* QDs = Vs + kTile * LD;  // buffer j: q at 2j, dO at 2j + 1 tiles
-  int* rows_s = reinterpret_cast<int*>(QDs + 4 * kTile * LD);
+struct DkvSmem {
+  static constexpr int BK = 64 * kConsumers;  // kv rows per CTA
+  static constexpr int BQ = 64;               // q rows per stage
+  // Up to D = 64 a tile's dV/dK products overlap the next tile's scores
+  // and elementwise work, which keeps a second set of P^T/dS^T fragments
+  // live and releases each stage one tile later; at D = 128 dK and dV
+  // alone take 128 registers and leave none for it.  (128-row q tiles
+  // would widen the score products but spill; they ran 14% slower.)
+  static constexpr bool overlap = D <= 64;
+  static constexpr size_t tile = BQ * D * sizeof(bf16);
+  // per stage: q and dO tiles; seg_q[BQ] (int), -lse log2(e)[BQ] and
+  // delta[BQ] (fp32); two barriers
+  static constexpr int stages =
+      ring_depth(2 * BK * D * sizeof(bf16) + 8, 2 * tile + 3 * BQ * 4 + 16);
+  static constexpr size_t k = 0;
+  static constexpr size_t v = k + BK * D * sizeof(bf16);
+  static constexpr size_t q = v + BK * D * sizeof(bf16);
+  static constexpr size_t dout = q + stages * tile;
+  static constexpr size_t rows = dout + stages * tile;
+  static constexpr size_t bars = rows + stages * 3 * BQ * 4;
+  // kv_full, full[stages], empty[stages]
+  static constexpr size_t total = bars + (1 + 2 * stages) * 8 + kAlignSlack;
+  static_assert(stages >= 2 && total <= kSmemOptIn, "ring does not fit");
+};
 
-  const int k0 = blockIdx.x * kTile;
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const Params p) {
+  using L = DkvSmem<D>;
+  constexpr int BK = L::BK, BQ = L::BQ, ST = L::stages, KS = D / 16,
+                ND = D / 8, NS = BQ / 8;
+  extern __shared__ char smem_raw[];
+  char* smem = align_1024(smem_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
+  bf16* dOs = reinterpret_cast<bf16*>(smem + L::dout);
+  int* rows_s = reinterpret_cast<int*>(smem + L::rows);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + ST;
+
+  const int k0 = blockIdx.x * BK;
   const int b = blockIdx.y / p.KH, kh = blockIdx.y % p.KH;
   const int G = p.H / p.KH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const bf16* Kg = static_cast<const bf16*>(p.k) + b * p.k_sb + kh * p.k_sh;
-  const bf16* Vg = static_cast<const bf16*>(p.v) + b * p.v_sb + kh * p.v_sh;
+  int lo, hi;
+  q_tile_range(p, k0, BK, BQ, lo, hi);
+  // Iteration it visits q tile lo + it % nqt of the GQA group's query head
+  // it / nqt: the group's heads in turn, their sum kept in fp32 and rounded
+  // once at the end.
+  const int nqt = hi - lo, total = G * nqt;
+  const int wg = hopper::warpgroup_index(), warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 32);  // the producer warp's lanes
+      hopper::mbar_init(&empty[s], 4 * kConsumers);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
 
-  load_rows<bf16, kTile, D>(Ks, LD, Kg, p.k_st, k0, p.S);
-  load_rows<bf16, kTile, D>(Vs, LD, Vg, p.v_st, k0, p.S);
-  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  if (wg == kConsumers) {
+    hopper::regs_release<kProducerRegs>();
+    if (warp != 0 || total == 0) return;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(kv_full, 2 * BK * D * sizeof(bf16));
+      load_tile<D>(Ks, &tk, kv_full, BK, kh, k0, b);
+      load_tile<D>(Vs, &tv, kv_full, BK, kh, k0, b);
+    }
+    RingPos<ST> r;
+    for (int it = 0; it < total; ++it, r.next()) {
+      const int h = kh * G + it / nqt, q0 = (lo + it % nqt) * BQ;
+      hopper::mbar_wait(&empty[r.s], r.ph ^ 1);
+      int* sq = rows_s + 3 * BQ * r.s;
+      float* nl2 = reinterpret_cast<float*>(sq + BQ);
+      for (int i = lane; i < BQ; i += 32) {
+        const int qp = q0 + i;
+        const bool in = qp < p.T;
+        const size_t off = ((size_t)b * p.H + h) * p.T + qp;
+        const float lse = in ? p.lse[off] : kNegInf;
+        sq[i] = (p.seg_q != nullptr && in) ? p.seg_q[(size_t)b * p.T + qp]
+                                           : 0;
+        nl2[i] = lse > kNegInf * 0.5f ? -lse * kLog2e : kNegInf;
+        nl2[BQ + i] = in ? p.delta[off] : 0.f;
+      }
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&full[r.s], 2 * L::tile);
+        load_tile<D>(Qs + r.s * BQ * D, &tq, &full[r.s], BQ, h, q0, b);
+        load_tile<D>(dOs + r.s * BQ * D, &tdo, &full[r.s], BQ, h, q0, b);
+      } else {
+        hopper::mbar_arrive(&full[r.s]);
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: kv rows kw .. kw + 63 of the CTA's tile.
+  hopper::regs_claim<kConsumerRegs>();
+  const int g = lane >> 2, tig = lane & 3;
+  const int kw = k0 + 64 * wg;
+  const int key[2] = {kw + warp * 16 + g, kw + warp * 16 + g + 8};
   int sk[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
     sk[i] = (p.seg_k != nullptr && key[i] < p.S)
                 ? p.seg_k[(size_t)b * p.S + key[i]]
                 : 0;
-
   float dk[ND][4], dv[ND][4];
   zero(dk);
   zero(dv);
   const float sl2 = p.scale * kLog2e;
-  int lo, hi;
-  q_tile_range(p, k0, kTile, lo, hi);
-  // Iteration it visits q tile lo + it % nqt of the GQA group's query head
-  // it / nqt: the group's heads in turn, their sum kept in fp32 and rounded
-  // once at the end.
-  const int nqt = hi - lo, total = G * nqt;
-  auto stage = [&](int it, int buf) {
-    const int h = kh * G + it / nqt, q0 = (lo + it % nqt) * kTile;
-    bf16* dst = QDs + 2 * buf * kTile * LD;
-    load_rows_async<D>(dst, LD,
-                       static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh,
-                       p.q_st, q0, p.T);
-    load_rows_async<D>(dst + kTile * LD, LD,
-                       static_cast<const bf16*>(p.dout) + b * p.do_sb +
-                           h * p.do_sh,
-                       p.do_st, q0, p.T);
-    int* sq = rows_s + 3 * buf * kTile;
-    float* lse = reinterpret_cast<float*>(sq + kTile);
-    load_segments(sq, p.seg_q, q0, p.T, b, kTile);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const int qp = q0 + i;
-      const size_t off = ((size_t)b * p.H + h) * p.T + qp;
-      lse[i] = qp < p.T ? p.lse[off] : kNegInf;
-      lse[kTile + i] = qp < p.T ? p.delta[off] : 0.f;
-    }
-  };
-  if (total > 0) stage(0, 0);
-  cp_async_commit();
-  for (int it = 0; it < total; ++it) {
-    const int q0 = (lo + it % nqt) * kTile, buf = it & 1;
-    if (it + 1 < total) stage(it + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // this q tile is in place
-    const bf16* Qs = QDs + 2 * buf * kTile * LD;
-    const bf16* dOs = Qs + kTile * LD;
-    const int* sq_s = rows_s + 3 * buf * kTile;
-    const float* lse_s = reinterpret_cast<const float*>(sq_s + kTile);
-    const float* delta_s = lse_s + kTile;
-    // Transposed scores: rows are this warp's 16 keys, columns the 64 q.
-    float st[NS][4], dpt[NS][4];
+  // As in the forward, the overlapped loop issues tile i's score products
+  // and tile i - 1's dV/dK together, with no branch on whether a product
+  // is pending (tile 0 is peeled off), and a slice with no admitted pair
+  // in a tile is computed like any other.
+  // Transposed scores: rows are this warpgroup's 64 keys, columns the
+  // tile's q rows.
+  float st[NS][4], dpt[NS][4];
+  uint32_t pa[BQ / 16][4], da[BQ / 16][4];  // P^T, dS^T of the next dV/dK
+  auto scores = [&](int s) {
     zero(st);
     zero(dpt);
-    {
-      uint32_t ka[KS][4];
-      load_a<KS>(ka, Ks + warp * 16 * LD, LD);
-      gemm_nt<KS, NS>(st, ka, Qs, LD);   // S^T = K Q^T
-    }
-    {
-      uint32_t va[KS][4];
-      load_a<KS>(va, Vs + warp * 16 * LD, LD);
-      gemm_nt<KS, NS>(dpt, va, dOs, LD);  // dP^T = V dO^T
-    }
-    const bool full = tile_unmasked(p, q0, k0);
+    hopper::fence_acc(st);
+    hopper::fence_acc(dpt);
+    hopper::wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
+    for (int kk = 0; kk < KS; ++kk)  // S^T = K Q^T
+      hopper::wgmma_ss<0, 0>(st, desc_k<D>(Ks, BK, 64 * wg, kk),
+                             desc_k<D>(Qs + s * BQ * D, BQ, 0, kk), kk);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, c = nt * 8 + 2 * tig + (e & 1);
-        const float lse = lse_s[c];
-        const bool ok =
-            lse > kNegInf * 0.5f &&
-            (full || admitted(p, q0 + c, key[i], sq_s[c], sk[i]));
-        const float pv = ok ? exp2f(st[nt][e] * sl2 - lse * kLog2e) : 0.f;
-        dpt[nt][e] = pv * (dpt[nt][e] - delta_s[c]);  // dS^T
-        st[nt][e] = pv;                               // P^T
+    for (int kk = 0; kk < KS; ++kk)  // dP^T = V dO^T
+      hopper::wgmma_ss<0, 0>(dpt, desc_k<D>(Vs, BK, 64 * wg, kk),
+                             desc_k<D>(dOs + s * BQ * D, BQ, 0, kk), kk);
+    hopper::wgmma_commit();
+  };
+  auto probs = [&](int it, int s) {  // the scores are done: P^T, dS^T
+    hopper::fence_acc(st);
+    hopper::fence_acc(dpt);
+    const int q0 = (lo + it % nqt) * BQ;
+    const int* sq_s = rows_s + 3 * BQ * s;
+    const float* nl2_s = reinterpret_cast<const float*>(sq_s + BQ);
+    if (tile_unmasked(p, q0, BQ, kw, 64)) {
+      probs_and_dscores_t<false>(st, dpt, nl2_s, nl2_s + BQ, p, q0, key, sk,
+                                 sq_s, sl2, tig);
+    } else {
+      probs_and_dscores_t<true>(st, dpt, nl2_s, nl2_s + BQ, p, q0, key, sk,
+                                sq_s, sl2, tig);
+    }
+  };
+  auto grads = [&](int s) {  // dV += P^T dO, dK += dS^T q of stage s
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      hopper::wgmma_rs<1>(dv, pa[kk], desc_mn<D>(dOs + s * BQ * D, BQ, kk),
+                          1);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      hopper::wgmma_rs<1>(dk, da[kk], desc_mn<D>(Qs + s * BQ * D, BQ, kk), 1);
+    hopper::wgmma_commit();
+  };
+  auto retire = [&](int s) {  // every product is done; stage s is free
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(dv);
+    hopper::fence_acc(dk);
+    __syncwarp();
+    hopper::mbar_arrive_if(&empty[s], lane == 0);
+  };
+  // The two consumer warpgroups take turns to issue their products (named
+  // barriers 1 and 2; FlashAttention-3's ping-pong), so that while one
+  // runs its softmax the other's products have the tensor cores.
+  // Warpgroup 0 goes first; warpgroup 1's last turn hands over to no one.
+  auto my_turn = [&]() { hopper::named_sync(1 + wg, 256); };
+  auto your_turn = [&]() { hopper::named_arrive(2 - wg, 256); };
+  if (total > 0) {
+    hopper::mbar_wait(kv_full, 0);
+    if (wg == 1) your_turn();
+    RingPos<ST> r;
+    if constexpr (L::overlap) {
+      hopper::mbar_wait(&full[0], 0);
+      my_turn();
+      scores(0);
+      your_turn();
+      hopper::wgmma_wait<0>();
+      probs(0, 0);
+      acc_to_a(pa, st);
+      acc_to_a(da, dpt);
+      int prev = 0;
+      r.next();
+      for (int it = 1; it < total; ++it, r.next()) {
+        hopper::mbar_wait(&full[r.s], r.ph);
+        my_turn();
+        scores(r.s);
+        grads(prev);
+        your_turn();
+        hopper::wgmma_wait<1>();  // the scores are done; dV/dK may run
+        probs(it, r.s);
+        retire(prev);
+        acc_to_a(pa, st);
+        acc_to_a(da, dpt);
+        prev = r.s;
+      }
+      my_turn();
+      grads(prev);
+      if (wg == 0) your_turn();
+      retire(prev);
+    } else {
+      for (int it = 0; it < total; ++it, r.next()) {
+        hopper::mbar_wait(&full[r.s], r.ph);
+        my_turn();
+        scores(r.s);
+        your_turn();
+        hopper::wgmma_wait<0>();
+        probs(it, r.s);
+        acc_to_a(pa, st);
+        acc_to_a(da, dpt);
+        my_turn();
+        grads(r.s);
+        if (wg == 0 || it + 1 < total) your_turn();
+        retire(r.s);
       }
     }
-    uint32_t a[4][4];
-    acc_to_a(a, st);
-    gemm_nn<4, ND>(dv, a, dOs, LD);  // dV += P^T dO
-    acc_to_a(a, dpt);
-    gemm_nn<4, ND>(dk, a, Qs, LD);   // dK += dS^T q
-    __syncthreads();  // every warp is done with this buffer before reuse
   }
 
   bf16* dKg = static_cast<bf16*>(p.out);
@@ -1046,16 +1491,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16(Params p) {
 // The shared-memory opt-in is set on a kernel's first launch only, so
 // later launches (for example inside a CUDA-graph capture) make no call
 // but the launch itself.
-template <typename K>
-int launch_one(K kernel, bool& opted_in, size_t smem, dim3 grid,
-               const Params& p, cudaStream_t stream) {
+template <typename K, typename... Args>
+int launch_one(K kernel, bool& opted_in, size_t smem, dim3 grid, int threads,
+               cudaStream_t stream, const Args&... args) {
   if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
   }
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -1068,44 +1513,138 @@ int launch_f32(int which, const Params& p, cudaStream_t stream) {
   switch (which) {
     case 0:
       return launch_one(flash_fwd_kernel<D>, opted_in[0], smem,
-                        dim3(nq, p.B * p.H), p, stream);
+                        dim3(nq, p.B * p.H), kThreads, stream, p);
     case 1:
       return launch_one(flash_bwd_dkv_kernel<D>, opted_in[1], smem,
-                        dim3(nk, p.B * p.KH), p, stream);
+                        dim3(nk, p.B * p.KH), kThreads, stream, p);
     case 2:
       return launch_one(flash_bwd_dq_kernel<D>, opted_in[2], smem,
-                        dim3(nq, p.B * p.H), p, stream);
+                        dim3(nq, p.B * p.H), kThreads, stream, p);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+// The TMA tensor maps of one launch: 4-D over (D, heads, seq, batch).
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+// Error codes above this one are cuTensorMapEncodeTiled's CUresult plus
+// it (cmn_flash_error_string names them); below, cudaError_t.
+constexpr int kEncodeError = 100000;
+
 template <int D>
-int launch_bf16(int which, const Params& p, cudaStream_t stream) {
+int launch_bf16(int which, const Params& p, const Maps& m,
+                cudaStream_t stream) {
   static bool opted_in[3] = {false, false, false};
-  const int nq = (p.T + kTile - 1) / kTile;
-  const int nk = (p.S + kTile - 1) / kTile;
   switch (which) {
-    case 0:
-      return launch_one(flash_fwd_bf16<D>, opted_in[0], bf16_smem(5, D),
-                        dim3(nq, p.B * p.H), p, stream);
-    case 1:
-      return launch_one(flash_bwd_dkv_bf16<D>, opted_in[1], bf16_smem(6, D),
-                        dim3(nk, p.B * p.KH), p, stream);
+    case 0: {
+      using L = FwdSmem<D>;
+      return launch_one(flash_fwd_bf16<D>, opted_in[0], L::total,
+                        dim3((p.T + L::BM - 1) / L::BM, p.B * p.H),
+                        kWsThreads, stream, m.q, m.k, m.v, p);
+    }
+    case 1: {
+      using L = DkvSmem<D>;
+      return launch_one(flash_bwd_dkv_bf16<D>, opted_in[1], L::total,
+                        dim3((p.S + L::BK - 1) / L::BK, p.B * p.KH),
+                        kWsThreads, stream, m.q, m.k, m.v, m.dout, p);
+    }
     case 2:
       return launch_one(flash_bwd_dq_bf16<D>, opted_in[2], bf16_smem(6, D),
-                        dim3(nq, p.B * p.H), p, stream);
+                        dim3((p.T + kTile - 1) / kTile, p.B * p.H), kThreads,
+                        stream, p);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that the library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// The map of a bf16 (B, len, heads, D) tensor read through element strides
+// (sb, st, sh), in boxes of `rows` rows and min(D, 64) columns, with the
+// swizzle that the wgmma descriptors assume (hopper.cuh).  0, or an error
+// code.
+int encode_map(CUtensorMap* map, const void* base, int D, int heads, int len,
+               int B, long long sb, long long st, long long sh, int rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)len, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)(D < 64 ? D : 64), 1,
+                             (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // rows past len read as 0
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
+}
+
+// Encodes the maps that kernel `which` reads (forward: q in 128-row boxes,
+// k and v in 128; dK/dV: q and dO in 64, k and v in 128).
+int encode_maps(int which, const Params& p, int D, Maps& m) {
+  const int q_rows = which == 0 ? FwdSmem<64>::BM : DkvSmem<64>::BQ;
+  const int kv_rows = which == 0 ? FwdSmem<64>::BN : DkvSmem<64>::BK;
+  int rc = encode_map(&m.q, p.q, D, p.H, p.T, p.B, p.q_sb, p.q_st, p.q_sh,
+                      q_rows);
+  if (!rc)
+    rc = encode_map(&m.k, p.k, D, p.KH, p.S, p.B, p.k_sb, p.k_st, p.k_sh,
+                    kv_rows);
+  if (!rc)
+    rc = encode_map(&m.v, p.v, D, p.KH, p.S, p.B, p.v_sb, p.v_st, p.v_sh,
+                    kv_rows);
+  if (!rc && which == 1)
+    rc = encode_map(&m.dout, p.dout, D, p.H, p.T, p.B, p.do_sb, p.do_st,
+                    p.do_sh, q_rows);
+  return rc;
 }
 
 template <int D>
 int launch_dim(int which, const Params& p, int dtype, cudaStream_t stream) {
   switch (dtype) {
-    case kF32: return launch_f32<D>(which, p, stream);
-    case kBF16: return launch_bf16<D>(which, p, stream);
-    default: return (int)cudaErrorInvalidValue;
+    case kF32:
+      return launch_f32<D>(which, p, stream);
+    case kBF16: {
+      Maps m;
+      if (which == 0 || which == 1) {
+        const int rc = encode_maps(which, p, D, m);
+        if (rc) return rc;
+      }
+      return launch_bf16<D>(which, p, m, stream);
+    }
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -1115,7 +1654,10 @@ extern "C" {
 
 // which: 0 forward (out = o, lse_out = lse), 1 dK/dV (out = dk, out2 = dv),
 // 2 dQ (out = dq).  Strides are in elements; the head dim is contiguous.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// bf16 forward and dK/dV read q, k, v and dO through TMA, which takes a
+// base and strides that are multiples of 16 bytes (the wrapper makes other
+// inputs contiguous).  Returns 0 when launched, else cudaGetLastError()
+// after the launch or kEncodeError + the CUresult of a refused tensor map.
 int cmn_flash_attention(int which, const void* q, const void* k,
                         const void* v, const void* dout, const void* lse,
                         const void* delta, const void* seg_q,
@@ -1170,6 +1712,9 @@ int cmn_flash_attention(int which, const void* q, const void* k,
 }
 
 const char* cmn_flash_error_string(int code) {
+  if (code >= kEncodeError)
+    return "cuTensorMapEncodeTiled refused a tensor map (CUresult = code - "
+           "100000)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

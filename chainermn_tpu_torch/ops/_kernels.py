@@ -3,8 +3,9 @@
 Each source under ``chainermn_tpu_torch/csrc/`` exposes a plain C
 interface.  It is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library the first time a wrapper needs it, keyed by a hash of the
-source and the flags, under ``chainermn_tpu_torch/_build/`` (listed in
-``.gitignore``), and loaded with :mod:`ctypes`.  Nothing is compiled when
+source, the headers it includes and the flags, under
+``chainermn_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded
+with :mod:`ctypes`.  Nothing is compiled when
 this module is imported: the CPU tests import every module of the port and
 never build anything.
 
@@ -18,12 +19,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -57,10 +59,30 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header it includes with quotes,
+    recursively (the headers sit beside it in ``csrc/``)."""
+    todo, seen = [CSRC_DIR / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC_DIR / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{tag[:16]}.so"
+    """The library's path, keyed by the source, its headers and the
+    flags: a changed header rebuilds it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources_of(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:
@@ -107,3 +129,46 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _libs[name] = lib
         return lib
+
+
+#: the instructions :func:`sass_counts` counts: Hopper's warpgroup product,
+#: the warp-level product of earlier generations, and the TMA tile load.
+SASS_OPCODES = ("HGMMA", "HMMA", "UTMALDG")
+_FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)", re.MULTILINE)
+_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def sass_counts(text: str) -> Dict[str, Dict[str, int]]:
+    """Per function of a ``cuobjdump -sass`` listing, how many of its
+    instructions are each of :data:`SASS_OPCODES` (by the opcode before
+    its first ``.``)."""
+    out: Dict[str, Dict[str, int]] = {}
+    marks = list(_FUNCTION.finditer(text))
+    for i, m in enumerate(marks):
+        end = marks[i + 1].start() if i + 1 < len(marks) else len(text)
+        counts = dict.fromkeys(SASS_OPCODES, 0)
+        for op in _OPCODE.findall(text, m.end(), end):
+            if op in counts:
+                counts[op] += 1
+        out[m.group(1)] = counts
+    return out
+
+
+_SERIALIZED = re.compile(
+    r"\(C75\d\d\) Potential Performance Loss: wgmma\.mma_async "
+    r"instructions are serialized[^']*'([^']+)'")
+
+
+def serialized_wgmma(log: str) -> List[str]:
+    """The functions whose ``wgmma`` instructions ptxas serialized (each
+    waited for before the next issues), from the C75xx warnings of an
+    ``nvcc -Xptxas -v`` log such as :data:`build_logs` holds."""
+    return sorted(set(_SERIALIZED.findall(log)))
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of the built library of ``csrc/<name>.cu``."""
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    lib = build([name])[name]
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout

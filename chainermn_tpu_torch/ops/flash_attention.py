@@ -25,8 +25,10 @@ on the CPU or launches its kernel for tensors on a CUDA device.  There is
 no fallback: a CUDA tensor the kernel does not take raises.  Each counts
 its launches in a plain integer attribute (``flash_attention_fwd.launches``
 and so on).  Inputs are read through their strides when the head dim is
-contiguous and every stride and the base are 16-byte aligned; otherwise
-the wrapper makes a contiguous copy (the model's fused ``qkv`` views need
+contiguous and every other stride and the base are positive multiples of
+16 bytes (the bf16 forward and dK/dV kernels load through TMA tensor maps
+built from those strides; a map the driver refuses raises); otherwise the
+wrapper makes a contiguous copy (the model's fused ``qkv`` views need
 none).
 
 :class:`FlashAttentionFunction` ties them together with the reference's
@@ -171,12 +173,16 @@ def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, seg_q=None,
 
 # ------------------------------------------------------------- checks
 def _kernel_view(t):
-    """``t`` as the kernel reads it: head dim contiguous, base and strides
-    16-byte aligned -- else a contiguous copy."""
+    """``t`` as the kernels read it -- head dim contiguous, the base and
+    every other stride a positive multiple of 16 bytes (the rule of the TMA
+    tensor maps through which the bf16 forward and dK/dV kernels load, and
+    of the 16-byte loads of the others) -- else an aligned contiguous copy."""
     per = 16 // t.element_size()
     if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
-            s % per for s in t.stride()[:-1]):
-        t = t.contiguous()
+            s <= 0 or s % per for s in t.stride()[:-1]):
+        # A fresh allocation: ``contiguous()`` would keep a contiguous
+        # tensor whose base is off by a few bytes.
+        t = t.clone(memory_format=torch.contiguous_format)
     return t
 
 

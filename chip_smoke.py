@@ -10,7 +10,11 @@ Phases, each printing one JSON line on stdout:
    name and power limit as ``nvidia-smi`` reports them.
 2. ``build``: ``nvcc`` compiles every source under
    ``chainermn_tpu_torch/csrc/`` for sm_90a, all at once (the ptxas
-   report of registers, shared memory and spills goes to stderr).
+   report of registers, shared memory and spills goes to stderr); then
+   ``flash_sass``: the count of ``HGMMA`` (wgmma), ``HMMA`` (mma.sync) and
+   ``UTMALDG`` (TMA loads) in each bf16 flash function of ``cuobjdump
+   -sass``, printed before the check that the forward and dK/dV kernels
+   have wgmma and TMA and no mma.sync.
 3. ``parity``: each hand-written kernel against its plain PyTorch version
    on the same inputs at the serving model's shapes: fp32 (atol 1e-4:
    sums in another order), bf16 (atol 2e-2: one bf16 rounding of O(1)
@@ -104,6 +108,13 @@ Then come the ``kernels`` line,
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  A
 failed check raises and exits non-zero before the last line; without a
 CUDA device the script exits 2 at once.
+
+    python3 chip_smoke.py --compare-with DIR
+
+runs none of the above: it times the flash kernels (phase 9) and the LM
+flash-arm step (phase 10's first arm) of the checkout DIR and of this one
+in turns, DIR, this, this, DIR, each in a process of its own, and prints
+every line with its tree.
 """
 
 from __future__ import annotations
@@ -741,6 +752,22 @@ FLASH_CASES = {
     "gqa_12_4": (1, 256, 256, 12, 4, dict(causal=True)),
     "mqa": (1, 192, 192, 4, 1, dict(causal=True, window=40)),
     "ragged_1000": (1, 1000, 1000, 2, 2, dict(causal=True)),
+    # The wgmma kernels' tile edges (q tiles of 128 and 64, kv tiles of
+    # 128): lengths just under, at and over a tile, S != T both ways, a
+    # window and segment boundaries inside a tile, GQA and MQA.
+    "tile_127": (2, 127, 127, 4, 4, dict(causal=True)),
+    "tile_128": (1, 128, 128, 4, 2, dict(causal=True)),
+    "tile_129": (2, 129, 129, 4, 4, dict()),
+    "cross_s_over_t": (2, 129, 300, 4, 4, dict()),
+    "cross_t_over_s": (2, 300, 127, 4, 4, dict()),
+    "window_straddles_tile": (1, 384, 384, 4, 4, dict(causal=True,
+                                                       window=100)),
+    "window_two_sided": (1, 320, 320, 2, 2, dict(window=70)),
+    "gqa_12_4_ragged": (1, 200, 200, 12, 4, dict(causal=True)),
+    "mqa_noncausal": (1, 129, 129, 6, 1, dict()),
+    "packed_in_tile": (2, 300, 300, 4, 4, dict(
+        causal=True, segment_ids=seg_runs(
+            [[(1, 100), (2, 90), (3, 110)], [(5, 37), (6, 263)]], 300))),
 }
 
 
@@ -1543,15 +1570,112 @@ def phase_train_imagenet_example():
           "wall_s": time.perf_counter() - t0})
 
 
+# ------------------------------------------------------------ flash SASS
+#: the bf16 flash kernels by the name of their function, and whether each
+#: is built on Hopper's wgmma and TMA (K1, K2) or on mma.sync (K3).
+FLASH_SASS = {"flash_fwd_bf16": True, "flash_bwd_dkv_bf16": True,
+              "flash_bwd_dq_bf16": False}
+
+
+def flash_sass_rows(counts):
+    """``{"<kernel><D>": counts}`` of the bf16 flash functions among
+    ``_kernels.sass_counts``'s (mangled) names."""
+    import re
+
+    rows = {}
+    for fn, c in counts.items():
+        for kernel in FLASH_SASS:
+            m = re.search(rf"{kernel}ILi(\d+)E", fn)
+            if m:
+                rows[f"{kernel}<{m.group(1)}>"] = c
+    return rows
+
+
+def phase_flash_sass(kernels):
+    """Counts of HGMMA (wgmma), HMMA (mma.sync) and UTMALDG (TMA loads) in
+    each bf16 flash function of the built library, and the functions whose
+    wgmmas ptxas serialized (its C75xx warnings in this run's build log;
+    null when the library was built by an earlier run), printed before the
+    check that K1 and K2 use wgmma and TMA, no mma.sync, and keep their
+    wgmmas asynchronous."""
+    rows = flash_sass_rows(kernels.sass_counts(kernels.sass(
+        "flash_attention")))
+    log = kernels.build_logs.get("flash_attention")
+    serialized = None if log is None else sorted(flash_sass_rows(
+        dict.fromkeys(kernels.serialized_wgmma(log), 0)))
+    emit({"phase": "flash_sass", "functions": rows,
+          "serialized_wgmma": serialized})
+    check(len(rows) == 3 * len(FLASH_SASS),
+          f"flash_sass: expected 9 bf16 functions, found {sorted(rows)}")
+    for name, c in rows.items():
+        if FLASH_SASS[name.split("<")[0]]:
+            check(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0,
+                  f"flash_sass: {name} is not built on wgmma and TMA: {c}")
+            check(name not in (serialized or ()),
+                  f"flash_sass: ptxas serialized the wgmmas of {name}")
+
+
+# ------------------------------------------------------- tree comparison
+#: run in another checkout's root: its flash timing phase and the flash
+#: arm of its LM training phase, through its own chip_smoke.py.
+_COMPARE_WORKER = """
+import importlib, sys
+import numpy as np, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from chainermn_tpu_torch.comm import create_communicator
+seed = int(sys.argv[1])
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+torch.backends.cuda.matmul.allow_tf32 = False
+fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+cs.phase_flash_timing(fa, dev, seed)
+comm = create_communicator("xla", device=dev,
+                           allreduce_grad_dtype=torch.bfloat16)
+toks = torch.from_numpy(np.random.RandomState(seed).randint(
+    0, cs.LM["vocab"], size=(cs.LM_BATCH, cs.LM["max_len"]))).to(dev)
+cs.train_arm(fa, dev, cs.nvidia_smi(), seed, "flash", comm, (toks, toks))
+"""
+
+
+def compare_trees(other, seed):
+    """The flash kernels' timing and the LM flash-arm step of checkout
+    ``other`` (for example the parent commit, unpacked with ``git
+    archive``) and of this one, in turns other, this, this, other, each
+    in a process of its own; every line is printed with its tree."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    for label, tree in (("other", other), ("this", here), ("this", here),
+                        ("other", other)):
+        proc = subprocess.run(
+            [sys.executable, "-c", _COMPARE_WORKER, str(seed)],
+            cwd=tree, capture_output=True, text=True, timeout=900)
+        for line in proc.stdout.splitlines():
+            if line.startswith("{"):
+                emit({"tree": label, "dir": tree, **json.loads(line)})
+        if proc.returncode:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            check(False, f"compare: the {label} tree failed "
+                         f"(exit {proc.returncode})")
+    return 0
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--compare-with", metavar="DIR",
+                    help="only time the flash kernels and the LM flash "
+                         "step of the checkout DIR and of this one, in "
+                         "turns (see compare_trees)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on "
               "the card", file=sys.stderr)
         return 2
+    if args.compare_with:
+        return compare_trees(args.compare_with, args.seed)
 
     import importlib
 
@@ -1582,6 +1706,7 @@ def main() -> int:
               file=sys.stderr)
     emit({"phase": "build", "sources": sources,
           "seconds": time.perf_counter() - t0})
+    phase_flash_sass(_kernels)
 
     # The block-table width the serving phase's engine will have.
     _, mb = engine_geometry(draw_requests(

@@ -206,6 +206,22 @@ FLASH_CASES = {
     "gqa_12_4": (1, 256, 256, 12, 4, dict(causal=True)),
     "mqa": (1, 192, 192, 4, 1, dict(causal=True, window=40)),
     "ragged_1000": (1, 1000, 1000, 2, 2, dict(causal=True)),
+    # The wgmma kernels' tile edges (q tiles of 128 and 64, kv tiles of
+    # 128): lengths just under, at and over a tile, S != T both ways, a
+    # window and segment boundaries inside a tile, GQA and MQA.
+    "tile_127": (2, 127, 127, 4, 4, dict(causal=True)),
+    "tile_128": (1, 128, 128, 4, 2, dict(causal=True)),
+    "tile_129": (2, 129, 129, 4, 4, dict()),
+    "cross_s_over_t": (2, 129, 300, 4, 4, dict()),
+    "cross_t_over_s": (2, 300, 127, 4, 4, dict()),
+    "window_straddles_tile": (1, 384, 384, 4, 4, dict(causal=True,
+                                                       window=100)),
+    "window_two_sided": (1, 320, 320, 2, 2, dict(window=70)),
+    "gqa_12_4_ragged": (1, 200, 200, 12, 4, dict(causal=True)),
+    "mqa_noncausal": (1, 129, 129, 6, 1, dict()),
+    "packed_in_tile": (2, 300, 300, 4, 4, dict(
+        causal=True, segment_ids=_runs(
+            [[(1, 100), (2, 90), (3, 110)], [(5, 37), (6, 263)]], 300))),
 }
 
 
@@ -275,6 +291,62 @@ def test_flash_kernels_match_plain(dev, name, D, dtype):
         assert err[key] <= FLASH_TOL[dtype]["atol"], (key, err)
     assert err["dead_exact"], (
         "a fully masked row must give o = 0, lse = -1e30 and dq = 0")
+
+
+@pytest.mark.parametrize("layout", ["fused_qkv", "heads_major", "head_0",
+                                    "base_off_2"])
+def test_flash_kernels_read_strided_views(dev, layout):
+    """The bf16 kernels read q, k, v and dO through their strides (TMA
+    tensor maps for the forward and dK/dV): the model's fused projection,
+    a (B, H, T, D) tensor seen as (B, T, H, D) (the head stride above the
+    sequence stride), and the two layouts the wrappers copy first -- a
+    broadcast head (stride 0) and a base 2 bytes off alignment.  Each
+    wrapper is called on the views themselves and held against its plain
+    version."""
+    B, T, H, D = 2, 200, 4, 64
+    g = torch.Generator().manual_seed(5)
+
+    def make(n):
+        x = torch.randn((B, T, n, H, D), generator=g).to(dev, torch.bfloat16)
+        if layout == "fused_qkv":
+            return list(x.unbind(2))
+        x = x.unbind(2)
+        if layout == "heads_major":
+            return [t.transpose(1, 2).contiguous().transpose(1, 2) for t in x]
+        if layout == "head_0":
+            return [t[:, :, :1].expand(B, T, H, D) for t in x]
+        out = []
+        for t in x:
+            flat = torch.empty(B * T * H * D + 1, device=dev,
+                               dtype=torch.bfloat16)
+            out.append(flat[1:].view(B, T, H, D).copy_(t))
+        return out
+
+    q, k, v = make(3)
+    (do,) = make(1)
+    # A random lse cotangent, as the autograd Function forms delta: without
+    # it the first causal row's dq is exactly 0 and has no scale to hold
+    # the kernel's rounding against.
+    dlse = torch.randn((B, H, T), generator=g).to(dev)
+    args = (None, None, True)
+    o_r, lse_r = tfa.flash_attention_fwd_reference(q, k, v, *args)
+    delta = ((do.float() * o_r.float()).sum(-1).transpose(1, 2)
+             - dlse).contiguous()
+    o, lse = tfa.flash_attention_fwd(q, k, v, *args)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse_r, delta, *args)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse_r, delta, *args)
+    dk_r, dv_r = tfa.flash_attention_bwd_dkv_reference(q, k, v, do, lse_r,
+                                                       delta, *args)
+    dq_r = tfa.flash_attention_bwd_dq_reference(q, k, v, do, lse_r, delta,
+                                                *args)
+    torch.cuda.synchronize()
+    rtol = FLASH_TOL[torch.bfloat16]["rtol"]
+    for name, got, want in (("o", o, o_r), ("dk", dk, dk_r), ("dv", dv, dv_r),
+                            ("dq", dq, dq_r)):
+        err = _excess(got, want, rtol)
+        assert err <= FLASH_TOL[torch.bfloat16]["atol"], (name, err)
+    assert _excess(lse, lse_r, FLASH_TOL["lse"]["rtol"], rows=False) \
+        <= FLASH_TOL["lse"]["atol"]
 
 
 def test_flash_wrappers_never_run_the_plain_version(dev, monkeypatch):
