@@ -13,8 +13,9 @@ Phases, each printing one JSON line on stdout:
    report of registers, shared memory and spills goes to stderr); then
    ``flash_sass``: the count of ``HGMMA`` (wgmma), ``HMMA`` (mma.sync) and
    ``UTMALDG`` (TMA loads) in each bf16 flash function of ``cuobjdump
-   -sass``, printed before the check that the forward and dK/dV kernels
-   have wgmma and TMA and no mma.sync.
+   -sass`` and the functions whose wgmmas ptxas serialized, printed
+   before the check that the forward and dK/dV kernels have wgmma and
+   TMA, no mma.sync and no serialized wgmma.
 3. ``parity``: each hand-written kernel against its plain PyTorch version
    on the same inputs at the serving model's shapes: fp32 (atol 1e-4:
    sums in another order), bf16 (atol 2e-2: one bf16 rounding of O(1)
