@@ -88,13 +88,18 @@ __device__ __forceinline__ int warpgroup_index() {
   return __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
 }
 
-// Waits until the barrier's phase of parity `parity` has completed.  A
-// wait that outlasts about ten seconds of clock cycles traps, so that a
-// broken pipeline fails the launch instead of hanging the card.
+// Waits until the barrier's phase of parity `parity` has completed.  Built
+// with CMN_KERNEL_WATCHDOG (ops/_kernels.py adds it when the environment
+// asks, as the card tests do), a wait that outlasts about ten seconds of
+// clock cycles traps, so that a broken pipeline fails the launch instead
+// of hanging the card.  The trap ends the CUDA context, so production
+// builds wait as long as it takes.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   const uint32_t addr = smem_addr(bar);
   uint32_t done = 0;
+#ifdef CMN_KERNEL_WATCHDOG
   long long start = 0;
+#endif
   while (true) {
     asm volatile(
         "{\n.reg .pred p;\n"
@@ -104,11 +109,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "r"(addr), "r"(parity)
         : "memory");
     if (done) return;
+#ifdef CMN_KERNEL_WATCHDOG
     if (start == 0) {
       start = clock64();
     } else if (clock64() - start > (1ll << 34)) {
       __trap();
     }
+#endif
   }
 }
 

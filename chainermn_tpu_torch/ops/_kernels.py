@@ -5,7 +5,8 @@ interface.  It is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library the first time a wrapper needs it, keyed by a hash of the
 source, the headers it includes and the flags, under
 ``chainermn_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded
-with :mod:`ctypes`.  Nothing is compiled when
+with :mod:`ctypes`; ``nvcc``'s output is kept beside the library as
+``lib<name>_<hash>.log``.  Nothing is compiled when
 this module is imported: the CPU tests import every module of the port and
 never build anything.
 
@@ -37,11 +38,26 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+#: set to ``1`` to build the kernels with their hang watchdog: an
+#: ``mbarrier`` wait that lasts about ten seconds traps, so a broken
+#: pipeline fails its launch instead of hanging the card.  The trap ends
+#: the CUDA context, so production builds leave it out; the card tests
+#: turn it on.
+WATCHDOG_ENV = "CMN_KERNEL_WATCHDOG"
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: ``nvcc``'s diagnostics per source built by this process (``-Xptxas
 #: -v`` prints each kernel's registers, shared memory and spills).
 build_logs: Dict[str, str] = {}
+
+
+def nvcc_flags() -> tuple:
+    """:data:`NVCC_FLAGS`, with the watchdog's macro when
+    :data:`WATCHDOG_ENV` is set to ``1``."""
+    if os.environ.get(WATCHDOG_ENV) == "1":
+        return NVCC_FLAGS + ("-DCMN_KERNEL_WATCHDOG",)
+    return NVCC_FLAGS
 
 
 def nvcc_path() -> str:
@@ -79,7 +95,7 @@ def sources_of(name: str) -> List[Path]:
 def _target(name: str) -> Path:
     """The library's path, keyed by the source, its headers and the
     flags: a changed header rebuilds it."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags()).encode())
     for path in sources_of(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
@@ -96,11 +112,12 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
+    flags = nvcc_flags()
     procs = {}
     for n in todo:
         fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{n}.cu")]
+        cmd = [nvcc, *flags, "-o", tmp, str(CSRC_DIR / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True,
@@ -114,11 +131,25 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
             failed.append(f"nvcc failed for csrc/{n}.cu:\n{log}")
         else:
             # Atomic publish: another process building at the same time
-            # never loads a partial library.
+            # never loads a partial library, and a published library
+            # always has its log.
+            log_tmp = tmp + ".log"
+            Path(log_tmp).write_text(log)
+            os.replace(log_tmp, out[n].with_suffix(".log"))
             os.replace(tmp, out[n])
     if failed:
         raise RuntimeError("\n".join(failed))
     return out
+
+
+def build_log(name: str):
+    """``nvcc``'s output for the current library of ``csrc/<name>.cu``:
+    this process's build, else the log kept beside the library by the
+    process that built it; None if neither exists."""
+    if name in build_logs:
+        return build_logs[name]
+    path = _target(name).with_suffix(".log")
+    return path.read_text() if path.exists() else None
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -162,7 +193,7 @@ _SERIALIZED = re.compile(
 def serialized_wgmma(log: str) -> List[str]:
     """The functions whose ``wgmma`` instructions ptxas serialized (each
     waited for before the next issues), from the C75xx warnings of an
-    ``nvcc -Xptxas -v`` log such as :data:`build_logs` holds."""
+    ``nvcc -Xptxas -v`` log such as :func:`build_log` returns."""
     return sorted(set(_SERIALIZED.findall(log)))
 
 

@@ -1595,24 +1595,27 @@ def flash_sass_rows(counts):
 def phase_flash_sass(kernels):
     """Counts of HGMMA (wgmma), HMMA (mma.sync) and UTMALDG (TMA loads) in
     each bf16 flash function of the built library, and the functions whose
-    wgmmas ptxas serialized (its C75xx warnings in this run's build log;
-    null when the library was built by an earlier run), printed before the
-    check that K1 and K2 use wgmma and TMA, no mma.sync, and keep their
-    wgmmas asynchronous."""
+    wgmmas ptxas serialized (its C75xx warnings in the library's build
+    log; null when no log can be read), printed before the check that K1
+    and K2 use wgmma and TMA, no mma.sync, and keep their wgmmas
+    asynchronous.  A library without its log fails the check."""
     rows = flash_sass_rows(kernels.sass_counts(kernels.sass(
         "flash_attention")))
-    log = kernels.build_logs.get("flash_attention")
+    log = kernels.build_log("flash_attention")
     serialized = None if log is None else sorted(flash_sass_rows(
         dict.fromkeys(kernels.serialized_wgmma(log), 0)))
     emit({"phase": "flash_sass", "functions": rows,
           "serialized_wgmma": serialized})
     check(len(rows) == 3 * len(FLASH_SASS),
           f"flash_sass: expected 9 bf16 functions, found {sorted(rows)}")
+    check(serialized is not None,
+          "flash_sass: no build log of the flash library to read ptxas's "
+          "serialization warnings from")
     for name, c in rows.items():
         if FLASH_SASS[name.split("<")[0]]:
             check(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0,
                   f"flash_sass: {name} is not built on wgmma and TMA: {c}")
-            check(name not in (serialized or ()),
+            check(name not in serialized,
                   f"flash_sass: ptxas serialized the wgmmas of {name}")
 
 
@@ -1703,7 +1706,7 @@ def main() -> int:
     sources = sorted(p.stem for p in _kernels.CSRC_DIR.glob("*.cu"))
     _kernels.build(sources)
     for n in sources:
-        print(f"--- nvcc csrc/{n}.cu\n{_kernels.build_logs.get(n, '')}",
+        print(f"--- nvcc csrc/{n}.cu\n{_kernels.build_log(n) or ''}",
               file=sys.stderr)
     emit({"phase": "build", "sources": sources,
           "seconds": time.perf_counter() - t0})

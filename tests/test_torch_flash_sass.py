@@ -99,6 +99,77 @@ def test_build_key_follows_included_headers(tmp_path, monkeypatch):
     assert _kernels._target("k") != before
 
 
+def test_build_key_follows_the_watchdog_flag(tmp_path, monkeypatch):
+    (tmp_path / "k.cu").write_text("// k\n")
+    monkeypatch.setattr(_kernels, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.delenv(_kernels.WATCHDOG_ENV, raising=False)
+    production = _kernels._target("k")
+    assert "-DCMN_KERNEL_WATCHDOG" not in _kernels.nvcc_flags()
+    monkeypatch.setenv(_kernels.WATCHDOG_ENV, "1")
+    assert "-DCMN_KERNEL_WATCHDOG" in _kernels.nvcc_flags()
+    assert _kernels._target("k") != production
+
+
+def test_build_log_is_read_back_from_beside_the_library(tmp_path,
+                                                        monkeypatch):
+    """A library built by an earlier process still has its ptxas report,
+    so ``flash_sass`` can check for serialized wgmmas."""
+    (tmp_path / "k.cu").write_text("// k\n")
+    monkeypatch.setattr(_kernels, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_kernels, "build_logs", {})
+    assert _kernels.build_log("k") is None
+    (tmp_path / "_build").mkdir()
+    _kernels._target("k").with_suffix(".log").write_text(PTXAS_LOG)
+    assert _kernels.serialized_wgmma(_kernels.build_log("k")) == [FWD]
+    _kernels.build_logs["k"] = "this process's build"
+    assert _kernels.build_log("k") == "this process's build"
+
+
+def _library_listing():
+    """A listing of all nine bf16 flash functions: the forward and dK/dV
+    on wgmma and TMA, dQ on mma.sync."""
+    wgmma = LISTING.split(f"Function : {FWD}")[1].split("\t\tFunction")[0]
+    mma = LISTING.split(f"Function : {DQ}")[1].split("\t\tFunction")[0]
+    return "".join(
+        f"\t\tFunction : _ZN2ns{len(k)}{k}ILi{d}EEEvNS_6ParamsE{body}"
+        for d in (32, 64, 128)
+        for k, body in (("flash_fwd_bf16", wgmma),
+                        ("flash_bwd_dkv_bf16", wgmma),
+                        ("flash_bwd_dq_bf16", mma)))
+
+
+class _Kernels:
+    """``_kernels`` as ``phase_flash_sass`` sees it, over a canned listing
+    and build log."""
+
+    sass_counts = staticmethod(_kernels.sass_counts)
+    serialized_wgmma = staticmethod(_kernels.serialized_wgmma)
+
+    def __init__(self, log):
+        self.log = log
+
+    def sass(self, name):
+        return _library_listing()
+
+    def build_log(self, name):
+        return self.log
+
+
+@pytest.mark.parametrize("log,passes", [
+    (PTXAS_LOG.replace("C75", "C00"), True),
+    (PTXAS_LOG, False),
+    (None, False),
+], ids=["clean", "serialized", "no_log"])
+def test_flash_sass_fails_on_serialized_wgmma_or_a_missing_log(log, passes):
+    if passes:
+        chip_smoke.phase_flash_sass(_Kernels(log))
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.phase_flash_sass(_Kernels(log))
+
+
 def test_flash_source_keys_on_the_hopper_header():
     names = [p.name for p in _kernels.sources_of("flash_attention")]
     assert names == ["flash_attention.cu", "hopper.cuh"]
@@ -119,27 +190,3 @@ def test_kernel_view_keeps_what_tma_takes_and_copies_the_rest(dtype):
         2, 64, 4, 64)  # base off 16 bytes
     view = tfa._kernel_view(shifted)
     assert view.data_ptr() % 16 == 0 and view.is_contiguous()
-
-
-@pytest.mark.parametrize("variant,rel,marker", [
-    ("no_exp", "csrc/flash_attention.cu", "y = x * 0.0f + 0.5f;"),
-    ("no_mma", "csrc/hopper.cuh", "if (accumulate >= 0) return;"),
-    ("stages=2", "csrc/flash_attention.cu", "kMaxStages = 2;"),
-])
-def test_flash_times_variants_patch_the_current_sources(tmp_path, variant,
-                                                        rel, marker):
-    """The diagnostic variants of ``tools/flash_times.py`` still find what
-    they patch in the kernel sources, and leave the tree itself alone."""
-    from chainermn_tpu_torch.tools import flash_times
-
-    src = tmp_path / "chainermn_tpu_torch"
-    (src / "csrc").mkdir(parents=True)
-    for name in ("flash_attention.cu", "hopper.cuh"):
-        (src / "csrc" / name).write_bytes(
-            (_kernels.CSRC_DIR / name).read_bytes())
-    dst = flash_times.make_variant(tmp_path, variant)
-    patched = (dst / "chainermn_tpu_torch" / rel).read_text()
-    assert marker in patched
-    assert marker not in (src / rel).read_text()
-    if variant == "no_mma":
-        assert patched.count(marker) == 5  # every wgmma wrapper

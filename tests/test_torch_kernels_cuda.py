@@ -25,6 +25,7 @@ import math
 import pytest
 import torch
 
+from chainermn_tpu_torch.ops import _kernels
 from chainermn_tpu_torch.ops import conv_fused as tcf
 from chainermn_tpu_torch.ops import decode_attention as tda
 
@@ -35,6 +36,16 @@ pytestmark = pytest.mark.cuda
 tfa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def watchdog():
+    """The kernels built with their hang watchdog (``_kernels.
+    WATCHDOG_ENV``): a broken pipeline fails its test instead of hanging
+    the card."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(_kernels.WATCHDOG_ENV, "1")
+        yield
 
 
 @pytest.fixture
