@@ -18,29 +18,60 @@
 // and stage-2 launches are bound by bytes (x read once and out written once
 // dominate: e.g. (802816, 64, 256) moves 0.51 GB, 0.153 ms at 3.35 TB/s,
 // against 0.027 ms of operations) and the stage-4 launches by operations
-// (e.g. (12544, 2048, 512): 26 GFLOP, 0.027 ms at 989 TFLOP/s).  The design
-// therefore (a) never writes the fp32 accumulator or an un-activated
-// intermediate to device memory -- the epilogue runs on the registers -- and
-// (b) stages the rounded output tile through shared memory so that every
-// store to device memory is a coalesced 16-byte vector.
+// (e.g. (12544, 2048, 512): 26 GFLOP, 0.027 ms at 989 TFLOP/s).  So the
+// kernel never writes the fp32 accumulator or an un-activated intermediate
+// to device memory -- the epilogue runs on the registers -- and keeps loads
+// in flight while it computes and stores.
 //
-// Design.  bf16: each CTA (8 warps) owns a 128 x 128 output tile and walks
-// K in steps of 32 through a 3-stage cp.async ring in shared memory; each
-// warp computes 64 x 32 of the tile with mma.sync m16n8k16 (bf16 operands
-// from ldmatrix, fp32 accumulators in registers).  fp32 (the agreement
-// path): a 64 x 64 tile on the CUDA cores, exact fp32 fmaf, element loads.
+// What held the earlier design back (one 128 x 128 tile per CTA of eight
+// mma.sync warps fed by ldmatrix from a 3-stage cp.async ring): 52-65% of
+// the byte bound at 56 x 56, 20-33% of the operation bound at 14 x 14 and
+// 7 x 7 on an H100 SXM at 700 W.  At Cin = 64 the whole reduction is one
+// step, so a CTA paid its load latency and its store once per tile with
+// nothing to overlap them; at the large Cin mma.sync cannot reach Hopper's
+// tensor-core rate.
+//
+// Design (bf16):
+//   * Persistent CTAs, one per SM, walk the output tiles of 128 rows by BN
+//     columns in a static order (tile t = row block t / ncol, column tile
+//     t % ncol): the column tiles of one row block run side by side on
+//     neighbouring CTAs, so x is read from device memory once.
+//   * One producer warp (its warpgroup cut to 40 registers by setmaxnreg)
+//     keeps a ring of up to six stages filled by TMA: per stage 64 columns
+//     of the reduction -- a 128 x 64 tile of x (K-major: 2-D tensor map over
+//     (Cin, N) with x's row stride) and a 64 x BN tile of w (MN-major, in
+//     boxes of 64 columns).  It runs on into the next tiles' loads while
+//     the consumers finish a tile, so at Cin = 64 (one stage per tile) the
+//     loads of the following tiles are in flight during each epilogue.
+//     Rows past N and columns past Cin or Cout arrive as zeros.
+//   * Two consumer warpgroups (232 registers each) each own 64 rows of the
+//     tile: wgmma m64nBNk16 from shared memory, fp32 accumulators in
+//     registers (BN / 2 per thread).  Every load is waited for with no
+//     product in flight, so ptxas keeps the wgmmas asynchronous.
+//   * Epilogue on the accumulators: scale and bias per column, the ReLU,
+//     one rounding to bf16 into a 128-byte-swizzled shared-memory tile per
+//     warpgroup (conflict-free 4-byte writes), stored by TMA (rows past N
+//     and columns past Cout are clipped).  Before a warpgroup rewrites its
+//     tile it waits only until the previous store has read it.
+//   * Column tile BN: 64 at Cout <= 64 (ResNet-50's stage-1 fc1), else 128.
+//     A wider tile would read x fewer times from L2, but x is served from
+//     L2 for every column tile after the first, and 128 leaves room for six
+//     ring stages beside the output tile (a 256-column tile would take 64
+//     KB of output tile and 48 KB a stage).
 // The TPU's (bm <= 512, bn <= 256) blocks were a VMEM answer and are not
-// copied.  Ragged edges: tiles load zeros past N, K and C and stores are
-// masked, so no dimension has to divide a tile.  Where a row of x or w is
-// not 16-byte aligned (K or C not a multiple of 8, or an odd row stride)
-// the loads fall back to element loads; the products are the same.
+// copied.  TMA takes bases and row strides that are multiples of 16 bytes,
+// so the wrapper pads other inputs (a Cin or Cout that is not a multiple of
+// 8, an unaligned view); no main-path shape needs it.
 //
-// Known limits, left for later work: mma.sync rather than wgmma, cp.async
-// rather than TMA, one output tile per CTA (no persistent scheduling).
+// fp32 (the agreement path): a 64 x 64 tile on the CUDA cores, exact fp32
+// fmaf, element loads, any shape.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -56,221 +87,226 @@ struct Params {
   void* out;           // (N, C) contiguous
   long long N, lda;
   int K, C, relu;
-  int a_vec, b_vec, o_vec;  // 16-byte vector access allowed for x, w, out
 };
 
 // ==================================================================== bf16
-constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3;
-constexpr int kThreads = 256;             // 8 warps: 2 (rows) x 4 (columns)
-constexpr int kLdA = kBK + 8;             // padded rows: ldmatrix without
-constexpr int kLdB = kBN + 8;             // bank conflicts
-constexpr int kLdC = kBN + 8;
-constexpr int kStageA = kBM * kLdA;       // elements
-constexpr int kStageB = kBK * kLdB;
-constexpr size_t kSmemBf16 = sizeof(bf16) * kStages * (kStageA + kStageB);
-static_assert(sizeof(bf16) * kBM * kLdC <= kSmemBf16,
-              "the epilogue tile reuses the ring");
+constexpr int kBM = 128;  // output rows per tile: 64 per consumer warpgroup
+constexpr int kBK = 64;   // reduction columns per stage: one 128-byte row
+constexpr int kBox = 64;  // columns per TMA box of w and out (128 bytes)
+constexpr int kConsumers = 2;
+constexpr int kWsThreads = (kConsumers + 1) * 128;  // + the producer's
+constexpr uint32_t kAtom = 8 * 128;  // eight 128-byte swizzled rows
+using hopper::align_1024;
+using hopper::kAlignSlack;
+using hopper::pack_bf16;
+using hopper::RingPos;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// Byte offsets of the kernel's shared memory (from a 1024-aligned base):
+// a ring of x tiles and of w tiles, the output tile (two 64-row halves of
+// BN / 64 boxes of 64 x 64), and the barriers.
+template <int BN>
+struct GemmSmem {
+  static constexpr uint32_t a_bytes = kBM * kBK * sizeof(bf16);
+  static constexpr uint32_t b_bytes = kBK * BN * sizeof(bf16);
+  static constexpr size_t c_bytes = kBM * BN * sizeof(bf16);
+  static constexpr int stages =
+      hopper::ring_depth(c_bytes, a_bytes + b_bytes + 16, 6);
+  static constexpr size_t a = 0;
+  static constexpr size_t b = a + stages * a_bytes;
+  static constexpr size_t c = b + stages * b_bytes;
+  static constexpr size_t bars = c + c_bytes;
+  // full[stages], empty[stages]
+  static constexpr size_t total = bars + 2 * stages * 8 + kAlignSlack;
+  static_assert(stages >= 2 && total <= hopper::kSmemOptIn,
+                "ring does not fit");
+};
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
+// The output tile's rows are 128-byte swizzled rows of the TMA store's
+// boxes: column c of row r (0..63 in the warpgroup's half) sits in box
+// c / 64, at 16-byte chunk (c % 64) / 8 XOR r % 8.
+template <int BN>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    matmul_affine_bf16(const __grid_constant__ CUtensorMap tx,
+                       const __grid_constant__ CUtensorMap tw,
+                       const __grid_constant__ CUtensorMap tout,
+                       const Params p) {
+  using L = GemmSmem<BN>;
+  constexpr int ST = L::stages, NT = BN / 8, NB = BN / kBox;
+  extern __shared__ char smem_raw[];
+  char* smem = align_1024(smem_raw);
+  bf16* As = reinterpret_cast<bf16*>(smem + L::a);
+  bf16* Bs = reinterpret_cast<bf16*>(smem + L::b);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + ST;
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 16-byte asynchronous copy global -> shared; bytes = 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// Wait until at most N of this thread's copy groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Eight consecutive elements of row `row` starting at column `col` of a
-// (rows, cols) matrix with row stride ld, into shared memory at dst; zeros
-// past either edge.  vec: the row starts and col are 16-byte aligned and
-// cols is a multiple of 8, so a chunk is wholly inside or wholly outside.
-__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src,
-                                           long long row, long long rows,
-                                           int col, int cols, long long ld,
-                                           bool vec) {
-  if (vec) {
-    const bool ok = row < rows && col < cols;
-    cp_async16(dst, ok ? src + row * ld + col : src, ok ? 16 : 0);
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    dst[e] = (row < rows && col + e < cols) ? src[row * ld + col + e]
-                                            : __float2bfloat16(0.f);
-}
-
-// K tile kt of the CTA's x rows [m0, m0 + 128) and w columns [n0, n0 + 128)
-// into ring slot `slot`.
-__device__ __forceinline__ void load_stage(const Params& p, bf16* As,
-                                           bf16* Bs, long long m0, int n0,
-                                           int kt) {
-  const bf16* X = static_cast<const bf16*>(p.x);
-  const bf16* W = static_cast<const bf16*>(p.w);
-  const int k0 = kt * kBK;
-#pragma unroll
-  for (int i = threadIdx.x; i < kBM * (kBK / 8); i += kThreads) {
-    const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-    load_chunk(As + r * kLdA + c, X, m0 + r, p.N, k0 + c, p.K, p.lda,
-               p.a_vec);
-  }
-#pragma unroll
-  for (int i = threadIdx.x; i < kBK * (kBN / 8); i += kThreads) {
-    const int r = i / (kBN / 8), c = (i % (kBN / 8)) * 8;
-    load_chunk(Bs + r * kLdB + c, W, k0 + r, p.K, n0 + c, p.C, p.C,
-               p.b_vec);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) matmul_affine_bf16(Params p) {
-  extern __shared__ __align__(128) char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + kStages * kStageA;
-
-  const int n_tiles = (p.C + kBN - 1) / kBN;
-  // Column tiles of one row tile are neighbours in launch order, so the
-  // x rows they share are still in L2.
-  const long long m0 = (long long)(blockIdx.x / n_tiles) * kBM;
-  const int n0 = (blockIdx.x % n_tiles) * kBN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;  // warp's 64 x 32 sub-tile
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-      acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
-
+  const int ncol = (p.C + BN - 1) / BN;
+  const int tiles = (int)((p.N + kBM - 1) / kBM) * ncol;
   const int KT = (p.K + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < KT) load_stage(p, As + s * kStageA, Bs + s * kStageB, m0, n0, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();  // tile kt has landed
-    __syncthreads();               // ... for every thread; slot kt-1 is free
-    const int nt = kt + kStages - 1;
-    if (nt < KT) {
-      const int s = nt % kStages;
-      load_stage(p, As + s * kStageA, Bs + s * kStageB, m0, n0, nt);
+  const int wg = hopper::warpgroup_index(), warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * kConsumers);  // consumer warps
     }
-    cp_async_commit();
-    const bf16* A = As + (kt % kStages) * kStageA;
-    const bf16* B = Bs + (kt % kStages) * kStageB;
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // The producer: one thread issues every load; the warpgroup's
+    // registers go to the consumers.
+    hopper::regs_release<hopper::kProducerRegs>();
+    if (warp != 0 || lane != 0) return;
+    RingPos<ST> r;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t / ncol * kBM, n0 = t % ncol * BN;
+      for (int kt = 0; kt < KT; ++kt, r.next()) {
+        hopper::mbar_wait(&empty[r.s], r.ph ^ 1);
+        hopper::mbar_expect_tx(&full[r.s], L::a_bytes + L::b_bytes);
+        hopper::tma_load_2d(As + r.s * kBM * kBK, &tx, &full[r.s], kt * kBK,
+                            m0);
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldsm_x4(a[mi], A + (wm * 64 + mi * 16 + (lane & 15)) * kLdA +
-                           kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t b[4];
-        ldsm_x4_t(b, B + (kk * 16 + (lane & 15)) * kLdB + wn * 32 +
-                         np * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
-          mma_bf16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
-        }
+        for (int j = 0; j < NB; ++j)
+          hopper::tma_load_2d(Bs + r.s * kBK * BN + j * kBK * kBox, &tw,
+                              &full[r.s], n0 + j * kBox, kt * kBK);
       }
     }
+    return;
   }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the ring: reuse it
 
-  // Epilogue on the accumulators: affine, ReLU, one rounding to bf16, into
-  // a shared-memory tile.  Accumulator (r, c) of an m16n8 tile: c[0..1] at
-  // row lane / 4, columns 2 (lane % 4) + {0, 1}; c[2..3] eight rows lower.
-  bf16* Cs = As;
+  // A consumer warpgroup: rows 64 wg .. 64 wg + 63 of each tile.
+  hopper::regs_claim<hopper::kConsumerRegs>();
+  const int g = lane >> 2, tig = lane & 3;
+  const bool leader = (threadIdx.x & 127) == 0;
+  char* Cw = smem + L::c + wg * (L::c_bytes / 2);
+  float acc[NT][4];
+  RingPos<ST> r;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = t / ncol * kBM, n0 = t % ncol * BN;
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int cl = wn * 32 + ni * 8 + (lane & 3) * 2;
-    const int gc = n0 + cl;
-    const float s0 = gc < p.C ? p.scale[gc] : 0.f;
-    const float s1 = gc + 1 < p.C ? p.scale[gc + 1] : 0.f;
-    const float b0 = gc < p.C ? p.bias[gc] : 0.f;
-    const float b1 = gc + 1 < p.C ? p.bias[gc + 1] : 0.f;
+    for (int j = 0; j < NT; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int kt = 0; kt < KT; ++kt, r.next()) {
+      hopper::mbar_wait(&full[r.s], r.ph);
+      hopper::fence_acc(acc);
+      hopper::wgmma_fence();
+      const bf16* A = As + r.s * kBM * kBK + 64 * wg * kBK;
+      const bf16* B = Bs + r.s * kBK * BN;
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      const int rl = wm * 64 + mi * 16 + (lane >> 2);
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        hopper::wgmma_ss<0, 1>(
+            acc, hopper::make_desc(A + kk * 16, 16, kAtom, hopper::kSwizzle128),
+            hopper::make_desc(B + kk * 16 * kBox, kBK * kBox * sizeof(bf16),
+                              kAtom, hopper::kSwizzle128),
+            1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(acc);
+      __syncwarp();
+      hopper::mbar_arrive_if(&empty[r.s], lane == 0);
+    }
+
+    // Epilogue: the warpgroup's previous store has read its tile.
+    if (leader) hopper::bulk_wait_read<0>();
+    hopper::named_sync(1 + wg, 128);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float y0 = acc[mi][ni][2 * h] * s0 + b0;
-        float y1 = acc[mi][ni][2 * h + 1] * s1 + b1;
+    for (int j = 0; j < NT; ++j) {
+      const int gc = n0 + 8 * j + 2 * tig;  // C is a multiple of 8
+      float2 sc = make_float2(0.f, 0.f), bi = make_float2(0.f, 0.f);
+      if (gc < p.C) {
+        sc = *reinterpret_cast<const float2*>(p.scale + gc);
+        bi = *reinterpret_cast<const float2*>(p.bias + gc);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int rr = warp * 16 + g + 8 * i;
+        float y0 = fmaf(acc[j][2 * i], sc.x, bi.x);
+        float y1 = fmaf(acc[j][2 * i + 1], sc.y, bi.y);
         if (p.relu) {
           y0 = fmaxf(y0, 0.f);
           y1 = fmaxf(y1, 0.f);
         }
-        *reinterpret_cast<uint32_t*>(Cs + (rl + 8 * h) * kLdC + cl) =
-            pack_bf16(y0, y1);
+        *reinterpret_cast<uint32_t*>(
+            Cw + (j / 8) * (64 * 128) + rr * 128 +
+            (((j % 8) ^ (rr & 7)) * 16) + tig * 4) = pack_bf16(y0, y1);
       }
     }
-  }
-  __syncthreads();
-  bf16* O = static_cast<bf16*>(p.out);
+    hopper::fence_proxy_async();
+    hopper::named_sync(1 + wg, 128);
+    if (leader) {
 #pragma unroll
-  for (int i = threadIdx.x; i < kBM * (kBN / 8); i += kThreads) {
-    const int r = i / (kBN / 8), c = (i % (kBN / 8)) * 8;
-    const long long row = m0 + r;
-    const int col = n0 + c;
-    if (row >= p.N || col >= p.C) continue;
-    const bf16* src = Cs + r * kLdC + c;
-    bf16* dst = O + row * p.C + col;
-    if (p.o_vec && col + 8 <= p.C) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    } else {
-      for (int e = 0; e < 8 && col + e < p.C; ++e) dst[e] = src[e];
+      for (int j = 0; j < NB; ++j)
+        hopper::tma_store_2d(&tout, Cw + j * 64 * 128, n0 + j * kBox,
+                             m0 + 64 * wg);
+      hopper::bulk_commit();
     }
   }
+  if (leader) hopper::bulk_wait<0>();
+}
+
+// The map of a bf16 row-major (rows, cols) matrix with row stride ld
+// elements, in boxes of box_cols x box_rows with the 128-byte swizzle.  0,
+// or an error code.
+int encode_2d(CUtensorMap* map, const void* base, long long cols,
+              long long rows, long long ld, int box_cols, int box_rows) {
+  hopper::EncodeTiled fn = hopper::encoder();
+  if (fn == nullptr) return hopper::kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // past the edges: zeros
+  return r == CUDA_SUCCESS ? 0 : hopper::kEncodeError + (int)r;
+}
+
+int sm_count() {
+  static int count[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (count[dev] == 0)
+    cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev];
+}
+
+template <int BN>
+int launch_bf16(const Params& p, cudaStream_t stream) {
+  using L = GemmSmem<BN>;
+  CUtensorMap tx, tw, tout;
+  int rc = encode_2d(&tx, p.x, p.K, p.N, p.lda, kBK, kBM);
+  if (!rc) rc = encode_2d(&tw, p.w, p.C, p.K, p.C, kBox, kBK);
+  if (!rc) rc = encode_2d(&tout, p.out, p.C, p.N, p.C, kBox, 64);
+  if (rc) return rc;
+  const long long tiles =
+      ((p.N + kBM - 1) / kBM) * (long long)((p.C + BN - 1) / BN);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  // The shared-memory opt-in is made on the first launch only, so later
+  // launches (inside a CUDA-graph capture, say) make no other call.
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        matmul_affine_bf16<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)L::total);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
+  }
+  const int grid = tiles < sms ? (int)tiles : sms;
+  matmul_affine_bf16<BN><<<grid, kWsThreads, L::total, stream>>>(tx, tw, tout,
+                                                                  p);
+  return (int)cudaGetLastError();
 }
 
 // ==================================================================== fp32
 // Exact fp32 on the CUDA cores: a 64 x 64 tile per CTA, 4 x 4 outputs per
 // thread, K in steps of 16 through shared memory (A stored transposed so
 // that a thread's four rows are one broadcast read).
+constexpr int kThreads = 256;
 constexpr int kFM = 64, kFN = 64, kFK = 16;
 
 __global__ void __launch_bounds__(kThreads) matmul_affine_f32(Params p) {
@@ -344,7 +380,12 @@ extern "C" {
 
 // out = relu?((x @ w) * scale + bias); dtype 0 fp32, 1 bf16 (x, w and out
 // share it; scale and bias are fp32).  lda is x's row stride in elements.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// bf16 reads x and w and writes out through TMA tensor maps: their bases
+// (and those of scale and bias) 16-byte aligned, lda and C multiples of 8
+// and K > 0, else cudaErrorMisalignedAddress / cudaErrorInvalidValue (the
+// wrapper pads other inputs).  Returns 0 when launched, else
+// cudaGetLastError() after the launch or hopper::kEncodeError + the
+// CUresult of a refused tensor map.
 int cmn_matmul_affine(const void* x, const void* w, const void* scale,
                       const void* bias, void* out, long long N, int K, int C,
                       long long lda, int relu, int dtype, void* stream) {
@@ -360,35 +401,25 @@ int cmn_matmul_affine(const void* x, const void* w, const void* scale,
   p.K = K;
   p.C = C;
   p.relu = relu;
-  p.a_vec = aligned16(x) && lda % 8 == 0 && K % 8 == 0;
-  p.b_vec = aligned16(w) && C % 8 == 0;
-  p.o_vec = aligned16(out) && C % 8 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
-    // The shared-memory opt-in is made on the first launch only, so later
-    // launches (inside a CUDA-graph capture, say) make no other call.
-    static bool opted_in = false;
-    if (!opted_in) {
-      cudaError_t err = cudaFuncSetAttribute(
-          matmul_affine_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)kSmemBf16);
-      if (err != cudaSuccess) return (int)err;
-      opted_in = true;
-    }
-    const long long tiles = ((N + kBM - 1) / kBM) * ((C + kBN - 1) / kBN);
-    if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    matmul_affine_bf16<<<(unsigned)tiles, kThreads, kSmemBf16, st>>>(p);
-  } else if (dtype == kF32) {
-    const long long tiles = ((N + kFM - 1) / kFM) * ((C + kFN - 1) / kFN);
-    if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    matmul_affine_f32<<<(unsigned)tiles, kThreads, 0, st>>>(p);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    if (K <= 0) return (int)cudaErrorInvalidValue;
+    if (!aligned16(x) || !aligned16(w) || !aligned16(out) ||
+        !aligned16(scale) || !aligned16(bias) || lda % 8 || C % 8)
+      return (int)cudaErrorMisalignedAddress;
+    return C <= 64 ? launch_bf16<64>(p, st) : launch_bf16<128>(p, st);
   }
+  if (dtype != kF32) return (int)cudaErrorInvalidValue;
+  const long long tiles = ((N + kFM - 1) / kFM) * ((C + kFN - 1) / kFN);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  matmul_affine_f32<<<(unsigned)tiles, kThreads, 0, st>>>(p);
   return (int)cudaGetLastError();
 }
 
 const char* cmn_conv_fused_error_string(int code) {
+  if (code >= hopper::kEncodeError)
+    return "cuTensorMapEncodeTiled refused a tensor map (CUresult = code - "
+           "100000)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -33,10 +33,11 @@
 // read through (batch, seq, head) strides with a contiguous head dim, so
 // the model's fused qkv projection needs no copy.
 //
-// bf16 forward and dK/dV: TMA-fed, warp-specialised wgmma (hopper.cuh).
+// bf16: TMA-fed, warp-specialised wgmma (hopper.cuh), all three kernels.
 // What held them back.  On an H100 SXM at 700 W an earlier design (four
 // warps of mma.sync fed by ldmatrix from cp.async double buffers, two
-// __syncthreads per tile) ran at 11% and 15% of the operation bound:
+// __syncthreads per tile) ran the forward and dK/dV at 11% and 15% of the
+// operation bound and dQ at 18%:
 // mma.sync cannot reach Hopper's tensor-core rate, and every warp spent its
 // issue slots on copies and barriers.  Moving the products to wgmma alone
 // gained 5%, because the work around them then set the pace: mask branches
@@ -65,9 +66,16 @@
 //     Q^T and dP^T = V dO^T read shared memory; P^T and dS^T stay in
 //     registers as the A operands of dV += P^T dO and dK += dS^T q, with
 //     dO and q MN-major; dK and dV stay in fp32 registers and are rounded
-//     once at the end.
-//   * Tile i's P.V (its dV/dK up to D = 64) runs while tile i + 1's
-//     scores and elementwise work do.
+//     once at the end.  dQ: K1's structure with one more product -- a
+//     128-row q tile, whose q and dO tiles are loaded once, against kv
+//     tiles of 128 rows (64 at D = 128, see DqSmem); S = Q K^T and dP = dO
+//     V^T read shared memory; dS = P (dP - delta) stays in registers as
+//     the A operand of dQ += dS K, with K read MN-major; dQ stays in fp32
+//     registers, is scaled once and rounded once at the end; each CTA owns
+//     its dQ tile, so there are no atomics.  Per-row lse and delta are read
+//     once per consumer thread.
+//   * Tile i's P.V (its dV/dK up to D = 64, its dS.K) runs while tile
+//     i + 1's scores and elementwise work do.
 //   * Only tiles that straddle the causal diagonal, a window edge, a
 //     segment boundary or a ragged tail check admitted() per element; the
 //     two cases are compiled apart.  The softmax scale folds into one FFMA
@@ -80,11 +88,9 @@
 //     the mask is bitwise, loads are waited for before products issue, the
 //     first tile is peeled off the loop), so ptxas keeps the wgmmas
 //     asynchronous.
-// Forward CTAs start with the longest causal rows of their head (the
-// grid's x axis runs backwards, as FlashAttention-3's does); dK/dV's kv
-// tile 0, which sees the most q tiles, comes first.
-// The bf16 dQ kernel keeps the earlier design: a 64-row tile per four
-// warps, mma.sync m16n8k16 fed by ldmatrix, cp.async double buffers.
+// Forward and dQ CTAs start with the longest causal rows of their head
+// (the grid's x axis runs backwards, as FlashAttention-3's does); dK/dV's
+// kv tile 0, which sees the most q tiles, comes first.
 //
 // One mask definition serves every kernel (admitted() and the tile ranges
 // below), as the Pallas kernels share _mask_scores/_k_block_range/
@@ -572,81 +578,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
 }
 
 // =================================================================== bf16
-// The tensor-core path.  Scores are kept in log2 units so that exp2 does
-// the softmax; probabilities and dS are rounded to bf16 where they become
-// the next product's A operand, in registers.
-//
-// The dQ kernel: one warp owns 16 rows of its CTA's 64-row tile and keeps
-// everything about them in registers (the FlashAttention-2 layout); shared
-// memory holds the tiles of the other side, read by ldmatrix; products are
-// mma.sync m16n8k16.  The forward and dK/dV kernels further down are
-// warp-specialised wgmma kernels (see the head of this file).
+// The tensor-core path: warp-specialised wgmma kernels (see the head of
+// this file).  Scores are kept in log2 units so that exp2 does the softmax;
+// probabilities and dS are rounded to bf16 where they become the next
+// product's A operand, in registers.
 
 using bf16 = __nv_bfloat16;
-using hopper::smem_addr;
-constexpr int kTile = 64;  // rows per tile of the dQ kernel, both sides
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 16-byte asynchronous copy global -> shared; bytes = 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// Wait until at most N of this thread's copy groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The asynchronous twin of load_rows for a 64-row bf16 tile.
-template <int D>
-__device__ __forceinline__ void load_rows_async(bf16* dst, int ld,
-                                                const bf16* src,
-                                                long long s_row, int row0,
-                                                int limit) {
-  constexpr int chunks = D / 8;
-  for (int i = threadIdx.x; i < kTile * chunks; i += kThreads) {
-    const int r = i / chunks, c = i % chunks;
-    const bool ok = row0 + r < limit;
-    cp_async16(dst + r * ld + c * 8, ok ? src + (row0 + r) * s_row + c * 8 : src,
-               ok ? 16 : 0);
-  }
-}
+using hopper::align_1024;
+using hopper::pack_bf16;
+using hopper::RingPos;
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -657,61 +600,9 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// A fragments of the 16 rows at `tile` (row-major, leading dim ld), for KS
-// k-steps of 16 columns.
-template <int KS>
-__device__ __forceinline__ void load_a(uint32_t (&a)[KS][4], const bf16* tile,
-                                       int ld) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = tile + (lane & 15) * ld + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) ldsm_x4(a[kk], p + kk * 16);
-}
-
-// c[16 x 8NT] += a[16 x 16KS] . b^T, where b is a tile of 8NT rows whose k
-// axis is contiguous.
-template <int KS, int NT>
-__device__ __forceinline__ void gemm_nt(float (&c)[NT][4],
-                                        const uint32_t (&a)[KS][4],
-                                        const bf16* b, int ld) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p =
-      b + ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int np = 0; np < NT / 2; ++np) {
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t r[4];
-      ldsm_x4(r, p + np * 16 * ld + kk * 16);
-      mma_bf16(c[2 * np], a[kk], r[0], r[1]);
-      mma_bf16(c[2 * np + 1], a[kk], r[2], r[3]);
-    }
-  }
-}
-
-// c[16 x 8NT] += a[16 x 16KS] . b, where b is a tile of 16KS rows (k) whose
-// n axis is contiguous.
-template <int KS, int NT>
-__device__ __forceinline__ void gemm_nn(float (&c)[NT][4],
-                                        const uint32_t (&a)[KS][4],
-                                        const bf16* b, int ld) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = b + (lane & 15) * ld + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t r[4];
-      ldsm_x4_t(r, p + kk * 16 * ld + np * 16);
-      mma_bf16(c[2 * np], a[kk], r[0], r[1]);
-      mma_bf16(c[2 * np + 1], a[kk], r[2], r[3]);
-    }
-  }
-}
-
 // A 16 x 16KS tile held as accumulators, as the A operand of the next
-// product (its 16KS columns become k), rounded to bf16.  The same layout
-// serves mma.sync and wgmma (hopper.cuh).
+// product (its 16KS columns become k), rounded to bf16 (hopper.cuh gives
+// the layout).
 template <int KS>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[KS][4],
                                          const float (&c)[2 * KS][4]) {
@@ -730,46 +621,24 @@ __device__ __forceinline__ void zero(float (&c)[NT][4]) {
   for (int i = 0; i < NT; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
 }
 
-// Dynamic shared memory of the dQ kernel: `tiles` operand tiles of
-// 64 x (D + 8), then two buffers of three 64-entry per-row arrays.
-__host__ __device__ constexpr size_t bf16_smem(int tiles, int D) {
-  return (size_t)tiles * kTile * (D + 8) * sizeof(bf16) +
-         6 * kTile * sizeof(float);
-}
-
 // Element e of accumulator tile nt sits at row g (e < 2) or g + 8 and
 // column nt * 8 + 2 * tig + (e & 1), g = lane / 4, tig = lane % 4.
 
-// ------------------------------------ warp-specialised wgmma (K1, K2)
+// ------------------------------------------ warp-specialised wgmma
 constexpr int kConsumers = 2;  // consumer warpgroups, 64 rows each
 constexpr int kWsThreads = (kConsumers + 1) * 128;  // + the producer's
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-// Shared memory one block may opt in to on sm_90, and the 1024 bytes the
-// kernels keep spare to align their base to a swizzle atom.
-constexpr size_t kSmemOptIn = 232448, kAlignSlack = 1024;
-constexpr int kMaxStages = 4;
+using hopper::kAlignSlack;
+using hopper::kConsumerRegs;
+using hopper::kProducerRegs;
+using hopper::kSmemOptIn;
 
 // The depth of a ring of `per_stage`-byte stages beside `fixed` bytes: as
-// deep as shared memory allows, up to kMaxStages.  (On an H100, two stages
+// deep as shared memory allows, up to four.  (On an H100, two stages
 // starved dK/dV, which holds one stage for its overlapped dV/dK while the
 // next loads -- 35% slower; four and eight timed the same.)
 constexpr int ring_depth(size_t fixed, size_t per_stage) {
-  return (kSmemOptIn - kAlignSlack - fixed) / per_stage < kMaxStages
-             ? (int)((kSmemOptIn - kAlignSlack - fixed) / per_stage)
-             : kMaxStages;
+  return hopper::ring_depth(fixed, per_stage, 4);
 }
-
-// Walks a ring: stage s, and the parity of the pass over it.
-template <int N>
-struct RingPos {
-  int s = 0, ph = 0;
-  __device__ __forceinline__ void next() {
-    if (++s == N) {
-      s = 0;
-      ph ^= 1;
-    }
-  }
-};
 
 // How a bf16 tile with head dim D sits in shared memory (hopper.cuh): boxes
 // of box_cols columns, each a run of `rows` swizzled rows of row_bytes.
@@ -816,13 +685,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const CUtensorMap* map,
   for (int j = 0; j < T::boxes; ++j)
     hopper::tma_load_4d(dst + j * rows * T::box_cols, map, bar,
                         j * T::box_cols, head, row0, b);
-}
-
-// The first 1024-aligned byte at or after p, a shared-memory pointer.  An
-// offset from p (not integer arithmetic on the address) keeps the pointer
-// known as shared, so that its loads are LDS, not generic.
-__device__ __forceinline__ char* align_1024(char* p) {
-  return p + ((1024u - (hopper::smem_addr(p) & 1023u)) & 1023u);
 }
 
 // 2^x, one MUFU.EX2; x far below -126 gives +0.
@@ -1131,34 +993,147 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(Params p) {
-  constexpr int LD = D + 8, KS = D / 16, ND = D / 8, NS = kTile / 8;
-  extern __shared__ __align__(128) char smem[];
-  // q and dO, then two buffers of (K, V) tiles and of kv segment ids.
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + kTile * LD;
-  bf16* KVs = dOs + kTile * LD;
-  int* sks = reinterpret_cast<int*>(KVs + 4 * kTile * LD);
+// dQ's elementwise work on one tile: s (S, raw) gives P, and dp (dP)
+// becomes dS = P * (dP - delta) in place.  Rows are the thread's two q
+// rows, whose -lse log2(e) (kNegInf for a row whose lse is NEG_INF, so that
+// its p is 0) and delta sit in registers; columns are the tile's kv
+// positions, whose segment ids sit in shared memory.
+template <bool kMasked, int NS>
+__device__ __forceinline__ void probs_and_dscores_q(
+    const float (&s)[NS][4], float (&dp)[NS][4], const float (&nl2)[2],
+    const float (&dl)[2], const Params& p, const int (&row)[2],
+    const int (&sq)[2], int k0, const int* sk, float sl2, int tig) {
+#pragma unroll
+  for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      float pv = ex2(fmaf(s[nt][e], sl2, nl2[i]));
+      if (kMasked) {
+        const int c = nt * 8 + 2 * tig + (e & 1);
+        if (!admitted(p, row[i], k0 + c, sq[i], sk[c])) pv = 0.f;
+      }
+      dp[nt][e] = pv * (dp[nt][e] - dl[i]);
+    }
+  }
+}
 
-  const int nq = (p.T + kTile - 1) / kTile;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * kTile;
+// Byte offsets of the dQ kernel's shared memory (from a 1024-aligned base):
+// the CTA's q and dO tiles, then a ring of K tiles, of V tiles and of their
+// kv segment ids, and the barriers.  As in the forward, K and V stages have
+// barriers of their own: a V stage is free once the tile's dP is done, its
+// K stage only after the tile's dS.K product.
+template <int D>
+struct DqSmem {
+  static constexpr int BM = 64 * kConsumers;  // q rows per CTA
+  // kv rows per stage.  Up to D = 64, 128: S and dP are m64n128 products,
+  // and S, dP (64 registers each), dQ (D / 2) and the 32 registers of the
+  // dS fragments whose dS.K overlaps the next tile's scores fit the
+  // 232-register budget.  At D = 128 dQ alone takes 64 registers; 64-row kv
+  // tiles keep S and dP at 32 each and the fragments at 16, so the overlap
+  // still fits, where 128-row tiles would need 224 registers of
+  // accumulators and fragments alone.
+  static constexpr int BN = D <= 64 ? 128 : 64;
+  static constexpr size_t qtile = BM * D * sizeof(bf16);
+  static constexpr size_t tile = BN * D * sizeof(bf16);
+  static constexpr int stages =
+      ring_depth(2 * qtile + 8, 2 * tile + BN * sizeof(int) + 32);
+  static constexpr size_t q = 0;
+  static constexpr size_t dout = q + qtile;
+  static constexpr size_t k = dout + qtile;
+  static constexpr size_t v = k + stages * tile;
+  static constexpr size_t seg = v + stages * tile;
+  static constexpr size_t bars = seg + stages * BN * sizeof(int);
+  // qd_full, k_full[stages], v_full[stages], k_empty[stages], v_empty[stages]
+  static constexpr size_t total = bars + (1 + 4 * stages) * 8 + kAlignSlack;
+  static_assert(stages >= 2 && total <= kSmemOptIn, "ring does not fit");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const Params p) {
+  using L = DqSmem<D>;
+  constexpr int BM = L::BM, BN = L::BN, ST = L::stages, KS = D / 16,
+                ND = D / 8, NS = BN / 8;
+  extern __shared__ char smem_raw[];
+  char* smem = align_1024(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
+  bf16* dOs = reinterpret_cast<bf16*>(smem + L::dout);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
+  int* sks = reinterpret_cast<int*>(smem + L::seg);
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* k_full = qd_full + 1;
+  uint64_t* v_full = k_full + ST;
+  uint64_t* k_empty = v_full + ST;
+  uint64_t* v_empty = k_empty + ST;
+
+  const int nq = (p.T + BM - 1) / BM;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * BM;  // longest rows first
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
   const int kh = h / (p.H / p.KH);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const bf16* Qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* dOg =
-      static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const bf16* Kg = static_cast<const bf16*>(p.k) + b * p.k_sb + kh * p.k_sh;
-  const bf16* Vg = static_cast<const bf16*>(p.v) + b * p.v_sb + kh * p.v_sh;
+  int lo, hi;
+  k_tile_range(p, q0, BM, BN, lo, hi);
+  const int n = hi - lo;
+  const int wg = hopper::warpgroup_index(), warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qd_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&k_full[s], 32);  // the producer warp's lanes
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&k_empty[s], 4 * kConsumers);  // consumer warps
+      hopper::mbar_init(&v_empty[s], 4 * kConsumers);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
 
-  load_rows<bf16, kTile, D>(Qs, LD, Qg, p.q_st, q0, p.T);
-  load_rows<bf16, kTile, D>(dOs, LD, dOg, p.do_st, q0, p.T);
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  if (wg == kConsumers) {
+    // The producer: one warp issues every load; the warpgroup's registers
+    // go to the consumers.
+    hopper::regs_release<kProducerRegs>();
+    if (warp != 0 || n == 0) return;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(qd_full, 2 * L::qtile);
+      load_tile<D>(Qs, &tq, qd_full, BM, h, q0, b);
+      load_tile<D>(dOs, &tdo, qd_full, BM, h, q0, b);
+    }
+    RingPos<ST> r;
+    for (int it = 0; it < n; ++it, r.next()) {
+      const int k0 = (lo + it) * BN;
+      hopper::mbar_wait(&k_empty[r.s], r.ph ^ 1);
+      int* sk = sks + r.s * BN;
+      for (int i = lane; i < BN; i += 32)
+        sk[i] = (p.seg_k != nullptr && k0 + i < p.S)
+                    ? p.seg_k[(size_t)b * p.S + k0 + i]
+                    : 0;
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&k_full[r.s], L::tile);
+        load_tile<D>(Ks + r.s * BN * D, &tk, &k_full[r.s], BN, kh, k0, b);
+      } else {
+        hopper::mbar_arrive(&k_full[r.s]);  // this lane's segment ids are in
+      }
+      hopper::mbar_wait(&v_empty[r.s], r.ph ^ 1);
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&v_full[r.s], L::tile);
+        load_tile<D>(Vs + r.s * BN * D, &tv, &v_full[r.s], BN, kh, k0, b);
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: rows qw .. qw + 63 of the q tile.
+  hopper::regs_claim<kConsumerRegs>();
+  const int g = lane >> 2, tig = lane & 3;
+  const int qw = q0 + 64 * wg;
+  const int row[2] = {qw + warp * 16 + g, qw + warp * 16 + g + 8};
   int sq[2];
-  bool live[2];
-  float lse2[2], delta[2];
+  float nl2[2], dl[2];  // -lse log2(e) (kNegInf on dead rows), delta
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const bool in = row[i] < p.T;
@@ -1166,63 +1141,103 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(Params p) {
     sq[i] = (p.seg_q != nullptr && in) ? p.seg_q[(size_t)b * p.T + row[i]]
                                        : 0;
     const float lse = in ? p.lse[off] : kNegInf;
-    live[i] = lse > kNegInf * 0.5f;
-    lse2[i] = lse * kLog2e;
-    delta[i] = in ? p.delta[off] : 0.f;
+    nl2[i] = lse > kNegInf * 0.5f ? -lse * kLog2e : kNegInf;
+    dl[i] = in ? p.delta[off] : 0.f;
   }
   float dq[ND][4];
   zero(dq);
   const float sl2 = p.scale * kLog2e;
-  int lo, hi;
-  k_tile_range(p, q0, kTile, kTile, lo, hi);
-  auto stage = [&](int kt, int buf) {
-    bf16* dst = KVs + 2 * buf * kTile * LD;
-    load_rows_async<D>(dst, LD, Kg, p.k_st, kt * kTile, p.S);
-    load_rows_async<D>(dst + kTile * LD, LD, Vg, p.v_st, kt * kTile, p.S);
-    load_segments(sks + buf * kTile, p.seg_k, kt * kTile, p.S, b, kTile);
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    hopper::mbar_arrive_if(bar, lane == 0);
   };
-  if (lo < hi) stage(lo, 0);
-  cp_async_commit();
-  for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * kTile, buf = (kt - lo) & 1;
-    if (kt + 1 < hi) stage(kt + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // this kv tile (and, first time, q/dO) is in place
-    const bf16* Ks = KVs + 2 * buf * kTile * LD;
-    const bf16* Vs = Ks + kTile * LD;
-    const int* sk = sks + buf * kTile;
-    // The warp's q and dO fragments are re-read from shared memory each
-    // tile rather than held across the loop (fewer live registers).
-    float s[NS][4], dp[NS][4];
+  // As in the forward: the loop issues tile i's score products and tile
+  // i - 1's dS.K together and runs tile i's elementwise work while dS.K
+  // does, with no branch on whether a product is pending (tile 0 is peeled
+  // off), and a slice with no admitted pair in a tile is computed like any
+  // other, its dS all 0.
+  float s[NS][4], dp[NS][4];
+  uint32_t dsa[BN / 16][4];  // dS of the tile whose dS.K is next
+  auto scores = [&](int st) {  // S = Q K^T, dP = dO V^T of stage st
     zero(s);
     zero(dp);
-    {
-      uint32_t qa[KS][4];
-      load_a<KS>(qa, Qs + warp * 16 * LD, LD);
-      gemm_nt<KS, NS>(s, qa, Ks, LD);
-    }
-    {
-      uint32_t da[KS][4];
-      load_a<KS>(da, dOs + warp * 16 * LD, LD);
-      gemm_nt<KS, NS>(dp, da, Vs, LD);
-    }
-    const bool full = tile_unmasked(p, q0, kTile, k0, kTile);
+    hopper::fence_acc(s);
+    hopper::fence_acc(dp);
+    hopper::wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
+    for (int kk = 0; kk < KS; ++kk)
+      hopper::wgmma_ss<0, 0>(s, desc_k<D>(Qs, BM, 64 * wg, kk),
+                             desc_k<D>(Ks + st * BN * D, BN, 0, kk), kk);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, c = nt * 8 + 2 * tig + (e & 1);
-        const bool ok =
-            live[i] && (full || admitted(p, row[i], k0 + c, sq[i], sk[c]));
-        const float pv = ok ? exp2f(s[nt][e] * sl2 - lse2[i]) : 0.f;
-        s[nt][e] = pv * (dp[nt][e] - delta[i]);  // dS
-      }
+    for (int kk = 0; kk < KS; ++kk)
+      hopper::wgmma_ss<0, 0>(dp, desc_k<D>(dOs, BM, 64 * wg, kk),
+                             desc_k<D>(Vs + st * BN * D, BN, 0, kk), kk);
+    hopper::wgmma_commit();
+  };
+  auto dscores = [&](int k0, int st) {  // the scores are done: dP -> dS
+    hopper::fence_acc(s);
+    hopper::fence_acc(dp);
+    release(&v_empty[st]);  // V is read
+    const int* sk = sks + st * BN;
+    if (tile_unmasked(p, qw, 64, k0, BN)) {
+      probs_and_dscores_q<false>(s, dp, nl2, dl, p, row, sq, k0, sk, sl2,
+                                 tig);
+    } else {
+      probs_and_dscores_q<true>(s, dp, nl2, dl, p, row, sq, k0, sk, sl2,
+                                tig);
     }
-    uint32_t dsa[4][4];
-    acc_to_a(dsa, s);
-    gemm_nn<4, ND>(dq, dsa, Ks, LD);  // dQ += dS K
-    __syncthreads();  // every warp is done with this buffer before reuse
+  };
+  auto dsk = [&](int st) {  // dQ += dS K, K of stage st read MN-major
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      hopper::wgmma_rs<1>(dq, dsa[kk], desc_mn<D>(Ks + st * BN * D, BN, kk),
+                          1);
+    hopper::wgmma_commit();
+  };
+  // The two consumer warpgroups take turns to issue their products (named
+  // barriers 1 and 2; FlashAttention-3's ping-pong), so that while one
+  // runs its elementwise work the other's products have the tensor cores.
+  // Warpgroup 0 goes first; warpgroup 1's last turn hands over to no one.
+  auto my_turn = [&]() { hopper::named_sync(1 + wg, 256); };
+  auto your_turn = [&]() { hopper::named_arrive(2 - wg, 256); };
+  if (n > 0) {
+    hopper::mbar_wait(qd_full, 0);
+    if (wg == 1) your_turn();
+    RingPos<ST> r;
+    hopper::mbar_wait(&k_full[0], 0);
+    hopper::mbar_wait(&v_full[0], 0);
+    my_turn();
+    scores(0);
+    your_turn();
+    hopper::wgmma_wait<0>();
+    dscores(lo * BN, 0);
+    acc_to_a(dsa, dp);
+    int prev = 0;
+    r.next();
+    for (int it = 1; it < n; ++it, r.next()) {
+      const int k0 = (lo + it) * BN;
+      // Loads are waited for before products issue: a polling loop while
+      // a wgmma is in flight is a divergent path.
+      hopper::mbar_wait(&k_full[r.s], r.ph);
+      hopper::mbar_wait(&v_full[r.s], r.ph);
+      my_turn();
+      scores(r.s);
+      dsk(prev);
+      your_turn();
+      hopper::wgmma_wait<1>();  // the scores are done; dS.K may still run
+      dscores(k0, r.s);
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(dq);
+      release(&k_empty[prev]);
+      acc_to_a(dsa, dp);
+      prev = r.s;
+    }
+    my_turn();
+    dsk(prev);
+    if (wg == 0) your_turn();
+    hopper::wgmma_wait<0>();
+    hopper::fence_acc(dq);
   }
 
   bf16* dQg = static_cast<bf16*>(p.out);
@@ -1530,10 +1545,6 @@ struct Maps {
   CUtensorMap q, k, v, dout;
 };
 
-// Error codes above this one are cuTensorMapEncodeTiled's CUresult plus
-// it (cmn_flash_error_string names them); below, cudaError_t.
-constexpr int kEncodeError = 100000;
-
 template <int D>
 int launch_bf16(int which, const Params& p, const Maps& m,
                 cudaStream_t stream) {
@@ -1551,40 +1562,15 @@ int launch_bf16(int which, const Params& p, const Maps& m,
                         dim3((p.S + L::BK - 1) / L::BK, p.B * p.KH),
                         kWsThreads, stream, m.q, m.k, m.v, m.dout, p);
     }
-    case 2:
-      return launch_one(flash_bwd_dq_bf16<D>, opted_in[2], bf16_smem(6, D),
-                        dim3((p.T + kTile - 1) / kTile, p.B * p.H), kThreads,
-                        stream, p);
+    case 2: {
+      using L = DqSmem<D>;
+      return launch_one(flash_bwd_dq_bf16<D>, opted_in[2], L::total,
+                        dim3((p.T + L::BM - 1) / L::BM, p.B * p.H),
+                        kWsThreads, stream, m.q, m.k, m.v, m.dout, p);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// so that the library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
 }
 
 // The map of a bf16 (B, len, heads, D) tensor read through element strides
@@ -1593,8 +1579,8 @@ EncodeTiled encoder() {
 // code.
 int encode_map(CUtensorMap* map, const void* base, int D, int heads, int len,
                int B, long long sb, long long st, long long sh, int rows) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
+  hopper::EncodeTiled fn = hopper::encoder();
+  if (fn == nullptr) return hopper::kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
                               (cuuint64_t)len, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
@@ -1608,14 +1594,20 @@ int encode_map(CUtensorMap* map, const void* base, int D, int heads, int len,
          D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // rows past len read as 0
-  return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
+  return r == CUDA_SUCCESS ? 0 : hopper::kEncodeError + (int)r;
 }
 
-// Encodes the maps that kernel `which` reads (forward: q in 128-row boxes,
-// k and v in 128; dK/dV: q and dO in 64, k and v in 128).
-int encode_maps(int which, const Params& p, int D, Maps& m) {
-  const int q_rows = which == 0 ? FwdSmem<64>::BM : DkvSmem<64>::BQ;
-  const int kv_rows = which == 0 ? FwdSmem<64>::BN : DkvSmem<64>::BK;
+// Encodes the maps that kernel `which` reads, in the boxes of its tiles
+// (forward: q in 128-row boxes, k and v in 128; dK/dV: q and dO in 64, k
+// and v in 128; dQ: q and dO in 128, k and v in DqSmem<D>::BN).
+template <int D>
+int encode_maps(int which, const Params& p, Maps& m) {
+  const int q_rows = which == 0   ? FwdSmem<D>::BM
+                     : which == 1 ? DkvSmem<D>::BQ
+                                  : DqSmem<D>::BM;
+  const int kv_rows = which == 0   ? FwdSmem<D>::BN
+                      : which == 1 ? DkvSmem<D>::BK
+                                   : DqSmem<D>::BN;
   int rc = encode_map(&m.q, p.q, D, p.H, p.T, p.B, p.q_sb, p.q_st, p.q_sh,
                       q_rows);
   if (!rc)
@@ -1624,7 +1616,7 @@ int encode_maps(int which, const Params& p, int D, Maps& m) {
   if (!rc)
     rc = encode_map(&m.v, p.v, D, p.KH, p.S, p.B, p.v_sb, p.v_st, p.v_sh,
                     kv_rows);
-  if (!rc && which == 1)
+  if (!rc && which != 0)
     rc = encode_map(&m.dout, p.dout, D, p.H, p.T, p.B, p.do_sb, p.do_st,
                     p.do_sh, q_rows);
   return rc;
@@ -1636,11 +1628,10 @@ int launch_dim(int which, const Params& p, int dtype, cudaStream_t stream) {
     case kF32:
       return launch_f32<D>(which, p, stream);
     case kBF16: {
+      if (which < 0 || which > 2) return (int)cudaErrorInvalidValue;
       Maps m;
-      if (which == 0 || which == 1) {
-        const int rc = encode_maps(which, p, D, m);
-        if (rc) return rc;
-      }
+      const int rc = encode_maps<D>(which, p, m);
+      if (rc) return rc;
       return launch_bf16<D>(which, p, m, stream);
     }
     default:
@@ -1654,10 +1645,10 @@ extern "C" {
 
 // which: 0 forward (out = o, lse_out = lse), 1 dK/dV (out = dk, out2 = dv),
 // 2 dQ (out = dq).  Strides are in elements; the head dim is contiguous.
-// bf16 forward and dK/dV read q, k, v and dO through TMA, which takes a
-// base and strides that are multiples of 16 bytes (the wrapper makes other
-// inputs contiguous).  Returns 0 when launched, else cudaGetLastError()
-// after the launch or kEncodeError + the CUresult of a refused tensor map.
+// The bf16 kernels read q, k, v and dO through TMA, which takes a base and
+// strides that are multiples of 16 bytes (the wrapper makes other inputs
+// contiguous).  Returns 0 when launched, else cudaGetLastError() after the
+// launch or hopper::kEncodeError + the CUresult of a refused tensor map.
 int cmn_flash_attention(int which, const void* q, const void* k,
                         const void* v, const void* dout, const void* lse,
                         const void* delta, const void* seg_q,
@@ -1712,7 +1703,7 @@ int cmn_flash_attention(int which, const void* q, const void* k,
 }
 
 const char* cmn_flash_error_string(int code) {
-  if (code >= kEncodeError)
+  if (code >= hopper::kEncodeError)
     return "cuTensorMapEncodeTiled refused a tensor map (CUresult = code - "
            "100000)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));

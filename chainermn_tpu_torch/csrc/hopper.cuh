@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's hand-written kernels:
-// mbarriers, TMA tile loads, register reallocation between warpgroups, and
-// the wgmma instructions with their shared-memory operand descriptors.
-// Header-only; included by the csrc/*.cu sources that use them (the build
-// in ops/_kernels.py hashes every included header with its source).
+// mbarriers, TMA tile loads and stores and the host's tensor-map encoder,
+// register reallocation between warpgroups, and the wgmma instructions with
+// their shared-memory operand descriptors.  Header-only; included by the
+// csrc/*.cu sources that use them (the build in ops/_kernels.py hashes
+// every included header with its source).
 //
 // Shared-memory operand layout.  Every operand tile is written by TMA with
 // the hardware swizzle and read by wgmma through a descriptor of the same
@@ -23,12 +24,55 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ----------------------------------------- warp-specialised kernels
+// A CTA of one producer warpgroup and two consumer warpgroups: setmaxnreg
+// moves the producer's registers to the consumers (40 x 128 + 2 x 232 x
+// 128 of the SM's 65,536).
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+// Shared memory one block may opt in to on sm_90, and the 1024 bytes a
+// kernel keeps spare to align its base to a swizzle atom.
+constexpr size_t kSmemOptIn = 232448, kAlignSlack = 1024;
+
+// The depth of a ring of `per_stage`-byte stages beside `fixed` bytes: as
+// deep as shared memory allows, up to max_stages.
+constexpr int ring_depth(size_t fixed, size_t per_stage, int max_stages) {
+  return (kSmemOptIn - kAlignSlack - fixed) / per_stage < (size_t)max_stages
+             ? (int)((kSmemOptIn - kAlignSlack - fixed) / per_stage)
+             : max_stages;
+}
+
+// Walks a ring: stage s, and the parity of the pass over it.
+template <int N>
+struct RingPos {
+  int s = 0, ph = 0;
+  __device__ __forceinline__ void next() {
+    if (++s == N) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+};
+
+// The first 1024-aligned byte at or after p, a shared-memory pointer.  An
+// offset from p (not integer arithmetic on the address) keeps the pointer
+// known as shared, so that its loads are LDS, not generic.
+__device__ __forceinline__ char* align_1024(char* p) {
+  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // ------------------------------------------------------------ mbarriers
@@ -133,6 +177,84 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+
+// One box of a 2-D tensor map at (c0 innermost, c1), as tma_load_4d.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// One box of shared memory to a 2-D tensor map at (c0, c1); elements past
+// the tensor's extent are not written.  The store joins the calling
+// thread's open bulk group (bulk_commit closes it).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of the calling thread's bulk groups are still
+// reading their shared-memory source (the buffer may then be rewritten;
+// the writes to device memory may still be in flight).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Waits until at most N of the calling thread's bulk groups are pending.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's ordinary shared-memory writes before later accesses
+// of the async proxy (a TMA store of the same buffer); follow with a
+// barrier among the writers before the store is issued.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that a library needs no -lcuda; null if the driver lacks it.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// Error codes at or above this one are cuTensorMapEncodeTiled's CUresult
+// plus it; below, cudaError_t.  The sources' error-string entry points
+// name them.
+constexpr int kEncodeError = 100000;
 
 // ------------------------------------------- warpgroup register budgets
 template <int N>

@@ -10,7 +10,9 @@ conv → frozen BN → ReLU is one pass with an epilogue: fp32 accumulation,
   in CUDA C++ (``chainermn_tpu_torch/csrc/conv_fused.cu``; its header says
   what bounds it and how the design answers that).  CPU tensors run the
   plain version; CUDA tensors launch the kernel or raise.  Launches are
-  counted in ``matmul_affine_fwd.launches``.
+  counted in ``matmul_affine_fwd.launches``.  The bf16 kernel reads and
+  writes through TMA; :func:`_tma_operands` decides which inputs it takes
+  as they are and which it gets as aligned copies.
 * :func:`matmul_affine_reference` -- the plain version, the JAX package's
   XLA twin (``_matmul_affine_fwd_xla``): an fp32 product of the inputs'
   values, the affine, the ReLU, one cast.
@@ -70,6 +72,50 @@ def matmul_affine_reference(x2d, w, scale, bias, relu: bool = True):
     return y.to(x2d.dtype)
 
 
+# ------------------------------------------------------ kernel operands
+def _aligned(t) -> bool:
+    return t.data_ptr() % 16 == 0
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _tma_operands(x2d, w, scale, bias):
+    """The bf16 kernel's operands and its output's width.
+
+    The kernel reads ``x2d`` and ``w`` and writes its output through TMA
+    tensor maps, which take a base and row strides that are multiples of 16
+    bytes (8 bf16), and reads ``scale`` and ``bias`` in pairs from 16-byte
+    aligned bases.  What meets that passes as it is -- every main-path
+    shape, whose Cin and Cout are multiples of 64.  Otherwise: ``x2d`` is
+    copied into zero-padded rows of a multiple of 8 columns (its Cin
+    columns are read, the padding is not); where Cout is not a multiple of
+    8, ``w``, ``scale`` and ``bias`` are zero-padded to the next one and
+    the output is that wide (the caller keeps its first Cout columns).
+    Returns ``(x2d, w, scale, bias, width)``."""
+    N, K = x2d.shape
+    C = w.shape[1]
+    if (x2d.stride(1) != 1 or x2d.stride(0) < K or x2d.stride(0) % 8
+            or not _aligned(x2d)):
+        xp = x2d.new_zeros((N, _round8(K)))
+        xp[:, :K] = x2d
+        x2d = xp[:, :K]
+    width = _round8(C)
+    if width != C or w.stride() != (C, 1) or not _aligned(w):
+        wp = w.new_zeros((K, width))
+        wp[:, :C] = w
+        w = wp
+    vecs = []
+    for v in (scale, bias):
+        if width != C or v.stride(0) != 1 or not _aligned(v):
+            vp = v.new_zeros((width,))
+            vp[:C] = v
+            v = vp
+        vecs.append(v)
+    return (x2d, w, *vecs, width)
+
+
 # -------------------------------------------------------------- wrapper
 def matmul_affine_fwd(x2d, w, scale, bias, relu: bool = True):
     """K6: ``relu?((x2d @ w) * scale + bias)``, ``x2d`` (N, Cin) and ``w``
@@ -98,24 +144,31 @@ def matmul_affine_fwd(x2d, w, scale, bias, relu: bool = True):
     for name, t in (("scale", scale), ("bias", bias)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-    # The kernel reads x2d through its row stride; anything else is copied
-    # into the layout it reads.
-    if x2d.stride(1) != 1 or x2d.stride(0) < x2d.shape[1]:
-        x2d = x2d.contiguous()
-    w, scale, bias = w.contiguous(), scale.contiguous(), bias.contiguous()
     N, K = x2d.shape
     C = w.shape[1]
-    out = torch.empty((N, C), dtype=x2d.dtype, device=dev)
+    if x2d.dtype == torch.bfloat16:
+        if K == 0:
+            raise ValueError("the bf16 kernel needs Cin > 0")
+        x2d, w, scale, bias, width = _tma_operands(x2d, w, scale, bias)
+    else:
+        # The fp32 kernel reads x2d through its row stride; anything else
+        # is copied into the layout it reads.
+        if x2d.stride(1) != 1 or x2d.stride(0) < K:
+            x2d = x2d.contiguous()
+        w, scale, bias = w.contiguous(), scale.contiguous(), \
+            bias.contiguous()
+        width = C
+    out = torch.empty((N, width), dtype=x2d.dtype, device=dev)
     rc = _lib().cmn_matmul_affine(
         x2d.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), N, K, C, x2d.stride(0), int(bool(relu)),
+        out.data_ptr(), N, K, width, x2d.stride(0), int(bool(relu)),
         _CODES[x2d.dtype], torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         msg = _lib().cmn_conv_fused_error_string(rc).decode()
         raise RuntimeError(f"matmul_affine kernel launch failed: CUDA error "
                            f"{rc} ({msg})")
     matmul_affine_fwd.launches += 1
-    return out
+    return out if width == C else out[:, :C].contiguous()
 
 
 matmul_affine_fwd.launches = 0

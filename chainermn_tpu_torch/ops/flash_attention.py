@@ -175,8 +175,8 @@ def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, seg_q=None,
 def _kernel_view(t):
     """``t`` as the kernels read it -- head dim contiguous, the base and
     every other stride a positive multiple of 16 bytes (the rule of the TMA
-    tensor maps through which the bf16 forward and dK/dV kernels load, and
-    of the 16-byte loads of the others) -- else an aligned contiguous copy."""
+    tensor maps through which the bf16 kernels load, and of the fp32
+    kernels' 16-byte loads) -- else an aligned contiguous copy."""
     per = 16 // t.element_size()
     if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
             s <= 0 or s % per for s in t.stride()[:-1]):

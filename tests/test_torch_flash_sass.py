@@ -1,8 +1,8 @@
 """The CPU side of the port's kernel build: the SASS census and the ptxas
 serialization report that show the flash kernels' design (``chip_smoke.py``'s
-``flash_sass`` line), the build key that follows a source's headers, and the
-stride rule under which the flash wrappers hand tensors to the TMA-fed
-kernels without a copy."""
+``flash_sass`` line: K1, K2 and K3 on wgmma and TMA), the build key that
+follows a source's headers, and the stride rule under which the flash
+wrappers hand tensors to the TMA-fed kernels without a copy."""
 
 import importlib
 
@@ -16,6 +16,7 @@ tfa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
 
 FWD = ("_ZN51_GLOBAL__N__9ef439e9_18_flash_attention_cu_78bff2d614"
        "flash_fwd_bf16ILi64EEEv14CUtensorMap_stS1_S1_NS_6ParamsE")
+# dQ as the earlier design built it: mma.sync, no tensor maps.
 DQ = ("_ZN51_GLOBAL__N__9ef439e9_18_flash_attention_cu_78bff2d617"
       "flash_bwd_dq_bf16ILi128EEEvNS_6ParamsE")
 F32 = ("_ZN51_GLOBAL__N__9ef439e9_18_flash_attention_cu_78bff2d616"
@@ -127,17 +128,18 @@ def test_build_log_is_read_back_from_beside_the_library(tmp_path,
     assert _kernels.build_log("k") == "this process's build"
 
 
-def _library_listing():
-    """A listing of all nine bf16 flash functions: the forward and dK/dV
-    on wgmma and TMA, dQ on mma.sync."""
-    wgmma = LISTING.split(f"Function : {FWD}")[1].split("\t\tFunction")[0]
-    mma = LISTING.split(f"Function : {DQ}")[1].split("\t\tFunction")[0]
+WGMMA_BODY = LISTING.split(f"Function : {FWD}")[1].split("\t\tFunction")[0]
+MMA_BODY = LISTING.split(f"Function : {DQ}")[1].split("\t\tFunction")[0]
+
+
+def _library_listing(on_mma=()):
+    """A listing of all nine bf16 flash functions on wgmma and TMA, but
+    the kernels named in ``on_mma`` on mma.sync."""
     return "".join(
-        f"\t\tFunction : _ZN2ns{len(k)}{k}ILi{d}EEEvNS_6ParamsE{body}"
+        f"\t\tFunction : _ZN2ns{len(k)}{k}ILi{d}EEEvNS_6ParamsE"
+        f"{MMA_BODY if k in on_mma else WGMMA_BODY}"
         for d in (32, 64, 128)
-        for k, body in (("flash_fwd_bf16", wgmma),
-                        ("flash_bwd_dkv_bf16", wgmma),
-                        ("flash_bwd_dq_bf16", mma)))
+        for k in ("flash_fwd_bf16", "flash_bwd_dkv_bf16", "flash_bwd_dq_bf16"))
 
 
 class _Kernels:
@@ -147,27 +149,36 @@ class _Kernels:
     sass_counts = staticmethod(_kernels.sass_counts)
     serialized_wgmma = staticmethod(_kernels.serialized_wgmma)
 
-    def __init__(self, log):
+    def __init__(self, log, listing=None):
         self.log = log
+        self.listing = _library_listing() if listing is None else listing
 
     def sass(self, name):
-        return _library_listing()
+        return self.listing
 
     def build_log(self, name):
         return self.log
 
 
-@pytest.mark.parametrize("log,passes", [
-    (PTXAS_LOG.replace("C75", "C00"), True),
-    (PTXAS_LOG, False),
-    (None, False),
-], ids=["clean", "serialized", "no_log"])
-def test_flash_sass_fails_on_serialized_wgmma_or_a_missing_log(log, passes):
+CLEAN_LOG = PTXAS_LOG.replace("C75", "C00")
+
+
+@pytest.mark.parametrize("log,listing,passes", [
+    (CLEAN_LOG, None, True),
+    (PTXAS_LOG, None, False),
+    (None, None, False),
+    (CLEAN_LOG, _library_listing(on_mma=("flash_bwd_dq_bf16",)), False),
+    (CLEAN_LOG, _library_listing().split("\t\tFunction")[0], False),
+], ids=["clean", "serialized", "no_log", "dq_on_mma_sync", "missing_kernels"])
+def test_flash_sass_fails_on_serialized_wgmma_or_a_missing_log(log, listing,
+                                                               passes):
+    """Every one of the nine bf16 flash functions -- K3's too -- must be
+    there, on wgmma and TMA, with no serialized wgmma and a log to tell."""
     if passes:
-        chip_smoke.phase_flash_sass(_Kernels(log))
+        chip_smoke.phase_flash_sass(_Kernels(log, listing))
     else:
         with pytest.raises(AssertionError):
-            chip_smoke.phase_flash_sass(_Kernels(log))
+            chip_smoke.phase_flash_sass(_Kernels(log, listing))
 
 
 def test_flash_source_keys_on_the_hopper_header():

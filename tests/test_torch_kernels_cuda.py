@@ -233,6 +233,12 @@ FLASH_CASES = {
     "packed_in_tile": (2, 300, 300, 4, 4, dict(
         causal=True, segment_ids=_runs(
             [[(1, 100), (2, 90), (3, 110)], [(5, 37), (6, 263)]], 300))),
+    # T a multiple of no q tile (128) and S of no kv tile (128, or 64 in
+    # dQ at D = 128), with segments on both sides and GQA.
+    "ragged_both_segments": (2, 200, 333, 4, 2, dict(
+        segment_ids=_runs([[(1, 90), (2, 110)], [(4, 200)]], 200),
+        kv_segment_ids=_runs([[(1, 150), (2, 183)],
+                              [(4, 300), (0, 33)]], 333))),
 }
 
 
@@ -391,14 +397,20 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 # ---------------------------------------------------------- fused conv K6
 #: (N, Cin, Cout) of every K6 launch of a ResNet-50 training step at batch
-#: 256, 224 px, and ragged shapes that divide no tile.
-K6_SHAPES = [
+#: 256, 224 px; ragged shapes that divide no tile; and the persistent
+#: schedule's edges: fewer tiles than SMs (300 rows: three tiles), a Cout
+#: that is no multiple of the 128-column tile.  (802816, 64, 256) has far
+#: more tiles than SMs.
+K6_MAIN = [
     (802816, 64, 64), (802816, 64, 256), (802816, 256, 64),
     (802816, 256, 128), (200704, 128, 512), (200704, 256, 512),
     (200704, 512, 128), (200704, 512, 256), (50176, 256, 1024),
     (50176, 512, 1024), (50176, 1024, 256), (50176, 1024, 512),
     (12544, 512, 2048), (12544, 1024, 2048), (12544, 2048, 512),
-    (1000, 24, 40), (37, 8, 16), (77, 20, 13),
+]
+K6_SHAPES = K6_MAIN + [
+    (1000, 24, 40), (37, 8, 16), (77, 20, 13), (300, 64, 64),
+    (5000, 256, 200),
 ]
 #: as ``chip_smoke.K6_TOL``: |err| <= rtol |ref| + atol rms(its ref row).
 K6_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),
@@ -450,6 +462,39 @@ def test_matmul_affine_reads_strided_rows(dev):
     assert got.shape == (2, 4, 5, 40)
     assert _excess(got.cpu(), want, 2 ** -7) <= K6_TOL[torch.bfloat16][
         "atol"]
+
+
+def test_matmul_affine_reads_a_misaligned_base(dev):
+    """A view of x starting one element in (a base 2 bytes off the 16 TMA
+    needs) is copied to an aligned buffer, and the result is right."""
+    x, w, s, b = _k6_inputs(dev, 1000, 64, 128, torch.bfloat16)
+    flat = torch.empty(x.numel() + 1, device=dev, dtype=torch.bfloat16)
+    shifted = flat[1:].view(x.shape).copy_(x)
+    assert shifted.data_ptr() % 16
+    got = tcf.matmul_affine_fwd(shifted, w, s, b)
+    want = tcf.matmul_affine_reference(x, w, s, b)
+    assert _excess(got, want, 2 ** -7) <= K6_TOL[torch.bfloat16]["atol"]
+
+
+@pytest.mark.parametrize("shape", [(50176, 256, 1024), (802816, 64, 64)],
+                         ids=["50176x256x1024", "802816x64x64"])
+def test_matmul_affine_main_path_makes_no_copy(dev, shape):
+    """At a main-path shape the bf16 operands go to the kernel as they
+    are: the only allocation of the call is its (N, Cout) output."""
+    x, w, s, b = _k6_inputs(dev, *shape, torch.bfloat16)
+    ops = tcf._tma_operands(x, w, s, b)
+    assert [t.data_ptr() for t in ops[:4]] == [t.data_ptr()
+                                               for t in (x, w, s, b)]
+    assert ops[4] == shape[2]
+    del ops
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the output gets a segment of its own size
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    out = tcf.matmul_affine_fwd(x, w, s, b)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - before == \
+        out.numel() * out.element_size()
 
 
 def test_matmul_affine_wrapper_never_runs_the_plain_version(dev,
