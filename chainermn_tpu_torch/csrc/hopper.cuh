@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the port's hand-written kernels:
-// mbarriers, TMA tile loads and stores and the host's tensor-map encoder,
+// mbarriers, TMA tile loads and stores, 1-D bulk copies, the host's
+// tensor-map encoder,
 // register reallocation between warpgroups, and the wgmma instructions with
 // their shared-memory operand descriptors.  Header-only; included by the
 // csrc/*.cu sources that use them (the build in ops/_kernels.py hashes
@@ -186,6 +187,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// `bytes` contiguous bytes of global memory at `src` into shared memory at
+// `dst` as one bulk copy, no tensor map; both addresses 16-byte aligned and
+// `bytes` a multiple of 16.  Completion is counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

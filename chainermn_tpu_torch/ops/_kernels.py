@@ -163,8 +163,10 @@ def load(name: str) -> ctypes.CDLL:
 
 
 #: the instructions :func:`sass_counts` counts: Hopper's warpgroup product,
-#: the warp-level product of earlier generations, and the TMA tile load.
-SASS_OPCODES = ("HGMMA", "HMMA", "UTMALDG")
+#: the warp-level product of earlier generations, the TMA tile load, the
+#: 1-D bulk copy (``cp.async.bulk``, no tensor map) and the per-thread
+#: asynchronous copy (``cp.async``).
+SASS_OPCODES = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP", "LDGSTS")
 _FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)", re.MULTILINE)
 _OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
 
@@ -195,6 +197,31 @@ def serialized_wgmma(log: str) -> List[str]:
     waited for before the next issues), from the C75xx warnings of an
     ``nvcc -Xptxas -v`` log such as :func:`build_log` returns."""
     return sorted(set(_SERIALIZED.findall(log)))
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_resources(log: str) -> Dict[str, Dict[str, int]]:
+    """Per entry function of an ``nvcc -Xptxas -v`` log (such as
+    :func:`build_log` returns): its registers, stack frame and spill
+    bytes (None where ptxas printed no such line)."""
+    out: Dict[str, Dict[str, int]] = {}
+    marks = list(_ENTRY.finditer(log))
+    for i, m in enumerate(marks):
+        end = marks[i + 1].start() if i + 1 < len(marks) else len(log)
+        frame = _FRAME.search(log, m.end(), end)
+        regs = _REGS.search(log, m.end(), end)
+        out[m.group(1)] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "stack_bytes": int(frame.group(1)) if frame else None,
+            "spill_stores": int(frame.group(2)) if frame else None,
+            "spill_loads": int(frame.group(3)) if frame else None,
+        }
+    return out
 
 
 def sass(name: str) -> str:

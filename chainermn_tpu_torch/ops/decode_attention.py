@@ -13,6 +13,12 @@ Each has three parts:
 * a wrapper that validates its inputs and then runs the plain version for
   tensors on the CPU, or launches the kernel for tensors on a CUDA device.
   There is no fallback: a CUDA tensor the kernel does not take raises.
+  The launch's plan (:func:`_plan`: how many CTAs of one thread-block
+  cluster split each row's positions, and how many positions each bulk
+  copy moves) is a pure function of static shapes and the card's SM
+  count; the wrapper never reads ``valid_len`` or the block tables on the
+  host, so a launch can be captured in a CUDA graph and replayed after
+  they change in place.
   Each wrapper counts its kernel launches in a plain integer attribute,
   ``paged_decode_attention.launches`` and ``fused_decode_attention.launches``.
 
@@ -21,9 +27,10 @@ Layouts and semantics are the JAX package's
 
 * :func:`fused_decode_attention` — queries ``(B, H, Dh)`` against a
   kv-head-major cache ``(B, KH, L, Dh)``; position ``p`` of row ``b`` is
-  attendable iff ``p < valid_len[b]``.  The kernel streams the panel in
-  tiles with an online softmax instead of staging the whole panel, which
-  equals the Pallas one-shot softmax up to fp32 rounding.  ``valid_len <=
+  attendable iff ``p < valid_len[b]``.  The kernel splits the panel over
+  the CTAs of a cluster, each folding its range into an online-softmax
+  state, and merges the states, which equals the Pallas one-shot softmax
+  up to fp32 rounding.  ``valid_len <=
   0`` reproduces the Pallas result over an all-masked row: the mean of V
   over the whole panel.
 * :func:`paged_decode_attention` — S slots read one block pool
@@ -40,6 +47,7 @@ is summed, as in the Pallas kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -58,6 +66,20 @@ MAX_VERIFY_T = 16
 NEG_INF = -1e30
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+
+#: the portable thread-block cluster size: at most this many CTAs split one
+#: (slot, kv head) row's positions.
+MAX_SPLITS = 8
+#: CTAs per SM the split plan aims at.  On an H100, 3 measured faster than
+#: 6 at every row timed (main-path, int8-GQA and long-context; longer
+#: ranges per CTA amortize its setup and merge) and than 2 at all but one.
+CTAS_PER_SM = 3
+#: the most bytes of K (and of V) one bulk copy moves.
+CHUNK_BYTES = 2048
+#: query rows (T * G) one CTA holds when there is more than one (the
+#: kernel's row block, ``RB`` in ``csrc/decode_attention.cu``); more rows
+#: take more CTAs.
+ROWS_PER_CTA = 4
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -72,11 +94,11 @@ def _lib():
         lib = _kernels.load("decode_attention")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.cmn_paged_decode_attention.argtypes = (
-            [ptr] * 8 + [i32] * 10 + [ptr]
+            [ptr] * 8 + [i32] * 13 + [ptr]
         )
         lib.cmn_paged_decode_attention.restype = i32
         lib.cmn_fused_decode_attention.argtypes = (
-            [ptr] * 7 + [i32] * 7 + [ptr]
+            [ptr] * 7 + [i32] * 10 + [ptr]
         )
         lib.cmn_fused_decode_attention.restype = i32
         lib.cmn_cuda_error_string.argtypes = [i32]
@@ -167,6 +189,76 @@ def paged_decode_attention_reference(q, k_pool, v_pool, block_tables,
     return out if multi else out[:, 0]
 
 
+# ---------------------------------------------------------------- plan
+def _split_plan(n_max, pairs, sms, align):
+    """``(splits, positions_per_split)`` for rows of at most ``n_max``
+    positions, ``pairs`` of them (slot or batch row x kv head x row block),
+    on a card of ``sms`` SMs: about :data:`CTAS_PER_SM` CTAs per SM, at
+    most :data:`MAX_SPLITS` per row, each split a whole number of
+    ``align``-position units.  The splits cover ``[0, n_max)`` exactly
+    once and none starts past it."""
+    units = max(1, -(-n_max // align))
+    want = -(-CTAS_PER_SM * sms // max(1, pairs))
+    splits = max(1, min(MAX_SPLITS, want, units))
+    per_units = -(-units // splits)
+    return -(-units // per_units), per_units * align
+
+
+def _chunk(row_bytes, block_len=None):
+    """Positions per bulk copy: as many as fit :data:`CHUNK_BYTES` (at
+    least one); a paged copy stays inside one block, so its size divides
+    ``block_len``."""
+    most = max(1, CHUNK_BYTES // row_bytes)
+    if block_len is None:
+        return most
+    return max(c for c in range(1, min(most, block_len) + 1)
+               if block_len % c == 0)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(n_max, rows_of, KH, R, row_bytes, sms, block_len=None):
+    """The launch's ``(splits, positions_per_split, chunk)``, from static
+    shapes only: ``n_max`` positions a row can hold (paged ``MB * BL``,
+    fused ``L``), ``rows_of`` slots or batch rows, ``KH`` kv heads, ``R =
+    T * G`` query rows per kv head, ``row_bytes`` of one cached position
+    and the card's ``sms``.  Paged splits start on block boundaries
+    (``block_len``), fused ones on chunk boundaries."""
+    chunk = _chunk(row_bytes, block_len)
+    row_blocks = 1 if R == 1 else -(-R // ROWS_PER_CTA)
+    splits, per = _split_plan(n_max, rows_of * KH * row_blocks, sms,
+                              block_len or chunk)
+    return splits, per, chunk
+
+
+_sm_counts = {}
+
+
+def _sm_count(dev):
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _sm_counts:
+        _sm_counts[i] = torch.cuda.get_device_properties(i) \
+            .multi_processor_count
+    return _sm_counts[i]
+
+
+def _check_bulk_copy(name, addr, row_bytes):
+    """The kernel moves whole cached positions (``row_bytes`` each,
+    contiguous from ``addr``) with 1-D bulk copies, which take 16-byte
+    aligned addresses and sizes in multiples of 16 bytes.  Every supported
+    head dim and dtype gives such rows; a cache whose base is not aligned
+    raises."""
+    if row_bytes % 16:
+        raise ValueError(
+            f"{name} rows are {row_bytes} bytes: the kernel's bulk copies "
+            "take multiples of 16 bytes"
+        )
+    if addr % 16:
+        raise ValueError(
+            f"{name} cache must be 16-byte aligned (the kernel reads it "
+            "with bulk copies)"
+        )
+
+
 # ------------------------------------------------------------- checks
 def _check_quant(kv_dtype, k_scale, v_scale, scale_shape):
     quant = kv_dtype == torch.int8
@@ -218,11 +310,7 @@ def _check_cuda(tensors, q, kv_dtype, Dh):
         )
     for name in ("k", "v"):
         t = tensors[name]
-        if t.data_ptr() % 16:
-            raise ValueError(
-                f"{name} cache must be 16-byte aligned (the kernel reads "
-                "it with 16-byte loads)"
-            )
+        _check_bulk_copy(name, t.data_ptr(), Dh * t.element_size())
     for name in ("k_scale", "v_scale"):
         t = tensors.get(name)
         if t is not None and t.dtype != torch.float32:
@@ -288,13 +376,16 @@ def fused_decode_attention(q, kc, vc, valid_len, k_scale=None,
                  "k_scale": k_scale, "v_scale": v_scale}, q, kc.dtype, Dh)
     if valid_len.dtype != torch.int32:
         raise TypeError(f"valid_len must be int32, got {valid_len.dtype}")
+    splits, per, chunk = _plan(L, B, KH, H // KH, Dh * kc.element_size(),
+                               _sm_count(q.device))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().cmn_fused_decode_attention(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
         _ptr(k_scale) if quant else None, _ptr(v_scale) if quant else None,
         valid_len.data_ptr(), out.data_ptr(),
-        B, H, KH, L, Dh, _Q_CODES[q.dtype], _KV_CODES[kc.dtype], stream,
+        B, H, KH, L, Dh, _Q_CODES[q.dtype], _KV_CODES[kc.dtype],
+        splits, per, chunk, stream,
     )
     _raise_on(rc, "fused decode attention")
     fused_decode_attention.launches += 1
@@ -376,6 +467,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, valid_len,
                     ("valid_len", valid_len)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
+    splits, per, chunk = _plan(MB * BL, S, KH, T * (H // KH),
+                               Dh * k_pool.element_size(),
+                               _sm_count(q.device), block_len=BL)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().cmn_paged_decode_attention(
@@ -383,7 +477,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, valid_len,
         _ptr(k_scale) if quant else None, _ptr(v_scale) if quant else None,
         block_tables.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
         S, T, H, KH, Dh, NB, BL, MB,
-        _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype], stream,
+        _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype], splits, per, chunk,
+        stream,
     )
     _raise_on(rc, "paged decode attention")
     paged_decode_attention.launches += 1

@@ -16,19 +16,29 @@ Phases, each printing one JSON line on stdout:
    function and each bf16 fused-conv function of ``cuobjdump -sass``, and
    the functions whose wgmmas ptxas serialized (from the library's build
    log), printed before the check that every one of them has wgmma and
-   TMA, no mma.sync and no serialized wgmma.
+   TMA, no mma.sync and no serialized wgmma; and ``decode_sass``: the
+   count of ``UBLKCP`` (1-D bulk copies) and ``LDGSTS`` (``cp.async``) in
+   each decode-attention function with ptxas's registers, stack frame and
+   spill bytes for it, printed before the check that every bf16-cache
+   function (K4 and K5) copies asynchronously and spills nothing.
 3. ``parity``: each hand-written kernel against its plain PyTorch version
    on the same inputs at the serving model's shapes: fp32 (atol 1e-4:
    sums in another order), bf16 (atol 2e-2: one bf16 rounding of O(1)
    outputs) and int8 pools with grouped-query heads (atol 2e-2), with
    speculative verify chunks (T = 4), idle slots (valid_len = 0) and every
-   supported head dim.
+   supported head dim; each case twice, the second time with lengths that
+   end exactly on, just before and just past the launch's split
+   boundaries, straddle one with a verify chunk's rows, and leave whole
+   splits empty.
 4. ``timing``: device times (CUDA-graph replay, CUDA events) of each
    kernel, its plain version and one PyTorch library call computing the
    same function, at the main path's shapes with the L2 cache cold,
    beside the least time the card could take (the larger of bytes over
    3.35 TB/s and operations over the peak rate of the input type), and
-   the kernel wrapper's eager per-call time.
+   the kernel wrapper's eager per-call time; then one long-context row
+   per decode kernel (``timing`` lines with ``"row": "long"``): the paged
+   kernel at 8 slots of ~4096 positions (256 blocks of 16), the fused one
+   at batch 8, L = 16384, both bf16 with 12 kv heads and Dh 64.
 5. ``serving``: the full-width model of the serving benchmark (12 layers,
    d_model 768, 12 heads, d_ff 3072, vocab 32768, RoPE, seeded random
    weights, bf16 compute) through ``DecodeEngine`` + ``Scheduler.run`` on
@@ -114,12 +124,14 @@ CUDA device the script exits 2 at once.
 
     python3 chip_smoke.py --compare-with DIR
 
-runs none of the above: it times the flash kernels (phase 9), the LM
-flash-arm step (phase 10's first arm), the fused 1x1-conv kernel (phase
-13) and the ``frozen/pallas`` ResNet step (an arm of phase 14) of the
-checkout DIR and of this one in turns, DIR, this, this, DIR, each in a
-process of its own, and prints every line with its tree;
-``--compare-phases flash,conv`` (say) times only those.
+runs none of the above: it times the decode kernels (phase 4 with its
+long rows) and the bf16 serving drive (phase 5's first), the flash
+kernels (phase 9), the LM flash-arm step (phase 10's first arm), the fused
+1x1-conv kernel (phase 13) and the ``frozen/pallas`` ResNet step (an arm
+of phase 14) of the checkout DIR and of this one in turns, DIR, this,
+this, DIR, each in a process of its own, and prints every line with its
+tree; ``--compare-phases decode,conv`` (say) times only those.  The
+decode phase runs this script's timing code on each tree's own kernels.
 """
 
 from __future__ import annotations
@@ -302,48 +314,80 @@ FUSED_CASES = [
 ]
 
 
+def split_lengths(per, n_max, T=1):
+    """Eight valid lengths against a launch whose splits hold ``per``
+    positions of ``n_max``: an idle row; bounds that end exactly on the
+    first split boundary, just before it and just past it (for a verify
+    chunk of T positions the last row's bound, valid + T - 1); a verify
+    chunk's rows straddling the second boundary; a row that leaves every
+    split but the first empty; one that leaves the last split empty; and
+    a full row."""
+    out = [0, per - (T - 1), per - T, per - (T - 1) + 1,
+           2 * per - T // 2, max(per // 2, 1), n_max - per - (T - 1),
+           n_max - (T - 1)]
+    return [min(max(v, 0), n_max - (T - 1)) for v in out]
+
+
 def phase_parity(ops, dev, seed, mb):
-    """Every case against the plain version; returns the largest error of
-    each kernel over its main-path (bf16, 12 kv heads) case."""
+    """Every case against the plain version, at the original lengths and
+    at the launch's split boundaries (:func:`split_lengths`); returns the
+    largest error of each kernel over its main-path (bf16, 12 kv heads)
+    case."""
     g = torch.Generator().manual_seed(seed)
     S, H = ENGINE["capacity"], FULL["n_heads"]
     BL = ENGINE["block_len"]
+    sms = ops._sm_count(dev)
     rows, main_err = [], {}
     for name, T, KH, Dh, dt, quant, tol in PAGED_CASES:
         hi = mb * BL - (T - 1)
-        valid = [0, 1, BL - 1, BL, BL + 1, 100, 192, hi][:S]
-        a = paged_inputs(g, dev, S, T, H, KH, Dh, BL, mb, valid, dt, quant)
-        got = run_paged(ops, a)
-        want = run_paged(ops, a, plain=True)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        rows.append(("paged_decode_attention", name, err, tol))
-        check(err <= tol, f"paged kernel case {name}: max |err| {err} > "
-              f"{tol}")
-        check(torch.isfinite(got.float()).all().item(),
-              f"paged kernel case {name}: non-finite output")
-        if T == 1:
-            # Idle slot 0 (valid 0): every row fully masked, exactly 0.
-            check(bool((got[0] == 0).all()),
-                  f"paged kernel case {name}: fully masked row is not "
-                  "exactly 0 (exp(NEG_INF - NEG_INF) leaked)")
-        if name == "bf16":
-            main_err["paged_decode_attention"] = err
+        elt = 1 if quant else torch.tensor([], dtype=dt).element_size()
+        splits, per, _ = ops._plan(mb * BL, S, KH, T * (H // KH), Dh * elt,
+                                   sms, block_len=BL)
+        for lens, valid in (
+                ("", [0, 1, BL - 1, BL, BL + 1, 100, 192, hi][:S]),
+                ("_splits", split_lengths(per, mb * BL, T))):
+            a = paged_inputs(g, dev, S, T, H, KH, Dh, BL, mb, valid, dt,
+                             quant)
+            got = run_paged(ops, a)
+            want = run_paged(ops, a, plain=True)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            rows.append(("paged_decode_attention", name + lens, err, tol,
+                         valid, splits))
+            check(err <= tol, f"paged kernel case {name}{lens} (valid "
+                  f"{valid}): max |err| {err} > {tol}")
+            check(torch.isfinite(got.float()).all().item(),
+                  f"paged kernel case {name}{lens}: non-finite output")
+            if T == 1:
+                # Idle slot 0 (valid 0): every row fully masked, exactly 0.
+                check(bool((got[0] == 0).all()),
+                      f"paged kernel case {name}{lens}: fully masked row "
+                      "is not exactly 0 (exp(NEG_INF - NEG_INF) leaked)")
+            if name == "bf16":
+                main_err["paged_decode_attention"] = max(
+                    err, main_err.get("paged_decode_attention", 0.0))
     for name, L, KH, Dh, dt, quant, tol in FUSED_CASES:
-        valid = [0, 1, 31, 32, 33, L // 2 + 1, L - 1, L][:S]
-        a = fused_inputs(g, dev, S, H, KH, L, Dh, valid, dt, quant)
-        got = run_fused(ops, a)
-        want = run_fused(ops, a, plain=True)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        rows.append(("fused_decode_attention", name, err, tol))
-        check(err <= tol, f"fused kernel case {name}: max |err| {err} > "
-              f"{tol}")
-        if name == "bf16":
-            main_err["fused_decode_attention"] = err
+        elt = 1 if quant else torch.tensor([], dtype=dt).element_size()
+        splits, per, _ = ops._plan(L, S, KH, H // KH, Dh * elt, sms)
+        for lens, valid in (("", [0, 1, 31, 32, 33, L // 2 + 1, L - 1,
+                                  L][:S]),
+                            ("_splits", split_lengths(per, L))):
+            a = fused_inputs(g, dev, S, H, KH, L, Dh, valid, dt, quant)
+            got = run_fused(ops, a)
+            want = run_fused(ops, a, plain=True)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            rows.append(("fused_decode_attention", name + lens, err, tol,
+                         valid, splits))
+            check(err <= tol, f"fused kernel case {name}{lens} (valid "
+                  f"{valid}): max |err| {err} > {tol}")
+            if name == "bf16":
+                main_err["fused_decode_attention"] = max(
+                    err, main_err.get("fused_decode_attention", 0.0))
     emit({"phase": "parity", "cases": [
-        {"kernel": k, "case": n, "max_abs_err": e, "atol": t}
-        for k, n, e, t in rows]})
+        {"kernel": k, "case": n, "max_abs_err": e, "atol": t,
+         "valid": v, "splits": sp}
+        for k, n, e, t, v, sp in rows]})
     return main_err
 
 
@@ -473,7 +517,7 @@ def phase_timing(ops, dev, seed, mb):
                mask=(torch.arange(Lg, device=dev)[None, :]
                      < a["valid"][:, None])[:, None, None, :])
     out["paged_decode_attention"] = timing_row(
-        a, lib, lambda x: run_paged(ops, x),
+        "paged_decode_attention", a, lib, lambda x: run_paged(ops, x),
         lambda x: run_paged(ops, x, plain=True), paged_bound(a, 1),
         dict(S=S, H=H, KH=H, Dh=Dh, block_len=BL, max_blocks=mb,
              valid=valid))
@@ -485,9 +529,71 @@ def phase_timing(ops, dev, seed, mb):
                mask=(torch.arange(L, device=dev)[None, :]
                      < a["valid"][:, None])[:, None, None, :])
     out["fused_decode_attention"] = timing_row(
-        a, lib, lambda x: run_fused(ops, x),
+        "fused_decode_attention", a, lib, lambda x: run_fused(ops, x),
         lambda x: run_fused(ops, x, plain=True), fused_bound(a),
         dict(B=S, H=H, KH=H, L=L, Dh=Dh, valid=valid))
+
+    # The int8-GQA serving arm's step (4 kv heads, int8 pools with fp32
+    # scales, its engine's table width).  No one PyTorch call takes int8
+    # K/V with scales: the row has no library time.
+    _, mb8 = engine_geometry(draw_requests(np.random.RandomState(seed + 10),
+                                           6, FULL["vocab"]))
+    valid = rng.randint(17, 16 + 128 + 64 + 1, size=S).tolist()
+    a = paged_inputs(g, dev, S, 1, H, 4, Dh, BL, mb8, valid,
+                     torch.bfloat16, True)
+    out["paged_decode_attention_int8_gqa"] = timing_row(
+        "paged_decode_attention", a, None, lambda x: run_paged(ops, x),
+        lambda x: run_paged(ops, x, plain=True), paged_bound(a, 1),
+        dict(S=S, H=H, KH=4, Dh=Dh, block_len=BL, max_blocks=mb8,
+             valid=valid, kv_dtype="int8"), row="int8_gqa")
+    return out
+
+
+#: the long-context rows: the paged kernel at 8 slots of ~4096 positions
+#: (max_blocks 256 at block 16), the fused one at lm_generate's limit
+#: (``MAX_FUSED_LEN``); bf16, 12 kv heads, Dh 64.
+LONG_PAGED_BLOCKS, LONG_FUSED_LEN = 256, 16384
+
+
+def phase_long_timing(ops, dev, seed):
+    """One long-context ``timing`` row per decode kernel, valid lengths
+    drawn near the row's capacity."""
+    g = torch.Generator().manual_seed(seed + 9)
+    rng = np.random.RandomState(seed + 9)
+    S, H, Dh = ENGINE["capacity"], FULL["n_heads"], 64
+    BL, mb = ENGINE["block_len"], LONG_PAGED_BLOCKS
+    out = {}
+    valid = rng.randint(mb * BL - 192, mb * BL + 1, size=S).tolist()
+    a = paged_inputs(g, dev, S, 1, H, H, Dh, BL, mb, valid,
+                     torch.bfloat16, False, spare=0)
+    idx = a["tables"].long()
+    Lg = mb * BL
+    lib = dict(q=a["q"].view(S, H, 1, Dh),
+               k=a["k"][:, idx].permute(1, 0, 2, 3, 4)
+               .reshape(S, H, Lg, Dh).contiguous(),
+               v=a["v"][:, idx].permute(1, 0, 2, 3, 4)
+               .reshape(S, H, Lg, Dh).contiguous(),
+               mask=(torch.arange(Lg, device=dev)[None, :]
+                     < a["valid"][:, None])[:, None, None, :])
+    out["paged_decode_attention"] = timing_row(
+        "paged_decode_attention", a, lib, lambda x: run_paged(ops, x),
+        lambda x: run_paged(ops, x, plain=True), paged_bound(a, 1),
+        dict(S=S, H=H, KH=H, Dh=Dh, block_len=BL, max_blocks=mb,
+             valid=valid), row="long", plain_iters=2, kernel_iters=50)
+    del a, lib
+    L = LONG_FUSED_LEN
+    valid = rng.randint(L - 256, L + 1, size=S).tolist()
+    a = fused_inputs(g, dev, S, H, H, L, Dh, valid, torch.bfloat16, False)
+    lib = dict(q=a["q"].view(S, H, 1, Dh), k=a["k"], v=a["v"],
+               mask=(torch.arange(L, device=dev)[None, :]
+                     < a["valid"][:, None])[:, None, None, :])
+    out["fused_decode_attention"] = timing_row(
+        "fused_decode_attention", a, lib, lambda x: run_fused(ops, x),
+        lambda x: run_fused(ops, x, plain=True), fused_bound(a),
+        dict(B=S, H=H, KH=H, L=L, Dh=Dh, valid=valid), row="long",
+        plain_iters=2, kernel_iters=50)
+    del a, lib
+    torch.cuda.empty_cache()
     return out
 
 
@@ -496,26 +602,31 @@ def sdpa(x):
                                           attn_mask=x["mask"])
 
 
-def timing_row(a, lib, kernel, plain, bnd, shape):
+def timing_row(name, a, lib, kernel, plain, bnd, shape, row="main",
+               plain_iters=10, kernel_iters=200):
     bound_ms, bound_by = bnd
     copies = copies_for(a)
-    lib_copies = copies_for(lib)
     # Turns: plain, kernel, library, kernel, plain.
-    p1 = time_ms(plain, copies, 10)
-    k1 = time_ms(kernel, copies, 200)
-    lib_ms = time_ms(sdpa, lib_copies, 200)
-    k2 = time_ms(kernel, copies, 200)
-    p2 = time_ms(plain, copies, 10)
-    k_eager = eager_ms(kernel, copies, 200)
-    # The yardstick must compute the same function.
-    want = plain(a).float().reshape(-1)
-    lib_err = (sdpa(lib).float().reshape(-1) - want).abs().max().item()
-    check(lib_err <= 2e-2, f"library yardstick disagrees: {lib_err}")
-    row = dict(kernel_ms=min(k1, k2), kernel_ms_runs=[k1, k2],
+    p1 = time_ms(plain, copies, plain_iters)
+    k1 = time_ms(kernel, copies, kernel_iters)
+    lib_ms = lib_err = None
+    if lib is not None:
+        lib_ms = time_ms(sdpa, copies_for(lib), kernel_iters)
+    k2 = time_ms(kernel, copies, kernel_iters)
+    p2 = time_ms(plain, copies, plain_iters)
+    k_eager = eager_ms(kernel, copies, kernel_iters)
+    if lib is not None:
+        # The yardstick must compute the same function.
+        want = plain(a).float().reshape(-1)
+        lib_err = (sdpa(lib).float().reshape(-1) - want).abs().max().item()
+        check(lib_err <= 2e-2, f"library yardstick disagrees: {lib_err}")
+    row = dict(kernel=name, row=row, kernel_ms=min(k1, k2),
+               kernel_ms_runs=[k1, k2],
                kernel_eager_ms=k_eager, plain_ms=min(p1, p2),
                plain_ms_runs=[p1, p2], library_ms=lib_ms,
                library_max_abs_err=lib_err, bound_ms=bound_ms,
-               bound_by=bound_by, shape=shape, copies=len(copies))
+               bound_by=bound_by, bound_fraction=bound_ms / min(k1, k2),
+               shape=shape, copies=len(copies))
     emit({"phase": "timing", **row})
     return row
 
@@ -1664,16 +1775,67 @@ def phase_conv_sass(kernels):
                 [f"{k}<{n}>" for k in CONV_SASS for n in CONV_TILES])
 
 
+#: the decode-attention functions (K4 ``paged``, K5 ``fused``), named
+#: ``decode_<kind>_q<type>_kv<type>_rb<rows per CTA>``; those of bf16
+#: caches, the main path's, must copy K/V asynchronously and spill nothing.
+DECODE_SASS = r"decode_(paged|fused)_q(f32|bf16)_kv(f32|bf16|i8)_rb(\d+)"
+DECODE_BF16 = [f"decode_{k}_q{q}_kvbf16_rb{rb}" for k in ("paged", "fused")
+               for q in ("f32", "bf16") for rb in (1, 4)]
+
+
+def decode_sass_rows(counts, resources):
+    """``{"decode_<...>": counts and ptxas resources}`` of the decode
+    functions among ``_kernels.sass_counts``'s (mangled) names; a function
+    ptxas did not report has no resource keys."""
+    import re
+
+    rows = {}
+    for fn, c in counts.items():
+        m = re.search(DECODE_SASS, fn)
+        if m:
+            rows[m.group(0)] = {**c, **resources.get(fn, {})}
+    return rows
+
+
+def phase_decode_sass(kernels):
+    """The asynchronous copies (``UBLKCP``, ``LDGSTS``) of every
+    decode-attention function, with ptxas's registers, stack frame and
+    spill bytes from the library's build log, printed before the check
+    that each bf16-cache function is there, copies asynchronously and
+    spills nothing.  A library without its log fails the check."""
+    log = kernels.build_log("decode_attention")
+    rows = decode_sass_rows(
+        kernels.sass_counts(kernels.sass("decode_attention")),
+        kernels.ptxas_resources(log) if log is not None else {})
+    emit({"phase": "decode_sass", "functions": rows})
+    check(log is not None, "decode_sass: no build log of the "
+          "decode_attention library to read ptxas's spills from")
+    missing = sorted(set(DECODE_BF16) - set(rows))
+    check(not missing, f"decode_sass: bf16 functions missing: {missing}")
+    for name in DECODE_BF16:
+        c = rows[name]
+        check(c["UBLKCP"] + c["LDGSTS"] > 0,
+              f"decode_sass: {name} has no asynchronous copy: {c}")
+        check(c.get("spill_stores") == 0,
+              f"decode_sass: {name} spills (or ptxas reported no spill "
+              f"line): {c}")
+
+
 # ------------------------------------------------------- tree comparison
-#: what ``--compare-with`` times in each tree: the flash kernels (phase 9),
-#: the LM flash-arm step (phase 10's first arm), the fused-conv kernel
-#: (phase 13) and the ``frozen/pallas`` ResNet step (an arm of phase 14).
-COMPARE_PHASES = ("flash", "lm", "conv", "resnet")
+#: what ``--compare-with`` times in each tree: the decode kernels (phase 4
+#: with its long rows) and the bf16 serving drive (phase 5's first), the
+#: flash kernels (phase 9), the LM flash-arm step (phase 10's first arm),
+#: the fused-conv kernel (phase 13) and the ``frozen/pallas`` ResNet step
+#: (an arm of phase 14).
+COMPARE_PHASES = ("decode", "flash", "lm", "conv", "resnet")
 
 #: run in another checkout's root: the phases named in its second argument,
-#: through that checkout's own chip_smoke.py.
+#: through that checkout's own chip_smoke.py, except ``decode``: this
+#: script (its path is the third argument) times that checkout's own
+#: decode kernels and drives its own serving engine, so that both trees
+#: are measured by the same code at the same shapes.
 _COMPARE_WORKER = """
-import importlib, sys
+import importlib, importlib.util, sys
 import numpy as np, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
@@ -1685,6 +1847,17 @@ torch.cuda.set_device(dev)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 card = cs.nvidia_smi()
+if "decode" in phases:
+    spec = importlib.util.spec_from_file_location("harness", sys.argv[3])
+    hs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(hs)
+    ops = importlib.import_module("chainermn_tpu_torch.ops.decode_attention")
+    hs.emit({"phase": "decode_ops", "file": ops.__file__})
+    _, mb = hs.engine_geometry(hs.draw_requests(
+        np.random.RandomState(seed), 16, hs.FULL["vocab"]))
+    hs.phase_timing(ops, dev, seed, mb)
+    hs.phase_long_timing(ops, dev, seed)
+    hs.drive_serving(ops, dev, card, seed, "bf16_mha", 16)
 fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
 comm = create_communicator("xla", device=dev,
                            allreduce_grad_dtype=torch.bfloat16)
@@ -1719,7 +1892,7 @@ def compare_trees(other, seed, phases=COMPARE_PHASES):
                         ("other", other)):
         proc = subprocess.run(
             [sys.executable, "-c", _COMPARE_WORKER, str(seed),
-             ",".join(phases)],
+             ",".join(phases), os.path.abspath(__file__)],
             cwd=tree, capture_output=True, text=True, timeout=1800)
         for line in proc.stdout.splitlines():
             if line.startswith("{"):
@@ -1736,10 +1909,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compare-with", metavar="DIR",
-                    help="only time the flash and fused-conv kernels, the "
-                         "LM flash step and the frozen/pallas ResNet step "
-                         "of the checkout DIR and of this one, in turns "
-                         "(see compare_trees)")
+                    help="only time the decode, flash and fused-conv "
+                         "kernels, the bf16 serving drive, the LM flash "
+                         "step and the frozen/pallas ResNet step of the "
+                         "checkout DIR and of this one, in turns (see "
+                         "compare_trees)")
     ap.add_argument("--compare-phases", default=",".join(COMPARE_PHASES),
                     help="with --compare-with: which of "
                          f"{','.join(COMPARE_PHASES)} to time "
@@ -1786,6 +1960,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     phase_flash_sass(_kernels)
     phase_conv_sass(_kernels)
+    phase_decode_sass(_kernels)
 
     # The block-table width the serving phase's engine will have.
     _, mb = engine_geometry(draw_requests(
@@ -1793,6 +1968,7 @@ def main() -> int:
     errs = phase_parity(ops, dev, args.seed, mb)
     errs.update(phase_flash_parity(fa, dev, args.seed))
     timing = phase_timing(ops, dev, args.seed, mb)
+    phase_long_timing(ops, dev, args.seed)
     timing.update(phase_flash_timing(fa, dev, args.seed))
 
     serve = drive_serving(ops, dev, smi, args.seed, "bf16_mha", 16)

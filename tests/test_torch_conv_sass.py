@@ -59,8 +59,10 @@ def test_conv_sass_rows_name_the_bf16_kernel_by_column_tile():
     rows = chip_smoke.conv_sass_rows(_kernels.sass_counts(
         _listing({64: WGMMA, 128: MMA})))
     assert rows == {
-        "matmul_affine_bf16<64>": {"HGMMA": 1, "HMMA": 0, "UTMALDG": 2},
-        "matmul_affine_bf16<128>": {"HGMMA": 0, "HMMA": 1, "UTMALDG": 0}}
+        "matmul_affine_bf16<64>": {"HGMMA": 1, "HMMA": 0, "UTMALDG": 2,
+                                   "UBLKCP": 0, "LDGSTS": 0},
+        "matmul_affine_bf16<128>": {"HGMMA": 0, "HMMA": 1, "UTMALDG": 0,
+                                    "UBLKCP": 0, "LDGSTS": 0}}
 
 
 class _Kernels:

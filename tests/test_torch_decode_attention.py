@@ -186,3 +186,187 @@ def test_wrappers_reject_bad_inputs():
             torch.zeros(2, 2, dtype=torch.int32),
             torch.zeros(2, dtype=torch.int32),
         )
+
+
+# ------------------------------------------------ the launch's split plan
+# The CUDA kernels split each row's positions over the CTAs of a cluster
+# (``tda._plan``).  The plan is a function of static shapes alone; these
+# tests hold it to covering every position once, and hold the merge rule
+# the kernels apply to the CTAs' partial softmax states to the Pallas
+# kernels, by emulating the kernels' split-and-merge on the plain
+# arithmetic.
+
+@pytest.mark.parametrize("n_max,pairs,sms,align", [
+    (240, 96, 132, 16), (4096, 96, 132, 16), (16384, 96, 132, 16),
+    (192, 96, 132, 16), (100, 32, 132, 32), (17, 1, 132, 16),
+    (1, 8, 132, 16), (240, 3000, 132, 16), (96, 24, 8, 8),
+])
+def test_split_plan_covers_every_position_once(n_max, pairs, sms, align):
+    splits, per = tda._split_plan(n_max, pairs, sms, align)
+    assert 1 <= splits <= tda.MAX_SPLITS
+    assert per % align == 0 and per > 0
+    covered = np.zeros(n_max, np.int64)
+    for c in range(splits):
+        lo, hi = c * per, min((c + 1) * per, n_max)
+        assert lo < n_max, "a split starts past the row"
+        covered[lo:hi] += 1
+    assert np.all(covered == 1)
+
+
+@pytest.mark.parametrize("BL,Dh,elt", [(16, 64, 2), (16, 64, 4),
+                                       (16, 128, 4), (8, 16, 1),
+                                       (32, 32, 2), (7, 64, 2),
+                                       (64, 128, 2)])
+def test_paged_plan_aligns_to_blocks(BL, Dh, elt):
+    splits, per, chunk = tda._plan(15 * BL, 8, 12, 1, Dh * elt, 132,
+                                   block_len=BL)
+    assert per % BL == 0 and BL % chunk == 0
+    assert chunk * Dh * elt <= tda.CHUNK_BYTES
+    assert splits * per >= 15 * BL > (splits - 1) * per
+
+
+def test_plan_takes_static_shapes_only():
+    """The plan never sees valid_len or the tables, so one plan serves
+    every length: a launch captured in a CUDA graph stays right after they
+    change in place (the card test replays one)."""
+    import inspect
+
+    assert list(inspect.signature(tda._plan).parameters) == [
+        "n_max", "rows_of", "KH", "R", "row_bytes", "sms", "block_len"]
+    # More rows per kv head (verify chunks, GQA) take row blocks, which
+    # count as pairs: fewer splits each.
+    assert tda._plan(240, 8, 4, 48, 128, 132, block_len=16)[0] < \
+        tda._plan(240, 8, 4, 1, 128, 132, block_len=16)[0]
+
+
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("elt", [1, 2, 4], ids=["int8", "bf16", "fp32"])
+def test_bulk_copy_takes_every_supported_row(Dh, elt):
+    tda._check_bulk_copy("k", 4096, Dh * elt)
+
+
+def test_bulk_copy_refuses_what_it_cannot_move():
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tda._check_bulk_copy("k", 4096 + 8, 128)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tda._check_bulk_copy("v", 4096, 8 * 3)
+
+
+def _split_merge(scores, vals, ok, vscale, plan_per, n_splits, uniform):
+    """The kernels' split-and-merge for one query row: ``scores`` (P,),
+    ``vals`` (P, Dh), ``ok`` (P,) the attendable positions.  Each split
+    folds its positions into (m, l, acc); a split that saw none keeps m =
+    NEG_INF and weighs 0 in the merge."""
+    NEG = tda.NEG_INF
+    parts = []
+    for c in range(n_splits):
+        sl = slice(c * plan_per, (c + 1) * plan_per)
+        s = np.where(ok[sl], 0.0 if uniform else scores[sl], NEG)
+        m = s.max(initial=NEG)
+        p = np.where(ok[sl], np.exp(s - m), 0.0)
+        parts.append((m, p.sum(), (p * vscale[sl])[:, None] * vals[sl]))
+    M = max(m for m, _, _ in parts)
+    w = [np.exp(m - M) if m > NEG else 0.0 for m, _, _ in parts]
+    lsum = sum(wi * li for wi, (_, li, _) in zip(w, parts))
+    acc = sum(wi * a.sum(0) for wi, (_, _, a) in zip(w, parts))
+    return acc / max(lsum, 1e-30)
+
+
+def _emulate_paged(a, BL, MB, sms=132):
+    q = a["q"] if a["q"].ndim == 4 else a["q"][:, None]
+    S, T, H, Dh = q.shape
+    KH = a["kp"].shape[0]
+    G = H // KH
+    splits, per, _ = tda._plan(MB * BL, S, KH, T * G, Dh * 4, sms,
+                               block_len=BL)
+    out = np.zeros_like(q, dtype=np.float64)
+    pos = np.arange(MB * BL)
+    for s in range(S):
+        blocks = a["tables"][s]
+        k = a["kp"][:, blocks].reshape(KH, MB * BL, Dh).astype(np.float64)
+        v = a["vp"][:, blocks].reshape(KH, MB * BL, Dh).astype(np.float64)
+        ks = np.ones((KH, MB * BL)) if a["ks"] is None else \
+            a["ks"][:, blocks].reshape(KH, MB * BL)
+        vs = np.ones((KH, MB * BL)) if a["vs"] is None else \
+            a["vs"][:, blocks].reshape(KH, MB * BL)
+        for t in range(T):
+            for h in range(H):
+                kh = h // G
+                sc = k[kh] @ (q[s, t, h] / np.sqrt(Dh)) * ks[kh]
+                ok = pos < a["valid"][s] + t
+                out[s, t, h] = _split_merge(sc, v[kh], ok, vs[kh], per,
+                                            splits, False)
+    return out if a["q"].ndim == 4 else out[:, 0]
+
+
+def _emulate_fused(a, sms=132):
+    B, H, Dh = a["q"].shape
+    _, KH, L, _ = a["kc"].shape
+    G = H // KH
+    splits, per, _ = tda._plan(L, B, KH, G, Dh * 4, sms)
+    out = np.zeros_like(a["q"], dtype=np.float64)
+    for b in range(B):
+        uniform = a["valid"][b] <= 0
+        ok = np.arange(L) < (L if uniform else a["valid"][b])
+        for h in range(H):
+            kh = h // G
+            k = a["kc"][b, kh].astype(np.float64)
+            ks = np.ones(L) if a["ks"] is None else a["ks"][b, kh]
+            vs = np.ones(L) if a["vs"] is None else a["vs"][b, kh]
+            sc = k @ (a["q"][b, h] / np.sqrt(Dh)) * ks
+            out[b, h] = _split_merge(sc, a["vc"][b, kh].astype(np.float64),
+                                     ok, vs, per, splits, uniform)
+    return out
+
+
+@pytest.mark.parametrize("case", [
+    # (S, T, H, KH, Dh, BL, MB, valid(per), quant, sms): an idle row,
+    # lengths on and around the first split boundary (per positions),
+    # verify rows straddling one, splits left empty.
+    ("idle_and_boundaries", 4, 1, 4, 4, 16, 8, 8,
+     lambda per: [0, per, per - 1, per + 1], False, 16),
+    ("verify_straddles", 3, 3, 4, 2, 16, 8, 8,
+     lambda per: [per - 2, 0, per - 1], False, 16),
+    ("int8_verify_empty_splits", 2, 3, 4, 2, 16, 8, 8,
+     lambda per: [1, per - 1], True, 16),
+    ("gqa_many_rows", 2, 4, 6, 1, 16, 4, 10,
+     lambda per: [3, per + 5], False, 132),
+], ids=lambda c: c[0])
+def test_split_merge_matches_pallas_paged(case):
+    _, S, T, H, KH, Dh, BL, MB, lengths, quant, sms = case
+    splits, per, _ = tda._plan(MB * BL, S, KH, T * (H // KH), Dh * 4, sms,
+                               block_len=BL)
+    assert splits > 1
+    valid = lengths(per)
+    a = _paged_inputs(S, T, H, KH, Dh, NB=S * MB + 1, BL=BL, MB=MB,
+                      valid=valid, seed=len(case[0]), quant=quant)
+    want, got = _run_paged(a)
+    emulated = _emulate_paged(a, BL, MB, sms)
+    np.testing.assert_allclose(emulated, want, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    if T == 1:
+        idle = [s for s in range(S) if valid[s] == 0]
+        assert all(np.all(emulated[s] == 0.0) for s in idle)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, H, KH, L, Dh, valid(per), quant, sms): valid <= 0 rows (the
+    # uniform mean over every split), lengths on the split boundaries,
+    # splits left empty.
+    ("uniform_and_boundaries", 4, 4, 2, 48, 16,
+     lambda per: [0, per, per + 1, -3], False, 16),
+    ("int8_uniform", 3, 4, 2, 40, 32, lambda per: [0, 2 * per, 1], True,
+     16),
+    ("gqa_empty_splits", 2, 6, 2, 64, 16, lambda per: [5, 64], False, 16),
+], ids=lambda c: c[0])
+def test_split_merge_matches_pallas_fused(case):
+    _, B, H, KH, L, Dh, lengths, quant, sms = case
+    splits, per, _ = tda._plan(L, B, KH, H // KH, Dh * 4, sms)
+    assert splits > 1
+    valid = [min(v, L) for v in lengths(per)]
+    a = _fused_inputs(B, H, KH, L, Dh, valid, seed=len(case[0]),
+                      quant=quant)
+    want, got = _run_fused(a)
+    np.testing.assert_allclose(_emulate_fused(a, sms), want, atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)

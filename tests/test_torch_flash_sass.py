@@ -47,17 +47,22 @@ LISTING = f"""
 def test_sass_counts_each_function_apart():
     counts = _kernels.sass_counts(LISTING)
     assert list(counts) == [FWD, DQ, F32]
-    assert counts[FWD] == {"HGMMA": 3, "HMMA": 0, "UTMALDG": 2}
-    assert counts[DQ] == {"HGMMA": 0, "HMMA": 2, "UTMALDG": 0}
-    assert counts[F32] == {"HGMMA": 0, "HMMA": 0, "UTMALDG": 0}
+    assert counts[FWD] == {"HGMMA": 3, "HMMA": 0, "UTMALDG": 2,
+                            "UBLKCP": 0, "LDGSTS": 0}
+    assert counts[DQ] == {"HGMMA": 0, "HMMA": 2, "UTMALDG": 0,
+                           "UBLKCP": 0, "LDGSTS": 0}
+    assert counts[F32] == {"HGMMA": 0, "HMMA": 0, "UTMALDG": 0,
+                            "UBLKCP": 0, "LDGSTS": 0}
 
 
 def test_flash_sass_rows_name_the_bf16_kernels_by_head_dim():
     rows = chip_smoke.flash_sass_rows(_kernels.sass_counts(LISTING))
     assert rows == {"flash_fwd_bf16<64>": {"HGMMA": 3, "HMMA": 0,
-                                           "UTMALDG": 2},
+                                           "UTMALDG": 2, "UBLKCP": 0,
+                                           "LDGSTS": 0},
                     "flash_bwd_dq_bf16<128>": {"HGMMA": 0, "HMMA": 2,
-                                               "UTMALDG": 0}}
+                                               "UTMALDG": 0, "UBLKCP": 0,
+                                               "LDGSTS": 0}}
 
 
 # ptxas's report, in the shape ``nvcc -Xptxas -v`` prints it, of a build in

@@ -25,6 +25,7 @@ import math
 import pytest
 import torch
 
+import chip_smoke
 from chainermn_tpu_torch.ops import _kernels
 from chainermn_tpu_torch.ops import conv_fused as tcf
 from chainermn_tpu_torch.ops import decode_attention as tda
@@ -170,6 +171,121 @@ def test_cuda_wrappers_reject_what_the_kernel_does_not_take(dev):
         tda.fused_decode_attention(q[..., :48].contiguous(),
                                    k[..., :48].contiguous(),
                                    v[..., :48].contiguous(), valid)
+
+
+# ------------------------------------------ decode: the split-KV launch
+# The kernels split each row's positions over the CTAs of a cluster
+# (``tda._plan``); these cases put lengths on the plan's split boundaries,
+# straddle one with a verify chunk's rows, leave whole splits empty, and
+# replay a captured launch after the lengths and tables change in place.
+
+def _elt(dtype, quant):
+    return 1 if quant else torch.tensor([], dtype=dtype).element_size()
+
+
+@pytest.mark.parametrize("dtype,quant", [(torch.bfloat16, False),
+                                         (torch.float32, False),
+                                         (torch.bfloat16, True)],
+                         ids=["bf16", "fp32", "int8"])
+@pytest.mark.parametrize("T,KH", [(1, 12), (4, 4)], ids=["mha", "gqa_t4"])
+def test_paged_split_boundaries(dev, dtype, quant, T, KH):
+    S, H, Dh, BL, MB = 8, 12, 64, 16, 15
+    _, per, _ = tda._plan(MB * BL, S, KH, T * (H // KH), Dh *
+                          _elt(dtype, quant), tda._sm_count(dev),
+                          block_len=BL)
+    valid = chip_smoke.split_lengths(per, MB * BL, T)
+    args = _paged(dev, S, T, H, KH, Dh, BL, MB, valid, dtype, quant)
+    got = tda.paged_decode_attention(*args)
+    want = tda.paged_decode_attention_reference(*args)
+    assert _err(got, want) <= TOL[dtype], f"valid {valid}, per {per}"
+    if T == 1:
+        assert bool((got[0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,quant", [(torch.bfloat16, False),
+                                         (torch.float32, False),
+                                         (torch.bfloat16, True)],
+                         ids=["bf16", "fp32", "int8"])
+@pytest.mark.parametrize("L,KH", [(192, 12), (4096, 4), (100, 6)])
+def test_fused_split_boundaries(dev, dtype, quant, L, KH):
+    _, per, _ = tda._plan(L, 8, KH, 12 // KH, 64 * _elt(dtype, quant),
+                          tda._sm_count(dev))
+    valid = chip_smoke.split_lengths(per, L)
+    args = _fused(dev, 8, 12, KH, L, 64, valid, dtype, quant)
+    got = tda.fused_decode_attention(*args)
+    want = tda.fused_decode_attention_reference(*args)
+    assert _err(got, want) <= TOL[dtype], f"valid {valid}, per {per}"
+
+
+@pytest.mark.parametrize("dtype,quant", [(torch.float32, False),
+                                         (torch.bfloat16, False),
+                                         (torch.bfloat16, True),
+                                         (torch.float32, True)],
+                         ids=["fp32", "bf16", "int8", "int8_fp32_q"])
+@pytest.mark.parametrize("KH", [4, 1], ids=["gqa", "mqa"])
+def test_paged_verify16_gqa(dev, dtype, quant, KH):
+    """T = MAX_VERIFY_T with G = 3 (48 rows per kv head) and G = 12 (192):
+    the rows take several row blocks of CTAs."""
+    S, T, H, Dh, BL, MB = 8, tda.MAX_VERIFY_T, 12, 64, 16, 12
+    valid = [0, 1, 15, 16, 17, 100, 150, MB * BL - (T - 1)]
+    args = _paged(dev, S, T, H, KH, Dh, BL, MB, valid, dtype, quant)
+    got = tda.paged_decode_attention(*args)
+    want = tda.paged_decode_attention_reference(*args)
+    assert _err(got, want) <= TOL[dtype]
+    # Idle slot 0, offset 0: every row fully masked, exactly 0.
+    assert bool((got[0, 0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,quant", [(torch.bfloat16, False),
+                                         (torch.float32, False),
+                                         (torch.bfloat16, True)],
+                         ids=["bf16", "fp32", "int8"])
+def test_fused_max_len(dev, dtype, quant):
+    L = tda.MAX_FUSED_LEN
+    valid = [0, 1, 2047, 2048, 2049, L // 2 + 1, L - 1, L]
+    args = _fused(dev, 8, 12, 12, L, 64, valid, dtype, quant)
+    got = tda.fused_decode_attention(*args)
+    want = tda.fused_decode_attention_reference(*args)
+    assert _err(got, want) <= TOL[dtype]
+
+
+def test_wrappers_replay_in_a_cuda_graph(dev):
+    """One capture of each wrapper, then valid_len and the block tables
+    rewritten in place and the graph replayed: the launch read neither on
+    the host, so the replay follows the new values."""
+    S, H, KH, Dh, BL, MB, L = 8, 12, 4, 64, 16, 12, 300
+    full = [MB * BL] * S  # every slot's table maps MB distinct blocks
+    pq, pk, pv, tables, pvalid, pks, pvs = _paged(
+        dev, S, 1, H, KH, Dh, BL, MB, full, torch.bfloat16, True)
+    fq, fk, fv, fvalid, _, _ = _fused(dev, S, H, KH, L, Dh, [L] * S,
+                                      torch.bfloat16, False)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tda.paged_decode_attention(pq, pk, pv, tables, pvalid, pks, pvs)
+        tda.fused_decode_attention(fq, fk, fv, fvalid)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_p = tda.paged_decode_attention(pq, pk, pv, tables, pvalid, pks,
+                                           pvs)
+        out_f = tda.fused_decode_attention(fq, fk, fv, fvalid)
+    for new_p, new_f in (([0, 1, 16, 17, 31, 100, 150, MB * BL],
+                          [0, 1, 31, 32, 33, 150, L - 1, L]),
+                         ([5, MB * BL, 0, 64, 65, 2, 190, 33],
+                          [-2, L, 17, 1, 299, 64, 0, 128])):
+        pvalid.copy_(torch.tensor(new_p, dtype=torch.int32))
+        fvalid.copy_(torch.tensor(new_f, dtype=torch.int32))
+        tables.copy_(tables.roll(1, dims=0))
+        graph.replay()
+        want_p = tda.paged_decode_attention_reference(
+            pq, pk, pv, tables, pvalid, pks, pvs)
+        want_f = tda.fused_decode_attention_reference(fq, fk, fv, fvalid)
+        assert _err(out_p, want_p) <= TOL[torch.bfloat16]
+        assert _err(out_f, want_f) <= TOL[torch.bfloat16]
+        idle = [i for i, v in enumerate(new_p) if v == 0]
+        assert bool((out_p[idle] == 0).all())
 
 
 # ------------------------------------------------------- flash K1-K3
