@@ -50,7 +50,10 @@
 //    rank 0 of the cluster reads the other CTAs' partials through
 //    distributed shared memory, merges, normalizes and writes the output.
 //    A second cluster barrier keeps every CTA alive until rank 0 has read
-//    it.  One launch: no global workspace, no atomics.
+//    it.  One launch: no global workspace.
+//  * A count of runs on the card: thread 0 of CTA (0, 0, 0) adds one to
+//    the wrapper's counter, one atomic per launch, so a launch replayed
+//    from a CUDA graph, which the host never sees, is counted too.
 //  * Rows.  A CTA holds up to 4 rows (R = T * G: the G heads of a GQA
 //    group and the T offsets of a verify chunk), 1 in the instantiation for
 //    R = 1 (MHA decode, the main path).  Larger R takes ceil(R / 4) row
@@ -105,6 +108,7 @@ struct Params {
   const int* tables;      // paged (S, MB)
   const int* valid;       // (S,) or (B,)
   void* out;              // q's shape and dtype
+  unsigned long long* runs;  // one is added per launch
   int T, H, KH, G, R, Dh;
   int NB, BL, MB;         // paged pool geometry
   int L;                  // fused cache length
@@ -268,6 +272,8 @@ __device__ __forceinline__ void decode_body(const Params& p) {
   const int grp = lane / lg, gl = lane % lg;
   const int rows = min(RB, p.R - rb0);
   const int valid = p.valid[s];
+  if (threadIdx.x == 0 && split == 0 && s == 0 && blockIdx.z == 0)
+    atomicAdd(p.runs, 1ull);
 
   // Row r attends positions < bnd[r]; the CTA reads [lo, hi).  Paged: row
   // r is query offset (rb0 + r) / G (the verify chunk's causality), capped
@@ -612,14 +618,16 @@ int launch(Params p, int rows_of, int splits, int q_dtype, int kv_dtype,
 extern "C" {
 
 // Returns the launch's cudaError_t (0 = launched).  splits, per and chunk
-// are the wrapper's plan (ops/decode_attention.py `_plan`).
+// are the wrapper's plan (ops/decode_attention.py `_plan`); runs is a
+// device counter the launch adds one to when it runs.
 int cmn_paged_decode_attention(const void* q, const void* k_pool,
                                const void* v_pool, const void* k_scale,
                                const void* v_scale, const void* tables,
-                               const void* valid, void* out, int S, int T,
-                               int H, int KH, int Dh, int NB, int BL, int MB,
-                               int q_dtype, int kv_dtype, int splits,
-                               int per, int chunk, void* stream) {
+                               const void* valid, void* out, void* runs,
+                               int S, int T, int H, int KH, int Dh, int NB,
+                               int BL, int MB, int q_dtype, int kv_dtype,
+                               int splits, int per, int chunk,
+                               void* stream) {
   Params p = {};
   p.q = q;
   p.k = k_pool;
@@ -629,6 +637,7 @@ int cmn_paged_decode_attention(const void* q, const void* k_pool,
   p.tables = static_cast<const int*>(tables);
   p.valid = static_cast<const int*>(valid);
   p.out = out;
+  p.runs = static_cast<unsigned long long*>(runs);
   p.T = T;
   p.H = H;
   p.KH = KH;
@@ -644,10 +653,10 @@ int cmn_paged_decode_attention(const void* q, const void* k_pool,
 
 int cmn_fused_decode_attention(const void* q, const void* kc, const void* vc,
                                const void* k_scale, const void* v_scale,
-                               const void* valid, void* out, int B, int H,
-                               int KH, int L, int Dh, int q_dtype,
-                               int kv_dtype, int splits, int per, int chunk,
-                               void* stream) {
+                               const void* valid, void* out, void* runs,
+                               int B, int H, int KH, int L, int Dh,
+                               int q_dtype, int kv_dtype, int splits,
+                               int per, int chunk, void* stream) {
   Params p = {};
   p.q = q;
   p.k = kc;
@@ -656,6 +665,7 @@ int cmn_fused_decode_attention(const void* q, const void* kc, const void* vc,
   p.v_scale = static_cast<const float*>(v_scale);
   p.valid = static_cast<const int*>(valid);
   p.out = out;
+  p.runs = static_cast<unsigned long long*>(runs);
   p.T = 1;
   p.H = H;
   p.KH = KH;

@@ -1,26 +1,41 @@
-"""Observability of the port: so far the metrics registry the serving
-scheduler publishes into.
+"""Observability of the port — the serving planes, as in the JAX package.
 
-``CMN_OBS=0`` is the master off-switch, as in the JAX package: publishers
-that find it off at construction hold no-op instruments instead of the
-process registry's.  The request timeline, SLO monitor, memory, incident,
-ledger and device planes are not ported yet.
+* :mod:`~chainermn_tpu_torch.observability.metrics` — per-rank registry of
+  counters / gauges / histograms (fixed bucket edges, so a merge of two
+  snapshots is exact) and a ring of stamped snapshots.
+* :mod:`~chainermn_tpu_torch.observability.tracing` — spans of host-side
+  ops in a bounded ring, the serving request timeline with its Chrome
+  trace export, and ``torch.profiler.record_function`` annotations.
+* :mod:`~chainermn_tpu_torch.observability.slo` — streaming SLO monitor:
+  TTFT / queue-wait / per-token latency, rolling p50/p95, p95 drift.
+* :mod:`~chainermn_tpu_torch.observability.flight` — flight recorder:
+  per-rank JSONL black box on crash, incident and ``SIGUSR1``.
+* :mod:`~chainermn_tpu_torch.observability.memory` — device watermarks
+  (``torch.cuda.memory_stats``), the KV-pool timeline and the drain
+  leak check (``mem.*``).
+* :mod:`~chainermn_tpu_torch.observability.ledger` and
+  :mod:`~chainermn_tpu_torch.observability.usage` — per-request cost
+  attribution (schema ``cmn-usage-1``) and its offline report.
+* :mod:`~chainermn_tpu_torch.observability.device` — the capture watch
+  (captures and signatures of the engine's programs, blame diffs,
+  budgets: ``compile.*``) and the decode step's MFU/roofline gauges
+  (``device.*``).
+* :mod:`~chainermn_tpu_torch.observability.incident` — watch rules over
+  the registry and the debug bundles they capture.
+* :mod:`~chainermn_tpu_torch.observability.aggregate` — strict-JSON
+  sanitizing and Prometheus rendering.
+
+``CMN_OBS=0`` is the master off-switch: publishers that find it off at
+construction hold no-op instruments and the serving scheduler builds no
+plane.  The rank-0 aggregator, the fleet plane, the offline trace
+analyzer and the perf sentinel are not ported yet (ROADMAP Queue 1
+items 4a/6 and 13).
 """
 
 from __future__ import annotations
 
 import os
 from typing import Optional
-
-from chainermn_tpu_torch.observability.metrics import (
-    DEFAULT_MS_EDGES,
-    Counter,
-    Gauge,
-    Histogram,
-    MetricsRegistry,
-    NoopInstrument,
-    registry,
-)
 
 _enabled_override: Optional[bool] = None
 
@@ -40,14 +55,104 @@ def set_enabled(value: Optional[bool]) -> None:
     _enabled_override = value
 
 
+from chainermn_tpu_torch.observability.metrics import (  # noqa: E402
+    DEFAULT_MS_EDGES,
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    NoopInstrument,
+    registry,
+)
+from chainermn_tpu_torch.observability.tracing import (  # noqa: E402
+    LifecycleEvent,
+    RequestTimeline,
+    Span,
+    SpanRing,
+    Tracer,
+    chrome_trace_events,
+    step_annotation,
+    tracer,
+    write_chrome_trace,
+)
+from chainermn_tpu_torch.observability.slo import (  # noqa: E402
+    SLOMonitor,
+    rolling_quantile,
+)
+from chainermn_tpu_torch.observability.flight import (  # noqa: E402
+    FLIGHT_SCHEMA,
+    FlightRecorder,
+    recorder,
+    register_provider,
+    snapshot_on_crash,
+)
+from chainermn_tpu_torch.observability.aggregate import (  # noqa: E402
+    render_prometheus,
+    sanitize_json,
+)
+from chainermn_tpu_torch.observability.memory import (  # noqa: E402
+    MemoryMonitor,
+    device_memory_stats,
+    kv_pool_sample,
+)
+from chainermn_tpu_torch.observability.device import (  # noqa: E402
+    PEAK_BF16_FLOPS,
+    CompileWatch,
+    WatchedProgram,
+    attention_core_flops,
+    mfu_pct,
+    roofline,
+    signature_diff,
+    watch,
+)
+from chainermn_tpu_torch.observability.ledger import (  # noqa: E402
+    USAGE_SCHEMA,
+    CostLedger,
+    UsageRecord,
+    ledger_enabled,
+)
+
 __all__ = [
+    "enabled",
+    "set_enabled",
     "DEFAULT_MS_EDGES",
     "Counter",
     "Gauge",
     "Histogram",
     "MetricsRegistry",
     "NoopInstrument",
-    "enabled",
     "registry",
-    "set_enabled",
+    "LifecycleEvent",
+    "RequestTimeline",
+    "Span",
+    "SpanRing",
+    "Tracer",
+    "tracer",
+    "chrome_trace_events",
+    "step_annotation",
+    "write_chrome_trace",
+    "SLOMonitor",
+    "rolling_quantile",
+    "FLIGHT_SCHEMA",
+    "FlightRecorder",
+    "recorder",
+    "register_provider",
+    "snapshot_on_crash",
+    "render_prometheus",
+    "sanitize_json",
+    "MemoryMonitor",
+    "device_memory_stats",
+    "kv_pool_sample",
+    "PEAK_BF16_FLOPS",
+    "CompileWatch",
+    "WatchedProgram",
+    "attention_core_flops",
+    "mfu_pct",
+    "roofline",
+    "signature_diff",
+    "watch",
+    "USAGE_SCHEMA",
+    "CostLedger",
+    "UsageRecord",
+    "ledger_enabled",
 ]

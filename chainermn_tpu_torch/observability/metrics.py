@@ -1,8 +1,9 @@
 """Per-rank metrics registry — counters, gauges, exact-merge histograms.
 
-Every subsystem of the port (so far the serving scheduler) publishes
-named instruments into one process-wide registry; snapshots are plain
-dicts.
+Every subsystem of the port (the serving scheduler and its planes)
+publishes named instruments into one process-wide registry; snapshots are
+plain dicts, and a bounded ring of stamped snapshots is what the flight
+recorder dumps.
 
 Design constraints, in order:
 
@@ -22,9 +23,10 @@ different edges) raises — a silent second instrument would fork the data.
 from __future__ import annotations
 
 import bisect
-import threading
 import os
-from typing import Dict, Optional, Sequence, Tuple
+import threading
+from collections import deque
+from typing import Dict, List, Optional, Sequence, Tuple
 
 
 def _env_float(name: str, default: float) -> float:
@@ -167,12 +169,16 @@ class NoopInstrument:
 
 
 class MetricsRegistry:
-    """Named-instrument registry.  One instance per process
-    (:func:`registry`); tests may build their own."""
+    """Named-instrument registry with a bounded ring of stamped
+    snapshots.  One instance per process (:func:`registry`); tests may
+    build their own.  ``sample(step)`` appends ``{"step", "metrics":
+    snapshot()}`` to the last-K ring the flight recorder dumps (K is
+    ``CMN_OBS_SAMPLES``, default 64)."""
 
-    def __init__(self):
+    def __init__(self, sample_capacity: int = 64):
         self._lock = threading.Lock()
         self._instruments: Dict[str, object] = {}
+        self._samples: deque = deque(maxlen=int(sample_capacity))
 
     # ------------------------------------------------------------ factories
     def _get(self, name: str, cls, **kwargs):
@@ -210,12 +216,31 @@ class MetricsRegistry:
                   edges: Sequence[float] = DEFAULT_MS_EDGES) -> Histogram:
         return self._get(name, Histogram, edges=edges)
 
+    def peek(self, name: str):
+        """The instrument registered under ``name``, or ``None``; never
+        creates one.  The incident plane's watch rules read through this,
+        so a rule for a plane this process never built materializes no
+        instrument."""
+        with self._lock:
+            return self._instruments.get(name)
+
     # ------------------------------------------------------------ snapshots
     def snapshot(self) -> Dict[str, dict]:
         """JSON-serializable state of every instrument, by name."""
         with self._lock:
             insts = list(self._instruments.items())
         return {name: inst.to_dict() for name, inst in insts}
+
+    def sample(self, step: int) -> dict:
+        """Record (and return) a stamped snapshot in the last-K ring."""
+        s = {"step": int(step), "metrics": self.snapshot()}
+        with self._lock:
+            self._samples.append(s)
+        return s
+
+    def last_samples(self) -> List[dict]:
+        with self._lock:
+            return list(self._samples)
 
 
 #: Process-wide registry (lazy).
@@ -228,5 +253,6 @@ def registry() -> MetricsRegistry:
     global _registry
     with _registry_lock:
         if _registry is None:
-            _registry = MetricsRegistry()
+            _registry = MetricsRegistry(sample_capacity=int(
+                os.environ.get("CMN_OBS_SAMPLES", "64")))
     return _registry

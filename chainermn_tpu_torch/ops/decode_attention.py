@@ -19,8 +19,14 @@ Each has three parts:
   count; the wrapper never reads ``valid_len`` or the block tables on the
   host, so a launch can be captured in a CUDA graph and replayed after
   they change in place.
-  Each wrapper counts its kernel launches in a plain integer attribute,
-  ``paged_decode_attention.launches`` and ``fused_decode_attention.launches``.
+  Each wrapper counts the launches it makes in a plain integer attribute,
+  ``paged_decode_attention.launches`` and ``fused_decode_attention.launches``;
+  a launch it records into a CUDA graph under capture counts in
+  ``.captured`` instead.  A replay of that graph runs the kernel without
+  the wrapper, so the kernels also count their runs on the card:
+  :func:`kernel_runs` reads, and :func:`zero_kernel_runs` clears, a
+  per-device counter that every launch adds one to when it runs, eager
+  or replayed.
 
 Layouts and semantics are the JAX package's
 (``chainermn_tpu/ops/decode_attention.py``):
@@ -94,11 +100,11 @@ def _lib():
         lib = _kernels.load("decode_attention")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.cmn_paged_decode_attention.argtypes = (
-            [ptr] * 8 + [i32] * 13 + [ptr]
+            [ptr] * 9 + [i32] * 13 + [ptr]
         )
         lib.cmn_paged_decode_attention.restype = i32
         lib.cmn_fused_decode_attention.argtypes = (
-            [ptr] * 7 + [i32] * 10 + [ptr]
+            [ptr] * 8 + [i32] * 10 + [ptr]
         )
         lib.cmn_fused_decode_attention.restype = i32
         lib.cmn_cuda_error_string.argtypes = [i32]
@@ -328,7 +334,67 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+# ------------------------------------------------------ launch counters
+#: slot of each kernel in a device's run counter.
+_RUN_SLOTS = {"paged_decode_attention": 0, "fused_decode_attention": 1}
+_runs_cache = {}
+
+
+def _dev_key(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _runs(dev: torch.device, slot: int) -> int:
+    """The address of ``slot`` of ``dev``'s run counter, made on the
+    first launch.  It must exist before a capture: made under one, it
+    would live in the graph's memory pool and its zeroing would be part
+    of the graph."""
+    dev = _dev_key(dev)
+    buf = _runs_cache.get(dev)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "decode attention: launch the kernel once outside a CUDA "
+                "graph capture before capturing it (its run counter is "
+                "made on the first launch)"
+            )
+        buf = torch.zeros((len(_RUN_SLOTS),), dtype=torch.int64, device=dev)
+        _runs_cache[dev] = buf
+    return buf.data_ptr() + slot * buf.element_size()
+
+
+def kernel_runs(device) -> dict:
+    """Runs of each kernel on ``device`` since :func:`zero_kernel_runs`
+    (or the first launch), counted by the kernels themselves: eager
+    launches and launches replayed from a CUDA graph alike.  Waits for
+    the current stream."""
+    buf = _runs_cache.get(_dev_key(device))
+    counts = buf.tolist() if buf is not None else [0] * len(_RUN_SLOTS)
+    return {name: int(counts[i]) for name, i in _RUN_SLOTS.items()}
+
+
+def zero_kernel_runs(device) -> None:
+    """Zero ``device``'s run counter (in stream order)."""
+    buf = _runs_cache.get(_dev_key(device))
+    if buf is not None:
+        buf.zero_()
+
+
 # ------------------------------------------------------------ wrappers
+def _count(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: ``launches`` counts launches
+    that run now; ``captured`` counts launches recorded into a CUDA graph
+    being captured, which run only when the graph is replayed (and are
+    then counted by :func:`kernel_runs` alone)."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
 def fused_decode_attention(q, kc, vc, valid_len, k_scale=None,
                            v_scale=None):
     """Single-position attention against a kv-head-major cache.
@@ -384,15 +450,17 @@ def fused_decode_attention(q, kc, vc, valid_len, k_scale=None,
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
         _ptr(k_scale) if quant else None, _ptr(v_scale) if quant else None,
         valid_len.data_ptr(), out.data_ptr(),
+        _runs(q.device, _RUN_SLOTS["fused_decode_attention"]),
         B, H, KH, L, Dh, _Q_CODES[q.dtype], _KV_CODES[kc.dtype],
         splits, per, chunk, stream,
     )
     _raise_on(rc, "fused decode attention")
-    fused_decode_attention.launches += 1
+    _count(fused_decode_attention)
     return out
 
 
 fused_decode_attention.launches = 0
+fused_decode_attention.captured = 0
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, valid_len,
@@ -476,13 +544,15 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, valid_len,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         _ptr(k_scale) if quant else None, _ptr(v_scale) if quant else None,
         block_tables.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
+        _runs(q.device, _RUN_SLOTS["paged_decode_attention"]),
         S, T, H, KH, Dh, NB, BL, MB,
         _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype], splits, per, chunk,
         stream,
     )
     _raise_on(rc, "paged decode attention")
-    paged_decode_attention.launches += 1
+    _count(paged_decode_attention)
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.captured = 0

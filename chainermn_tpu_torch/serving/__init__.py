@@ -15,8 +15,12 @@ Typical use::
     done = Scheduler(eng).run([Request(id=0, prompt=[1, 2, 3],
                                        max_new_tokens=16)])
 
-The router, disaggregated prefill/decode, elastic fleet, policy plane and
-tensor-parallel engine are not ported yet.
+``Scheduler`` takes the JAX scheduler's planes (``slo``, ``timeline``,
+``memory``, ``incidents``, ``ledger``; on by default under ``CMN_OBS``)
+and a :class:`PolicyPlane` (``policy=``).  On a CUDA device the engine
+captures its decode step once as a CUDA graph and replays it.  The
+router, disaggregated prefill/decode, elastic fleet and tensor-parallel
+engine are not ported yet.
 """
 
 from chainermn_tpu_torch.serving.engine import DecodeEngine
@@ -26,6 +30,7 @@ from chainermn_tpu_torch.serving.kv_pool import (
     PoolExhausted,
     blocks_for,
 )
+from chainermn_tpu_torch.serving.policy import PolicyPlane, TenantPolicy
 from chainermn_tpu_torch.serving.prefix_cache import PrefixCache
 from chainermn_tpu_torch.serving.recovery import deadline_ms_from_env
 from chainermn_tpu_torch.serving.scheduler import (
@@ -39,10 +44,12 @@ __all__ = [
     "Completion",
     "DecodeEngine",
     "PagedKVPool",
+    "PolicyPlane",
     "PoolExhausted",
     "PrefixCache",
     "Request",
     "Scheduler",
+    "TenantPolicy",
     "blocks_for",
     "deadline_ms_from_env",
 ]

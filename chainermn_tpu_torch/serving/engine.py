@@ -30,21 +30,45 @@ copies shared partial blocks through :meth:`DecodeEngine.cow_copy`.
 Prefill runs one slot's chunk per call, in sizes drawn from a small fixed
 **ladder** (``prefill_chunk`` and its halves down to 8).
 
-PyTorch runs eagerly, so there is no compiled program to count.  The
-``*_compiles`` properties count the distinct input signatures (shapes and
-dtypes) each program has been called with: the decode step must stay at
-one under slot churn, exactly the JAX engine's one-compile contract, and
-the signature is what a CUDA graph of the step would be captured for.
+**Captured once, replayed** (the JAX engine's compile-once contract): on
+a CUDA device the decode step — the model's forward and the greedy
+``argmax`` — is captured as a CUDA graph the first time it is called
+with a signature (the shapes and dtypes of its control vectors and the
+model's geometry), after two warm-up runs on a side stream that build the
+kernel library, cuBLAS's workspaces and the allocator's blocks.  Every
+later call copies its control vectors into the graph's static device
+buffer (one host-to-device copy) and replays the graph; temperature
+slots then sample from the graph's static logits outside it.  The KV
+pools exist before the capture and the graph writes them in place, so
+their addresses never change; prefill, the copy-on-write copy and the KV
+block reads and writes run eagerly on the same stream between replays.
+A capture that fails raises: the step never quietly runs eagerly on a
+card.  On the CPU the step runs eagerly.
+
+Every program registers with the process capture watch
+(:mod:`chainermn_tpu_torch.observability.device`) under the JAX engine's
+budgets: ``decode_step`` and ``spec_round`` 1, ``prefill``
+``len(prefill_ladder)``, ``cow``/``kv_gather``/``kv_put`` 1.  The
+``*_compiles`` properties read it: captures of the decode step on a
+card, distinct input signatures of every program that runs eagerly.
+A second signature records a blame diff naming the changed argument and
+axis.  :attr:`DecodeEngine.decode_replays` counts replays.  A replay
+runs the decode-attention kernels without their wrappers, so their
+``launches`` counters do not move; the kernels count their own runs on
+the card (``ops.decode_attention.kernel_runs``).
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from chainermn_tpu_torch.observability import device as _odevice
+from chainermn_tpu_torch.ops import decode_attention as _da
 from chainermn_tpu_torch.ops.decode_attention import MAX_VERIFY_T
 from chainermn_tpu_torch.serving.kv_pool import PagedKVPool
 from chainermn_tpu_torch.serving.prefix_cache import PrefixCache
@@ -63,21 +87,70 @@ def lane_seed(seed: int, position: int) -> int:
     return (z ^ (z >> 31)) & ((1 << 63) - 1)
 
 
-class _Signatures:
-    """The distinct input signatures one engine program has seen."""
+def _key_of(v):
+    """The cheap per-call signature key of one argument."""
+    if isinstance(v, np.ndarray):
+        return v.shape, v.dtype.str
+    if isinstance(v, (bool, int, float)):
+        return type(v).__name__
+    return v
 
-    def __init__(self):
-        self._seen = set()
 
-    def note(self, *args) -> None:
-        self._seen.add(tuple(
-            (a.shape, a.dtype.str) if isinstance(a, np.ndarray)
-            else type(a).__name__
-            for a in args
-        ))
+#: eager runs of the decode step on a side stream before its capture.
+CAPTURE_WARMUP = 2
 
-    def __len__(self) -> int:
-        return len(self._seen)
+#: the wrappers whose launches a captured decode step replays.
+_COUNTED = (_da.paged_decode_attention, _da.fused_decode_attention)
+
+
+class _DecodeGraph:
+    """The decode step captured once for one signature: a static int32
+    control buffer (tokens, positions, live mask, block tables) filled by
+    one copy before each replay, and the static logits and greedy tokens
+    the graph writes."""
+
+    def __init__(self, engine: "DecodeEngine", S: int, MB: int):
+        dev = engine.device
+        n = S * (3 + MB)
+        self.S = S
+        self.ctrl = torch.zeros((n,), dtype=torch.int32, device=dev)
+        self.host = torch.zeros((n,), dtype=torch.int32).pin_memory()
+        self.host_np = self.host.numpy()
+        tokens = self.ctrl[:S]
+        pos = self.ctrl[S:2 * S]
+        active = self.ctrl[2 * S:3 * S]
+        tables = self.ctrl[3 * S:].view(S, MB)
+
+        def forward():
+            return engine._forward(tokens.long(), pos, tables, active)
+
+        # All-idle warm-up: idle slots write only the parking block 0.
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(CAPTURE_WARMUP):
+                forward()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = [w.captured for w in _COUNTED]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.logits, self.greedy = forward()
+        #: kernel launches the capture recorded, per counted wrapper: each
+        #: replay runs them again, and the kernels count those runs on the
+        #: card (``ops.decode_attention.kernel_runs``).
+        self.captured = {
+            w.__name__: w.captured - b for w, b in zip(_COUNTED, before)
+        }
+
+    def replay(self, tokens, pos, active, tables) -> None:
+        S = self.S
+        h = self.host_np
+        h[:S] = tokens
+        h[S:2 * S] = pos
+        h[2 * S:3 * S] = active
+        h[3 * S:] = tables.reshape(-1)
+        self.ctrl.copy_(self.host, non_blocking=True)
+        self.graph.replay()
 
 
 class DecodeEngine:
@@ -212,23 +285,61 @@ class DecodeEngine:
         #: per-slot sampling seeds and temperatures, written at admission.
         self.seeds = np.zeros((capacity,), np.int64)
         self.temp = np.zeros((capacity,), np.float32)
-        self._sigs: Dict[str, _Signatures] = {
-            n: _Signatures() for n in
-            ("decode_step", "prefill", "spec_round", "cow", "kv_gather",
-             "kv_put")
-        }
+        #: the model's geometry, part of every program's signature.
+        self._geometry = (
+            f"{type(model).__name__}(vocab={model.vocab}, "
+            f"n_layers={model.n_layers}, d_model={model.d_model}, "
+            f"n_heads={model.n_heads}, kv_heads={model.kv_heads}, "
+            f"dtype={model.dtype}, kv_dtype={model.kv_dtype}, "
+            f"decode_attention={model.decode_attention}, "
+            f"window={model.window}, blocks={num_blocks}x{block_len}, "
+            f"draft={draft_model is not None})"
+        )
+        w = _odevice.watch()
+        self._step = w.register("decode_step", budget=1,
+                                cost_fn=self.decode_cost)
+        self._prefill = w.register("prefill",
+                                   budget=len(self.prefill_ladder))
+        self._spec = (w.register("spec_round", budget=1)
+                      if draft_model is not None else None)
+        self._cow = w.register("cow", budget=1)
+        self._gather = w.register("kv_gather", budget=1)
+        self._put = w.register("kv_put", budget=1)
+        #: captured decode graphs by signature key (CUDA only).
+        self._graphs: Dict[tuple, _DecodeGraph] = {}
 
     # ----------------------------------------------------------- helpers
     def _up(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
-    def _pick(self, logits: torch.Tensor, slots, positions) -> torch.Tensor:
+    def _run(self, prog, args: dict, fn):
+        """``fn()``, recording a new signature of ``prog`` (its ``args``,
+        the model's geometry, the first call's wall time) with the
+        capture watch."""
+        key = tuple(_key_of(v) for v in args.values())
+        if prog.known(key):
+            return fn()
+        t0 = time.perf_counter()
+        out = fn()
+        _odevice.watch().record(prog, key, {**args, "model":
+                                            self._geometry},
+                                time.perf_counter() - t0, "eager")
+        return out
+
+    def _pick(self, logits: torch.Tensor, slots, positions,
+              greedy: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Tokens for ``logits`` ``(n, V)`` of ``slots`` conditioned at
         absolute ``positions``: greedy where the slot's temperature is
-        <= 0, else temperature (and engine top-k) sampling."""
-        nxt = torch.argmax(logits, dim=-1)
+        <= 0 (``greedy`` when given: the argmax already taken), else
+        temperature (and engine top-k) sampling."""
         slots = np.asarray(slots)
         temps = self.temp[slots]
+        if greedy is None:
+            nxt = torch.argmax(logits, dim=-1)
+        elif (temps > 0).any():
+            nxt = greedy.clone()
+        else:
+            return greedy
         for i in np.flatnonzero(temps > 0):
             scaled = logits[i] / max(float(temps[i]), 1e-6)
             if self.top_k:
@@ -270,15 +381,20 @@ class DecodeEngine:
                 f"{self.prefill_ladder}, got {chunk.shape}"
             )
         table = np.asarray(table, np.int32)[None]
-        self._sigs["prefill"].note(chunk, table)
         toks = self._up(chunk[None]).long()
         tbl = self._up(table)
-        h, _ = self.model(toks, return_hidden=True, cache=self.pools,
-                          decode_pos=int(p0), block_tables=tbl)
-        if self.draft_model is not None:
-            self.draft_model(toks, return_hidden=True,
-                             cache=self.draft_pools, decode_pos=int(p0),
-                             block_tables=tbl)
+
+        def run():
+            h, _ = self.model(toks, return_hidden=True, cache=self.pools,
+                              decode_pos=int(p0), block_tables=tbl)
+            if self.draft_model is not None:
+                self.draft_model(toks, return_hidden=True,
+                                 cache=self.draft_pools,
+                                 decode_pos=int(p0), block_tables=tbl)
+            return h
+
+        h = self._run(self._prefill, {"chunk": chunk, "p0": int(p0),
+                                      "table": table}, run)
         if last_idx < 0:
             return None
         # The LM head (fp32) at the sampled position only.
@@ -286,15 +402,24 @@ class DecodeEngine:
         return int(self._pick(logits, [slot], [int(p0) + last_idx])[0])
 
     # ------------------------------------------------------------ decode
+    @staticmethod
+    def _host(tokens, pos, tables, active):
+        return (np.asarray(tokens, np.int32), np.asarray(pos, np.int32),
+                np.asarray(tables, np.int32), np.asarray(active, bool))
+
     def _controls(self, tokens, pos, tables, active):
-        tokens = np.asarray(tokens, np.int32)
-        pos = np.asarray(pos, np.int32)
-        tables = np.asarray(tables, np.int32)
-        active = np.asarray(active, bool)
-        return (tokens, pos, tables, active), (
-            self._up(tokens).long(), self._up(pos), self._up(tables),
-            self._up(active),
-        )
+        host = self._host(tokens, pos, tables, active)
+        tok, p, tbl, act = (self._up(a) for a in host)
+        return host, (tok.long(), p, tbl, act)
+
+    def _forward(self, tok, pos, tables, active):
+        """The decode step's device work: ``(capacity, V)`` fp32 logits and
+        their greedy tokens."""
+        logits, _ = self.model(tok[:, None], cache=self.pools,
+                               decode_pos=pos, block_tables=tables,
+                               slot_mask=active)
+        logits = logits[:, 0]
+        return logits, torch.argmax(logits, dim=-1)
 
     @torch.no_grad()
     def step(self, tokens: np.ndarray, pos: np.ndarray,
@@ -308,15 +433,78 @@ class DecodeEngine:
           active: ``(capacity,)`` bool, live slots.
 
         Returns ``(capacity,)`` int32 tokens (garbage at inactive slots).
+        On a CUDA device the first call of a signature captures the step
+        and every call replays it.
         """
-        host, (tok, p, tbl, act) = self._controls(tokens, pos, tables,
-                                                  active)
-        self._sigs["decode_step"].note(*host)
-        logits, _ = self.model(tok[:, None], cache=self.pools,
-                               decode_pos=p, block_tables=tbl,
-                               slot_mask=act)
-        nxt = self._pick(logits[:, 0], np.arange(self.capacity), host[1])
+        if self.device.type == "cuda":
+            host = self._host(tokens, pos, tables, active)
+            logits, greedy = self._replay(host)
+        else:
+            host, dev_args = self._controls(tokens, pos, tables, active)
+            logits, greedy = self._run(
+                self._step, dict(zip(("tokens", "pos", "tables", "active"),
+                                     host)),
+                lambda: self._forward(*dev_args))
+        nxt = self._pick(logits, np.arange(self.capacity), host[1],
+                         greedy=greedy)
         return nxt.to(torch.int32).cpu().numpy()
+
+    def _replay(self, host):
+        tokens, pos, tables, active = host
+        key = tuple(_key_of(v) for v in host)
+        g = self._graphs.get(key)
+        if g is None:
+            t0 = time.perf_counter()
+            g = _DecodeGraph(self, *tables.shape)
+            torch.cuda.synchronize(self.device)
+            self._graphs[key] = g
+            _odevice.watch().record(
+                self._step, key,
+                {"tokens": tokens, "pos": pos, "tables": tables,
+                 "active": active, "model": self._geometry},
+                time.perf_counter() - t0, "capture")
+        g.replay(tokens, pos, active, tables)
+        self._step.replays += 1
+        return g.logits, g.greedy
+
+    @torch.no_grad()
+    def decode_cost(self) -> dict:
+        """The decode step's cost model for the capture watch's roofline
+        (``observability/device.py`` states the formula): FLOPs counted by
+        ``FlopCounterMode`` over one eager all-idle step (idle slots write
+        only the parking block), the bytes of the weights it reads, its
+        control vectors and the logits it writes, and per attended
+        position the KV bytes read and, when the hand-written paged kernel
+        runs the attention (the counter cannot see it), its FLOPs."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        m, S, MB = self.model, self.capacity, self.max_blocks
+        tables = torch.zeros((S, MB), dtype=torch.int32, device=self.device)
+        idle = tables[:, 0]
+        with FlopCounterMode(display=False) as fc:
+            self._forward(idle.long(), idle, tables, idle)
+        rows = {"embed.weight", "pos"}  # gathered: S rows read
+        weights = sum(
+            (S * p[0].numel() if n in rows else p.numel()) * p.element_size()
+            for n, p in m.named_parameters()
+        )
+        layer = self.pools[0]
+        kv_pos = sum(t.element_size() * t.shape[-1] if t.dim() == 4
+                     else t.element_size()
+                     for t in layer.values()) * m.kv_heads
+        kernel = (self.device.type == "cuda"
+                  and m.decode_attention == "fused" and not m.window)
+        return {
+            "flops": float(fc.get_total_flops()),
+            "bytes accessed": float(weights + S * (3 + MB) * 4
+                                    + S * m.vocab * 4),
+            "kv_bytes_per_position": float(m.n_layers * kv_pos),
+            "attention_flops_per_position": (
+                m.n_layers * _odevice.attention_core_flops(
+                    1, m.n_heads, 1, m.head_dim, kv_len=1, n_backward=0)
+                if kernel else 0.0
+            ),
+        }
 
     @torch.no_grad()
     def spec_step(self, tokens: np.ndarray, pos: np.ndarray,
@@ -338,20 +526,26 @@ class DecodeEngine:
         k = self.spec_k
         host, (tok, p, tbl, act) = self._controls(tokens, pos, tables,
                                                   active)
-        self._sigs["spec_round"].note(*host)
-        # k + 1 draft steps: the last only backfills the final proposal's
-        # K/V into the draft pools.
-        cur, drafts = tok, []
-        for i in range(k + 1):
-            dlogits, _ = self.draft_model(
-                cur[:, None], cache=self.draft_pools, decode_pos=p + i,
-                block_tables=tbl, slot_mask=act,
-            )
-            cur = torch.argmax(dlogits[:, 0], dim=-1)
-            drafts.append(cur)
-        chunk = torch.stack([tok] + drafts[:k], dim=1)  # (S, k + 1)
-        logits, _ = self.model(chunk, cache=self.pools, decode_pos=p,
-                               block_tables=tbl, slot_mask=act)
+
+        def run():
+            # k + 1 draft steps: the last only backfills the final
+            # proposal's K/V into the draft pools.
+            cur, drafts = tok, []
+            for i in range(k + 1):
+                dlogits, _ = self.draft_model(
+                    cur[:, None], cache=self.draft_pools, decode_pos=p + i,
+                    block_tables=tbl, slot_mask=act,
+                )
+                cur = torch.argmax(dlogits[:, 0], dim=-1)
+                drafts.append(cur)
+            chunk = torch.stack([tok] + drafts[:k], dim=1)  # (S, k + 1)
+            logits, _ = self.model(chunk, cache=self.pools, decode_pos=p,
+                                   block_tables=tbl, slot_mask=act)
+            return chunk, logits
+
+        chunk, logits = self._run(
+            self._spec, dict(zip(("tokens", "pos", "tables", "active"),
+                                 host)), run)
         g = torch.argmax(logits, dim=-1)
         agree = (g[:, :k] == chunk[:, 1:]).to(torch.int32)
         n_accept = torch.cumprod(agree, dim=1).sum(dim=1)
@@ -373,10 +567,12 @@ class DecodeEngine:
     def cow_copy(self, src: int, dst: int) -> None:
         """Copy physical block ``src`` onto ``dst`` across every layer of
         every pool (target + draft): the device half of copy-on-write."""
-        self._sigs["cow"].note(int(src), int(dst))
-        for layer in self._all_pools():
-            for t in layer.values():
-                t[:, dst] = t[:, src]
+        def run():
+            for layer in self._all_pools():
+                for t in layer.values():
+                    t[:, dst] = t[:, src]
+
+        self._run(self._cow, {"src": int(src), "dst": int(dst)}, run)
 
     def drop_prefix_cache(self) -> int:
         """Release every trie-held block reference; returns the number of
@@ -395,16 +591,14 @@ class DecodeEngine:
         """One physical block's KV contents as host numpy arrays:
         ``{"target": [per-layer {name: (KH, block_len, Dh)}], "draft":
         same or None}``.  bf16 pools come back as their int16 bits."""
-        self._sigs["kv_gather"].note(int(block))
-
         def one(layer):
             return {n: self._to_host(t[:, block]) for n, t in layer.items()}
 
-        return {
+        return self._run(self._gather, {"block": int(block)}, lambda: {
             "target": [one(p) for p in self.pools],
             "draft": (None if self.draft_pools is None
                       else [one(p) for p in self.draft_pools]),
-        }
+        })
 
     @torch.no_grad()
     def write_block(self, block: int, data: dict) -> None:
@@ -417,16 +611,19 @@ class DecodeEngine:
                 f"(payload draft={data.get('draft') is not None}, engine "
                 f"draft={self.draft_model is not None})"
             )
-        self._sigs["kv_put"].note(int(block))
         pairs = list(zip(self.pools, data["target"]))
         if self.draft_pools is not None:
             pairs += list(zip(self.draft_pools, data["draft"]))
-        for layer, payload in pairs:
-            for n, t in layer.items():
-                src = torch.from_numpy(np.ascontiguousarray(payload[n]))
-                if t.dtype == torch.bfloat16:
-                    src = src.view(torch.bfloat16)
-                t[:, block] = src.to(self.device)
+
+        def run():
+            for layer, payload in pairs:
+                for n, t in layer.items():
+                    src = torch.from_numpy(np.ascontiguousarray(payload[n]))
+                    if t.dtype == torch.bfloat16:
+                        src = src.view(torch.bfloat16)
+                    t[:, block] = src.to(self.device)
+
+        self._run(self._put, {"block": int(block)}, run)
 
     def sync(self) -> None:
         """Block until every queued operation on the pools has finished."""
@@ -435,35 +632,45 @@ class DecodeEngine:
 
     # ------------------------------------------------------- introspection
     @property
+    def hot_program(self):
+        """The steady-state loop's watched program: the speculative round
+        when a draft is armed, else the decode step.  What the
+        scheduler's ``device.*`` roofline gauges attribute to."""
+        return self._spec if self._spec is not None else self._step
+
+    @property
     def decode_compiles(self) -> int:
-        """Distinct input signatures of the hot-loop program (the
-        speculative round on a speculative engine, else the decode step):
-        must stay 1 under arbitrary slot churn."""
-        return self.verify_compiles if self.spec_k else \
-            len(self._sigs["decode_step"])
+        """Captures (on a card; signatures on the CPU) of the hot-loop
+        program: must stay 1 under arbitrary slot churn."""
+        return self.hot_program.compiles
+
+    @property
+    def decode_replays(self) -> int:
+        """Replays of the captured decode step (0 on the CPU)."""
+        return self._step.replays
 
     @property
     def verify_compiles(self) -> int:
         """Speculative round signatures (0 on a plain engine)."""
-        return len(self._sigs["spec_round"])
+        return self._spec.compiles if self._spec is not None else 0
 
     @property
     def cow_compiles(self) -> int:
         """Copy-on-write block-copy signatures (must stay <= 1)."""
-        return len(self._sigs["cow"])
+        return self._cow.compiles
 
     @property
     def gather_compiles(self) -> int:
-        return len(self._sigs["kv_gather"])
+        return self._gather.compiles
 
     @property
     def put_compiles(self) -> int:
-        return len(self._sigs["kv_put"])
+        return self._put.compiles
 
     @property
     def prefill_compiles(self) -> int:
         """At most ``len(prefill_ladder)``."""
-        return len(self._sigs["prefill"])
+        return self._prefill.compiles
 
     def free_blocks(self) -> int:
         return self.pool.allocator.free_blocks
@@ -489,6 +696,16 @@ class DecodeEngine:
         if self.spec_k:
             out["spec_k"] = self.spec_k
             out["verify_compiles"] = self.verify_compiles
+        if self._graphs:
+            out["decode_replays"] = self.decode_replays
+        # Programs over their declared budget (empty on a healthy
+        # engine); the flight record's "compile" section carries the
+        # per-program records and blame diffs.
+        over = [p.program for p in (self._step, self._prefill, self._spec,
+                                    self._cow, self._gather, self._put)
+                if p is not None and p.over_budget]
+        if over:
+            out["compile_over_budget"] = over
         return out
 
     def alloc_blocks(self, n: int) -> Optional[List[int]]:

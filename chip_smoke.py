@@ -42,7 +42,29 @@ Phases, each printing one JSON line on stdout:
 5. ``serving``: the full-width model of the serving benchmark (12 layers,
    d_model 768, 12 heads, d_ff 3072, vocab 32768, RoPE, seeded random
    weights, bf16 compute) through ``DecodeEngine`` + ``Scheduler.run`` on
-   16 requests; then the same model with 4 kv heads and an int8 cache.
+   16 requests, with the scheduler's planes on as the JAX benchmark's
+   headline arm runs them; then ``serving_turns`` (the same 16 requests
+   on one engine, 3 rounds of the full run's scheduler set-up and the
+   compare turns', in turns: clean decode-step ms and garbage
+   collections per pass), ``obs_overhead`` (a decode-heavy mix, 20 pairs
+   of drain-mode passes with the planes off (``CMN_OBS=0``) and on in
+   turns: the median of the per-pair ratios of median tick time, the
+   planes' cost per decode iteration, and of makespans), ``policy`` (an
+   adversarial tenant's burst of twice
+   the capacity ahead of an SLO tenant's requests, FIFO and under a 4:1
+   weighted-fair ``PolicyPlane``: each tenant's p95), and the same drive
+   with 4 kv heads and an int8 cache.  Each engine is warmed first (one
+   request of 20 new tokens: the decode step's CUDA-graph capture and
+   the capture watch's cost model).  A drive checks that every request
+   completes, one capture replayed once per decode iteration, the paged
+   kernel run decode iterations x 12 times as the kernel counts its own
+   runs on the card (a replay runs it without its wrapper), that count
+   equal to the wrappers' eager launches plus replays x the launches the
+   capture recorded, all three SLO streams reported, a
+   complete timeline per request and its Chrome trace written and
+   parsed, the ledger's books exact, no incident, no leaked block, and a
+   ``device.decode_step.mfu_pct`` gauge in (0, 100] against the H100's
+   989 TFLOP/s.
 6. ``generation``: ``lm_generate`` at batch 8, prompt 128, 64 new tokens.
 7. ``agreement``: the engine and ``lm_generate`` on the same requests with
    the model in fp32, so that bf16 near-ties cannot flip tokens.
@@ -117,6 +139,11 @@ Phases, each printing one JSON line on stdout:
 
 The launch counters are set to 0 just before each drive of the main path
 (phases 5, 6 and the timed steps of 10 and 14) and read just after it.
+The decode-attention kernels also count their own runs on the card
+(``ops.decode_attention.kernel_runs``), zeroed and read the same way:
+the serving drive replays K4 from a CUDA graph, where its wrapper does
+not run, so its ``launches`` in the ``kernels`` line are the card's
+count; K5's card count must equal its wrapper's.
 Then come the ``kernels`` line,
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  A
 failed check raises and exits non-zero before the last line; without a
@@ -125,7 +152,8 @@ CUDA device the script exits 2 at once.
     python3 chip_smoke.py --compare-with DIR
 
 runs none of the above: it times the decode kernels (phase 4 with its
-long rows) and the bf16 serving drive (phase 5's first), the flash
+long rows) and the bf16 and int8 serving drives (phase 5's without the
+incident manager: an older tree has none), the flash
 kernels (phase 9), the LM flash-arm step (phase 10's first arm), the fused
 1x1-conv kernel (phase 13) and the ``frozen/pallas`` ResNet step (an arm
 of phase 14) of the checkout DIR and of this one in turns, DIR, this,
@@ -657,33 +685,76 @@ def engine_geometry(reqs):
     return num_blocks, max_blocks
 
 
-def drive_serving(ops, dev, card, seed, label, n_requests, **model_kw):
+def serving_engine(dev, seed, reqs, **model_kw):
+    """The full-width engine sized for ``reqs``, warmed by one request of
+    20 new tokens: the decode step's capture, the kernel library,
+    cuBLAS and the allocator, and (its 19 decode iterations cross the
+    planes' check cadence of 16) the capture watch's one-time cost model,
+    all before any measured run."""
     from chainermn_tpu_torch.models import TransformerLM
-    from chainermn_tpu_torch.observability import MetricsRegistry
     from chainermn_tpu_torch.serving import DecodeEngine, Scheduler
 
-    rng = np.random.RandomState(seed)
-    reqs = draw_requests(rng, n_requests, FULL["vocab"])
     num_blocks, max_blocks = engine_geometry(reqs)
     model = TransformerLM(**{**FULL, **model_kw}, device=dev, seed=seed)
     eng = DecodeEngine(model, num_blocks=num_blocks,
                        max_blocks_per_slot=max_blocks, device=dev, **ENGINE)
-    # Warm-up: one short request (allocator, cuBLAS and kernel library
-    # first-use costs stay out of the measured run).
-    Scheduler(eng).run(draw_requests(rng, 1, FULL["vocab"], new=(4, 4)))
+    Scheduler(eng).run(draw_requests(np.random.RandomState(seed + 99), 1,
+                                     FULL["vocab"], new=(20, 20)))
     eng.drop_prefix_cache()
+    return eng, num_blocks, max_blocks
 
+
+def drive_serving(ops, dev, card, seed, label, n_requests, planes=True,
+                  **model_kw):
+    """The serving drive: ``n_requests`` through ``Scheduler.run`` on a
+    warmed full-width engine.  With ``planes`` (the main run) the
+    scheduler runs with its planes on, as the JAX serving benchmark's
+    headline arm does (SLO monitor, request timeline, memory monitor,
+    usage ledger, device feed, and an incident manager over the run's
+    registry), and the drive checks what each reports.  ``planes=False``
+    is the drive ``--compare-with`` runs in both trees (an older tree
+    has no planes): it passes no incident manager and checks no plane,
+    but a tree that has planes still builds its defaults on the
+    registry (SLO, memory, ledger, device feed, and the timeline under
+    ``CMN_OBS``)."""
+    from chainermn_tpu_torch.observability import MetricsRegistry
+    from chainermn_tpu_torch.serving import Scheduler
+
+    rng = np.random.RandomState(seed)
+    reqs = draw_requests(rng, n_requests, FULL["vocab"])
+    eng, num_blocks, max_blocks = serving_engine(dev, seed, reqs,
+                                                 **model_kw)
+    model = eng.model
     reg = MetricsRegistry()
-    sched = Scheduler(eng, registry=reg)
+    kw = {}
+    if planes:
+        from chainermn_tpu_torch.observability.incident import (
+            IncidentManager,
+        )
+
+        kw["incidents"] = IncidentManager(registry=reg, directory=None)
+    sched = Scheduler(eng, registry=reg, **kw)
+    # An older tree's engine runs its step eagerly (no graphs), and its
+    # kernels count no runs on the card: there the wrappers' counts are
+    # every launch.
+    captured = bool(getattr(eng, "_graphs", None))
+    counted = hasattr(ops, "kernel_runs")
+    replays0 = eng.decode_replays if captured else None
     torch.cuda.synchronize()
     ops.paged_decode_attention.launches = 0
     ops.fused_decode_attention.launches = 0
+    if counted:
+        ops.zero_kernel_runs(dev)
+    gc0 = _gc_collections()
     t0 = time.perf_counter()
     comps = sched.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_decode_attention": ops.paged_decode_attention.launches,
-                "fused_decode_attention": ops.fused_decode_attention.launches}
+    gc1 = _gc_collections()
+    wrapper = {"paged_decode_attention": ops.paged_decode_attention.launches,
+               "fused_decode_attention": ops.fused_decode_attention.launches}
+    # The kernels' own count of their runs in this drive, replays included.
+    launches = ops.kernel_runs(dev) if counted else wrapper
 
     byid = {c.id: c for c in comps}
     check(sorted(byid) == [r.id for r in reqs],
@@ -705,11 +776,29 @@ def drive_serving(ops, dev, card, seed, label, n_requests, **model_kw):
           f"{sched.decode_iterations} decode steps x {n_layers} layers")
     check(launches["fused_decode_attention"] == 0,
           f"{label}: the engine launched the fused kernel")
-    eng.drop_prefix_cache()
-    check(eng.free_blocks() == num_blocks - 1,
-          f"{label}: {num_blocks - 1 - eng.free_blocks()} blocks leaked")
+    replays = None
+    if captured:
+        replays = eng.decode_replays - replays0
+        per_replay = next(iter(eng._graphs.values())).captured
+        check(len(eng._graphs) == 1
+              and replays == sched.decode_iterations
+              and per_replay == {"paged_decode_attention": n_layers,
+                                 "fused_decode_attention": 0},
+              f"{label}: {len(eng._graphs)} captures, {replays} replays "
+              f"for {sched.decode_iterations} decode steps, "
+              f"{per_replay} launches captured per replay")
+        # Cross-check: the runs the card counted are the wrappers' eager
+        # launches plus what each replay ran.
+        check(all(launches[k] == wrapper[k] + replays * per_replay[k]
+                  for k in launches),
+              f"{label}: the card counted {launches} runs; the wrappers "
+              f"launched {wrapper} and {replays} replays ran "
+              f"{per_replay} each")
+    check(captured or not planes,
+          f"{label}: the engine did not capture its decode step")
     snap = reg.snapshot()
     clean = snap["serve.decode_ms"]
+    prefill = snap["serve.prefill_ms"]
     tokens = sum(len(c.tokens) for c in comps)
     row = dict(
         phase="serving", label=label, card=card, requests=len(reqs),
@@ -720,15 +809,285 @@ def drive_serving(ops, dev, card, seed, label, n_requests, **model_kw):
         / max(sched.decode_iterations, 1),
         clean_decode_step_ms_mean=(clean["sum"] / clean["count"]
                                    if clean["count"] else None),
+        clean_decode_step_ms_max=clean["max"],
         clean_decode_steps=clean["count"],
+        gc_collections=[b - a for a, b in zip(gc0, gc1)],
+        prefill_chunks=prefill["count"],
+        prefill_ms_mean=prefill["sum"] / max(prefill["count"], 1),
         evictions=sum(c.evictions for c in comps),
         decode_compiles=eng.decode_compiles,
+        captured=captured, replays=replays,
         prefill_compiles=eng.prefill_compiles,
         num_blocks=num_blocks, max_blocks=max_blocks,
-        launches=launches,
+        launches=launches, launches_counted_on="card" if counted
+        else "host", wrapper_launches=wrapper,
         kv_dtype=str(model.kv_dtype or model.dtype).replace("torch.", ""),
         n_kv_heads=model.kv_heads,
     )
+    if planes:
+        row.update(serving_planes(sched, eng, reqs, reg, kw["incidents"],
+                                  label))
+    eng.drop_prefix_cache()
+    check(eng.free_blocks() == num_blocks - 1,
+          f"{label}: {num_blocks - 1 - eng.free_blocks()} blocks leaked")
+    emit(row)
+    return row
+
+
+def serving_planes(sched, eng, reqs, reg, incidents, label):
+    """What the serving planes of one drive report, checked: the three
+    SLO streams, a complete timeline per request and its Chrome trace
+    written and parsed, the ledger's books exact, no incident on an
+    unfaulted run, no leaked block after the drain, and a
+    ``device.decode_step.mfu_pct`` gauge in (0, 100]."""
+    import os
+    import tempfile
+
+    report = sched.slo.last_report
+    check(set(report) == {"ttft", "queue_wait", "token"},
+          f"{label}: SLO streams reported: {sorted(report)}")
+    kinds = {}
+    for e in sched.timeline.events():
+        if e.req is not None:
+            kinds.setdefault(e.req, []).append(e.kind)
+    for r in reqs:
+        k = kinds.get(r.id, [])
+        check(k[:2] == ["submit", "admit"] and "prefill" in k
+              and k[-1] == "retire",
+              f"{label}: request {r.id}'s timeline is {k}")
+    with tempfile.TemporaryDirectory() as d:
+        path = sched.export_trace(os.path.join(d, "trace.json"))
+        with open(path) as f:
+            trace = json.load(f)["traceEvents"]
+    slices = sum(e["ph"] == "X" for e in trace)
+    check(slices >= 3 * len(reqs), f"{label}: {slices} trace slices")
+    cons = sched.ledger.verify_conservation(reqs)
+    check(cons["holds"], f"{label}: ledger books not exact: {cons}")
+    check(incidents.count == 0 and incidents.dropped == 0,
+          f"{label}: {incidents.count} incidents on an unfaulted run: "
+          f"{[m['id'] for m in incidents.incidents]}")
+    leaked = sched.memory.check_drained(eng)
+    snap = reg.snapshot()
+    check(leaked == 0 and snap["mem.kv.leaked_blocks"]["value"] == 0,
+          f"{label}: {leaked} KV blocks leaked")
+    mfu = snap.get("device.decode_step.mfu_pct", {}).get("value")
+    check(mfu is not None and 0 < mfu <= 100,
+          f"{label}: device.decode_step.mfu_pct = {mfu}")
+    return dict(
+        slo_p95_ms={s: r["p95_ms"] for s, r in report.items()},
+        trace_events=len(trace),
+        ledger_tokens=sched.ledger.totals["tokens"],
+        ledger_block_seconds=sched.ledger.totals["block_us"] / 1e6,
+        incidents=incidents.count, leaked_blocks=leaked,
+        mfu_pct=mfu,
+        tflops=snap["device.decode_step.tflops"]["value"],
+        arithmetic_intensity=snap["device.decode_step.ai"]["value"],
+        mem_peak_bytes=snap["mem.peak_bytes"]["value"],
+    )
+
+
+def _gc_collections():
+    import gc
+
+    return [g["collections"] for g in gc.get_stats()]
+
+
+def phase_obs_overhead(dev, card, seed, pairs=20):
+    """The planes' cost per decode iteration, by the JAX serving
+    benchmark's method (drain-mode passes, planes off and on in turns,
+    the order swapped every pair, the median of the per-pair ratios) on
+    a decode-heavy mix: 16 requests of 8-16 prompt tokens (one prefill
+    chunk each) and 96-128 new tokens on one warmed engine, so that
+    decode iterations take most of each pass.  "Off" is ``CMN_OBS=0``
+    (no registry, no plane); "on" is the shipped default (every plane on
+    the process registry).  Each pass is driven tick by tick; its median
+    tick is a clean decode iteration (prefill ticks are under a tenth of
+    them), so the per-pair ratio of median ticks is the planes' cost per
+    decode iteration.  The makespan ratio (the JAX bench's number) is
+    reported beside it."""
+    from chainermn_tpu_torch import observability as obs
+    from chainermn_tpu_torch.serving import Scheduler
+
+    reqs = draw_requests(np.random.RandomState(seed + 4), 16,
+                         FULL["vocab"], plen=(8, 16), new=(96, 128))
+    eng, _, _ = serving_engine(dev, seed, reqs)
+
+    def one_pass(on):
+        obs.set_enabled(on)
+        try:
+            eng.drop_prefix_cache()
+            sched = Scheduler(eng)
+            for r in reqs:
+                sched.submit(r)
+            ticks = []
+            gc0 = _gc_collections()
+            t_start = time.perf_counter()
+            while sched.pending:
+                t0 = time.perf_counter()
+                progressed = sched.tick()
+                ticks.append(time.perf_counter() - t0)
+                check(progressed, "obs A/B: a tick made no progress")
+            sched.finish()
+            makespan = time.perf_counter() - t_start
+            gc1 = _gc_collections()
+        finally:
+            obs.set_enabled(None)
+        check(len(sched.completions) == len(reqs)
+              and all(c.status == "ok" for c in sched.completions),
+              "obs A/B: a request did not complete")
+        return dict(tick_ms=1e3 * float(np.median(ticks)),
+                    makespan_s=makespan, ticks=len(ticks),
+                    decode_iterations=sched.decode_iterations,
+                    gc_collections=[b - a for a, b in zip(gc0, gc1)])
+
+    one_pass(True)  # untimed: the planes' first use
+    one_pass(False)
+    passes = {False: [], True: []}
+    tick_ratios, span_ratios, tick_us = [], [], []
+    for rep in range(pairs):
+        got = {}
+        for on in ((False, True) if rep % 2 == 0 else (True, False)):
+            got[on] = one_pass(on)
+            passes[on].append(got[on])
+        tick_ratios.append(got[True]["tick_ms"] / got[False]["tick_ms"] - 1)
+        span_ratios.append(got[True]["makespan_s"]
+                           / got[False]["makespan_s"] - 1)
+        tick_us.append(1e3 * (got[True]["tick_ms"] - got[False]["tick_ms"]))
+    check(eng.decode_compiles == 1,
+          f"obs A/B: {eng.decode_compiles} captures")
+
+    def pct(v):
+        return [100.0 * float(q) for q in np.percentile(v, [25, 50, 75])]
+
+    row = dict(phase="obs_overhead", card=card, pairs=pairs,
+               requests=len(reqs),
+               decode_iterations=passes[True][0]["decode_iterations"],
+               per_iteration_overhead_pct=pct(tick_ratios)[1],
+               per_iteration_quartiles_pct=pct(tick_ratios)[::2],
+               per_iteration_overhead_us=float(np.median(tick_us)),
+               median_tick_ms={"off": float(np.median(
+                   [p["tick_ms"] for p in passes[False]])),
+                   "on": float(np.median(
+                       [p["tick_ms"] for p in passes[True]]))},
+               makespan_overhead_pct=pct(span_ratios)[1],
+               makespan_quartiles_pct=pct(span_ratios)[::2],
+               tick_ratios=tick_ratios, makespan_ratios=span_ratios,
+               passes_off=passes[False], passes_on=passes[True],
+               replays=eng.decode_replays)
+    emit(row)
+    return row
+
+
+def phase_serving_turns(dev, card, seed, rounds=3):
+    """The bf16 drive's two scheduler set-ups in turns on one warmed
+    engine: as the full run drives it (an explicit registry and an
+    incident manager) and as ``--compare-with`` drives it (the registry
+    alone), the order swapped every round.  Each pass reports its clean
+    decode-step mean and max and the garbage collections that ran in
+    it, so that a gap between the full run's number and the compare
+    turns' can be told from the set-up."""
+    from chainermn_tpu_torch.observability import MetricsRegistry
+    from chainermn_tpu_torch.observability.incident import IncidentManager
+    from chainermn_tpu_torch.serving import Scheduler
+
+    reqs = draw_requests(np.random.RandomState(seed), 16, FULL["vocab"])
+    eng, _, _ = serving_engine(dev, seed, reqs)
+
+    def one_pass(incidents):
+        eng.drop_prefix_cache()
+        reg = MetricsRegistry()
+        kw = ({"incidents": IncidentManager(registry=reg, directory=None)}
+              if incidents else {})
+        gc0 = _gc_collections()
+        comps = Scheduler(eng, registry=reg, **kw).run(reqs)
+        gc1 = _gc_collections()
+        check(all(c.status == "ok" for c in comps),
+              "serving turns: a request did not complete")
+        clean = reg.snapshot()["serve.decode_ms"]
+        return dict(clean_decode_step_ms_mean=clean["sum"] / clean["count"],
+                    clean_decode_step_ms_max=clean["max"],
+                    clean_decode_steps=clean["count"],
+                    gc_collections=[b - a for a, b in zip(gc0, gc1)])
+
+    one_pass(True)  # untimed: the incident manager's first use
+    arms = {"full_run": [], "compare": []}
+    for rep in range(rounds):
+        for arm in (("full_run", "compare") if rep % 2 == 0
+                    else ("compare", "full_run")):
+            arms[arm].append(one_pass(arm == "full_run"))
+    check(eng.decode_compiles == 1,
+          f"serving turns: {eng.decode_compiles} captures")
+    row = dict(phase="serving_turns", card=card, rounds=rounds,
+               **{arm: dict(clean_decode_step_ms_median=float(np.median(
+                   [p["clean_decode_step_ms_mean"] for p in ps])),
+                   passes=ps) for arm, ps in arms.items()})
+    emit(row)
+    return row
+
+
+def phase_policy(dev, card, seed):
+    """Two tenants at full width, after the JAX serving benchmark's
+    ``--multitenant`` arm: an adversarial tenant's burst of twice the
+    engine's capacity queued at t=0 ahead of a latency-sensitive
+    tenant's requests, served FIFO and then through a ``PolicyPlane``
+    giving the SLO tenant a 4:1 weighted-fair share, best of two passes
+    each in turns.  Prints the SLO tenant's p95 both ways; checks
+    completions, the ledger's books and one capture, not the timings."""
+    from chainermn_tpu_torch.observability import MetricsRegistry
+    from chainermn_tpu_torch.serving import (
+        PolicyPlane,
+        Request,
+        Scheduler,
+        TenantPolicy,
+    )
+
+    cap = ENGINE["capacity"]
+    rng = np.random.RandomState(seed + 5)
+    base = draw_requests(rng, 2 * cap + cap // 2, FULL["vocab"])
+    reqs = [Request(id=r.id, prompt=r.prompt,
+                    max_new_tokens=min(r.max_new_tokens, 16),
+                    tenant="adv" if r.id < 2 * cap else "slo")
+            for r in base]
+    eng, _, _ = serving_engine(dev, seed, reqs)
+
+    def one_pass(policy):
+        eng.drop_prefix_cache()
+        sched = Scheduler(eng, registry=MetricsRegistry(), policy=policy)
+        t0 = time.perf_counter()
+        comps = sched.run(reqs)
+        wall = time.perf_counter() - t0
+        check(all(c.status == "ok" and len(c.tokens) == r.max_new_tokens
+                  for c, r in zip(sorted(comps, key=lambda c: c.id), reqs)),
+              "policy arm: a request did not complete")
+        cons = sched.ledger.verify_conservation(reqs)
+        check(cons["holds"], f"policy arm: ledger books not exact: {cons}")
+        lat = {t: sorted(c.finished_at - c.arrival for c in comps
+                         if reqs[c.id].tenant == t) for t in ("adv", "slo")}
+        p95 = {t: v[min(len(v) - 1, int(round(0.95 * (len(v) - 1))))]
+               for t, v in lat.items()}
+        return dict(tokens_per_s=sum(len(c.tokens) for c in comps) / wall,
+                    slo_p95_s=p95["slo"], adv_p95_s=p95["adv"])
+
+    runs = {"fifo": [], "policy": []}
+    plane = None
+    for _ in range(2):
+        runs["fifo"].append(one_pass(None))
+        plane = PolicyPlane(
+            tenants={"slo": TenantPolicy("slo", weight=4.0),
+                     "adv": TenantPolicy("adv", weight=1.0)},
+            registry=MetricsRegistry())
+        runs["policy"].append(one_pass(plane))
+    check(eng.decode_compiles == 1,
+          f"policy arm: {eng.decode_compiles} captures")
+    row = dict(phase="policy", card=card, adv_requests=2 * cap,
+               slo_requests=cap // 2, weights={"slo": 4.0, "adv": 1.0},
+               **{arm: dict(
+                   tokens_per_s=max(r["tokens_per_s"] for r in rs),
+                   slo_p95_s=min(r["slo_p95_s"] for r in rs),
+                   adv_p95_s=min(r["adv_p95_s"] for r in rs),
+                   runs=rs) for arm, rs in runs.items()},
+               admission_order=[t for _, t, _ in plane.admission_log[:12]],
+               virtual_clock=dict(plane.virtual))
     emit(row)
     return row
 
@@ -752,12 +1111,17 @@ def phase_generation(ops, dev, card, seed):
     torch.cuda.synchronize()
     ops.paged_decode_attention.launches = 0
     ops.fused_decode_attention.launches = 0
+    ops.zero_kernel_runs(dev)
     t0 = time.perf_counter()
     out = lm_generate(model, prompt, N)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"paged_decode_attention": ops.paged_decode_attention.launches,
                 "fused_decode_attention": ops.fused_decode_attention.launches}
+    runs = ops.kernel_runs(dev)
+    check(runs == launches,
+          f"lm_generate: the card counted {runs} kernel runs, the wrappers "
+          f"{launches} launches")
     check(tuple(out.shape) == (B, N), f"lm_generate shape {out.shape}")
     check(bool(((out >= 0) & (out < FULL["vocab"])).all()),
           "lm_generate emitted a token outside the vocab")
@@ -1823,8 +2187,9 @@ def phase_decode_sass(kernels):
 
 # ------------------------------------------------------- tree comparison
 #: what ``--compare-with`` times in each tree: the decode kernels (phase 4
-#: with its long rows) and the bf16 serving drive (phase 5's first), the
-#: flash kernels (phase 9), the LM flash-arm step (phase 10's first arm),
+#: with its long rows) and the bf16 and int8 serving drives (phase 5's,
+#: without the incident manager), the flash kernels (phase 9), the LM
+#: flash-arm step (phase 10's first arm),
 #: the fused-conv kernel (phase 13) and the ``frozen/pallas`` ResNet step
 #: (an arm of phase 14).
 COMPARE_PHASES = ("decode", "flash", "lm", "conv", "resnet")
@@ -1857,7 +2222,9 @@ if "decode" in phases:
         np.random.RandomState(seed), 16, hs.FULL["vocab"]))
     hs.phase_timing(ops, dev, seed, mb)
     hs.phase_long_timing(ops, dev, seed)
-    hs.drive_serving(ops, dev, card, seed, "bf16_mha", 16)
+    hs.drive_serving(ops, dev, card, seed, "bf16_mha", 16, planes=False)
+    hs.drive_serving(ops, dev, card, seed + 10, "int8_gqa", 6, planes=False,
+                     n_kv_heads=4, kv_dtype=torch.int8)
 fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
 comm = create_communicator("xla", device=dev,
                            allreduce_grad_dtype=torch.bfloat16)
@@ -1972,6 +2339,9 @@ def main() -> int:
     timing.update(phase_flash_timing(fa, dev, args.seed))
 
     serve = drive_serving(ops, dev, smi, args.seed, "bf16_mha", 16)
+    phase_serving_turns(dev, smi, args.seed)
+    phase_obs_overhead(dev, smi, args.seed)
+    phase_policy(dev, smi, args.seed)
     drive_serving(ops, dev, smi, args.seed + 10, "int8_gqa", 6,
                   n_kv_heads=4, kv_dtype=torch.int8)
     gen = phase_generation(ops, dev, smi, args.seed)

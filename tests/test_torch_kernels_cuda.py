@@ -114,8 +114,10 @@ def test_paged_matches_plain(dev, dtype, quant, T, KH, Dh):
     args = _paged(dev, 8, T, 12, KH, Dh, 16, 12,
                   [0, 1, 15, 16, 17, 100, 150, 189], dtype, quant)
     before = tda.paged_decode_attention.launches
+    runs = tda.kernel_runs(dev)["paged_decode_attention"]
     got = tda.paged_decode_attention(*args)
     assert tda.paged_decode_attention.launches == before + 1
+    assert tda.kernel_runs(dev)["paged_decode_attention"] == runs + 1
     want = tda.paged_decode_attention_reference(*args)
     assert _err(got, want) <= TOL[dtype]
     if T == 1:
@@ -135,8 +137,10 @@ def test_fused_matches_plain(dev, dtype, quant, L, KH, Dh):
     args = _fused(dev, 8, 12, KH, L, Dh,
                   [0, 1, 31, 32, 33, L // 2, L - 1, L], dtype, quant)
     before = tda.fused_decode_attention.launches
+    runs = tda.kernel_runs(dev)["fused_decode_attention"]
     got = tda.fused_decode_attention(*args)
     assert tda.fused_decode_attention.launches == before + 1
+    assert tda.kernel_runs(dev)["fused_decode_attention"] == runs + 1
     want = tda.fused_decode_attention_reference(*args)
     assert _err(got, want) <= TOL[dtype], (
         "a row with valid_len 0 must give the mean of V over the whole "
@@ -252,7 +256,9 @@ def test_fused_max_len(dev, dtype, quant):
 def test_wrappers_replay_in_a_cuda_graph(dev):
     """One capture of each wrapper, then valid_len and the block tables
     rewritten in place and the graph replayed: the launch read neither on
-    the host, so the replay follows the new values."""
+    the host, so the replay follows the new values.  The wrappers count
+    the captured launches in ``.captured``; each replay's runs are
+    counted on the card only."""
     S, H, KH, Dh, BL, MB, L = 8, 12, 4, 64, 16, 12, 300
     full = [MB * BL] * S  # every slot's table maps MB distinct blocks
     pq, pk, pv, tables, pvalid, pks, pvs = _paged(
@@ -267,10 +273,18 @@ def test_wrappers_replay_in_a_cuda_graph(dev):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
+    launched = (tda.paged_decode_attention.launches,
+                tda.fused_decode_attention.launches)
+    captured = (tda.paged_decode_attention.captured,
+                tda.fused_decode_attention.captured)
     with torch.cuda.graph(graph):
         out_p = tda.paged_decode_attention(pq, pk, pv, tables, pvalid, pks,
                                            pvs)
         out_f = tda.fused_decode_attention(fq, fk, fv, fvalid)
+    assert (tda.paged_decode_attention.captured,
+            tda.fused_decode_attention.captured) == tuple(
+                n + 1 for n in captured)
+    tda.zero_kernel_runs(dev)
     for new_p, new_f in (([0, 1, 16, 17, 31, 100, 150, MB * BL],
                           [0, 1, 31, 32, 33, 150, L - 1, L]),
                          ([5, MB * BL, 0, 64, 65, 2, 190, 33],
@@ -286,6 +300,10 @@ def test_wrappers_replay_in_a_cuda_graph(dev):
         assert _err(out_f, want_f) <= TOL[torch.bfloat16]
         idle = [i for i, v in enumerate(new_p) if v == 0]
         assert bool((out_p[idle] == 0).all())
+    assert tda.kernel_runs(dev) == {"paged_decode_attention": 2,
+                                    "fused_decode_attention": 2}
+    assert (tda.paged_decode_attention.launches,
+            tda.fused_decode_attention.launches) == launched
 
 
 # ------------------------------------------------------- flash K1-K3

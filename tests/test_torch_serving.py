@@ -24,6 +24,7 @@ from chainermn_tpu_torch.observability import MetricsRegistry
 from chainermn_tpu_torch.resilience import FaultInjector, InjectedFault
 from chainermn_tpu_torch.resilience import parse_fault_spec
 from chainermn_tpu_torch.serving import DecodeEngine, Request, Scheduler
+from chainermn_tpu_torch.serving import PolicyPlane
 from chainermn_tpu_torch.serving.engine import lane_seed
 from chainermn_tpu_torch.utils import params_from_flax
 
@@ -185,10 +186,13 @@ def test_fault_hook_fires_at_decode_iteration(models, prompts):
 
 
 def test_unported_seams_raise(models):
+    """The tensor-parallel engine is not ported and raises; the policy
+    plane is, and the scheduler hands its quota view to the trie."""
     _, _, tm = models
     eng = _engine(tm)
-    with pytest.raises(NotImplementedError, match="policy"):
-        Scheduler(eng, policy=object())
+    plane = PolicyPlane(registry=MetricsRegistry())
+    Scheduler(eng, policy=plane, registry=MetricsRegistry())
+    assert eng.prefix.quotas is plane.prefix_quotas
     with pytest.raises(NotImplementedError, match="TP engine"):
         DecodeEngine(tm, **ENG, device="cpu", mesh=object())
 
