@@ -1,6 +1,12 @@
-"""Model zoo of the port: the Transformer LM, its generation loop (the
-serving slice) and its training loss; ResNet and its stateful loss."""
+"""Model zoo of the port: the Transformer LM (dense or mixture of
+experts), its generation loop (the serving slice), beam search and
+speculative generation, and its training losses; ResNet and its stateful
+loss."""
 
+from chainermn_tpu_torch.models.decoding import (
+    lm_beam_search,
+    lm_speculative_generate,
+)
 from chainermn_tpu_torch.models.resnet import (
     BasicBlock,
     BottleneckBlock,
@@ -18,11 +24,15 @@ from chainermn_tpu_torch.models.transformer import (
     TransformerLM,
     lm_generate,
     lm_loss,
+    lm_loss_chunked,
+    moe_stats,
     segment_positions,
 )
 from chainermn_tpu_torch.ops.flash_attention import reference_attention
 
 __all__ = ["BasicBlock", "BottleneckBlock", "DecoderBlock", "FusedConv1x1",
            "ResNet", "ResNet18", "ResNet50", "ResNetTiny", "TransformerLM",
-           "lm_generate", "lm_loss", "reference_attention", "resnet_loss",
+           "lm_beam_search", "lm_generate", "lm_loss", "lm_loss_chunked",
+           "lm_speculative_generate", "moe_stats", "reference_attention",
+           "resnet_loss",
            "s2d_stem_kernel", "segment_positions", "space_to_depth"]

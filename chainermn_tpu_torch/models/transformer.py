@@ -11,7 +11,10 @@ arithmetic and parameter layout choices:
 * the LM head in fp32;
 * learned or RoPE positions; a fused ``qkv`` projection for multi-head
   attention, split ``q`` + ``kv`` projections under grouped-query
-  attention (``n_kv_heads < n_heads``).
+  attention (``n_kv_heads < n_heads``);
+* a dense FFN, or with ``n_experts > 0`` the single-device
+  mixture-of-experts FFN (:meth:`DecoderBlock.moe_ffn`: top-k routing
+  with per-expert capacity, experts as stacked ``(E, ...)`` weights).
 
 Three KV-cache layouts, as in the JAX model, chosen by the arguments of
 :meth:`TransformerLM.forward`:
@@ -26,7 +29,8 @@ Three KV-cache layouts, as in the JAX model, chosen by the arguments of
   Dh)`` cache; single-token steps run the fused kernel
   (:func:`~chainermn_tpu_torch.ops.fused_decode_attention`);
 * **einsum** (the default): a ``(B, L, KH, Dh)`` cache and plain
-  attention.
+  attention; with ``rolling=True`` (window models) a ring of ``window``
+  slots, slot ``pos % window``.
 
 Caches are updated in place (the JAX model returns new arrays): the
 forward still returns the cache beside its output, so callers read the
@@ -42,11 +46,11 @@ the hand-written flash-attention kernels forward and backward
 materialized-score :func:`reference_attention`, and ``"auto"`` the
 former on a CUDA device and the latter on the CPU; ``remat=True``
 recomputes each block in the backward (``torch.utils.checkpoint``).
-:func:`lm_loss` is the data-parallel optimizer's loss.
-
-Not ported yet: mixture-of-experts FFNs, the chunked LM-head loss
-(``lm_loss_chunked``), rolling (ring-buffer) decode, beam search and
-speculative generation.
+:func:`lm_loss` is the data-parallel optimizer's loss,
+:func:`lm_loss_chunked` the same with the LM head streamed in vocab
+chunks (:func:`~chainermn_tpu_torch.ops.chunked_softmax_cross_entropy`).
+Beam search and speculative generation are in
+:mod:`chainermn_tpu_torch.models.decoding`.
 """
 
 from __future__ import annotations
@@ -71,7 +75,9 @@ from chainermn_tpu_torch.ops.flash_attention import (
     reference_attention,
     resolve_attention,
 )
+from chainermn_tpu_torch.ops.chunked_ce import chunked_softmax_cross_entropy
 from chainermn_tpu_torch.ops.rope import apply_rope, rope_tables
+from chainermn_tpu_torch.parallel.moe import _topk_dispatch
 from chainermn_tpu_torch.utils.device import resolve_device
 
 #: Flax ``LayerNorm``'s epsilon (torch's default is 1e-5).
@@ -147,7 +153,9 @@ class DecoderBlock(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int, dtype,
                  param_dtype, attention: str = "auto", n_kv_heads: int = 0,
                  window: int = 0, decode_attention: str = "einsum",
-                 pos_enc: str = "learned", device=None):
+                 pos_enc: str = "learned", n_experts: int = 0,
+                 moe_k: int = 2, moe_capacity_factor: float = 1.25,
+                 moe_group: int = 512, device=None):
         super().__init__()
         kh = n_kv_heads or n_heads
         if not 0 < kh <= n_heads or n_heads % kh:
@@ -173,18 +181,38 @@ class DecoderBlock(nn.Module):
             self.kv = nn.Linear(d_model, 2 * kh * hd, **fk)
         self.proj = nn.Linear(n_heads * hd, d_model, **fk)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS, **fk)
-        self.ff1 = nn.Linear(d_model, d_ff, **fk)
-        self.ff2 = nn.Linear(d_ff, d_model, **fk)
+        self.n_experts, self.moe_k = n_experts, moe_k
+        self.moe_capacity_factor, self.moe_group = moe_capacity_factor, \
+            moe_group
+        #: ``(moe_aux, moe_dropped)`` of each MoE forward since the model's
+        #: last forward began (the JAX block ``sow``s them); read by
+        #: :func:`moe_stats`.
+        self.moe_stats: List[tuple] = []
+        if n_experts:
+            E, D, F_ = n_experts, d_model, d_ff
+            # The JAX block's layouts; the router stays fp32 whatever
+            # the parameter dtype.
+            self.router = nn.Parameter(torch.empty(
+                (D, E), device=device, dtype=torch.float32))
+            self.moe_w1 = nn.Parameter(torch.empty((E, D, F_), **fk))
+            self.moe_b1 = nn.Parameter(torch.empty((E, F_), **fk))
+            self.moe_w2 = nn.Parameter(torch.empty((E, F_, D), **fk))
+            self.moe_b2 = nn.Parameter(torch.empty((E, D), **fk))
+        else:
+            self.ff1 = nn.Linear(d_model, d_ff, **fk)
+            self.ff2 = nn.Linear(d_ff, d_model, **fk)
 
     def forward(self, h, cache=None, decode_pos=None, rope=None,
-                block_tables=None, slot_mask=None, segment_ids=None):
+                block_tables=None, slot_mask=None, segment_ids=None,
+                rolling: bool = False):
         """Full path: ``h`` ``(B, T, D)`` -> ``(B, T, D)``, causal
         attention within ``segment_ids`` (``(B, T)`` int32, or None).
         Decode path
         (``cache`` given): attends against the cache after writing this
         chunk's K/V at ``decode_pos`` (an int, or ``(B,)`` per-row
         positions); ``block_tables``/``slot_mask`` select the paged
-        layout."""
+        layout; ``rolling`` treats a ``window``-slot legacy cache as a
+        ring (single-token chunks, slot ``pos % window``)."""
         B, T = h.shape[:2]
         H, KH, Dh, dt = self.n_heads, self.n_kv_heads, self.head_dim, \
             self.dtype
@@ -205,19 +233,82 @@ class DecoderBlock(nn.Module):
                        window=self.window or None)
         else:
             a = self._decode(q, k, v, cache, decode_pos, block_tables,
-                             slot_mask)
+                             slot_mask, rolling)
         h = h + _dense(a.reshape(B, T, H * Dh), self.proj, dt)
         return h + self.ffn(_layer_norm(h, self.ln2, dt))
 
     def ffn(self, x):
         """The dense FFN: ``ff2(gelu(ff1(x)))`` with the tanh
-        approximation of GELU (``flax.linen.gelu``'s default)."""
+        approximation of GELU (``flax.linen.gelu``'s default); the
+        mixture of experts (:meth:`moe_ffn`) when ``n_experts > 0``."""
+        if self.n_experts:
+            return self.moe_ffn(x)
         y = F.gelu(_dense(x, self.ff1, self.dtype), approximate="tanh")
         return _dense(y, self.ff2, self.dtype)
 
-    def _decode(self, q, k, v, cache, decode_pos, block_tables, slot_mask):
+    def moe_ffn(self, x):
+        """Single-device mixture-of-experts FFN, the JAX block's
+        ``_moe_ffn``: tokens routed in groups of ``G`` (the largest size
+        <= ``moe_group`` dividing ``N = B·T``), each group with capacity
+        ``C = max(1, ceil(k · cf · G / E))`` per expert
+        (:func:`~chainermn_tpu_torch.parallel.moe._topk_dispatch`); the
+        router softmax in fp32, the dispatch einsum and the two expert
+        products in the compute dtype (each ``(e, c)`` slot receives at
+        most one token, so nothing accumulates), the combine in fp32.  A
+        routing that loses the capacity race falls through on the
+        residual.  Appends ``(moe_aux, moe_dropped)`` to
+        :attr:`moe_stats`: the Switch load-balance loss and the share of
+        (token, choice) routings dropped."""
+        D, E, dt = self.d_model, self.n_experts, self.dtype
+        B, T = x.shape[:2]
+        N = B * T
+        G = min(self.moe_group, N)
+        while N % G:
+            G -= 1
+        n_groups = N // G
+        C = max(1, math.ceil(self.moe_k * self.moe_capacity_factor * G / E))
+        xg = x.reshape(n_groups, G, D)
+        probs = torch.softmax(xg.float() @ self.router, dim=-1)  # (g, G, E)
+        dispatch, combine, first = _topk_dispatch(probs, C, self.moe_k)
+        f_e = first.mean(dim=1)  # (g, E)
+        p_e = probs.mean(dim=1)
+        aux = E * (f_e * p_e).sum(dim=-1).mean()
+        dropped = 1.0 - dispatch.sum() / (N * self.moe_k)
+        self.moe_stats.append((aux, dropped))
+        send = torch.einsum("gnec,gnd->egcd", dispatch.to(dt), xg.to(dt)) \
+            .reshape(E, n_groups * C, D)
+        hmid = F.gelu(torch.einsum("exd,edf->exf", send, self.moe_w1.to(dt))
+                      + self.moe_b1[:, None, :].to(dt), approximate="tanh")
+        out = (torch.einsum("exf,efd->exd", hmid, self.moe_w2.to(dt))
+               + self.moe_b2[:, None, :].to(dt)).reshape(E, n_groups, C, D)
+        y = torch.einsum("gnec,egcd->gnd", combine, out.float())
+        return y.reshape(B, T, D).to(dt)
+
+    def _decode(self, q, k, v, cache, decode_pos, block_tables, slot_mask,
+                rolling=False):
         B, T, H, Dh = q.shape
         dev = q.device
+        paged = block_tables is not None
+        if rolling and (paged or self.decode_attention == "fused"):
+            # The ring's slot arithmetic is the legacy layout's only.
+            raise ValueError(
+                "rolling decode requires decode_attention='einsum' "
+                "and a non-paged cache (got decode_attention="
+                f"{self.decode_attention!r}, paged={paged})"
+            )
+        if rolling:
+            if not self.window or cache["k"].shape[1] != self.window:
+                raise ValueError(
+                    "rolling decode needs a window model and a "
+                    f"window-sized cache (window={self.window}, cache "
+                    f"len {cache['k'].shape[1]})"
+                )
+            if T != 1:
+                raise ValueError(
+                    "rolling decode is single-token (T == 1); prefill "
+                    "through a full cache and convert (lm_generate "
+                    f"does) — got T = {T}"
+                )
         ar = torch.arange(T, device=dev)
         if _is_scalar(decode_pos):
             p0 = int(decode_pos)
@@ -231,7 +322,6 @@ class DecoderBlock(nn.Module):
             v_w, v_sc = _quantize(v)
         else:
             k_w, v_w = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
-        paged = block_tables is not None
         if paged:
             return self._decode_paged(q, k_w, v_w, k_sc if quant else None,
                                       v_sc if quant else None, cache,
@@ -261,19 +351,23 @@ class DecoderBlock(nn.Module):
                 )[:, None]
             return _attend_kv_major(q, kc, vc, q_pos, self.window, ks_c,
                                     vs_c)
-        # Legacy (B, L, KH, Dh) layout, plain grouped attention.
+        # Legacy (B, L, KH, Dh) layout, plain grouped attention; a ring
+        # of ``window`` slots under ``rolling`` (slot = position mod W).
+        W = self.window
         if p0 is not None:
-            kc[:, p0:p0 + T] = k_w
-            vc[:, p0:p0 + T] = v_w
+            w0 = p0 % W if rolling else p0
+            kc[:, w0:w0 + T] = k_w
+            vc[:, w0:w0 + T] = v_w
             if quant:
-                ks_c[:, p0:p0 + T] = k_sc
-                vs_c[:, p0:p0 + T] = v_sc
+                ks_c[:, w0:w0 + T] = k_sc
+                vs_c[:, w0:w0 + T] = v_sc
         else:
-            kc[rows, q_pos] = k_w
-            vc[rows, q_pos] = v_w
+            cols = q_pos % W if rolling else q_pos
+            kc[rows, cols] = k_w
+            vc[rows, cols] = v_w
             if quant:
-                ks_c[rows, q_pos] = k_sc
-                vs_c[rows, q_pos] = v_sc
+                ks_c[rows, cols] = k_sc
+                vs_c[rows, cols] = v_sc
         KH = kc.shape[2]
         qg = q.reshape(B, T, KH, H // KH, Dh)
         s = torch.einsum("bqkgd,btkd->bkgqt", qg.float(), kc.float()) \
@@ -283,9 +377,16 @@ class DecoderBlock(nn.Module):
         t_idx = torch.arange(kc.shape[1], device=dev)[None, None, None,
                                                       None, :]
         qp = q_pos[:, None, None, :, None]
-        visible = t_idx <= qp
-        if self.window:
-            visible &= t_idx > qp - self.window
+        if rolling:
+            # Slot s holds position pos - ((pos - s) mod W), the latest
+            # one congruent to s that is <= pos: negative means never
+            # written.  Every held position lies in (pos - W, pos], so
+            # window and causality need no further mask.
+            visible = qp - ((qp - t_idx) % W) >= 0
+        else:
+            visible = t_idx <= qp
+            if self.window:
+                visible &= t_idx > qp - self.window
         s = torch.where(visible, s, torch.full_like(s, NEG_INF))
         p = torch.softmax(s, dim=-1)
         if quant:
@@ -354,7 +455,11 @@ class TransformerLM(nn.Module):
     symmetric-absmax int8 with fp32 scales; None = ``dtype``), ``window``
     (sliding-window size, 0 = full), ``decode_attention`` (``"einsum"`` or
     ``"fused"``), ``pos_enc`` (``"learned"`` or ``"rope"``), ``remat``
-    (recompute each block in the backward of a training forward).
+    (recompute each block in the backward of a training forward),
+    ``n_experts`` (0 = dense FFN; else the MoE FFN with ``d_ff`` the
+    per-expert width), ``moe_k``, ``moe_capacity_factor``, ``moe_group``
+    (routing group size) and ``moe_aux_weight`` (the load-balance loss's
+    weight in :func:`lm_loss` / :func:`lm_loss_chunked`).
 
     ``device`` places the parameters; None means the current CUDA device
     and raises where there is none.  Parameters are initialized from
@@ -367,7 +472,9 @@ class TransformerLM(nn.Module):
                  attention: str = "auto", n_kv_heads: int = 0,
                  kv_dtype=None, window: int = 0,
                  decode_attention: str = "einsum", pos_enc: str = "learned",
-                 remat: bool = False, device=None, seed: int = 0):
+                 remat: bool = False, n_experts: int = 0, moe_k: int = 2,
+                 moe_capacity_factor: float = 1.25, moe_group: int = 512,
+                 moe_aux_weight: float = 0.01, device=None, seed: int = 0):
         super().__init__()
         device = resolve_device(device, "TransformerLM")
         if pos_enc not in ("learned", "rope"):
@@ -397,6 +504,10 @@ class TransformerLM(nn.Module):
         self.attention, self.window = attention, window
         self.decode_attention, self.pos_enc = decode_attention, pos_enc
         self.remat = remat
+        self.n_experts, self.moe_k = n_experts, moe_k
+        self.moe_capacity_factor, self.moe_group = moe_capacity_factor, \
+            moe_group
+        self.moe_aux_weight = moe_aux_weight
         fk = dict(device=device, dtype=param_dtype)
         self.embed = nn.Embedding(vocab, d_model, **fk)
         if pos_enc == "learned":
@@ -405,7 +516,9 @@ class TransformerLM(nn.Module):
             DecoderBlock(d_model, n_heads, d_ff, dtype, param_dtype,
                          attention=attention, n_kv_heads=n_kv_heads,
                          window=window, decode_attention=decode_attention,
-                         pos_enc=pos_enc, device=device)
+                         pos_enc=pos_enc, n_experts=n_experts, moe_k=moe_k,
+                         moe_capacity_factor=moe_capacity_factor,
+                         moe_group=moe_group, device=device)
             for _ in range(n_layers)
         ])
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS, **fk)
@@ -429,7 +542,10 @@ class TransformerLM(nn.Module):
         """Flax-default-like initialization from ``seed``: dense kernels
         normal with std 1/sqrt(fan_in), zero biases, unit LayerNorm
         scales, embeddings std 1/sqrt(d_model), learned positions std
-        0.02."""
+        0.02; MoE blocks as the JAX block initializes them: the router
+        normal with std 0.02, each expert's two kernels lecun-normal
+        (truncated at two standard deviations, variance 1/fan_in over
+        ``d_model`` and ``d_ff``), zero expert biases."""
         g = torch.Generator(device=self.device)
         g.manual_seed(int(seed))
         for mod in self.modules():
@@ -445,10 +561,22 @@ class TransformerLM(nn.Module):
                                   generator=g)
         if self.pos_enc == "learned":
             self.pos.normal_(0.0, 0.02, generator=g)
+        for blk in self.blocks:
+            if not blk.n_experts:
+                continue
+            blk.router.normal_(0.0, 0.02, generator=g)
+            for w in (blk.moe_w1, blk.moe_w2):
+                # Flax's lecun_normal: a normal truncated at +-2 std,
+                # rescaled so that its variance is 1/fan_in.
+                std = 1.0 / math.sqrt(w.shape[1]) / .87962566103423978
+                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                      generator=g)
+            blk.moe_b1.zero_()
+            blk.moe_b2.zero_()
 
     def forward(self, tokens, segment_ids=None, return_hidden: bool = False,
                 cache=None, decode_pos=None, block_tables=None,
-                slot_mask=None):
+                slot_mask=None, rolling: bool = False):
         """``(B, T)`` tokens -> ``(B, T, vocab)`` fp32 logits (or the
         pre-head hidden states with ``return_hidden``).
 
@@ -460,9 +588,15 @@ class TransformerLM(nn.Module):
         With a ``cache`` (from :meth:`init_cache`, or the serving engine's
         pools with ``block_tables``), returns ``(output, cache)``;
         ``decode_pos`` is the chunk's first position, an int or ``(B,)``
-        per row."""
+        per row; ``rolling`` decodes one token through a ``window``-slot
+        ring cache (see :func:`lm_generate`).
+
+        A MoE model's blocks collect this forward's load-balance loss and
+        dropped share (:func:`moe_stats`)."""
         B, T = tokens.shape
         dev = self.device
+        for blk in self.blocks:
+            blk.moe_stats.clear()
         h = F.embedding(tokens, self.embed.weight).to(self.dtype)
         if cache is not None:
             segment_ids = None
@@ -481,6 +615,14 @@ class TransformerLM(nn.Module):
         if self.pos_enc == "learned":
             if pos_arr.dim() == 1:
                 h = h + self.pos[pos_arr][None].to(self.dtype)
+            elif cache is not None:
+                # Per-row decode positions past the table clamp to its
+                # last row, as the JAX model's gather does (speculative
+                # rounds run finished rows on into their headroom, their
+                # outputs unread); on the card an index past the table
+                # would be a device-side assert.
+                h = h + self.pos[pos_arr.clamp_max(self.max_len - 1)] \
+                    .to(self.dtype)
             else:
                 h = h + self.pos[pos_arr].to(self.dtype)
         else:
@@ -489,7 +631,8 @@ class TransformerLM(nn.Module):
         for i, blk in enumerate(self.blocks):
             if cache is not None:
                 h = blk(h, cache[i], decode_pos, rope=rope,
-                        block_tables=block_tables, slot_mask=slot_mask)
+                        block_tables=block_tables, slot_mask=slot_mask,
+                        rolling=rolling)
             elif remat:
                 h = checkpoint(blk, h, rope=rope, segment_ids=segment_ids,
                                use_reentrant=False)
@@ -584,15 +727,16 @@ def lm_generate(model: TransformerLM, prompt, n_new: int,
       top_k / top_p: truncation of the sampled distribution.
       prompt_lengths: optional ``(B,)`` real lengths of right-padded
         prompts; row ``i`` generates at positions ``length_i, ...``.
-      rolling: the ring-buffer cache is not ported yet and raises.
+      rolling: sliding-window models only (``model.window > 0``, the
+        einsum cache): decode through a ring of ``window`` slots instead
+        of a ``P + n_new`` cache, O(window) memory however long the
+        generation runs.  The prompt prefills through a prompt-sized
+        cache, which then collapses into the ring.  Token-identical to
+        the full cache up to fp32 summation order: the window mask hides
+        everything the ring evicts.  Not with ``prompt_lengths``.
 
     Returns ``(B, n_new)`` int32 tokens on the model's device.
     """
-    if rolling:
-        raise NotImplementedError(
-            "rolling (ring-buffer) decode is not ported yet (ROADMAP "
-            "Queue 1, decode item)"
-        )
     dev = model.device
     prompt = torch.as_tensor(prompt, device=dev).to(torch.long)
     B, P = prompt.shape
@@ -601,6 +745,20 @@ def lm_generate(model: TransformerLM, prompt, n_new: int,
     total = check_generation_length(model, P, n_new)
     if temperature > 0 and generator is None:
         raise ValueError("sampling (temperature > 0) requires generator")
+    if rolling:
+        if not model.window:
+            raise ValueError(
+                "rolling=True needs a sliding-window model (window > 0)"
+            )
+        if model.decode_attention == "fused":
+            raise ValueError(
+                "rolling=True requires decode_attention='einsum'"
+            )
+        if prompt_lengths is not None:
+            raise ValueError(
+                "rolling=True does not support ragged prompts: pad slots "
+                "written during prefill would alias real ring positions"
+            )
     if not 0.0 < top_p <= 1.0:
         raise ValueError(f"top_p must be in (0, 1], got {top_p}")
     if top_k < 0:
@@ -628,25 +786,72 @@ def lm_generate(model: TransformerLM, prompt, n_new: int,
             return torch.multinomial(probs, 1, generator=generator)[:, 0]
         return torch.argmax(logits, dim=-1)
 
-    cache = model.init_cache(B, total)
+    cache = model.init_cache(B, P if rolling else total)
     logits, cache = model(prompt, cache=cache, decode_pos=0)
     if lengths is None:
         tok = pick(logits[:, -1])
     else:
         tok = pick(logits[torch.arange(B, device=dev), lengths - 1])
+    if rolling and n_new > 1:
+        # Collapse the prompt-sized cache into the W-slot ring: slot s
+        # takes the last prompt position congruent to s (mod W), a gather
+        # (a copy).  Slots no prompt position reached (P < W) hold
+        # clamped junk that the ring's never-written mask hides until a
+        # real write lands there.
+        W = model.window
+        sl = torch.arange(W, device=dev)
+        safe = ((P - 1) - ((P - 1 - sl) % W)).clamp(0, P - 1)
+        cache = [{n: c[n][:, safe] for n in c} for c in cache]
     out = [tok]
     for i in range(n_new - 1):
         step_pos = (P + i) if lengths is None else (lengths + i)
-        logits, cache = model(tok[:, None], cache=cache, decode_pos=step_pos)
+        logits, cache = model(tok[:, None], cache=cache, decode_pos=step_pos,
+                              rolling=rolling)
         tok = pick(logits[:, 0])
         out.append(tok)
     return torch.stack(out, dim=1).to(torch.int32)
 
 
+def moe_stats(model: TransformerLM):
+    """The mean ``(moe_aux, moe_dropped)`` over the MoE blocks of the
+    model's last forward (the JAX package's ``_moe_stats`` of the sown
+    values), or None for a dense model.  ``moe_aux`` keeps its graph: the
+    losses add it, weighted, to the training loss."""
+    got = [st for blk in model.blocks for st in blk.moe_stats]
+    if not got:
+        return None
+    aux = torch.stack([a for a, _ in got]).mean()
+    dropped = torch.stack([d for _, d in got]).mean()
+    return aux, dropped
+
+
+def _lm_batch(m: TransformerLM, batch):
+    tokens, targets, *rest = batch
+    dev = m.device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    targets = torch.as_tensor(targets, device=dev).long()
+    seg = torch.as_tensor(rest[0], device=dev) if rest else None
+    return tokens, targets, seg
+
+
+def _with_moe(m: TransformerLM, loss, metrics):
+    """Add a MoE model's weighted load-balance loss; report ``moe_aux``
+    and ``moe_dropped`` (``ppl_log`` stays the cross-entropy alone)."""
+    st = moe_stats(m) if m.n_experts else None
+    if st is None:
+        return loss, metrics
+    aux, dropped = st
+    metrics["moe_aux"] = aux.detach()
+    metrics["moe_dropped"] = dropped.detach()
+    return loss + m.moe_aux_weight * aux, metrics
+
+
 def lm_loss(model: TransformerLM):
     """``loss_fn(model, batch) -> (loss, {"ppl_log": loss})`` for the
     data-parallel optimizer: the token-mean cross-entropy of the fp32
-    logits over targets ``>= 0`` (``-1`` = padding, ignored).  A 3-tuple
+    logits over targets ``>= 0`` (``-1`` = padding, ignored); a MoE model
+    adds ``moe_aux_weight`` times the load-balance loss and reports
+    ``moe_aux`` and ``moe_dropped`` beside ``ppl_log``.  A 3-tuple
     batch ``(tokens, targets, segment_ids)`` trains packed rows (see
     :func:`~chainermn_tpu_torch.datasets.pack_sequences`).  Batches may be
     numpy arrays or tensors; they move to the model's device."""
@@ -655,17 +860,37 @@ def lm_loss(model: TransformerLM):
                         f"{type(model).__name__}")
 
     def loss_fn(m: TransformerLM, batch):
-        tokens, targets, *rest = batch
-        dev = m.device
-        tokens = torch.as_tensor(tokens, device=dev).long()
-        targets = torch.as_tensor(targets, device=dev).long()
-        seg = torch.as_tensor(rest[0], device=dev) if rest else None
+        tokens, targets, seg = _lm_batch(m, batch)
         logits = m(tokens, segment_ids=seg)
         mask = (targets >= 0).to(torch.float32)
         ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                              targets.clamp_min(0).reshape(-1),
                              reduction="none").view_as(mask)
         loss = (ce * mask).sum() / mask.sum().clamp_min(1.0)
-        return loss, {"ppl_log": loss.detach()}
+        return _with_moe(m, loss, {"ppl_log": loss.detach()})
+
+    return loss_fn
+
+
+def lm_loss_chunked(model: TransformerLM, chunk_size: int = 4096):
+    """Same contract as :func:`lm_loss`, but the LM head is streamed
+    through :func:`~chainermn_tpu_torch.ops.chunked_softmax_cross_entropy`
+    in vocab chunks of ``chunk_size``: the ``(B, T, vocab)`` logits and
+    their gradient are never materialized (working memory
+    ``O(B·T·chunk_size)``).  The head's weight and bias are the model's
+    own ``lm_head``, so one set of weights serves both losses."""
+    if not isinstance(model, TransformerLM):
+        raise TypeError(f"lm_loss_chunked expects a TransformerLM, got "
+                        f"{type(model).__name__}")
+
+    def loss_fn(m: TransformerLM, batch):
+        tokens, targets, seg = _lm_batch(m, batch)
+        hidden = m(tokens, segment_ids=seg, return_hidden=True)
+        ce = chunked_softmax_cross_entropy(
+            hidden, m.lm_head.weight, targets, bias=m.lm_head.bias,
+            chunk_size=chunk_size)
+        mask = (targets >= 0).to(torch.float32)
+        loss = ce.sum() / mask.sum().clamp_min(1.0)
+        return _with_moe(m, loss, {"ppl_log": loss.detach()})
 
     return loss_fn

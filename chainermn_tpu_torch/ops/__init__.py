@@ -6,6 +6,7 @@ CUDA host (:mod:`chainermn_tpu_torch.ops._kernels`); on the CPU each
 wrapper runs its plain version.
 """
 
+from chainermn_tpu_torch.ops.chunked_ce import chunked_softmax_cross_entropy
 from chainermn_tpu_torch.ops.conv_fused import (
     MatmulAffineFunction,
     conv1x1_bn_relu,
@@ -37,6 +38,7 @@ from chainermn_tpu_torch.ops.flash_attention import (
 from chainermn_tpu_torch.ops.rope import apply_rope, rope_tables
 
 __all__ = [
+    "chunked_softmax_cross_entropy",
     "MatmulAffineFunction",
     "conv1x1_bn_relu",
     "matmul_affine",

@@ -19,6 +19,9 @@ Flax                                         port
 ``block_i.kv.kernel (D, 2, KH, Dh)``         ``blocks.i.kv.weight (2·KH·Dh, D)``
 ``block_i.proj.kernel (H, Dh, D)``           ``blocks.i.proj.weight (D, H·Dh)``
 ``block_i.ff1/ff2.kernel (in, out)``         ``blocks.i.ff1/ff2.weight (out, in)``
+``block_i.router (D, E)``, ``moe_w1 (E, D,    ``blocks.i.router``, ``moe_w1``, ...
+F)``, ``moe_b1 (E, F)``, ``moe_w2 (E, F,      (the same layouts)
+D)``, ``moe_b2 (E, D)`` (MoE blocks)
 ``ln_f``, ``lm_head.kernel (D, V)``          ``ln_f``, ``lm_head.weight (V, D)``
 ==========================================  ================================
 
@@ -59,6 +62,10 @@ def _ln(out: Dict, name: str, p: Dict, device) -> None:
     out[f"{name}.bias"] = _tensor(p["bias"], device)
 
 
+#: a MoE block's parameters, named and laid out alike on both sides.
+MOE_PARAMS = ("router", "moe_w1", "moe_b1", "moe_w2", "moe_b2")
+
+
 def params_from_flax(params: Dict, device=None) -> Dict[str, torch.Tensor]:
     """The port's ``TransformerLM`` ``state_dict`` from a Flax parameter
     tree of numpy arrays.  ``device`` None means the current CUDA device
@@ -73,11 +80,6 @@ def params_from_flax(params: Dict, device=None) -> Dict[str, torch.Tensor]:
     while f"block_{i}" in params:
         b = params[f"block_{i}"]
         pre = f"blocks.{i}"
-        if "router" in b or "moe_w1" in b:
-            raise NotImplementedError(
-                "mixture-of-experts blocks are not ported yet (ROADMAP "
-                "Queue 1, TransformerLM training)"
-            )
         _ln(out, f"{pre}.ln1", b["ln1"], dev)
         _ln(out, f"{pre}.ln2", b["ln2"], dev)
         if "qkv" in b:
@@ -91,8 +93,12 @@ def params_from_flax(params: Dict, device=None) -> Dict[str, torch.Tensor]:
             pk.reshape(-1, pk.shape[-1]).T, dev
         )
         out[f"{pre}.proj.bias"] = _tensor(b["proj"]["bias"], dev)
-        _dense(out, f"{pre}.ff1", b["ff1"], dev)
-        _dense(out, f"{pre}.ff2", b["ff2"], dev)
+        if "router" in b:
+            for n in MOE_PARAMS:
+                out[f"{pre}.{n}"] = _tensor(b[n], dev)
+        else:
+            _dense(out, f"{pre}.ff1", b["ff1"], dev)
+            _dense(out, f"{pre}.ff2", b["ff2"], dev)
         i += 1
     _ln(out, "ln_f", params["ln_f"], dev)
     _dense(out, "lm_head", params["lm_head"], dev)
@@ -143,9 +149,12 @@ def params_to_flax(tensors: Dict[str, torch.Tensor], n_heads: int,
         pw = _np(sd[f"{pre}.proj.weight"])  # (D, H*Dh)
         b["proj"] = {"kernel": pw.T.reshape(H, Dh, D),
                      "bias": _np(sd[f"{pre}.proj.bias"])}
-        F_ = sd[f"{pre}.ff1.weight"].shape[0]
-        b["ff1"] = _dense_back(sd, f"{pre}.ff1", (F_,))
-        b["ff2"] = _dense_back(sd, f"{pre}.ff2", (D,))
+        if f"{pre}.router" in sd:
+            b.update({n: _np(sd[f"{pre}.{n}"]) for n in MOE_PARAMS})
+        else:
+            F_ = sd[f"{pre}.ff1.weight"].shape[0]
+            b["ff1"] = _dense_back(sd, f"{pre}.ff1", (F_,))
+            b["ff2"] = _dense_back(sd, f"{pre}.ff2", (D,))
         out[f"block_{i}"] = b
         i += 1
     out["ln_f"] = _ln_back(sd, "ln_f")

@@ -29,7 +29,9 @@ Phases, each printing one JSON line on stdout:
    supported head dim; each case twice, the second time with lengths that
    end exactly on, just before and just past the launch's split
    boundaries, straddle one with a verify chunk's rows, and leave whole
-   splits empty.
+   splits empty; then the fused kernel at the searches' shapes in bf16
+   and fp32 (``SEARCH_CASES``: a beam search's 32 rows at one length, a
+   speculative draft step's 8 rows of lengths 129-133).
 4. ``timing``: device times (CUDA-graph replay, CUDA events) of each
    kernel, its plain version and one PyTorch library call computing the
    same function, at the main path's shapes with the L2 cache cold,
@@ -68,6 +70,28 @@ Phases, each printing one JSON line on stdout:
 6. ``generation``: ``lm_generate`` at batch 8, prompt 128, 64 new tokens.
 7. ``agreement``: the engine and ``lm_generate`` on the same requests with
    the model in fp32, so that bf16 near-ties cannot flip tokens.
+7a. The rest of decoding, on the decode benchmark's model
+   (``benchmarks/decode.py:45-53``: 12 layers, d_model 768, 12 heads,
+   d_ff 3072, vocab 32768, learned positions, bf16, fused decode
+   attention; batch 8, prompt 128, 64 new tokens): ``beam``
+   (``lm_beam_search``, beam 4: K5 on 32 rows, 12 x 63 runs; one step's
+   cache reorder under ``torch.profiler``; in fp32 on the same weights
+   beam 1 = ``lm_generate`` token for token and beam 4's best score >=
+   greedy's summed log-probability from a full forward), ``speculative``
+   (the bench's ``--speculative 4 --draft-mode distilled`` arm: the
+   target's blocks 2-11 zeroed in ``proj``/``ff2``, its first 2 blocks
+   the draft; target forwards, acceptance and tokens/s against
+   ``lm_generate`` of the same target, K5 = 2 x (k + 1) x rounds; a
+   sampled drive; in fp32 the tokens = the target's greedy ones),
+   ``rolling`` (window 1024, RoPE, einsum cache,
+   ``lm_generate(rolling=True)`` for 1280 new tokens: every step's cache
+   is the 1024-slot ring, no kernel runs; in fp32 the tokens = the full
+   cache's over 1152), ``moe_generation`` (``benchmarks/moe.py``'s MoE
+   model, E 8, F 1536, top-2, capacity factor 1.25, through
+   ``lm_generate`` on the fused path: K5 12 x 63, the dropped share of
+   the prefill and of a decode step; in fp32 the decode prefill's logits
+   = the full forward's, and at ample capacity single-token steps = the
+   full forward, atol 1e-4).
 8. ``flash_parity``: the flash-attention kernels (forward, dK/dV, dQ)
    through their autograd Function, ``(o, lse)`` forward and ``(dq, dk,
    dv)`` backward with a nonzero lse cotangent, against their plain
@@ -101,6 +125,17 @@ Phases, each printing one JSON line on stdout:
    the plain path from the same weights: losses within rtol 1e-5,
    parameters within atol 1e-4 (fp32 sums in another order, through
    three Adam steps of lr 1e-3).
+11a. ``moe_training``: the MoE model at ``benchmarks/moe.py``'s training
+   geometry (batch 8, seq 2048, remat, flash attention,
+   ``lm_loss_chunked(chunk_size=8192)``, a bf16 gradient wire; AdamW 3e-4
+   where the bench runs adafactor) through the same entry path: 2 warm-up
+   and 5 timed steps, K1/K2/K3 24/12/12 per step, finite losses,
+   ``moe_aux`` and ``moe_dropped``; ``moe_training_trace`` traces one
+   more step with every kernel of the MoE FFNs (forward, remat
+   recompute, and the backward nodes of their forward ops) in a group of
+   its own; and a 2-layer fp32 MoE model (d_model 128, T 256, vocab 1000,
+   chunk 384: a ragged tail) holds ``lm_loss_chunked`` against
+   ``lm_loss``: loss within rtol 1e-5, gradients within atol 1e-5.
 12. ``conv_parity``: the fused 1x1-conv kernel (K6) against its plain
    version at every (N, Cin, Cout) a ResNet-50 training step gives it
    (batch 256, 224 px) and at ragged shapes, ReLU on and off, bf16 and
@@ -138,7 +173,9 @@ Phases, each printing one JSON line on stdout:
    defaults for 3 steps.
 
 The launch counters are set to 0 just before each drive of the main path
-(phases 5, 6 and the timed steps of 10 and 14) and read just after it.
+(phases 5, 6, 7a and the timed steps of 10, 11a and 14) and read just
+after it; the ``kernels`` line lists K5's launches in each decode phase
+and K1-K3's per step of each training phase (``launches_by_phase``).
 The decode-attention kernels also count their own runs on the card
 (``ops.decode_attention.kernel_runs``), zeroed and read the same way:
 the serving drive replays K4 from a CUDA graph, where its wrapper does
@@ -340,6 +377,15 @@ FUSED_CASES = [
     ("int8_dh32", 100, 4, 32, torch.float32, True, 1e-4),
     ("bf16_dh128", 300, 12, 128, torch.bfloat16, False, 2e-2),
 ]
+#: the fused kernel at the shapes the searches give it (12 kv heads, Dh
+#: 64): a beam search's batch 8 x beam 4 = 32 rows at one length, and a
+#: speculative draft step's 8 rows whose lengths differ row by row in a
+#: 197-slot cache (prompt 128 + 64 new + k 4 + 1).
+SEARCH_CASES = [
+    # name, rows, L, valid lengths
+    ("beam32", 32, 192, [191] * 32),
+    ("draft_rows", 8, 197, [129, 130, 131, 132, 133, 131, 129, 133]),
+]
 
 
 def split_lengths(per, n_max, T=1):
@@ -412,6 +458,20 @@ def phase_parity(ops, dev, seed, mb):
             if name == "bf16":
                 main_err["fused_decode_attention"] = max(
                     err, main_err.get("fused_decode_attention", 0.0))
+    for name, rows_, L, valid in SEARCH_CASES:
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            case = f"{name}_{'bf16' if dt == torch.bfloat16 else 'fp32'}"
+            splits, _, _ = ops._plan(L, rows_, H, 1, 64 * (4 if dt ==
+                                     torch.float32 else 2), sms)
+            a = fused_inputs(g, dev, rows_, H, H, L, 64, valid, dt, False)
+            got = run_fused(ops, a)
+            want = run_fused(ops, a, plain=True)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            rows.append(("fused_decode_attention", case, err, tol, valid,
+                         splits))
+            check(err <= tol, f"fused kernel case {case} (valid {valid}): "
+                  f"max |err| {err} > {tol}")
     emit({"phase": "parity", "cases": [
         {"kernel": k, "case": n, "max_abs_err": e, "atol": t,
          "valid": v, "splits": sp}
@@ -1108,20 +1168,9 @@ def phase_generation(ops, dev, card, seed):
           and logits.dtype == torch.float32
           and bool(torch.isfinite(logits).all()),
           "full forward: logits not finite fp32 of the expected shape")
-    torch.cuda.synchronize()
-    ops.paged_decode_attention.launches = 0
-    ops.fused_decode_attention.launches = 0
-    ops.zero_kernel_runs(dev)
-    t0 = time.perf_counter()
-    out = lm_generate(model, prompt, N)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"paged_decode_attention": ops.paged_decode_attention.launches,
-                "fused_decode_attention": ops.fused_decode_attention.launches}
-    runs = ops.kernel_runs(dev)
-    check(runs == launches,
-          f"lm_generate: the card counted {runs} kernel runs, the wrappers "
-          f"{launches} launches")
+    zero_decode_counts(ops, dev)
+    out, wall = timed(lambda: lm_generate(model, prompt, N))
+    launches = decode_counts(ops, dev, "lm_generate")
     check(tuple(out.shape) == (B, N), f"lm_generate shape {out.shape}")
     check(bool(((out >= 0) & (out < FULL["vocab"])).all()),
           "lm_generate emitted a token outside the vocab")
@@ -1129,8 +1178,6 @@ def phase_generation(ops, dev, card, seed):
     check(launches["fused_decode_attention"] == want,
           f"fused kernel launched {launches['fused_decode_attention']} "
           f"times, expected {N - 1} steps x {FULL['n_layers']} layers")
-    check(launches["paged_decode_attention"] == 0,
-          "lm_generate launched the paged kernel")
     row = dict(phase="generation", card=card, batch=B, prompt=P,
                new_tokens=N,
                wall_s=wall, tokens_per_s=B * N / wall,
@@ -1176,6 +1223,584 @@ def phase_agreement(dev, seed):
           f"engine vs lm_generate (fp32): {exact}/{len(reqs)} exact, first "
           f"divergences {first_div}; a near-tie flips late, a bug early")
     return row
+
+
+# ------------------------------------------------------- decoding slice
+#: the decode benchmark's default model (benchmarks/decode.py:45-53:
+#: learned positions, bf16) with the fused decode kernel; batch 8, prompt
+#: 128, and 64 new tokens (the bench's 512 cut to 64, as in phase 6).
+DECODE = dict(vocab=32768, n_layers=12, d_model=768, n_heads=12, d_ff=3072,
+              decode_attention="fused")
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 8, 128, 64
+#: the decode bench's ``--speculative 4 --draft-mode distilled`` arm: a
+#: draft of the target's first layers // 6 = 2 blocks.
+SPEC_K, DRAFT_LAYERS = 4, 2
+#: the long-context bench's window (benchmarks/longcontext.py:34) and a
+#: generation long enough that the ring wraps; the fp32 check generates
+#: past the window.
+ROLL_WINDOW, ROLL_NEW, ROLL_CHECK_NEW = 1024, 1280, 1152
+#: benchmarks/moe.py's MoE model (:26-37, :165-170) at its cf = 1.25 arm.
+MOE = dict(vocab=32768, n_layers=12, d_model=768, n_heads=12, d_ff=1536,
+           max_len=2048, n_experts=8, moe_k=2, moe_capacity_factor=1.25)
+MOE_BATCH, MOE_CHUNK = 8, 8192
+DECODE_CUTS = ["n_new 64 (the decode bench runs 512)", "random weights"]
+
+
+def zero_decode_counts(ops, dev):
+    torch.cuda.synchronize()
+    ops.paged_decode_attention.launches = 0
+    ops.fused_decode_attention.launches = 0
+    ops.zero_kernel_runs(dev)
+
+
+def decode_counts(ops, dev, label):
+    """The decode kernels' launches since :func:`zero_decode_counts`, as
+    the card counted them, checked against the wrappers' counts."""
+    wrapper = {"paged_decode_attention": ops.paged_decode_attention.launches,
+               "fused_decode_attention": ops.fused_decode_attention.launches}
+    runs = ops.kernel_runs(dev)
+    check(runs == wrapper, f"{label}: the card counted {runs} kernel runs, "
+          f"the wrappers {wrapper} launches")
+    check(runs["paged_decode_attention"] == 0,
+          f"{label}: the paged kernel ran")
+    return runs
+
+
+def decode_prompt(seed, dev, vocab):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randint(
+        0, vocab, size=(DECODE_BATCH, DECODE_PROMPT))).to(dev)
+
+
+def timed(fn):
+    """``fn()``'s result and its wall seconds, up to a device sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def profiled_device_ms(fn):
+    """Device ms of the kernels ``fn()`` launches, by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ms for _, ms, _ in device_kernels(prof))
+
+
+def sequence_logprob(model, prompt, toks):
+    """Each row's summed log-probability of ``toks`` after ``prompt``,
+    from one full (training-path) forward: independent of the decode
+    path."""
+    with torch.no_grad():
+        logits = model(torch.cat([prompt, toks.long()], dim=1))
+    P, N = prompt.shape[1], toks.shape[1]
+    logp = torch.log_softmax(logits[:, P - 1:P + N - 1].float(), dim=-1)
+    return logp.gather(-1, toks.long()[..., None])[..., 0].sum(dim=1)
+
+
+def phase_beam(ops, dev, card, seed):
+    """``lm_beam_search`` (beam 4) on the decode benchmark's model: 32
+    rows through K5 per step.  Then the same weights in fp32: beam 1
+    equals ``lm_generate`` token for token, and each search's score is
+    the summed log-probability of the tokens it returned, taken from one
+    full forward (|err| <= 1e-5 |ref| + 1e-4: fp32 sums of 64 terms in
+    another order).  Beam 4's best is compared with greedy's per row and
+    reported, not checked: beam search does not bound it from below (the
+    greedy prefix can fall out of the beam), and the JAX package's search
+    scores below greedy on some rows too (``tests/test_torch_decoding.py``
+    ``test_beam_search_can_score_below_greedy``)."""
+    from chainermn_tpu_torch.models import (
+        TransformerLM,
+        lm_beam_search,
+        lm_generate,
+    )
+    from chainermn_tpu_torch.models.decoding import reorder_cache
+
+    B, P, N, K = DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, 4
+    L = DECODE["n_layers"]
+    cfg = dict(DECODE, max_len=P + N)
+    prompt = decode_prompt(seed + 20, dev, DECODE["vocab"])
+    model = TransformerLM(**cfg, device=dev, seed=seed)
+    lm_beam_search(model, prompt[:, :16], 3, beam=K)  # warm-up
+    zero_decode_counts(ops, dev)
+    (toks, scores), wall = timed(lambda: lm_beam_search(model, prompt, N,
+                                                        beam=K))
+    launches = decode_counts(ops, dev, "beam")
+    check(launches["fused_decode_attention"] == (N - 1) * L,
+          f"beam: the fused kernel ran {launches} times, expected "
+          f"{N - 1} steps x {L} layers")
+    check(tuple(toks.shape) == (B, N)
+          and bool(((toks >= 0) & (toks < cfg["vocab"])).all())
+          and bool(torch.isfinite(scores).all()),
+          "beam: tokens outside the vocab or non-finite scores")
+    # One step's reorder of every layer's cache, 32 rows of a 192-slot
+    # bf16 cache, under the profiler.
+    cache = model.init_cache(B * K, P + N)
+    g = torch.Generator().manual_seed(seed)
+    parent = (torch.arange(B)[:, None] * K
+              + torch.randint(0, K, (B, K), generator=g)).reshape(-1).to(dev)
+    reorder_cache(cache, parent)
+    reorder_ms = profiled_device_ms(lambda: reorder_cache(cache, parent))
+    cache_bytes = sum(t.numel() * t.element_size() for c in cache
+                      for t in c.values())
+    del cache, model
+    m32 = TransformerLM(**cfg, dtype=torch.float32, device=dev, seed=seed)
+    b1, s1 = lm_beam_search(m32, prompt, N, beam=1)
+    greedy = lm_generate(m32, prompt, N)
+    b4, s4 = lm_beam_search(m32, prompt, N, beam=K)
+    greedy_lp = sequence_logprob(m32, prompt, greedy)
+    beam_lp = sequence_logprob(m32, prompt, b4)
+
+    def score_err(got, ref):
+        return ((got - ref).abs() - 1e-5 * ref.abs()).max().item()
+    row = dict(phase="beam", card=card, batch=B, prompt=P, new_tokens=N,
+               beam=K, rows=B * K, cuts=DECODE_CUTS, wall_s=wall,
+               tokens_per_s=B * N / wall, launches=launches,
+               reorder_device_ms_per_step=reorder_ms,
+               reorder_bytes_per_step=2 * cache_bytes,
+               fp32=dict(beam1_equals_greedy=bool(torch.equal(b1, greedy)),
+                         beam1_score=s1.tolist(),
+                         greedy_full_forward_logprob=greedy_lp.tolist(),
+                         beam4_score=s4.tolist(),
+                         beam4_full_forward_logprob=beam_lp.tolist(),
+                         score_excess=[score_err(s1, greedy_lp),
+                                       score_err(s4, beam_lp)],
+                         score_tolerance={"rtol": 1e-5, "atol": 1e-4},
+                         rows_beam4_at_least_greedy=int(
+                             (s4 >= greedy_lp).sum())))
+    emit(row)
+    check(torch.equal(b1, greedy), "beam: beam 1 differs from lm_generate "
+          "in fp32")
+    check(max(row["fp32"]["score_excess"]) <= 1e-4,
+          f"beam: search scores {s1.tolist()} / {s4.tolist()} differ from "
+          f"the full forward's {greedy_lp.tolist()} / {beam_lp.tolist()}")
+    del m32
+    torch.cuda.empty_cache()
+    return row
+
+
+def distilled_pair(dev, seed, dtype):
+    """The decode bench's distilled draft: the target's blocks past
+    ``DRAFT_LAYERS`` write nothing back (``proj`` and ``ff2`` zeroed), so
+    its function is its first blocks', which with the embeddings,
+    positions, ``ln_f`` and the head are the draft."""
+    from chainermn_tpu_torch.models import TransformerLM
+
+    cfg = dict(DECODE, max_len=DECODE_PROMPT + DECODE_NEW + SPEC_K + 1)
+    target = TransformerLM(**cfg, dtype=dtype, device=dev, seed=seed)
+    with torch.no_grad():
+        for blk in target.blocks[DRAFT_LAYERS:]:
+            for lin in (blk.proj, blk.ff2):
+                lin.weight.zero_()
+                lin.bias.zero_()
+    draft = TransformerLM(**{**cfg, "n_layers": DRAFT_LAYERS}, dtype=dtype,
+                          device=dev, seed=seed)
+    draft.load_state_dict({
+        n: t for n, t in target.state_dict().items()
+        if not n.startswith("blocks.") or int(n.split(".")[1]) < DRAFT_LAYERS})
+    return target, draft
+
+
+def divergence(a, b):
+    """Per-row first divergence of two generations (None: equal), as
+    ``benchmarks/decode.py``'s ``_divergence_stats``."""
+    firsts = []
+    for x, y in zip(a.tolist(), b.tolist()):
+        firsts.append(next((j for j, (u, v) in enumerate(zip(x, y))
+                            if u != v), None))
+    div = [f for f in firsts if f is not None]
+    return dict(rows_exact=len(firsts) - len(div), rows=len(firsts),
+                first_divergence_per_row=firsts,
+                min_first_divergence=min(div) if div else None)
+
+
+def phase_speculative(ops, dev, card, seed):
+    """The decode bench's ``--speculative 4 --draft-mode distilled`` arm:
+    greedy speculative generation against ``lm_generate`` of the same
+    target, K5 counted on the card (draft layers x (k + 1) per round, the
+    backfill forward being the + 1); one sampled drive; then in fp32 the
+    tokens must equal the target's greedy generation."""
+    from chainermn_tpu_torch.models import (
+        lm_generate,
+        lm_speculative_generate,
+    )
+
+    B, P, N, k = DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, SPEC_K
+    prompt = decode_prompt(seed + 21, dev, DECODE["vocab"])
+    target, draft = distilled_pair(dev, seed, torch.bfloat16)
+    lm_generate(target, prompt[:, :16], 3)  # warm-up
+    lm_speculative_generate(target, draft, prompt[:, :16], 6, k=k)
+    plain, plain_wall = timed(lambda: lm_generate(target, prompt, N))
+    zero_decode_counts(ops, dev)
+    (toks, fwd), wall = timed(lambda: lm_speculative_generate(
+        target, draft, prompt, N, k=k))
+    launches = decode_counts(ops, dev, "speculative")
+    rounds = fwd - 1
+    want = DRAFT_LAYERS * (k + 1) * rounds
+    check(launches["fused_decode_attention"] == want,
+          f"speculative: the fused kernel ran {launches}, expected "
+          f"{DRAFT_LAYERS} draft layers x (k + 1) x {rounds} rounds")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sampled, sampled_fwd = lm_speculative_generate(
+        target, draft, prompt, N, k=k, temperature=1.0, generator=g)
+    check(tuple(sampled.shape) == (B, N)
+          and bool(((sampled >= 0) & (sampled < DECODE["vocab"])).all()),
+          "speculative: the sampled drive emitted a token outside the vocab")
+    del target, draft
+    t32, d32 = distilled_pair(dev, seed, torch.float32)
+    toks32, fwd32 = lm_speculative_generate(t32, d32, prompt, N, k=k)
+    greedy32 = lm_generate(t32, prompt, N)
+    row = dict(phase="speculative", card=card, batch=B, prompt=P,
+               new_tokens=N, k=k, draft_layers=DRAFT_LAYERS,
+               draft=f"distilled (the target's first {DRAFT_LAYERS} of "
+                     f"{DECODE['n_layers']} blocks; the others write "
+                     "nothing back)", cuts=DECODE_CUTS,
+               target_forwards=fwd, rounds=rounds,
+               plain_sequential_steps=N,
+               tokens_per_target_forward=N / fwd,
+               mean_accepted_per_round=(N - 1) / max(rounds, 1) - 1.0,
+               wall_s=wall, tokens_per_s=B * N / wall,
+               plain_wall_s=plain_wall, plain_tokens_per_s=B * N / plain_wall,
+               speedup_vs_plain=plain_wall / wall,
+               matches_target_greedy=bool(torch.equal(toks, plain)),
+               greedy_tie_divergence=divergence(toks, plain),
+               launches=launches,
+               sampled=dict(temperature=1.0, target_forwards=sampled_fwd),
+               fp32=dict(target_forwards=fwd32,
+                         equals_greedy=bool(torch.equal(toks32, greedy32)),
+                         divergence=divergence(toks32, greedy32)))
+    emit(row)
+    check(torch.equal(toks32, greedy32),
+          "speculative: fp32 tokens differ from the target's greedy run")
+    del t32, d32
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_rolling(ops, dev, card, seed):
+    """``lm_generate(rolling=True)`` on the decode model's widths with a
+    1024-position window, RoPE and the einsum cache: 1280 new tokens
+    after a 128-token prompt, so that the ring wraps.  Every decode step's
+    cache must be the W-slot ring; no decode kernel runs.  In fp32 the
+    tokens must equal the full cache's over 1152 new tokens."""
+    from chainermn_tpu_torch.models import TransformerLM, lm_generate
+
+    B, P, W = DECODE_BATCH, DECODE_PROMPT, ROLL_WINDOW
+    cfg = dict(DECODE, decode_attention="einsum", pos_enc="rope", window=W,
+               max_len=P + ROLL_NEW)
+    prompt = decode_prompt(seed + 22, dev, DECODE["vocab"])
+    model = TransformerLM(**cfg, device=dev, seed=seed)
+    lm_generate(model, prompt[:, :16], 3, rolling=True)  # warm-up
+    seen = set()
+
+    def hook(_, args, kwargs):  # block 0's cache at each decode step
+        c = args[1]
+        if args[0].shape[1] == 1:
+            seen.add((tuple(c["k"].shape), tuple(c["v"].shape),
+                      sum(t.numel() * t.element_size() for t in c.values())))
+
+    handle = model.blocks[0].register_forward_pre_hook(hook, with_kwargs=True)
+    zero_decode_counts(ops, dev)
+    out, wall = timed(lambda: lm_generate(model, prompt, ROLL_NEW,
+                                          rolling=True))
+    launches = decode_counts(ops, dev, "rolling")
+    handle.remove()
+    KH, Dh = model.kv_heads, model.head_dim
+    ring = (B, W, KH, Dh)
+    want_bytes = B * W * KH * Dh * 2 * torch.tensor(
+        [], dtype=model.dtype).element_size()
+    check(seen == {(ring, ring, want_bytes)},
+          f"rolling: decode steps saw caches {seen}, expected the ring "
+          f"{ring} of {want_bytes} bytes per layer")
+    check(launches["fused_decode_attention"] == 0,
+          "rolling: the fused kernel ran")
+    check(tuple(out.shape) == (B, ROLL_NEW)
+          and bool(((out >= 0) & (out < cfg["vocab"])).all()),
+          "rolling: tokens outside the vocab")
+    del model
+    m32 = TransformerLM(**cfg, dtype=torch.float32, device=dev, seed=seed)
+    ring32 = lm_generate(m32, prompt, ROLL_CHECK_NEW, rolling=True)
+    full32 = lm_generate(m32, prompt, ROLL_CHECK_NEW)
+    row = dict(phase="rolling", card=card, batch=B, prompt=P,
+               new_tokens=ROLL_NEW, window=W, cuts=["random weights"],
+               wall_s=wall, tokens_per_s=B * ROLL_NEW / wall,
+               cache_shape=list(ring), cache_bytes_per_layer=want_bytes,
+               full_cache_bytes_per_layer=want_bytes * (P + ROLL_NEW) // W,
+               launches=launches,
+               fp32=dict(new_tokens=ROLL_CHECK_NEW,
+                         equals_full_cache=bool(torch.equal(ring32, full32)),
+                         divergence=divergence(ring32, full32)))
+    emit(row)
+    check(torch.equal(ring32, full32),
+          "rolling: fp32 ring tokens differ from the full cache's")
+    del m32
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_moe_generation(ops, dev, card, seed):
+    """``lm_generate`` of benchmarks/moe.py's MoE model on the fused
+    decode path: K5 once per layer per step, the share of routings the
+    prefill and a decode step drop (batch 8, one token per row: groups of
+    8, capacity 3 per expert, as in the JAX package).  In fp32: the decode
+    prefill's logits equal the full forward's (the same token groups,
+    so the same routing), and at ample capacity single-token decode steps
+    reproduce the full forward (``test_moe_lm.py``'s property)."""
+    from chainermn_tpu_torch.models import (
+        TransformerLM,
+        lm_generate,
+        moe_stats,
+    )
+
+    B, P, N = DECODE_BATCH, DECODE_PROMPT, DECODE_NEW
+    L = MOE["n_layers"]
+    prompt = decode_prompt(seed + 23, dev, MOE["vocab"])
+    model = TransformerLM(**MOE, decode_attention="fused", device=dev,
+                          seed=seed)
+    lm_generate(model, prompt[:, :16], 3)  # warm-up
+    with torch.no_grad():
+        cache = model.init_cache(B, P + 1)
+        logits, _ = model(prompt, cache=cache, decode_pos=0)
+        drop_prefill = float(moe_stats(model)[1])
+        model(logits[:, -1].argmax(-1)[:, None], cache=cache, decode_pos=P)
+        drop_step = float(moe_stats(model)[1])
+    zero_decode_counts(ops, dev)
+    out, wall = timed(lambda: lm_generate(model, prompt, N))
+    launches = decode_counts(ops, dev, "moe_generation")
+    check(launches["fused_decode_attention"] == (N - 1) * L,
+          f"moe_generation: the fused kernel ran {launches}, expected "
+          f"{N - 1} steps x {L} layers")
+    check(tuple(out.shape) == (B, N)
+          and bool(((out >= 0) & (out < MOE["vocab"])).all()),
+          "moe_generation: tokens outside the vocab")
+    del model, cache
+    m32 = TransformerLM(**MOE, decode_attention="fused",
+                        dtype=torch.float32, attention="xla", device=dev,
+                        seed=seed)
+    with torch.no_grad():
+        full = m32(prompt)
+        pre, _ = m32(prompt, cache=m32.init_cache(B, P), decode_pos=0)
+        prefill_err = (pre - full).abs().max().item()
+        ample = TransformerLM(**{**MOE, "moe_capacity_factor": float(
+            MOE["n_experts"])}, decode_attention="fused",
+            dtype=torch.float32, attention="xla", device=dev, seed=seed)
+        T = min(32, P)
+        full = ample(prompt[:, :T])
+        c = ample.init_cache(B, T)
+        steps = torch.stack([ample(prompt[:, i:i + 1], cache=c,
+                                   decode_pos=i)[0][:, 0]
+                             for i in range(T)], dim=1)
+        step_err = (steps - full).abs().max().item()
+    row = dict(phase="moe_generation", card=card, batch=B, prompt=P,
+               new_tokens=N, cuts=DECODE_CUTS + [
+                   "no trained MoE checkpoint: random weights"],
+               wall_s=wall, tokens_per_s=B * N / wall,
+               moe_dropped_prefill=drop_prefill,
+               moe_dropped_decode_step=drop_step, launches=launches,
+               fp32=dict(prefill_vs_full_max_abs=prefill_err,
+                         ample_steps_vs_full_max_abs=step_err, atol=1e-4))
+    emit(row)
+    check(prefill_err <= 1e-4 and step_err <= 1e-4,
+          f"moe_generation: fp32 decode logits differ from the full "
+          f"forward by {prefill_err} (prefill), {step_err} (steps)")
+    del m32, ample
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_trace(step, state, batch):
+    """One MoE training step under ``torch.profiler``, device ms by group:
+    every kernel launched inside a block's MoE FFN (dispatch, experts,
+    combine, the routing) in ``moe_ffn`` -- its forward, its recompute
+    under remat, and the backward nodes its forward ops made (matched by
+    autograd sequence number) -- the rest by :func:`lm_group`."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from chainermn_tpu_torch.models.transformer import DecoderBlock
+
+    inner = DecoderBlock.moe_ffn
+
+    def ranged(self, x):
+        with record_function("moe_ffn"):
+            return inner(self, x)
+
+    DecoderBlock.moe_ffn = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            loss = float(metrics["loss"])
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        DecoderBlock.moe_ffn = inner
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CPU]
+
+    def under(e, pred):
+        while e is not None:
+            if pred(e):
+                return True
+            e = e.cpu_parent
+        return False
+
+    seqs = {e.sequence_nr for e in events if e.sequence_nr >= 0
+            and under(e, lambda x: x.name == "moe_ffn")}
+
+    def moe(x):
+        return x.name == "moe_ffn" or (
+            x.name.startswith("autograd::engine::evaluate_function")
+            and x.sequence_nr in seqs)
+
+    backward_nodes = sum(x.name.startswith("autograd::engine::evaluate_"
+                                           "function") and moe(x)
+                         for x in events)
+    groups, kernels = {}, {}
+    for e in events:
+        for kern in e.kernels:
+            grp = "moe_ffn" if under(e, moe) else lm_group(kern.name)
+            groups[grp] = groups.get(grp, 0.0) + kern.duration / 1e3
+            kernels[kern.name] = kernels.get(kern.name, 0.0) \
+                + kern.duration / 1e3
+    device_ms = sum(groups.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return dict(loss=loss, wall_ms=wall_ms, device_ms=device_ms,
+                busy_share=device_ms / wall_ms, groups_ms=groups,
+                moe_backward_nodes=backward_nodes,
+                top=[dict(name=n[:100], ms=ms) for n, ms in top])
+
+
+def phase_moe_training(fa, dev, card, seed):
+    """benchmarks/moe.py's cf = 1.25 arm at its training geometry (batch
+    8, seq 2048, remat, flash attention, ``lm_loss_chunked`` with chunk
+    8192, targets = tokens, a bf16 gradient wire) through
+    ``create_communicator`` -> ``create_multi_node_optimizer`` ->
+    ``make_train_step``: 2 warm-up and 5 timed steps, K1/K2/K3 24/12/12
+    per step, one more step traced; then a small fp32 model holds
+    ``lm_loss_chunked`` against ``lm_loss`` on the same weights."""
+    import gc
+
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.models import (
+        TransformerLM,
+        lm_loss,
+        lm_loss_chunked,
+    )
+    from chainermn_tpu_torch.optimizers import (
+        adamw,
+        create_multi_node_optimizer,
+    )
+
+    comm = create_communicator("xla", device=dev,
+                               allreduce_grad_dtype=torch.bfloat16)
+    rng = np.random.RandomState(seed)
+    toks = torch.from_numpy(rng.randint(
+        0, MOE["vocab"], size=(MOE_BATCH, MOE["max_len"]))).to(dev)
+    batch = (toks, toks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM(**MOE, attention="flash", remat=True, device=dev,
+                          seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_expert = sum(p.numel() for n, p in model.named_parameters()
+                   if ".moe_" in n)
+    opt = create_multi_node_optimizer(adamw(3e-4), comm)
+    state = opt.init(model)
+    step = opt.make_train_step(lm_loss_chunked(model, chunk_size=MOE_CHUNK),
+                               has_aux=True)
+    losses, aux, dropped = [], [], []
+
+    def one():
+        nonlocal state
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))  # syncs: the step is done
+        aux.append(float(metrics["moe_aux"]))
+        dropped.append(float(metrics["moe_dropped"]))
+
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    reset_flash(fa)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        one()
+        times.append(time.perf_counter() - t0)
+    launches = flash_launches(fa)
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "moe_training_trace", "card": card,
+          **moe_trace(step, state, batch)})
+    L = MOE["n_layers"]
+    per_step = {k: v / 5 for k, v in launches.items()}
+    step_ms = sorted(times)[len(times) // 2] * 1e3
+    row = dict(phase="moe_training", card=card, params=n_params,
+               expert_params=n_expert, batch=list(toks.shape),
+               experts=MOE["n_experts"], k=MOE["moe_k"],
+               capacity_factor=MOE["moe_capacity_factor"],
+               chunk_size=MOE_CHUNK, cuts=[
+                   "AdamW 3e-4 (the bench runs adafactor, not ported)",
+                   "only the bench's cf 1.25 arm of its 1.0/1.25/2.0 sweep",
+                   "random weights"],
+               losses=losses, step_ms_median=step_ms,
+               step_ms_runs=[t * 1e3 for t in times],
+               tokens_per_s=toks.numel() / (step_ms / 1e3),
+               peak_memory_gb=peak / 1e9, moe_aux=aux, moe_dropped=dropped,
+               launches=launches, launches_per_step=per_step)
+    del model, opt, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["fp32_chunked_check"] = chunked_check(dev, seed)
+    emit(row)
+    check(all(math.isfinite(x) for x in losses + aux + dropped),
+          f"moe_training: non-finite losses {losses} or statistics")
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L,
+            "flash_attention_bwd_dq": L}
+    check(per_step == want, f"moe_training: flash launches per step "
+          f"{per_step}, expected {want} ({L} layers, remat)")
+    c = row["fp32_chunked_check"]
+    check(c["loss_rel_diff"] <= 1e-5 and c["grad_max_abs_diff"] <= 1e-5,
+          f"moe_training: lm_loss_chunked vs lm_loss (fp32): {c}")
+    return row
+
+
+def chunked_check(dev, seed):
+    """``lm_loss_chunked`` (chunk 384 over vocab 1000: a ragged tail of
+    232) against ``lm_loss`` on one small fp32 MoE model: the loss and
+    every gradient."""
+    from chainermn_tpu_torch.models import (
+        TransformerLM,
+        lm_loss,
+        lm_loss_chunked,
+    )
+
+    model = TransformerLM(vocab=1000, n_layers=2, d_model=128, n_heads=4,
+                          d_ff=256, max_len=256, n_experts=4,
+                          dtype=torch.float32, attention="flash", device=dev,
+                          seed=seed)
+    rng = np.random.RandomState(seed + 6)
+    toks = torch.from_numpy(rng.randint(0, 1000, size=(4, 256))).to(dev)
+    tgts = torch.cat([toks[:, 1:], torch.full_like(toks[:, :1], -1)], dim=1)
+    out = {}
+    for name, fn in (("full", lm_loss(model)),
+                     ("chunked", lm_loss_chunked(model, chunk_size=384))):
+        model.zero_grad(set_to_none=True)
+        loss, _ = fn(model, (toks, tgts))
+        loss.backward()
+        out[name] = (loss.item(), {n: p.grad.clone()
+                                   for n, p in model.named_parameters()})
+    (lf, gf), (lc, gc_) = out["full"], out["chunked"]
+    return dict(loss_full=lf, loss_chunked=lc,
+                loss_rel_diff=abs(lc - lf) / abs(lf),
+                grad_max_abs_diff=max((gc_[n] - gf[n]).abs().max().item()
+                                      for n in gf),
+                tolerance={"loss_rtol": 1e-5, "grad_atol": 1e-5})
 
 
 # ------------------------------------------------------------ flash parity
@@ -1536,6 +2161,21 @@ def lm_group(name):
     return "other"
 
 
+def device_kernels(prof):
+    """``(name, device ms, launches)`` of each kernel a profile saw,
+    longest first.  Device-side events only: a host op's entry repeats
+    the time of the kernels it launched."""
+    kernels = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            kernels.append((e.key, us / 1e3, e.count))
+    return sorted(kernels, key=lambda k: -k[1])
+
+
 def trace_step(step, state, batch, group=lm_group, top=15):
     """One more training step under ``torch.profiler``: its loss, device
     time by kernel (self time, summed over launches), summed by ``group``
@@ -1550,17 +2190,7 @@ def trace_step(step, state, batch, group=lm_group, top=15):
         state, metrics = step(state, batch)
         loss = float(metrics["loss"])
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
-    for e in prof.key_averages():
-        # Device-side events only: a host op's entry repeats the time of
-        # the kernels it launched.
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            kernels.append((e.key, us / 1e3, e.count))
-    kernels.sort(key=lambda k: -k[1])
+    kernels = device_kernels(prof)
     device_ms = sum(k[1] for k in kernels)
     groups = {}
     for name, ms, _ in kernels:
@@ -2346,8 +2976,14 @@ def main() -> int:
                   n_kv_heads=4, kv_dtype=torch.int8)
     gen = phase_generation(ops, dev, smi, args.seed)
     phase_agreement(dev, args.seed)
+    search = {"beam": phase_beam(ops, dev, smi, args.seed),
+              "speculative": phase_speculative(ops, dev, smi, args.seed),
+              "rolling": phase_rolling(ops, dev, smi, args.seed),
+              "moe_generation": phase_moe_generation(ops, dev, smi,
+                                                     args.seed)}
     train = phase_training(fa, dev, smi, args.seed)
     phase_training_agreement(fa, dev, args.seed)
+    moe_train = phase_moe_training(fa, dev, smi, args.seed)
 
     errs["matmul_affine_fwd"] = phase_conv_parity(cf, dev, args.seed)
     # K6's row holds the sums over the 36 launches of one training step.
@@ -2361,6 +2997,16 @@ def main() -> int:
                 "fused_decode_attention":
                 gen["launches"]["fused_decode_attention"],
                 **train["launches"], **resnet["launches"]}
+    # Launches on each main path that runs the kernel: K5 per search
+    # phase, K1-K3 per step of each training phase.
+    by_phase = {"fused_decode_attention": {
+        "generation": gen["launches"]["fused_decode_attention"],
+        **{ph: r["launches"]["fused_decode_attention"]
+           for ph, r in search.items()}}}
+    for k in FLASH:
+        by_phase[k] = {"training_per_step": train["launches_per_step"][k],
+                       "moe_training_per_step":
+                       moe_train["launches_per_step"][k]}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": KERNELS[k], "launches": launches[k],
@@ -2368,7 +3014,8 @@ def main() -> int:
          "plain_ms": timing[k]["plain_ms"],
          "bound_ms": timing[k]["bound_ms"],
          "bound_by": timing[k]["bound_by"],
-         "library_ms": timing[k]["library_ms"]}
+         "library_ms": timing[k]["library_ms"],
+         **({"launches_by_phase": by_phase[k]} if k in by_phase else {})}
         for k in KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

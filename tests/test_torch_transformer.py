@@ -213,13 +213,22 @@ def test_sampling_is_seeded_and_top_k_one_is_greedy(rope_pair):
 
 
 def test_unported_paths_raise():
-    """Rolling decode is not ported and raises.  (``attention="flash"`` is
-    ported; its checks against the JAX package are in
-    ``test_torch_flash_attention.py`` and ``test_torch_training.py``.)"""
+    """The rolling ring cache's own checks still raise, with the JAX
+    package's ValueErrors: a window-free model, and a window model on the
+    fused (kv-head-major) cache, whose layout the ring does not serve.
+    (The ring itself is held against the JAX package in
+    ``test_torch_decoding.py``.)"""
+    prompt = torch.zeros((1, 4), dtype=torch.long)
     tm = TransformerLM(**KW, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="rolling"):
-        lm_generate(tm, torch.zeros((1, 4), dtype=torch.long), 2,
-                    rolling=True)
+    with pytest.raises(ValueError,
+                       match=r"rolling=True needs a sliding-window model"):
+        lm_generate(tm, prompt, 2, rolling=True)
+    fused = TransformerLM(**{**KW, "window": 8, "decode_attention": "fused"},
+                          dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError,
+                       match=r"rolling=True requires "
+                             r"decode_attention='einsum'"):
+        lm_generate(fused, prompt, 2, rolling=True)
 
 
 # ----------------------------------------------------------------- traps
