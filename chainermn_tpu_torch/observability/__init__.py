@@ -27,9 +27,11 @@
 
 ``CMN_OBS=0`` is the master off-switch: publishers that find it off at
 construction hold no-op instruments and the serving scheduler builds no
-plane.  The rank-0 aggregator, the fleet plane, the offline trace
-analyzer and the perf sentinel are not ported yet (ROADMAP Queue 1
-items 4a/6 and 13).
+plane.  Of the fleet plane only the trace merge is ported
+(:mod:`~chainermn_tpu_torch.observability.fleet`, which the serving
+router's fleet trace uses); the cross-process clock and gather, the
+rank-0 aggregator, the offline trace analyzer and the perf sentinel
+are not (ROADMAP Queue 1 items 4b, 6 and 13).
 """
 
 from __future__ import annotations

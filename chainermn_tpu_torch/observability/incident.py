@@ -44,9 +44,15 @@ fires, which is never the steady state.  Publishing follows the stack's
 latch rule: an explicitly passed registry always publishes; otherwise
 ``CMN_OBS`` is latched at construction.
 
-The rules for the planes not ported yet (fleet, router, autoscaler,
-replication) stay in :func:`default_rules`: a rule over an instrument
-this process never built never fires.  The bundle's fleet clock section
+The serving fleet's rules (``router_backlog``, ``replica_dead``,
+``poison_request``, ``migration_failed``, ``scale_flap``,
+``rollout_stalled``) watch instruments the router, the failure plane,
+the migration transport and the elastic controllers build;
+:meth:`IncidentManager.file_incident` takes the rule-less
+``rollout_interrupted`` capture.  The rules for planes not ported yet
+(the cross-process fleet clock, replication) stay in
+:func:`default_rules`: a rule over an instrument this process never
+built never fires.  The bundle's fleet clock section
 (cross-rank offsets) waits for the fleet plane (ROADMAP Queue 1
 item 13); ``manifest["clock"]`` is None until then.
 """
@@ -563,6 +569,37 @@ class IncidentManager:
             detail=None, breach_since=st.breach_since,
         )
         return manifest
+
+    def file_incident(self, name: str, severity: str = "critical",
+                      plane: str = "resilience", detail=None,
+                      value: Optional[float] = None) -> Optional[dict]:
+        """Forced capture for rule-less events (a rolling deploy that
+        pauses on a replica's death files one).  Bypasses hysteresis,
+        cooldown and dedupe — such events are rare and each one matters
+        — but still respects the per-run cap and the ``CMN_OBS``
+        latch."""
+        if not self._enabled:
+            return None
+        with self._lock:
+            capped = self.count >= self.max_incidents
+            if not capped:
+                self.count += 1
+                seq = self.count
+        if capped:
+            self.dropped += 1
+            try:
+                self._reg().counter("incident.dropped").inc()
+            except Exception:
+                pass
+            return None
+        rule = {
+            "name": name, "metric": None, "predicate": "forced",
+            "severity": severity, "plane": plane, "hysteresis": 1,
+            "description": detail or "",
+        }
+        return self._capture(seq, rule, severity, plane, value,
+                             fingerprint=f"forced:{name}:{seq}",
+                             detail=detail, breach_since=None)
 
     # --------------------------------------------------------------- capture
     @property

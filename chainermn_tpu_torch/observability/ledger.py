@@ -40,8 +40,9 @@ Everything is host-side dict arithmetic — never a device sync.
 Offline: :meth:`CostLedger.export` writes the ``cmn-usage-1`` schema
 that ``python -m chainermn_tpu_torch.observability.usage report <path>``
 renders (per-tenant cost table, top consumers, cost of retries,
-prefix-cache savings).  The router that shares one ledger across
-replicas is not ported yet (ROADMAP Queue 1 item 2).
+prefix-cache savings).  The serving router passes ONE ledger into
+every replica (revivals and scale-ups included), so a request moved
+across replicas keeps one record.
 """
 
 from __future__ import annotations

@@ -102,6 +102,19 @@ CAPTURE_WARMUP = 2
 #: the wrappers whose launches a captured decode step replays.
 _COUNTED = (_da.paged_decode_attention, _da.fused_decode_attention)
 
+#: one warm-up side stream per device, shared by every engine: cuBLAS
+#: keeps a workspace per (handle, stream) for the life of the process, so
+#: a fresh stream per engine would leave one workspace behind per engine
+#: that ever captured (a fleet builds and drops engines).
+_SIDE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _side_stream(dev) -> "torch.cuda.Stream":
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _SIDE_STREAMS:
+        _SIDE_STREAMS[key] = torch.cuda.Stream(dev)
+    return _SIDE_STREAMS[key]
+
 
 class _DecodeGraph:
     """The decode step captured once for one signature: a static int32
@@ -125,7 +138,7 @@ class _DecodeGraph:
             return engine._forward(tokens.long(), pos, tables, active)
 
         # All-idle warm-up: idle slots write only the parking block 0.
-        side = torch.cuda.Stream(dev)
+        side = _side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(CAPTURE_WARMUP):
@@ -307,8 +320,33 @@ class DecodeEngine:
         self._put = w.register("kv_put", budget=1)
         #: captured decode graphs by signature key (CUDA only).
         self._graphs: Dict[tuple, _DecodeGraph] = {}
+        #: set by :meth:`release`: the device state is gone.
+        self.released = False
 
     # ----------------------------------------------------------- helpers
+    def release(self) -> None:
+        """Free this engine's device state: its captured decode graphs
+        (and with them their memory pools) and every KV pool, target and
+        draft.  The fleet calls it when the engine leaves (a dead,
+        retired or deregistered replica), so the card's memory returns to
+        what the live replicas hold even while the engine object is
+        still referenced.  Host state (allocator, trie, counters) stays
+        readable; any further device call raises."""
+        if self.released:
+            return
+        self.sync()
+        self._graphs.clear()
+        for layer in self._all_pools():
+            layer.clear()
+        self.released = True
+
+    def _live(self) -> None:
+        if self.released:
+            raise RuntimeError(
+                "this DecodeEngine was released (it left its fleet); "
+                "build a new one"
+            )
+
     def _up(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
@@ -374,6 +412,7 @@ class DecodeEngine:
         generated token is sampled from the logits at that in-chunk index
         and returned.
         """
+        self._live()
         chunk = np.asarray(chunk, np.int32)
         if chunk.ndim != 1 or chunk.shape[0] not in self.prefill_ladder:
             raise ValueError(
@@ -436,6 +475,7 @@ class DecodeEngine:
         On a CUDA device the first call of a signature captures the step
         and every call replays it.
         """
+        self._live()
         if self.device.type == "cuda":
             host = self._host(tokens, pos, tables, active)
             logits, greedy = self._replay(host)
@@ -523,6 +563,7 @@ class DecodeEngine:
                 "spec_step on a non-speculative engine: construct with "
                 "draft_model/spec_k"
             )
+        self._live()
         k = self.spec_k
         host, (tok, p, tbl, act) = self._controls(tokens, pos, tables,
                                                   active)
@@ -567,6 +608,8 @@ class DecodeEngine:
     def cow_copy(self, src: int, dst: int) -> None:
         """Copy physical block ``src`` onto ``dst`` across every layer of
         every pool (target + draft): the device half of copy-on-write."""
+        self._live()
+
         def run():
             for layer in self._all_pools():
                 for t in layer.values():
@@ -591,6 +634,8 @@ class DecodeEngine:
         """One physical block's KV contents as host numpy arrays:
         ``{"target": [per-layer {name: (KH, block_len, Dh)}], "draft":
         same or None}``.  bf16 pools come back as their int16 bits."""
+        self._live()
+
         def one(layer):
             return {n: self._to_host(t[:, block]) for n, t in layer.items()}
 
@@ -605,6 +650,7 @@ class DecodeEngine:
         """Install :meth:`read_block` data into physical ``block`` across
         every layer of every pool; the block then re-reads byte for byte
         as the source's :meth:`read_block`."""
+        self._live()
         if (data.get("draft") is not None) != (self.draft_model is not None):
             raise ValueError(
                 "migration payload draft pools do not match this engine "

@@ -4,7 +4,8 @@ preemption, drift-driven chunked-prefill budgeting.
 Without it admission is one FIFO queue, so a single bursty tenant can
 starve a latency-sensitive one.  One :class:`PolicyPlane` is the
 *policy* layer the :class:`~chainermn_tpu_torch.serving.scheduler.
-Scheduler` consults at every admission and eviction decision.  Four
+Scheduler` and :class:`~chainermn_tpu_torch.serving.router.Router`
+consult at every admission, eviction and steal decision.  Four
 mechanisms, all host-side (the decode step's one capture holds with
 policy ON):
 
@@ -44,14 +45,13 @@ policy ON):
   clock (a tenant past ``rate_limit`` cost-units/s is simply not
   eligible for admission until the clock catches up — terminals stay
   exactly-once: a throttled request still completes, or terminates
-  through the existing ``deadline`` path), prefix-cache block quotas
-  (enforced inside
+  through the existing ``deadline``/``shed`` paths), prefix-cache block
+  quotas (enforced inside
   :meth:`~chainermn_tpu_torch.serving.prefix_cache.PrefixCache.insert` /
   eviction — a tenant over quota evicts its OWN least-recently-used
-  leaves, never another tenant's), and per-tenant deadline defaults
-  (terminating as the existing ``status="deadline"``).  The JAX plane's
-  per-tenant shed depth caps the router's holdback; the port has no
-  router yet, so a spec that sets one is refused.
+  leaves, never another tenant's), and per-tenant deadline / shed
+  defaults that terminate as the existing ``status="deadline"`` /
+  ``"shed"`` outcomes (the shed depth caps the router's holdback).
 
 Starvation watch: the plane publishes ``serve.policy.starved_tenant``
 (the index of a tenant whose rolling queue-wait p95 exceeds
@@ -59,8 +59,11 @@ Starvation watch: the plane publishes ``serve.policy.starved_tenant``
 ``tenant_starvation`` default incident rule turns into a keyed incident
 per starved tenant.
 
-The router's hooks (the policy-aware rebalance steal, harvest, and the
-fleet-wide queue census) wait for the router (ROADMAP Queue 1 item 2).
+Share ONE plane fleet-wide: the Router passes its ``policy=`` into
+every replica (revivals and scale-ups included), so the service clocks
+and rate limits are fleet-coherent, like the shared ledger; the router
+picks its holdback dispatch and its rebalance steals on the same plane
+and publishes the fleet-wide queue census.
 """
 
 from __future__ import annotations
@@ -123,11 +126,9 @@ def tenant_spec_from_env() -> Dict[str, "TenantPolicy"]:
     """Parse ``CMN_SERVE_TENANT_SPEC`` — semicolon-separated per-tenant
     specs ``name:key=value,key=value`` with keys ``weight``,
     ``priority``, ``rate`` (cost units/s), ``quota`` (prefix-cache
-    blocks), ``deadline_ms``, e.g.
+    blocks), ``deadline_ms``, ``shed`` (router holdback depth), e.g.
     ``slo:weight=4,priority=1,deadline_ms=500;batch:weight=1,rate=200``.
-    Unparseable fragments are skipped (tolerant, like every obs knob).
-    The JAX spec's ``shed`` key (the router's per-tenant holdback depth)
-    raises ``ValueError``: the port has no router to apply it."""
+    Unparseable fragments are skipped (tolerant, like every obs knob)."""
     import os
 
     spec = os.environ.get("CMN_SERVE_TENANT_SPEC", "").strip()
@@ -146,13 +147,6 @@ def tenant_spec_from_env() -> Dict[str, "TenantPolicy"]:
         for item in body.split(","):
             k, _, v = item.partition("=")
             k, v = k.strip(), v.strip()
-            if k == "shed":
-                raise ValueError(
-                    f"CMN_SERVE_TENANT_SPEC: tenant {name!r} sets shed="
-                    f"{v!r}, but the shed depth caps the router's "
-                    "holdback and the port has no router yet (ROADMAP "
-                    "Queue 1 item 2)"
-                )
             try:
                 if k == "weight":
                     kw["weight"] = max(1e-9, float(v))
@@ -164,6 +158,8 @@ def tenant_spec_from_env() -> Dict[str, "TenantPolicy"]:
                     kw["prefix_quota"] = int(float(v))
                 elif k == "deadline_ms":
                     kw["deadline_ms"] = float(v)
+                elif k == "shed":
+                    kw["shed_depth"] = int(float(v))
             except ValueError:
                 continue
         out[name] = TenantPolicy(name=name, **kw)
@@ -192,6 +188,9 @@ class TenantPolicy:
     #: default deadline (ms past arrival) for its requests that carry
     #: none — terminates as the existing ``status="deadline"``.
     deadline_ms: Optional[float] = None
+    #: router holdback cap for this tenant's ARRIVED requests; overflow
+    #: sheds newest-first as the existing ``status="shed"``.
+    shed_depth: Optional[int] = None
 
     def __post_init__(self):
         if self.weight <= 0:
@@ -203,7 +202,7 @@ class TenantPolicy:
 
 # ---------------------------------------------------------- PolicyPlane
 class PolicyPlane:
-    """The serving admission/eviction policy.
+    """The fleet's admission/eviction/steal policy.
 
     Args:
       tenants: per-tenant knobs — a dict ``name -> TenantPolicy``, an
@@ -212,7 +211,7 @@ class PolicyPlane:
         ``TenantPolicy(name, weight=CMN_SERVE_TENANT_WEIGHT)`` on first
         sight.
       registry: where ``serve.policy.*`` and the per-tenant
-        ``serve.tenant.<t>.*`` family publish — the Scheduler's
+        ``serve.tenant.<t>.*`` family publish — the Scheduler/Router
         latch (explicit always publishes; ``None`` rides ``CMN_OBS``;
         off → noop instruments).
       prefill_cap / drift_hysteresis: the Sarathi latch (env-backed
@@ -296,6 +295,10 @@ class PolicyPlane:
         self.admission_log: List[tuple] = []
         self.preemptions = 0
         self.throttle_deferrals = 0
+        #: True once a Router owns this plane: replicas then skip their
+        #: own per-tenant queue-depth publish (the router's fleet-wide
+        #: census is the truth; per-replica publishes would thrash it).
+        self.fleet = False
         if registry is None and not _obs.enabled():
             self._reg = None
             noop = _NoopInstrument()
@@ -493,6 +496,13 @@ class PolicyPlane:
              self.virtual.get(req.tenant, 0.0))
         )
 
+    def steal_index(self, reqs: Sequence, now: float) -> Optional[int]:
+        """The rebalance-steal pick: the same weighted-fair head the
+        donor's own admission would serve next — the stolen entry runs
+        at once on an idle replica, so the steal can only accelerate the
+        fair schedule."""
+        return self.pick_index(reqs, now)
+
     # ----------------------------------------------------------- preemption
     def preempt_pick(self, slots: Sequence, incoming_class: int):
         """The victim for a class-``incoming_class`` admission with no
@@ -587,9 +597,15 @@ class PolicyPlane:
         return self.policy_for(tenant).deadline_ms
 
     # -------------------------------------------------------------- publish
+    def shed_depth(self, tenant: str) -> Optional[int]:
+        """The tenant's router holdback cap (None = only the fleet
+        ``CMN_ROUTER_SHED_DEPTH`` applies)."""
+        return self.policy_for(tenant).shed_depth
+
     def publish_queue(self, tenants: Sequence[str]) -> None:
         """Refresh ``serve.tenant.<t>.queue_depth`` from one queue
-        census (every queued request's tenant)."""
+        census (every queued request's tenant, fleet-wide when the
+        Router drives it)."""
         counts: Dict[str, int] = {}
         for t in tenants:
             counts[t] = counts.get(t, 0) + 1

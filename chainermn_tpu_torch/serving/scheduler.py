@@ -73,9 +73,14 @@ The decode step is a fault hook (site ``serve_step``, counted by decode
 iteration): ``skew@serve_step:N:ms`` stretches every step from iteration
 N on — the deterministic way to test that the SLO drift detector fires.
 
-The router seams of the JAX scheduler (``submit_entry``,
-``steal_queued``, ``ready_slots``, ``harvest_entries``) come with the
-router (ROADMAP Queue 1 item 2).
+**Router seams**: :meth:`Scheduler.submit_entry` re-enqueues an entry
+moved from a peer replica (carried tokens, retries and ledger record
+ride along), :meth:`Scheduler.steal_queued` gives up queued work for a
+rebalance, :meth:`Scheduler.ready_slots` names the decode-ready slots a
+KV migration may ship, and :meth:`Scheduler.harvest_entries` strips a
+dead or draining replica into recompute entries.  The
+:class:`~chainermn_tpu_torch.serving.router.Router` interleaves
+:meth:`Scheduler.tick` across replicas on one shared clock.
 """
 
 from __future__ import annotations
@@ -280,6 +285,9 @@ class Scheduler:
         )
         #: Multi-tenant policy plane: consulted at every admission and
         #: eviction decision.  None keeps FIFO admission bit for bit.
+        #: The router passes ONE fleet plane into every replica (revivals
+        #: and scale-ups included), so the fair-share clocks and rate
+        #: limits are fleet-coherent, like the shared ledger.
         self.policy = policy
         if policy is not None and engine.prefix is not None:
             # The prefix trie enforces per-tenant block quotas at insert
@@ -295,7 +303,7 @@ class Scheduler:
             self._m_prefill = self._m_decode = self._m_mixed = noop
             self._m_px_lookups = self._m_px_hit = self._m_px_rate = noop
             self._m_px_cached = self._m_px_cow = noop
-            self._m_px_evicted = noop
+            self._m_px_evicted = self._m_mig_install = noop
             self._m_spec_prop = self._m_spec_acc = noop
             self._m_spec_rate = self._m_deadline = noop
             reg = None
@@ -316,6 +324,9 @@ class Scheduler:
             self._m_px_cached = reg.gauge("serve.prefix.cached_blocks")
             self._m_px_cow = reg.counter("serve.prefix.cow_copies")
             self._m_px_evicted = reg.counter("serve.prefix.evicted_blocks")
+            self._m_mig_install = reg.histogram(
+                "serve.migration.install_ms", edges=DEFAULT_MS_EDGES
+            )
             self._m_spec_prop = reg.counter("serve.spec.proposed")
             self._m_spec_acc = reg.counter("serve.spec.accepted")
             self._m_spec_rate = reg.gauge("serve.spec.accept_rate")
@@ -334,6 +345,9 @@ class Scheduler:
         #: ``ledger=False`` forces it off; otherwise cost attribution
         #: follows the scheduler's publishing decision, gated by
         #: ``CMN_OBS_LEDGER``.  Host-side dict arithmetic only.
+        #: The router passes ONE fleet ledger into every replica, so a
+        #: request moved across replicas keeps one record, and
+        #: ``ledger=False`` when the fleet's decision is off.
         if ledger is False:
             self.ledger = None
         elif ledger is not None:
@@ -496,10 +510,109 @@ class Scheduler:
                 "or shorter requests"
             )
 
+    # ------------------------------------------------- router integration
+    def submit_entry(self, entry: _QueueEntry) -> None:
+        """Re-enqueue an entry moved from a peer replica (rebalance,
+        recovery, drain): carried tokens, eviction counts, retries and
+        prefix/spec accounting ride along, so this engine recomputes the
+        carried text through its own prefill and prefix trie and the
+        request continues where it left off.  Geometry was validated at
+        the original :meth:`submit`."""
+        self._queue.append(entry)
+        if self.ledger is not None:
+            # Idempotent by id: on the fleet-shared ledger the record
+            # exists already; a role-split destination with its own
+            # ledger opens one here.
+            self.ledger.begin(entry.req, self.clock.now())
+        if self.timeline is not None:
+            self.timeline.record(
+                "submit", t=self.clock.now(), req=entry.req.id,
+                info={"migrated": True, "carried": len(entry.carried)},
+            )
+
+    def steal_queued(self) -> Optional[_QueueEntry]:
+        """Pop the YOUNGEST arrived queued entry for a less-loaded
+        replica (router rebalance), or None.  The head is the oldest
+        waiter (possibly an evicted re-admission) and keeps its place.
+        Under a policy plane the victim is the weighted-fair head
+        instead — the entry this scheduler would serve next — so a
+        backlogged tenant cannot ride a rebalance past an SLO tenant."""
+        if not self._queue:
+            return None
+        if self.policy is not None:
+            idx = self.policy.steal_index(
+                [e.req for e in self._queue], self.clock.now()
+            )
+            if idx is None:
+                return None
+        else:
+            idx = len(self._queue) - 1
+            if self._queue[idx].req.arrival > self.clock.now():
+                return None
+        entry = self._queue.pop(idx)
+        if self.timeline is not None:
+            self.timeline.record(
+                "steal", t=self.clock.now(), req=entry.req.id,
+            )
+        return entry
+
+    def ready_slots(self) -> List["_Slot"]:
+        """Live DECODE-READY slots (prefill finished): what a KV
+        migration may ship with live blocks.  Still-prefilling slots
+        and the queue travel as recompute entries
+        (:meth:`harvest_entries`)."""
+        return [
+            s for s in self._slots if s is not None and not s.prefilling
+        ]
+
+    def harvest_entries(self) -> List[_QueueEntry]:
+        """Strip everything this replica holds — live slots (oldest
+        admission first), then queued entries — into recompute entries,
+        for the router's fault boundary or a drain.  Live slots fold
+        their generated tokens into ``carried`` exactly as an eviction,
+        so a survivor's continuation is greedy-identical.  Block
+        releases are host-side bookkeeping and best-effort: a corrupted
+        allocator must not lose the harvest."""
+        out: List[_QueueEntry] = []
+        now = self.clock.now()
+        for slot in sorted(
+            (s for s in self._slots if s is not None),
+            key=lambda s: s.admit_seq,
+        ):
+            try:
+                self.engine.release_blocks(slot.blocks)
+            except Exception:
+                pass
+            slot.entry.carried = (
+                list(slot.entry.carried) + list(slot.generated)
+            )
+            slot.entry.evictions += 1
+            if self.ledger is not None:
+                # The occupancy until now was real: settle it, and book
+                # the recompute-requeue.
+                self.ledger.set_blocks(slot.entry.req.id, 0, now)
+                self.ledger.book(slot.entry.req.id, "evictions", 1)
+            if self.policy is not None:
+                self.policy.set_blocks(
+                    slot.entry.req.id, slot.entry.req.tenant, 0, now
+                )
+            self._slots[slot.idx] = None
+            out.append(slot.entry)
+            if self.timeline is not None:
+                self.timeline.record(
+                    "evict", t=now, req=slot.entry.req.id,
+                    slot=slot.idx,
+                    info={"harvested": True,
+                          "carried": len(slot.entry.carried)},
+                )
+        out.extend(self._queue)
+        self._queue = []
+        return out
+
     def complete_terminal(self, entry: _QueueEntry, status: str,
                           error: Optional[str] = None) -> Completion:
-        """Terminate ``entry`` without serving it (deadline here;
-        poisoned/shed with the router): one definite Completion carrying
+        """Terminate ``entry`` without serving it (deadline, poisoned,
+        shed): one definite Completion carrying
         whatever tokens were generated before.  The entry must already be
         off the queue and out of any slot."""
         now = self.clock.now()
@@ -1267,7 +1380,8 @@ class Scheduler:
         chunk per refilling slot, one decode step — plus the queue/
         occupancy gauge refresh.  Returns whether anything progressed
         (False = idle: the queue head hasn't arrived yet, or there is no
-        work at all).  :meth:`run` is a tick loop over one scheduler."""
+        work at all).  :meth:`run` is a tick loop over one scheduler;
+        the router interleaves ticks across replicas on a shared clock."""
         progressed = False
         if self._cancel_deadlines():
             progressed = True
@@ -1279,7 +1393,10 @@ class Scheduler:
             progressed = True
         self._m_queue.set(len(self._queue))
         self._m_occ.set(self.slot_occupancy)
-        if self.policy is not None:
+        if self.policy is not None and not self.policy.fleet:
+            # Standalone: this queue IS the fleet view.  Under a router
+            # (``policy.fleet``) the router publishes the fleet-wide
+            # census; per-replica publishes would thrash its gauges.
             self.policy.publish_queue(
                 [e.req.tenant for e in self._queue]
             )

@@ -67,6 +67,26 @@ Phases, each printing one JSON line on stdout:
    parsed, the ledger's books exact, no incident, no leaked block, and a
    ``device.decode_step.mfu_pct`` gauge in (0, 100] against the H100's
    989 TFLOP/s.
+5a. The serving fleet on the same model, every replica on this one card
+   over one copy of the weights, each engine warmed (its decode step
+   captured) as it is built: ``router`` (the JAX bench's ``--replicas``
+   arm: 2 replicas behind a ``Router``, 32 requests; tokens against one
+   engine alone, divergence structure in bf16 and exactly in an fp32
+   twin; dispatch ms, steals, occupancy, the fleet trace naming a stolen
+   request on both pids, the shared ledger conserved), ``disagg`` (the
+   ``--disagg`` arm: a prefill and a decode role over ``LocalComm``
+   against a colocated engine; no mixed iteration and one capture on
+   the decode role, every request migrated, ``migrate_ms`` and bytes,
+   and a migrated block re-read byte for byte in bf16 and int8-GQA),
+   ``chaos`` (the ``--chaos`` arm: ``ChaosHarness`` over 3 replicas
+   under ``chaos_schedule(seed, 3)``; the terminal invariant, the health
+   counters against the schedule) and ``elastic`` (the ``--elastic``
+   arm: an ``Autoscaler`` fleet against a static 2-replica one on
+   sinusoid-plus-burst arrivals, then a ``RollingDeploy``;
+   replica-seconds, flaps, p95s).  Each checks every request terminated
+   once, one capture per engine, K4's runs on the card = warm-ups +
+   every engine's replays x 12, and (``chaos``, ``elastic``) that the
+   card's allocated bytes equal what the engines still in a fleet hold.
 6. ``generation``: ``lm_generate`` at batch 8, prompt 128, 64 new tokens.
 7. ``agreement``: the engine and ``lm_generate`` on the same requests with
    the model in fp32, so that bf16 near-ties cannot flip tokens.
@@ -173,9 +193,10 @@ Phases, each printing one JSON line on stdout:
    defaults for 3 steps.
 
 The launch counters are set to 0 just before each drive of the main path
-(phases 5, 6, 7a and the timed steps of 10, 11a and 14) and read just
-after it; the ``kernels`` line lists K5's launches in each decode phase
-and K1-K3's per step of each training phase (``launches_by_phase``).
+(phases 5, 5a, 6, 7a and the timed steps of 10, 11a and 14) and read just
+after it; the ``kernels`` line lists K4's launches in the serving drive
+and each fleet phase, K5's in each decode phase and K1-K3's per step of
+each training phase (``launches_by_phase``).
 The decode-attention kernels also count their own runs on the card
 (``ops.decode_attention.kernel_runs``), zeroed and read the same way:
 the serving drive replays K4 from a CUDA graph, where its wrapper does
@@ -1148,6 +1169,686 @@ def phase_policy(dev, card, seed):
                    runs=rs) for arm, rs in runs.items()},
                admission_order=[t for _, t, _ in plane.admission_log[:12]],
                virtual_clock=dict(plane.virtual))
+    emit(row)
+    return row
+
+
+# ------------------------------------------------------------------ fleet
+#: requests per fleet phase (the JAX bench's --chaos and --elastic arms
+#: take at most 32: benchmarks/serving.py:1223-1227, :1322).
+FLEET_REQUESTS = 32
+
+
+def pct(xs, q):
+    """The ``q``-quantile of ``xs`` by nearest rank (None when empty)."""
+    xs = sorted(xs)
+    if not xs:
+        return None
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def card_allocated():
+    """Bytes held by live tensors on the card, after a collection and a
+    sync."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def first_divergences(got, want):
+    """Per request id, the first generated position where two runs'
+    tokens differ (None: equal)."""
+    return {rid: next((j for j, (x, y) in enumerate(zip(got[rid], w))
+                       if x != y), None if len(got[rid]) == len(w)
+                      else min(len(got[rid]), len(w)))
+            for rid, w in want.items()}
+
+
+def check_divergence(label, firsts):
+    """The bf16 comparison of two runs of one model: a replica's decode
+    step and its prefill see the same inputs as the single engine's, so
+    rows agree unless an eviction re-prefilled a row at another chunk
+    boundary (a bf16 near-tie may then flip); a logic fault diverges at
+    the first tokens of every row."""
+    div = [d for d in firsts.values() if d is not None]
+    exact = len(firsts) - len(div)
+    check(all(d >= 1 for d in div) and 4 * exact >= 3 * len(firsts),
+          f"{label}: {exact}/{len(firsts)} rows equal, first divergences "
+          f"{sorted(div)}")
+    return dict(rows_exact=exact, rows=len(firsts),
+                min_first_divergence=min(div) if div else None)
+
+
+class Fleet:
+    """Warmed full-width engines over one shared model.  Each call builds
+    one engine, warms it as :func:`serving_engine` does (its decode step
+    is captured then, at construction), and records what the card holds
+    for it once warm; every engine built stays listed, so its replays
+    (a host counter, kept after :meth:`DecodeEngine.release`) feed the
+    card-count cross-check."""
+
+    def __init__(self, model, dev, seed, reqs):
+        self.model, self.dev, self.seed = model, dev, seed
+        self.num_blocks, self.max_blocks = engine_geometry(reqs)
+        self.built, self.footprint, self.captured = [], [], []
+        self.build_s = 0.0
+
+    def __call__(self, params=None):  # RollingDeploy passes params=
+        from chainermn_tpu_torch.serving import DecodeEngine, Scheduler
+
+        t0 = time.perf_counter()
+        before = card_allocated()
+        eng = DecodeEngine(self.model, num_blocks=self.num_blocks,
+                           max_blocks_per_slot=self.max_blocks,
+                           device=self.dev, **ENGINE)
+        Scheduler(eng).run(draw_requests(
+            np.random.RandomState(self.seed + 99), 1, FULL["vocab"],
+            new=(20, 20)))
+        eng.drop_prefix_cache()
+        self.footprint.append(card_allocated() - before)
+        graph = next(iter(eng._graphs.values()), None)
+        self.captured.append(
+            graph.captured["paged_decode_attention"] if graph else 0)
+        self.built.append(eng)
+        self.build_s += time.perf_counter() - t0
+        return eng
+
+    def settle(self):
+        """Build, run and drop one engine that no count or footprint
+        keeps: the process-wide state a first engine's warm-up can create
+        (cuBLAS workspaces, the kernels' run counter) then sits in the
+        baseline, not in the footprint of an engine that may leave."""
+        self()
+        eng = self.built.pop()
+        self.footprint.pop()
+        self.captured.pop()
+        eng.release()
+        return card_allocated()
+
+    def mark(self):
+        """Each built engine's replays now."""
+        return [e.decode_replays for e in self.built]
+
+    def k4_runs(self, mark):
+        """K4 runs each engine replayed since ``mark`` (an engine built
+        later counts from 0)."""
+        return [(e.decode_replays - (mark[i] if i < len(mark) else 0))
+                * self.captured[i] for i, e in enumerate(self.built)]
+
+    def live_bytes(self):
+        """What the engines not released should hold on the card."""
+        return sum(fp for e, fp in zip(self.built, self.footprint)
+                   if not e.released)
+
+    def stats(self):
+        return dict(engines_built=len(self.built),
+                    captures=sum(e.decode_compiles for e in self.built),
+                    build_s=self.build_s,
+                    engine_bytes=sorted(set(self.footprint)))
+
+
+def fleet_counts(ops, dev, fleet, mark, label):
+    """K4's runs on the card since :func:`zero_decode_counts`, checked to
+    be the wrappers' eager launches (engine warm-ups built inside the
+    window) plus every engine's replays x the launches its capture
+    recorded."""
+    wrapper = ops.paged_decode_attention.launches
+    runs = ops.kernel_runs(dev)
+    replayed = fleet.k4_runs(mark)
+    check(runs["paged_decode_attention"] == wrapper + sum(replayed)
+          and runs["fused_decode_attention"] == 0,
+          f"{label}: the card counted {runs} runs; the wrappers launched "
+          f"{wrapper} and the replays ran {replayed}")
+    return runs["paged_decode_attention"], replayed
+
+
+def check_complete(label, reqs, comps, statuses=("ok",)):
+    byid = {}
+    for c in comps:
+        check(c.id not in byid, f"{label}: request {c.id} completed twice")
+        byid[c.id] = c
+    check(sorted(byid) == sorted(r.id for r in reqs),
+          f"{label}: completions {sorted(byid)} for {len(reqs)} requests")
+    for r in reqs:
+        c = byid[r.id]
+        check(c.status in statuses, f"{label}: request {r.id} {c.status}")
+        if c.status == "ok":
+            check(len(c.tokens) == r.max_new_tokens
+                  and all(0 <= t < FULL["vocab"] for t in c.tokens),
+                  f"{label}: request {r.id} has {len(c.tokens)} tokens "
+                  f"for {r.max_new_tokens}")
+    return byid
+
+
+def fleet_phases(ops, dev, card, seed):
+    """The serving fleet's four phases, in order; the elastic arrivals'
+    base rate comes from the router phase's single-engine run."""
+    out = {"router": phase_router(ops, dev, card, seed)}
+    out["disagg"] = phase_disagg(ops, dev, card, seed)
+    out["chaos"] = phase_chaos(ops, dev, card, seed)
+    out["elastic"] = phase_elastic(
+        ops, dev, card, seed,
+        out["router"]["single_engine_requests_per_s"])
+    return out
+
+
+def phase_router(ops, dev, card, seed):
+    """The JAX bench's ``--replicas`` arm (benchmarks/serving.py:821-870)
+    on one card: two replicas of the full-width engine over one model's
+    weights behind a ``Router`` (``max_queue`` 2 x capacity, ledger on),
+    32 requests at t = 0.  Both replicas contend for the same card, so
+    tokens/s here is not replica scaling.  Checks: every request
+    completes once; tokens against a single ``Scheduler`` on one of the
+    engines (bf16: divergence structure); one capture per engine; K4's
+    card runs = the replicas' replays x 12; the shared ledger conserved;
+    a stolen request's spans on both replicas' pids in the fleet trace;
+    no block leaked.  Then an fp32 twin (8 requests, pools that never
+    evict): router tokens = single-scheduler tokens exactly."""
+    import os
+    import tempfile
+
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.observability import MetricsRegistry
+    from chainermn_tpu_torch.serving import DecodeEngine, Router, Scheduler
+
+    rng = np.random.RandomState(seed + 20)
+    reqs = draw_requests(rng, FLEET_REQUESTS, FULL["vocab"])
+    model = TransformerLM(**FULL, device=dev, seed=seed)
+    fleet = Fleet(model, dev, seed, reqs)
+    engines = [fleet(), fleet()]
+    cap = ENGINE["capacity"]
+    reg = MetricsRegistry()
+    router = Router(engines, registry=reg, max_queue=2 * cap)
+    mark = fleet.mark()
+    zero_decode_counts(ops, dev)
+    t0 = time.perf_counter()
+    comps = router.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, per_replica = fleet_counts(ops, dev, fleet, mark, "router")
+    byid = check_complete("router", reqs, comps)
+    check(all(e.decode_compiles == 1 for e in engines),
+          f"router: captures {[e.decode_compiles for e in engines]}")
+    cons = router.ledger.verify_conservation(reqs)
+    check(cons["holds"], f"router: ledger books not exact: {cons}")
+    stolen = sorted(rid for rid, reps in router.assignments.items()
+                    if len(set(reps)) > 1)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "fleet.json")
+        summary = router.export_fleet_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    pids = {}
+    for e in events:
+        detail = e.get("args", {}).get("detail")
+        if e.get("ph") == "X" and isinstance(detail, str):
+            pids.setdefault(detail, set()).add(e["pid"])
+    for rid in stolen:
+        check(pids.get(f"req={rid}", set()) >= set(router.assignments[rid]),
+              f"router: stolen request {rid} on pids "
+              f"{pids.get(f'req={rid}')}, assigned "
+              f"{router.assignments[rid]}")
+    for i, (s, e) in enumerate(zip(router.schedulers, engines)):
+        check(s.memory.check_drained(e) == 0,
+              f"router: replica {i} leaked KV blocks")
+        e.drop_prefix_cache()
+        check(e.free_blocks() == fleet.num_blocks - 1,
+              f"router: replica {i} leaked blocks after gc")
+    stats = router.replica_stats()
+    occ = [s["occupancy_mean"] for s in stats]
+    tokens = sum(len(c.tokens) for c in comps)
+    # The single-replica reference: one of the same engines, alone.
+    t1 = time.perf_counter()
+    single = Scheduler(engines[0], registry=MetricsRegistry()).run(reqs)
+    torch.cuda.synchronize()
+    single_wall = time.perf_counter() - t1
+    bf16 = check_divergence("router bf16", first_divergences(
+        {r: byid[r].tokens for r in byid}, {c.id: c.tokens for c in single}))
+    engines[0].drop_prefix_cache()
+    # fp32 twin: pools that hold every slot's longest request.
+    rng32 = np.random.RandomState(seed + 24)
+    reqs32 = draw_requests(rng32, 8, FULL["vocab"], new=(16, 16))
+    _, mb = engine_geometry(reqs32)
+    model32 = TransformerLM(**FULL, dtype=torch.float32, device=dev,
+                            seed=seed)
+
+    def eng32():
+        return DecodeEngine(model32, num_blocks=1 + cap * mb,
+                            max_blocks_per_slot=mb, device=dev, **ENGINE)
+
+    got32 = Router([eng32(), eng32()], registry=MetricsRegistry(),
+                   max_queue=2).run(reqs32)
+    want32 = Scheduler(eng32(), registry=MetricsRegistry()).run(reqs32)
+    fp32 = first_divergences({c.id: c.tokens for c in got32},
+                             {c.id: c.tokens for c in want32})
+    check(all(d is None for d in fp32.values()),
+          f"router fp32: first divergences {fp32}")
+    row = dict(
+        phase="router", card=card, replicas=2, requests=len(reqs),
+        max_queue=2 * cap, shares_one_card=True, tokens=tokens, wall_s=wall,
+        tokens_per_s=tokens / wall,
+        single_engine_tokens_per_s=tokens / single_wall,
+        single_engine_requests_per_s=len(reqs) / single_wall,
+        occupancy_mean=occ, occupancy_spread=max(occ) - min(occ),
+        dispatch_ms_p50=pct(router.dispatch_ms, 0.50),
+        dispatch_ms_p95=pct(router.dispatch_ms, 0.95),
+        dispatched=reg.peek("serve.router.dispatched").value,
+        steals=reg.peek("serve.router.migrated").value,
+        backpressure=reg.peek("serve.router.backpressure").value,
+        stolen=stolen, served=[s["served"] for s in stats],
+        evictions=sum(c.evictions for c in comps),
+        launches=launches, k4_runs_per_replica=per_replica,
+        decode_compiles=[e.decode_compiles for e in engines],
+        fleet_trace_spans=summary["spans"],
+        ledger_tokens=router.ledger.totals["tokens"],
+        bf16_vs_single=bf16, fp32_rows_exact=sum(
+            d is None for d in fp32.values()), fp32_rows=len(fp32),
+        **fleet.stats())
+    emit(row)
+    return row
+
+
+def phase_disagg(ops, dev, card, seed):
+    """The JAX bench's ``--disagg`` arm (benchmarks/serving.py:1056-1206)
+    on one card: a prefill-role engine and a decode-role engine over the
+    in-process ``LocalComm``, against a colocated engine on the same 32
+    requests.  Checks: the decode role books no mixed iteration, captures
+    once and installs through one ``kv_put`` signature; every request
+    migrates; tokens against the colocated run (divergence structure);
+    K4's card runs = replays x 12; and a migrated block re-reads byte for
+    byte, for this bf16 engine and for the int8-GQA one."""
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.observability import MetricsRegistry
+    from chainermn_tpu_torch.serving import (
+        DecodeRole,
+        LocalComm,
+        MigrationTransport,
+        PrefillRole,
+        Scheduler,
+        serve_disaggregated,
+    )
+    from chainermn_tpu_torch.serving import disagg as dz
+    from chainermn_tpu_torch.serving.scheduler import _Clock
+
+    rng = np.random.RandomState(seed + 21)
+    reqs = draw_requests(rng, FLEET_REQUESTS, FULL["vocab"])
+    model = TransformerLM(**FULL, device=dev, seed=seed)
+    fleet = Fleet(model, dev, seed, reqs)
+    co, pf, de = fleet(), fleet(), fleet()
+    reg_co = MetricsRegistry()
+    co_sched = Scheduler(co, registry=reg_co)
+    t0 = time.perf_counter()
+    co_comps = co_sched.run(reqs)
+    torch.cuda.synchronize()
+    co_wall = time.perf_counter() - t0
+    clock, comm = _Clock(), LocalComm(2)
+    reg_p, reg_d = MetricsRegistry(), MetricsRegistry()
+    pr = PrefillRole(Scheduler(pf, registry=reg_p, clock=clock),
+                     MigrationTransport(comm.endpoint(0), registry=reg_p),
+                     decode_ranks=[1])
+    dr = DecodeRole(Scheduler(de, registry=reg_d, clock=clock),
+                    MigrationTransport(comm.endpoint(1), registry=reg_d),
+                    prefill_ranks=[0])
+    migrate_ms = []
+    observe = pr.transport.observe_ms
+
+    def observe_ms(ms):
+        migrate_ms.append(ms)
+        observe(ms)
+
+    pr.transport.observe_ms = observe_ms
+    mark = fleet.mark()
+    zero_decode_counts(ops, dev)
+    t0 = time.perf_counter()
+    comps = serve_disaggregated(pr, dr, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, per_engine = fleet_counts(ops, dev, fleet, mark, "disagg")
+    byid = check_complete("disagg", reqs, comps)
+    snap_d, snap_p = reg_d.snapshot(), reg_p.snapshot()
+    mixed = snap_d.get("serve.mixed_ms", {}).get("count", 0)
+    check(mixed == 0, f"disagg: the decode role booked {mixed} mixed "
+          "iterations")
+    check(de.decode_compiles == 1 and de.put_compiles == 1,
+          f"disagg: decode role captures {de.decode_compiles}, kv_put "
+          f"signatures {de.put_compiles}")
+    migrated = snap_p["serve.migration.slots_migrated"]["value"]
+    check(migrated == len(reqs),
+          f"disagg: {migrated} slots migrated for {len(reqs)} requests")
+    colocated = check_divergence("disagg bf16", first_divergences(
+        {r: byid[r].tokens for r in byid},
+        {c.id: c.tokens for c in co_comps}))
+    # Byte identity of a migrated block, bf16 and int8-GQA engines.
+    identity = {}
+    for label, kw in (("bf16", {}),
+                      ("int8_gqa", dict(n_kv_heads=4, kv_dtype=torch.int8))):
+        if kw:
+            m8 = TransformerLM(**{**FULL, **kw}, device=dev, seed=seed)
+            f8 = Fleet(m8, dev, seed, reqs)
+            src_e, dst_e = f8(), f8()
+        else:
+            pf.drop_prefix_cache()
+            de.drop_prefix_cache()
+            src_e, dst_e = pf, de
+        src = Scheduler(src_e, registry=MetricsRegistry())
+        dst = Scheduler(dst_e, registry=MetricsRegistry())
+        for r in reqs[:3]:
+            src.submit(r)
+        for _ in range(64):
+            while src._try_admit():
+                pass
+            src._prefill_round()
+            live = [s for s in src._slots if s is not None]
+            if live and all(not s.prefilling for s in live):
+                break
+        want = {s.entry.req.id: [src_e.read_block(b) for b in s.blocks]
+                for s in live}
+        body = dz.pack_slots(src, live)
+        dz.detach_slots(src, live)
+        n, _, _ = dz.install_payload(dst, body)
+        same = n == len(live)
+        for s in dst._slots:
+            if s is None:
+                continue
+            for b, w in zip(s.blocks, want[s.entry.req.id]):
+                got = dst_e.read_block(b)["target"]
+                same = same and all(
+                    np.array_equal(g[k], x[k]) and g[k].dtype == x[k].dtype
+                    for g, x in zip(got, w["target"]) for k in x)
+        check(same, f"disagg: a migrated {label} block did not re-read "
+              "byte for byte")
+        identity[label] = dict(slots=n, blocks=len(body["blocks"]),
+                               bytes=dz.payload_bytes(body),
+                               names=sorted(body["blocks"][next(iter(
+                                   body["blocks"]))]["target"][0]))
+    tokens = sum(len(c.tokens) for c in comps)
+    row = dict(
+        phase="disagg", card=card, requests=len(reqs), shares_one_card=True,
+        tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+        colocated_tokens_per_s=tokens / co_wall,
+        migrate_ms_p50=pct(migrate_ms, 0.50),
+        migrate_ms_p95=pct(migrate_ms, 0.95), migrations=len(migrate_ms),
+        slots_migrated=migrated,
+        blocks_moved=snap_p["serve.migration.blocks_moved"]["value"],
+        bytes_moved=snap_p["serve.migration.bytes"]["value"],
+        install_ms_mean=(snap_d["serve.migration.install_ms"]["sum"]
+                         / max(snap_d["serve.migration.install_ms"]["count"],
+                               1)),
+        clean_decode_ms_p95={
+            "colocated": co_sched.slo.last_report["token"]["p95_ms"],
+            "decode_role": dr.sched.slo.last_report["token"]["p95_ms"]},
+        colocated_mixed_iterations=reg_co.snapshot().get(
+            "serve.mixed_ms", {}).get("count", 0),
+        decode_role_mixed_iterations=mixed,
+        decode_compiles=de.decode_compiles, put_compiles=de.put_compiles,
+        launches=launches, k4_runs_per_engine=per_engine,
+        bf16_vs_colocated=colocated, byte_identity=identity,
+        **fleet.stats())
+    emit(row)
+    return row
+
+
+def phase_chaos(ops, dev, card, seed):
+    """The JAX bench's ``--chaos`` arm (benchmarks/serving.py:1207-1294):
+    ``ChaosHarness(replicas=3, revive_after=4, max_revives=2,
+    shed_depth=4 x capacity)`` under ``chaos_schedule(seed, 3)`` on 32
+    requests, every engine warmed (captured) as it is built, revivals
+    mid-traffic included.  Checks: the terminal invariant (zero lost,
+    zero duplicated); the ``serve.health.*`` counters against the
+    schedule and the statuses; one capture per engine; K4's card runs =
+    warm-ups + replays x 12; and the card's allocated bytes = the
+    footprint of the engines still in the fleet (dead ones freed)."""
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.observability import MetricsRegistry
+    from chainermn_tpu_torch.serving import ChaosHarness
+
+    rng = np.random.RandomState(seed + 22)
+    reqs = draw_requests(rng, FLEET_REQUESTS, FULL["vocab"])
+    model = TransformerLM(**FULL, device=dev, seed=seed)
+    fleet = Fleet(model, dev, seed, reqs)
+    base = fleet.settle()
+    cap = ENGINE["capacity"]
+    reg = MetricsRegistry()
+    harness = ChaosHarness(fleet, replicas=3, seed=seed, registry=reg,
+                           revive_after=4, max_revives=2,
+                           shed_depth=4 * cap)
+    mark = fleet.mark()
+    zero_decode_counts(ops, dev)
+    t0 = time.perf_counter()
+    report = harness.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, per_engine = fleet_counts(ops, dev, fleet, mark, "chaos")
+    router = harness.router
+    comps = router.completions
+    check(report["holds"] and not report["lost"]
+          and not report["duplicated"],
+          f"chaos: terminal invariant broken: {report}")
+    check_complete("chaos", reqs, comps,
+                   statuses=("ok", "poisoned", "shed", "deadline"))
+
+    def cnt(name):
+        inst = reg.peek(name)
+        return inst.value if inst is not None else 0
+
+    crashes = sum(1 for s in report["schedule"]["replica_faults"]
+                  if s and "crash" in s)
+    deaths = cnt("serve.health.replica_dead")
+    by = report["by_status"]
+    check(1 <= deaths <= crashes and report["revived"] <= 2
+          and report["revived"] <= deaths
+          and cnt("serve.health.shed") == by["shed"]
+          and cnt("serve.health.poisoned") == by["poisoned"]
+          and cnt("serve.health.retries")
+          >= sum(c.retries for c in comps)
+          and cnt("serve.health.recovered")
+          >= sum(1 for c in comps if c.retries and c.status == "ok"),
+          f"chaos: health counters {reg.snapshot()} against schedule "
+          f"{report['schedule']} and statuses {by}")
+    for i, s in enumerate(router.schedulers):
+        if router.health.is_up(i) and s._iterations:
+            check(s.engine.decode_compiles == 1,
+                  f"chaos: replica {i} captured {s.engine.decode_compiles}")
+    check(all(e.decode_compiles == 1 for e in fleet.built),
+          f"chaos: captures {[e.decode_compiles for e in fleet.built]}")
+    held = card_allocated() - base
+    live = fleet.live_bytes()
+    check(held == live, f"chaos: the card holds {held} bytes past the "
+          f"model's, the engines still in the fleet {live}")
+    tokens = sum(len(c.tokens) for c in comps if c.status == "ok")
+    row = dict(
+        phase="chaos", card=card, replicas=3, requests=len(reqs),
+        shares_one_card=True, schedule=report["schedule"], by_status=by,
+        revived=report["revived"], health=report["health"],
+        counters={n.split(".")[-1]: cnt(n) for n in (
+            "serve.health.replica_dead", "serve.health.recovered",
+            "serve.health.retries", "serve.health.poisoned",
+            "serve.health.shed")},
+        retried=sum(1 for c in comps if c.retries), tokens=tokens,
+        wall_s=wall, tokens_per_s=tokens / wall, launches=launches,
+        k4_runs_per_engine=per_engine, card_bytes_past_model=held,
+        live_engine_bytes=live,
+        engines_released=sum(e.released for e in fleet.built),
+        **fleet.stats())
+    emit(row)
+    return row
+
+
+def drive_fleet(router, scaler=None):
+    """Drain ``router`` as the JAX bench's elastic arm does
+    (benchmarks/serving.py:1364-1396): tick (and the autoscaler), skip
+    idle gaps to the next arrival, and integrate the up-replica count
+    over the clock (replica-seconds).  Returns ``(ticks,
+    replica_seconds)``."""
+    area, last, ticks = 0.0, router.clock.now(), 0
+    while router.pending:
+        progressed = router.tick()
+        ticks += 1
+        if scaler is not None:
+            scaler.tick()
+        now = router.clock.now()
+        area += (now - last) * sum(
+            1 for i, s in enumerate(router.schedulers)
+            if s is not None and router.health.is_up(i))
+        last = now
+        if not progressed:
+            nxt = [t for t in (
+                [r.arrival for r in router.queued_requests()[:1]]
+                + [s.next_arrival() for i, s in enumerate(router.schedulers)
+                   if s is not None and router.health.is_up(i)])
+                if t is not None and t > now]
+            if nxt:
+                router.clock.skip_to(min(nxt))
+    router.finish()
+    return ticks, area
+
+
+def phase_elastic(ops, dev, card, seed, one_replica_rate):
+    """The JAX bench's ``--elastic`` arm (benchmarks/serving.py:1295-1480):
+    32 requests of at most 24 new tokens on sinusoid-plus-burst arrivals
+    (base rate half of ``one_replica_rate``, one replica's measured
+    requests/s; tripled in the middle third), served by a static fleet of
+    2 replicas and by an ``Autoscaler`` fleet that starts at 1 (at most
+    2; up on a backlog over 1.5, down below 25% occupancy after a 3-tick
+    streak, cooldown 8), scale-ups taken from warm spares; then a
+    ``RollingDeploy`` of a 2-replica fleet mid-traffic.  Checks: both
+    fleets' terminal invariant, the rollout zero-loss with one capture
+    per replacement engine, K4's card runs = replays x 12, and the card's
+    allocated bytes = the footprint of the engines not released."""
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.observability import MetricsRegistry
+    from chainermn_tpu_torch.serving import (
+        Autoscaler,
+        Request,
+        RollingDeploy,
+        Router,
+        verify_terminal_invariant,
+    )
+
+    rng = np.random.RandomState(seed + 23)
+    base_reqs = draw_requests(rng, FLEET_REQUESTS, FULL["vocab"])
+    n = len(base_reqs)
+    base_rate = max(0.5 * one_replica_rate, 1e-6)
+    t, arrivals = 0.0, []
+    for i in range(n):
+        lam = base_rate * (1.0 + 0.8 * np.sin(2.0 * np.pi * i / n))
+        if n // 3 <= i < 2 * n // 3:
+            lam *= 3.0
+        t += float(rng.exponential(1.0 / max(lam, 1e-9)))
+        arrivals.append(t)
+
+    def batch(base_id, timed=True):
+        return [Request(id=base_id + r.id, prompt=r.prompt,
+                        max_new_tokens=min(r.max_new_tokens, 24),
+                        arrival=arrivals[i] if timed else 0.0)
+                for i, r in enumerate(base_reqs)]
+
+    model = TransformerLM(**FULL, device=dev, seed=seed)
+    # Every engine is built and warmed before any drive (a scale-up
+    # takes a warm spare, as the bench's does): a router's clock starts
+    # at its construction, right before its drive, so no build ages the
+    # arrivals.
+    fleet = Fleet(model, dev, seed, base_reqs)
+    base = fleet.settle()
+    st_engines = [fleet(), fleet()]
+    spares = [fleet() for _ in range(3)]
+    el_engine = fleet()
+    rolled = [fleet(), fleet()]
+
+    def from_spares(params=None):
+        return spares.pop() if spares else fleet()
+
+    mark = fleet.mark()
+    zero_decode_counts(ops, dev)
+    static = Router(st_engines, registry=MetricsRegistry())
+    st_reqs = batch(80_000)
+    for r in st_reqs:
+        static.submit(r)
+    t0 = time.perf_counter()
+    st_ticks, st_area = drive_fleet(static)
+    st_wall = time.perf_counter() - t0
+    ez_reg = MetricsRegistry()
+    elastic = Router([el_engine], registry=ez_reg)
+    scaler = Autoscaler(elastic, from_spares, registry=ez_reg,
+                        min_replicas=1, max_replicas=2, up_depth=1.5,
+                        down_occ=0.25, hysteresis=1, down_hysteresis=3,
+                        cooldown_ticks=8)
+    el_reqs = batch(81_000)
+    for r in el_reqs:
+        elastic.submit(r)
+    t0 = time.perf_counter()
+    el_ticks, el_area = drive_fleet(elastic, scaler)
+    el_wall = time.perf_counter() - t0
+    rl_reg = MetricsRegistry()
+    rolling = Router(rolled, registry=rl_reg, probation_ticks=8)
+    rl_reqs = batch(85_000, timed=False)[:16]
+    for r in rl_reqs:
+        rolling.submit(r)
+    for _ in range(3):
+        rolling.tick()
+    rollout = RollingDeploy(rolling, from_spares, registry=rl_reg)
+    guard = 0
+    while not rollout.done and not rollout.paused:
+        rolling.tick()
+        rollout.tick()
+        guard += 1
+        check(guard < 400, f"elastic: rollout stuck: {rollout.replaced}")
+    rolling.run()
+    torch.cuda.synchronize()
+    launches, per_engine = fleet_counts(ops, dev, fleet, mark, "elastic")
+    reports = {}
+    for label, rs, comps in (("static", st_reqs, static.completions),
+                             ("autoscaled", el_reqs, elastic.completions),
+                             ("rollout", rl_reqs, rolling.completions)):
+        reports[label] = verify_terminal_invariant(rs, comps)
+        check(reports[label]["holds"] and all(
+            c.status == "ok" for c in comps),
+            f"elastic: {label} fleet lost work: {reports[label]}")
+        check_complete(f"elastic {label}", rs, comps)
+    check(rollout.done and not rollout.paused
+          and sorted(rollout.replaced) == [0, 1]
+          and all(s.engine not in rolled for s in rolling.schedulers)
+          and all(e.released for e in rolled),
+          f"elastic: rollout replaced {rollout.replaced}, paused "
+          f"{rollout.paused}")
+    check(all(e.decode_compiles == 1 for e in fleet.built),
+          f"elastic: captures {[e.decode_compiles for e in fleet.built]}")
+    def p95(comps):
+        return pct([c.finished_at - c.arrival for c in comps], 0.95)
+
+    row = dict(
+        phase="elastic", card=card, requests=n, shares_one_card=True,
+        base_rate_per_s=base_rate, burst_multiplier=3.0, replicas_max=2,
+        static=dict(replica_seconds=st_area, ticks=st_ticks,
+                    wall_s=st_wall, p95_s=p95(static.completions)),
+        autoscaled=dict(replica_seconds=el_area, ticks=el_ticks,
+                        wall_s=el_wall, p95_s=p95(elastic.completions),
+                        decisions=scaler.decisions, flaps=scaler.flaps,
+                        mean_replicas=scaler.replica_ticks / max(
+                            el_ticks, 1)),
+        saved_pct=100.0 * (1.0 - el_area / max(st_area, 1e-9)),
+        rollout=dict(replaced=list(rollout.replaced), ticks=guard,
+                     zero_loss=reports["rollout"]["holds"],
+                     replacement_captures=[
+                         s.engine.decode_compiles
+                         for s in rolling.schedulers]),
+        launches=launches, k4_runs_per_engine=per_engine,
+        **fleet.stats())
+    # The card holds what the engines not released hold; then, with
+    # every fleet dropped, what the model alone held.
+    held, live = card_allocated() - base, fleet.live_bytes()
+    check(held == live, f"elastic: the card holds {held} bytes past the "
+          f"model's, the engines not released {live}")
+    del static, elastic, rolling, scaler, rollout, spares, rolled
+    del st_engines, el_engine
+    fleet.built.clear()
+    after = card_allocated() - base
+    check(after == 0, f"elastic: {after} bytes still held with every "
+          "fleet dropped")
+    row.update(card_bytes_past_model=held, live_engine_bytes=live,
+               card_bytes_after_drop=after)
     emit(row)
     return row
 
@@ -2974,6 +3675,7 @@ def main() -> int:
     phase_policy(dev, smi, args.seed)
     drive_serving(ops, dev, smi, args.seed + 10, "int8_gqa", 6,
                   n_kv_heads=4, kv_dtype=torch.int8)
+    fleet = fleet_phases(ops, dev, smi, args.seed)
     gen = phase_generation(ops, dev, smi, args.seed)
     phase_agreement(dev, args.seed)
     search = {"beam": phase_beam(ops, dev, smi, args.seed),
@@ -2999,7 +3701,10 @@ def main() -> int:
                 **train["launches"], **resnet["launches"]}
     # Launches on each main path that runs the kernel: K5 per search
     # phase, K1-K3 per step of each training phase.
-    by_phase = {"fused_decode_attention": {
+    by_phase = {"paged_decode_attention": {
+        "serving": serve["launches"]["paged_decode_attention"],
+        **{ph: r["launches"] for ph, r in fleet.items()}},
+        "fused_decode_attention": {
         "generation": gen["launches"]["fused_decode_attention"],
         **{ph: r["launches"]["fused_decode_attention"]
            for ph, r in search.items()}}}

@@ -296,26 +296,30 @@ def test_policy_latch_preempt_and_throttle_equal():
 
 
 def test_tenant_spec_env_parse_equal(monkeypatch):
-    # Every key but ``shed`` (the router's holdback depth, refused below).
     monkeypatch.setenv("CMN_SERVE_TENANT_SPEC",
                        "slo:weight=4,priority=1,deadline_ms=500;"
                        "batch:weight=1,rate=200,quota=3;bad")
     j, t = jpol.tenant_spec_from_env(), tpol.tenant_spec_from_env()
-    assert all(v.shed_depth is None for v in j.values())
+    assert all(v.shed_depth is None for v in t.values())
     assert {k: vars(v) for k, v in t.items()} == \
-        {k: {f: x for f, x in vars(v).items() if f != "shed_depth"}
-         for k, v in j.items()}
+        {k: vars(v) for k, v in j.items()}
 
 
 def test_tenant_spec_refuses_shed_without_router(monkeypatch):
+    # The port has the router now: ``shed`` (its per-tenant holdback
+    # depth) parses as the JAX package's does, and a plane built from
+    # the spec answers the router's ``shed_depth`` query alike.
     monkeypatch.setenv("CMN_SERVE_TENANT_SPEC",
                        "slo:weight=4;batch:weight=1,shed=2")
     assert jpol.tenant_spec_from_env()["batch"].shed_depth == 2
-    with pytest.raises(ValueError, match="shed"):
-        tpol.tenant_spec_from_env()
-    with pytest.raises(ValueError, match="router"):
-        tpol.PolicyPlane(registry=tmet.MetricsRegistry())
-    assert not hasattr(tpol.TenantPolicy("t"), "shed_depth")
+    assert tpol.tenant_spec_from_env()["batch"].shed_depth == 2
+    jp = jpol.PolicyPlane(registry=jmet.MetricsRegistry())
+    tp = tpol.PolicyPlane(registry=tmet.MetricsRegistry())
+    for plane in (jp, tp):
+        assert plane.shed_depth("batch") == 2
+        assert plane.shed_depth("slo") is None
+        assert plane.fleet is False
+    assert tpol.TenantPolicy("t").shed_depth is None
 
 
 # ---------------------------------------------------------- capture watch
