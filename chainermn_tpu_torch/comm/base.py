@@ -1,11 +1,15 @@
 """The communicator interface of the port (``chainermn_tpu/comm/base.py``
 ``CommunicatorBase``): ranks and sizes, the gradient all-reduce of the
-data-parallel optimizer, and the few collectives training needs.  The
-rest of the JAX surface raises until it is ported."""
+data-parallel optimizer, the few collectives training needs and the
+object plane's gathers and reductions (``gather_obj``, ``allgather_obj``,
+``allreduce_obj``).  The rest of the JAX surface raises until it is
+ported."""
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, List
+
+import numpy as np
 
 _REST = ("not ported yet (ROADMAP Queue 1 item 4: the rest of the "
          "communicator surface)")
@@ -79,13 +83,20 @@ class CommunicatorBase:
         self._unported("scatter")
 
     def gather_obj(self, obj, root: int = 0):
-        self._unported("gather_obj")
+        """Every rank's picklable ``obj`` as a list on ``root`` (None
+        elsewhere)."""
+        raise NotImplementedError
 
-    def allgather_obj(self, obj):
-        self._unported("allgather_obj")
+    def allgather_obj(self, obj) -> List[Any]:
+        """Every rank's picklable ``obj``, as a list in rank order, on
+        every rank."""
+        raise NotImplementedError
 
     def allreduce_obj(self, obj, op: str = "sum"):
-        self._unported("allreduce_obj")
+        """Leaf-wise numeric reduction of a nested dict/list/tuple of
+        numbers or arrays over the ranks (``sum``/``mean``/``max``/
+        ``min``)."""
+        return reduce_objs(self.allgather_obj(obj), op)
 
     def send_obj(self, obj, dest: int, source=None):
         self._unported("send_obj")
@@ -99,3 +110,30 @@ class CommunicatorBase:
     @property
     def axis_name(self):
         self._unported("axis_name")
+
+
+_REDUCE = {"sum": lambda c: np.sum(np.asarray(c), axis=0),
+           "mean": lambda c: np.mean(np.asarray(c), axis=0),
+           "max": lambda c: np.max(np.asarray(c), axis=0),
+           "min": lambda c: np.min(np.asarray(c), axis=0)}
+
+
+def reduce_objs(objs: List[Any], op: str) -> Any:
+    """Reduce equal-structured objects leaf by leaf (the JAX package's
+    ``CommunicatorBase._reduce_objs``): dicts, lists and tuples recurse,
+    every other leaf is a number or an array; a 0-d result comes back as
+    a Python scalar unless the objects themselves are arrays."""
+    if op not in _REDUCE:
+        raise ValueError(f"unknown op {op!r}")
+    if not objs:
+        return None
+    first = objs[0]
+    if isinstance(first, dict):
+        return {k: reduce_objs([o[k] for o in objs], op) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(reduce_objs([o[i] for o in objs], op)
+                           for i in range(len(first)))
+    out = _REDUCE[op](objs)
+    if np.ndim(out) == 0 and not isinstance(first, np.ndarray):
+        return out.item()
+    return out

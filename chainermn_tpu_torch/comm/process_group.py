@@ -13,7 +13,7 @@ rank, so it is on the path the training step takes.
 from __future__ import annotations
 
 import os
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -128,6 +128,17 @@ class ProcessGroupCommunicator(CommunicatorBase):
                                    device=self.device
                                    if self.device.type == "cuda" else None)
         return box[0]
+
+    def allgather_obj(self, obj: Any) -> List[Any]:
+        out: List[Any] = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+    def gather_obj(self, obj: Any, root: int = 0) -> Optional[List[Any]]:
+        # Over all_gather_object, as the JAX package's XlaCommunicator
+        # does: NCCL has no object gather to a root.
+        objs = self.allgather_obj(obj)
+        return objs if self.rank == root else None
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)

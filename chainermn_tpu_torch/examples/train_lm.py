@@ -9,14 +9,18 @@ as the JAX example, and the same loss print from rank 0.  Runs::
     python -m chainermn_tpu_torch.examples.train_lm --device cpu --steps 3
     torchrun --nproc_per_node N -m chainermn_tpu_torch.examples.train_lm
 
-Batches come from the port's ``SerialIterator`` (the native prefetching
-iterators are not ported yet, ROADMAP Queue 1 item 6), so the batch order
-is the serial iterator's, not the JAX example's prefetcher's.
+Batches come from the native ``PrefetchIterator`` through a depth-2
+``DevicePrefetchIterator``, as in the JAX example (the same batch order as
+the serial iterator for the seed).  ``--eval`` holds out the last tenth
+of the rows before training and, after it, reports the validation
+perplexity through the multi-node evaluator (token-weighted sums over
+every rank's share, finalized once: the exact corpus perplexity).
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -73,14 +77,15 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--optimizer", default="adamw",
                     choices=("adamw", "adafactor"))
     ap.add_argument("--warmup", type=int, default=0)
-    ap.add_argument("--eval", action="store_true")
+    ap.add_argument("--eval", action="store_true",
+                    help="after training, validation perplexity over a "
+                         "held-out split via the multi-node evaluator")
     args = ap.parse_args(argv)
     for on, flag, item in ((args.zero, "--zero", "11"),
                            (args.lora, "--lora", "9"),
                            (args.optimizer != "adamw",
                             "--optimizer adafactor", "11"),
-                           (args.warmup, "--warmup", "11"),
-                           (args.eval, "--eval", "6")):
+                           (args.warmup, "--warmup", "11")):
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP Queue 1 item {item})")
@@ -88,6 +93,36 @@ def parse_args(argv: Optional[Sequence[str]] = None):
         ap.error(f"--generate {args.generate} + 16-token prompt exceeds "
                  f"--seq-len {args.seq_len}")
     return args
+
+
+def lm_eval_metric(model):
+    """The evaluator's metric function for the LM: per-row token-weighted
+    cross-entropy sums ``ce_sum`` and target counts ``tokens`` (targets
+    ``< 0`` are padding); a 3-array batch carries segment ids."""
+    import torch.nn.functional as F
+
+    def metric_fn(m, batch):
+        toks, tgts, *rest = batch
+        dev = next(m.parameters()).device
+        toks = torch.as_tensor(toks, device=dev).long()
+        tgts = torch.as_tensor(tgts, device=dev).long()
+        seg = torch.as_tensor(rest[0], device=dev) if rest else None
+        logits = m(toks, segment_ids=seg).float()
+        mask = (tgts >= 0).float()
+        # Rows of (B*T, V): the softmax runs over contiguous memory.
+        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                             tgts.clamp_min(0).reshape(-1),
+                             reduction="none").view(tgts.shape)
+        return {"ce_sum": (ce * mask).sum(-1), "tokens": mask.sum(-1)}
+
+    return metric_fn
+
+
+def lm_eval_finalize(sums, count):
+    """Corpus perplexity from the summed statistics (divided after the
+    cross-rank sum, not a mean of batch means)."""
+    return {"val_ppl": math.exp(sums["ce_sum"] / max(sums["tokens"], 1.0)),
+            "val_tokens": sums["tokens"]}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> float:
@@ -100,7 +135,15 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
         packing_efficiency,
         scatter_dataset,
     )
-    from chainermn_tpu_torch.iterators import SerialIterator
+    from chainermn_tpu_torch.extensions import (
+        Evaluator,
+        create_multi_node_evaluator,
+    )
+    from chainermn_tpu_torch.iterators import (
+        PrefetchIterator,
+        SerialIterator,
+        create_device_prefetch_iterator,
+    )
     from chainermn_tpu_torch.models import TransformerLM, lm_loss
     from chainermn_tpu_torch.optimizers import (
         adamw,
@@ -129,11 +172,21 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
         tokens = corpus[:n_seq * T].reshape(n_seq, T)
         targets = corpus[1:n_seq * T + 1].reshape(n_seq, T)
         arrays = (tokens, targets)
+    # A real held-out split: the validation rows leave the arrays before
+    # the training set is built.
+    n_val = max(len(arrays[0]) // 10, comm.size) if args.eval else 0
+    if n_val >= len(arrays[0]):
+        raise SystemExit(f"--eval needs more data: {len(arrays[0])} rows "
+                         f"cannot spare a {n_val}-row validation split")
+    val_arrays = tuple(a[-n_val:] for a in arrays) if n_val else None
+    if n_val:
+        arrays = tuple(a[:-n_val] for a in arrays)
     ds = scatter_dataset(ArrayDataset(*arrays), comm, shuffle=True, seed=0)
     rows = ds[:]
     local = ArrayDataset(*[np.stack([row[i] for row in rows])
                            for i in range(len(arrays))])
-    it = SerialIterator(local, args.batch_per_chip, seed=1)
+    it = PrefetchIterator(local, args.batch_per_chip, seed=1, copy=False)
+    it = create_device_prefetch_iterator(it, comm, depth=2)
 
     model = TransformerLM(
         vocab=vocab, n_layers=args.layers, d_model=args.d_model,
@@ -155,6 +208,20 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
             loss = float(metrics["loss"])
             if comm.rank == 0:
                 print(f"step {i}: loss {loss:.4f}", flush=True)
+    it.close()
+    if args.eval:
+        val = scatter_dataset(ArrayDataset(*val_arrays), comm,
+                              force_equal_length=False)
+        eval_bs = min(64, n_val)
+        ev = create_multi_node_evaluator(
+            Evaluator(lambda: SerialIterator(val, eval_bs, repeat=False,
+                                             shuffle=False),
+                      lm_eval_metric(model), comm,
+                      finalize=lm_eval_finalize), comm)
+        scores = ev.evaluate(model)
+        if comm.rank == 0:
+            print(f"val_ppl {scores['val_ppl']:.3f}  "
+                  f"({int(scores['val_tokens'])} tokens)", flush=True)
     if args.generate and comm.rank == 0:
         from chainermn_tpu_torch.models import lm_generate
 

@@ -1,8 +1,12 @@
-"""Batch iterators of the port: a numpy copy of the JAX package's
-``SerialIterator`` (``chainermn_tpu/iterators/__init__.py``), with the
-same epoch semantics and ``RandomState`` shuffling, so a seed draws the
-same batches in both packages.  The native prefetching iterators are not
-ported yet (ROADMAP Queue 1 item 6)."""
+"""Batch iterators of the port (``chainermn_tpu/iterators``): a numpy copy
+of the JAX package's ``SerialIterator``, with the same epoch semantics and
+``RandomState`` shuffling, so a seed draws the same batches in both
+packages; the multi-node iterators over the communicator's ``bcast_obj``
+(reference anchors ``create_multi_node_iterator`` and
+``create_synchronized_iterator``); :class:`PrefetchIterator` over the
+native threaded batch assembler, in the serial iterator's order; and
+:class:`DevicePrefetchIterator`, pinned staging plus a side-stream copy
+to the card."""
 
 from __future__ import annotations
 
@@ -10,7 +14,9 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["SerialIterator"]
+__all__ = ["DevicePrefetchIterator", "PrefetchIterator", "SerialIterator",
+           "create_device_prefetch_iterator", "create_multi_node_iterator",
+           "create_synchronized_iterator"]
 
 
 def _next_epoch_indices(it):
@@ -83,3 +89,45 @@ class SerialIterator:
     @property
     def epoch_detail(self):
         return self.epoch + self._pos / max(len(self.dataset), 1)
+
+
+class _MultiNodeIterator:
+    """Every rank steps its own iterator (so its epoch bookkeeping, which
+    the trainer's triggers read, advances), and every rank gets rank
+    ``rank_master``'s batch through the communicator's ``bcast_obj``."""
+
+    def __init__(self, actual_iterator, comm, rank_master: int = 0):
+        self.actual = actual_iterator
+        self.comm = comm
+        self.rank_master = rank_master
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self.actual)
+        return self.comm.bcast_obj(batch, root=self.rank_master)
+
+    def __getattr__(self, name):
+        return getattr(self.actual, name)
+
+
+def create_multi_node_iterator(actual_iterator, communicator,
+                               rank_master: int = 0):
+    """Reference anchor: ``create_multi_node_iterator``, for datasets that
+    cannot be scattered: the other ranks receive the master's batches.
+    Every rank passes an iterator of the same length and batch size."""
+    return _MultiNodeIterator(actual_iterator, communicator, rank_master)
+
+
+def create_synchronized_iterator(actual_iterator, communicator):
+    """Reference anchor: ``create_synchronized_iterator``: every rank
+    draws the same batches, rank 0's, as in the JAX package."""
+    return _MultiNodeIterator(actual_iterator, communicator, rank_master=0)
+
+
+from chainermn_tpu_torch.iterators.prefetch import PrefetchIterator  # noqa: E402,E501
+from chainermn_tpu_torch.iterators.device_prefetch import (  # noqa: E402
+    DevicePrefetchIterator,
+    create_device_prefetch_iterator,
+)

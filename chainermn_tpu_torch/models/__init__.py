@@ -1,11 +1,16 @@
 """Model zoo of the port: the Transformer LM (dense or mixture of
 experts), its generation loop (the serving slice), beam search and
 speculative generation, and its training losses; ResNet and its stateful
-loss."""
+loss; the MNIST example's MLP and its classification loss and metrics."""
 
 from chainermn_tpu_torch.models.decoding import (
     lm_beam_search,
     lm_speculative_generate,
+)
+from chainermn_tpu_torch.models.mlp import (
+    MLP,
+    classification_loss,
+    classification_metrics,
 )
 from chainermn_tpu_torch.models.resnet import (
     BasicBlock,
@@ -30,7 +35,8 @@ from chainermn_tpu_torch.models.transformer import (
 )
 from chainermn_tpu_torch.ops.flash_attention import reference_attention
 
-__all__ = ["BasicBlock", "BottleneckBlock", "DecoderBlock", "FusedConv1x1",
+__all__ = ["MLP", "classification_loss", "classification_metrics",
+           "BasicBlock", "BottleneckBlock", "DecoderBlock", "FusedConv1x1",
            "ResNet", "ResNet18", "ResNet50", "ResNetTiny", "TransformerLM",
            "lm_beam_search", "lm_generate", "lm_loss", "lm_loss_chunked",
            "lm_speculative_generate", "moe_stats", "reference_attention",

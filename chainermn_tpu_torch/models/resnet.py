@@ -33,6 +33,7 @@ from chainermn_tpu_torch.links.batch_normalization import (
     MultiNodeBatchNormalization,
 )
 from chainermn_tpu_torch.ops.conv_fused import conv1x1_bn_relu
+from chainermn_tpu_torch.ops.pooling import max_pool_fused
 from chainermn_tpu_torch.utils.device import resolve_device
 
 __all__ = ["BasicBlock", "BottleneckBlock", "FusedConv1x1", "ResNet",
@@ -287,8 +288,10 @@ class ResNet(nn.Module):
 
     ``stem``: ``"conv7"`` (stride-2 7×7) or ``"s2d"`` (space-to-depth(2)
     then a stride-1 4×4 conv, exactly equivalent via
-    :func:`s2d_stem_kernel`).  ``maxpool``: ``"xla"`` (the plain max-pool);
-    ``"fused"`` needs ``ops/pooling.py``, not ported yet.  ``bn`` and
+    :func:`s2d_stem_kernel`).  ``maxpool``: ``"xla"`` (``F.max_pool2d``)
+    or ``"fused"`` (:func:`~chainermn_tpu_torch.ops.max_pool_fused`: the
+    same forward, and a backward that routes a tie to the first maximum
+    in row-major window order, as the JAX package's does).  ``bn`` and
     ``conv1``: see :class:`BottleneckBlock` (they apply to every block and
     the stem BN).  ``axis_name``: the process group of sync-BN (the
     communicator's ``axis_name``), None for local BN.
@@ -309,17 +312,14 @@ class ResNet(nn.Module):
         device = resolve_device(device, "ResNet")
         if stem not in ("conv7", "s2d"):
             raise ValueError(f"stem={stem!r}: expected 'conv7' or 's2d'")
-        if maxpool == "fused":
-            raise NotImplementedError(
-                "maxpool='fused' needs ops/pooling.py (max_pool_fused), not "
-                "ported yet (ROADMAP Queue 1 item 7)")
-        if maxpool != "xla":
+        if maxpool not in ("xla", "fused"):
             raise ValueError(
                 f"maxpool={maxpool!r}: expected 'xla' or 'fused'")
         _check_modes(bn, conv1 if block is BottleneckBlock else "none")
         self.stage_sizes = list(stage_sizes)
         self.num_classes, self.width, self.dtype = num_classes, width, dtype
         self.stem, self.bn, self.conv1 = stem, bn, conv1
+        self.maxpool = maxpool
         if stem == "s2d":
             self.conv_init_s2d = Conv(4 * in_channels, width, 4, 1,
                                       padding=((1, 2), (1, 2)),
@@ -396,7 +396,12 @@ class ResNet(nn.Module):
         stem = self.conv_init_s2d if self.stem == "s2d" else self.conv_init
         ra = (not train) or self.bn == "frozen"
         x = F.relu(self.bn_init(stem(x), ra))
-        x = max_pool_same(x, 3, 2)
+        if self.maxpool == "fused":
+            # NCHW in channels_last memory is an NHWC tensor: no copy.
+            x = max_pool_fused(x.permute(0, 2, 3, 1), (3, 3), (2, 2),
+                               "SAME").permute(0, 3, 1, 2)
+        else:
+            x = max_pool_same(x, 3, 2)
         for blk in self.blocks:
             x = blk(x, train=train)
         x = x.mean(dim=(2, 3))

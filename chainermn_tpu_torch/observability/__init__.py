@@ -22,16 +22,18 @@
   (``device.*``).
 * :mod:`~chainermn_tpu_torch.observability.incident` — watch rules over
   the registry and the debug bundles they capture.
-* :mod:`~chainermn_tpu_torch.observability.aggregate` — strict-JSON
-  sanitizing and Prometheus rendering.
+* :mod:`~chainermn_tpu_torch.observability.aggregate` — the rank-0
+  ``MetricsAggregator`` (the trainer's ``MetricsReport`` feeds it over
+  the communicator's ``gather_obj``), strict-JSON sanitizing and
+  Prometheus rendering.
 
 ``CMN_OBS=0`` is the master off-switch: publishers that find it off at
 construction hold no-op instruments and the serving scheduler builds no
 plane.  Of the fleet plane only the trace merge is ported
 (:mod:`~chainermn_tpu_torch.observability.fleet`, which the serving
 router's fleet trace uses); the cross-process clock and gather, the
-rank-0 aggregator, the offline trace analyzer and the perf sentinel
-are not (ROADMAP Queue 1 items 4b, 6 and 13).
+offline trace analyzer and the perf sentinel are not (ROADMAP Queue 1
+items 4b and 13).
 """
 
 from __future__ import annotations
@@ -64,6 +66,8 @@ from chainermn_tpu_torch.observability.metrics import (  # noqa: E402
     Histogram,
     MetricsRegistry,
     NoopInstrument,
+    histogram_quantile,
+    merge_snapshots,
     registry,
 )
 from chainermn_tpu_torch.observability.tracing import (  # noqa: E402
@@ -89,6 +93,7 @@ from chainermn_tpu_torch.observability.flight import (  # noqa: E402
     snapshot_on_crash,
 )
 from chainermn_tpu_torch.observability.aggregate import (  # noqa: E402
+    MetricsAggregator,
     render_prometheus,
     sanitize_json,
 )
@@ -123,6 +128,8 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "NoopInstrument",
+    "histogram_quantile",
+    "merge_snapshots",
     "registry",
     "LifecycleEvent",
     "RequestTimeline",
@@ -140,6 +147,7 @@ __all__ = [
     "recorder",
     "register_provider",
     "snapshot_on_crash",
+    "MetricsAggregator",
     "render_prometheus",
     "sanitize_json",
     "MemoryMonitor",

@@ -243,6 +243,102 @@ class MetricsRegistry:
             return list(self._samples)
 
 
+def merge_snapshots(snaps: Sequence[Dict[str, dict]]) -> Dict[str, dict]:
+    """Exact fleet merge of per-rank :meth:`MetricsRegistry.snapshot` s.
+
+    * counters — summed;
+    * histograms — element-wise bucket sums (edges must match exactly:
+      mismatched edges raise rather than approximate), sum/count summed,
+      min/max folded;
+    * gauges — ``{"min", "max", "mean", "per_rank"}`` (a fleet has no
+      single last-written value; the per-rank list keeps it lossless).
+    """
+    out: Dict[str, dict] = {}
+    for idx, snap in enumerate(snaps):
+        for name, rec in snap.items():
+            cur = out.get(name)
+            if cur is None:
+                if rec["type"] == "gauge":
+                    out[name] = {"type": "gauge", "per_rank": [rec["value"]]}
+                else:
+                    out[name] = {k: (list(v) if isinstance(v, list) else v)
+                                 for k, v in rec.items()}
+                continue
+            if cur["type"] != rec["type"]:
+                raise ValueError(
+                    f"metric {name!r}: type mismatch across ranks "
+                    f"({cur['type']} vs {rec['type']})"
+                )
+            if rec["type"] == "counter":
+                cur["value"] += rec["value"]
+            elif rec["type"] == "gauge":
+                cur["per_rank"].append(rec["value"])
+            else:  # histogram
+                if cur["edges"] != rec["edges"]:
+                    raise ValueError(
+                        f"histogram {name!r}: bucket edges differ across "
+                        f"ranks — exact merge impossible ({cur['edges']} "
+                        f"vs {rec['edges']})"
+                    )
+                cur["counts"] = [a + b for a, b in
+                                 zip(cur["counts"], rec["counts"])]
+                cur["sum"] += rec["sum"]
+                cur["count"] += rec["count"]
+                for k, fold in (("min", min), ("max", max)):
+                    vals = [v for v in (cur[k], rec[k]) if v is not None]
+                    cur[k] = fold(vals) if vals else None
+    for rec in out.values():
+        if rec["type"] == "gauge":
+            vals = [v for v in rec["per_rank"] if v is not None]
+            rec["min"] = min(vals) if vals else None
+            rec["max"] = max(vals) if vals else None
+            rec["mean"] = sum(vals) / len(vals) if vals else None
+    return out
+
+
+def histogram_quantile(rec: dict, q: float) -> Optional[float]:
+    """Estimate quantile ``q`` from a histogram *snapshot* dict (per-rank
+    or merged — both carry the same ``edges``/``counts`` layout).
+
+    Prometheus-style linear interpolation inside the covering bucket,
+    with two exactness improvements the snapshot affords: the estimate
+    is clamped to the recorded ``[min, max]``, and the first/overflow
+    buckets use ``min``/``max`` as their open bounds instead of 0/+Inf.
+    Returns ``None`` for an empty histogram.
+
+    This is the fleet-quantile path: per-rank histograms merge exactly
+    (bucketwise sums), so a rank-0 p95 estimated from the merged counts
+    is the same estimate a single observer's histogram would give —
+    unlike merged quantile *sketches*, which approximate twice.
+    """
+    if not 0.0 <= q <= 1.0:
+        raise ValueError(f"quantile must be in [0, 1], got {q}")
+    total = rec.get("count", 0)
+    if not total:
+        return None
+    edges = rec["edges"]
+    counts = rec["counts"]
+    lo_bound = rec.get("min")
+    hi_bound = rec.get("max")
+    target = q * total
+    cum = 0
+    for i, c in enumerate(counts):
+        if cum + c >= target and c > 0:
+            lo = (lo_bound if lo_bound is not None else 0.0) \
+                if i == 0 else edges[i - 1]
+            hi = edges[i] if i < len(edges) else (
+                hi_bound if hi_bound is not None else edges[-1]
+            )
+            est = lo + (hi - lo) * max(target - cum, 0.0) / c
+            if lo_bound is not None:
+                est = max(est, lo_bound)
+            if hi_bound is not None:
+                est = min(est, hi_bound)
+            return est
+        cum += c
+    return hi_bound  # pragma: no cover - defensive (count drift)
+
+
 #: Process-wide registry (lazy).
 _registry: Optional[MetricsRegistry] = None
 _registry_lock = threading.Lock()

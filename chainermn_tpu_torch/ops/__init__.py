@@ -3,9 +3,18 @@ PyTorch versions beside them, and the elementwise helpers around them.
 
 The kernels build from ``chainermn_tpu_torch/csrc/`` at first use on a
 CUDA host (:mod:`chainermn_tpu_torch.ops._kernels`); on the CPU each
-wrapper runs its plain version.
+wrapper runs its plain version.  The max-pool with its first-max-wins
+backward (``pooling``) and the crop/flip augmentation (``augment``) are
+plain PyTorch in both packages.
 """
 
+from chainermn_tpu_torch.ops.augment import (
+    crop,
+    flip,
+    random_crop,
+    random_crop_flip,
+    random_flip,
+)
 from chainermn_tpu_torch.ops.chunked_ce import chunked_softmax_cross_entropy
 from chainermn_tpu_torch.ops.conv_fused import (
     MatmulAffineFunction,
@@ -35,9 +44,16 @@ from chainermn_tpu_torch.ops.flash_attention import (
     reference_attention,
     resolve_attention,
 )
+from chainermn_tpu_torch.ops.pooling import max_pool_fused
 from chainermn_tpu_torch.ops.rope import apply_rope, rope_tables
 
 __all__ = [
+    "crop",
+    "flip",
+    "random_crop",
+    "random_crop_flip",
+    "random_flip",
+    "max_pool_fused",
     "chunked_softmax_cross_entropy",
     "MatmulAffineFunction",
     "conv1x1_bn_relu",

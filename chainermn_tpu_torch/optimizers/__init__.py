@@ -19,13 +19,26 @@ parameters are updated in place) and the torch optimizer, and a loss
 function takes the model where the JAX one takes a parameter tree.  The
 model state of a stateful model (sync-BN running statistics) is its
 buffers, which the training forward updates in place.
+
+The JAX package's options carry over with its semantics:
+``double_buffering`` (the update applies the previous step's reduced
+gradients and carries the fresh ones; the carry starts at zeros, which the
+first update applies), ``grad_compression="int8_ef"`` (int8 codes on a
+scale shared over the ranks, summed in int32, each rank keeping its own
+quantization residual), ``ema_decay`` (an fp32 moving average of the
+parameters after every update), ``augment`` (a transform of the batch
+drawn from a generator seeded by ``(augment_seed, step, rank)``) and the
+eager ``update`` facade, which caches one step per loss function and
+flags.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
+import warnings
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +47,8 @@ import torch.nn as nn
 from chainermn_tpu_torch.comm.base import CommunicatorBase
 
 __all__ = ["MultiNodeOptimizer", "TrainState", "adamw",
-           "create_multi_node_optimizer", "sgd"]
+           "augment_generator", "create_multi_node_optimizer", "ema_model",
+           "int8_ef_codes", "int8_ef_mean", "sgd"]
 
 
 def sgd(learning_rate: float, momentum: Optional[float] = None,
@@ -63,11 +77,20 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
 @dataclass
 class TrainState:
     """The training state carried across steps: the step count, the model
-    (updated in place) and its torch optimizer."""
+    (updated in place) and its torch optimizer, and the options' state,
+    each ``{parameter name: tensor}`` or None when its option is off:
+    ``pending_grads`` (double buffering: the previous step's reduced
+    gradients, in the wire dtype when one is set; zeros at init),
+    ``ef_residual`` (int8 error feedback: this rank's quantization
+    error, device-varying, never broadcast or averaged) and
+    ``ema_params`` (the fp32 moving average of the parameters)."""
 
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
+    pending_grads: Optional[Dict[str, torch.Tensor]] = None
+    ef_residual: Optional[Dict[str, torch.Tensor]] = None
+    ema_params: Optional[Dict[str, torch.Tensor]] = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -77,6 +100,58 @@ class TrainState:
     def model_state(self) -> Dict[str, torch.Tensor]:
         """The model's buffers (e.g. sync-BN running statistics)."""
         return dict(self.model.named_buffers())
+
+
+def ema_model(state: TrainState) -> nn.Module:
+    """A copy of ``state.model`` carrying the EMA parameters (cast to each
+    parameter's dtype): evaluate or export the Polyak-averaged model
+    with it."""
+    if state.ema_params is None:
+        raise ValueError("the optimizer keeps no EMA (ema_decay=None)")
+    model = copy.deepcopy(state.model)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(state.ema_params[n].to(p.dtype))
+    return model
+
+
+def augment_generator(seed: int, step: int, rank: int,
+                      device) -> torch.Generator:
+    """The augmentation draw's generator for one step on one rank, seeded
+    from ``(seed, step, rank)`` (the role of the JAX package's
+    ``_augment_key``): replicas draw independent transforms and the run
+    is reproducible, also across a checkpoint resume."""
+    words = np.random.SeedSequence([int(seed), int(step), int(rank)]) \
+        .generate_state(2, np.uint32)
+    g = torch.Generator(device=device)
+    g.manual_seed((int(words[0]) << 31) ^ int(words[1]))
+    return g
+
+
+# ------------------------------------------------------------ int8 wire
+def int8_ef_codes(c: torch.Tensor, amax: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 codes of ``c`` (fp32) on the shared scale ``s = max(amax,
+    1e-30) / 127`` (``amax``: the largest ``|c|`` over every rank, fp32):
+    ``(q, s)``, ``q = clip(round(c / s), -127, 127)`` as fp32 (round half
+    to even, as ``jnp.round``).  One rank's residual is ``c - q * s``."""
+    s = torch.clamp_min(amax.float(), 1e-30) / 127.0
+    q = torch.clamp(torch.round(c / s), -127, 127)
+    return q, s
+
+
+def int8_ef_mean(c: torch.Tensor, size: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The int8 error-feedback reduction of one parameter on stacked
+    per-rank inputs ``c`` (R, ...) = gradient + residual, fp32, as the
+    ranks compute it together (``MultiNodeOptimizer`` runs the same math
+    over the wire): ``(mean, codes, residuals)``, the mean ``sum_r q_r *
+    s / size`` (the codes summed exactly in int32), the codes ``q`` (R,
+    ...) and each rank's new residual ``c_r - q_r * s`` (R, ...)."""
+    size = c.shape[0] if size is None else size
+    q, s = int8_ef_codes(c, c.abs().amax())
+    tot = q.to(torch.int32).sum(0)
+    return tot.float() * s / size, q, c - q * s
 
 
 def _split(x, k: int):
@@ -99,30 +174,44 @@ def _microbatches(batch, k: int):
     return _split(batch, k)
 
 
+def _to_device(batch, dev):
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_to_device(b, dev) for b in batch)
+    if isinstance(batch, dict):
+        return {k: _to_device(v, dev) for k, v in batch.items()}
+    return torch.as_tensor(batch, device=dev)
+
+
 class MultiNodeOptimizer:
     """Wraps a torch optimizer (or a factory ``params -> optimizer`` such
-    as :func:`adamw`) with the cross-rank gradient mean."""
+    as :func:`adamw`) with the cross-rank gradient mean, and the JAX
+    package's options (see the module docstring)."""
 
     def __init__(self, actual_optimizer, communicator: CommunicatorBase,
                  double_buffering: bool = False,
                  grad_reduce: Optional[Callable] = None,
                  grad_compression: Optional[str] = None,
                  ema_decay: Optional[float] = None):
-        for flag, what, item in (
-                (double_buffering, "double_buffering", "6"),
-                (grad_reduce is not None, "grad_reduce", "8"),
-                (grad_compression is not None, "grad_compression", "6"),
-                (ema_decay is not None, "ema_decay", "6")):
-            if flag:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP Queue 1 item "
-                    f"{item})")
+        if grad_reduce is not None:
+            raise NotImplementedError(
+                "grad_reduce is not ported yet (ROADMAP Queue 1 item 8)")
+        if ema_decay is not None and not 0.0 < ema_decay < 1.0:
+            raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
+        if grad_compression not in (None, "int8_ef"):
+            raise ValueError(f"grad_compression={grad_compression!r}: "
+                             "expected None or 'int8_ef'")
         self.actual = actual_optimizer
         self.comm = communicator
+        self.double_buffering = bool(double_buffering)
+        self.grad_compression = grad_compression
+        self.ema_decay = ema_decay
+        self._step_cache: Dict[tuple, Callable] = {}
 
     def init(self, model: nn.Module) -> TrainState:
         """Broadcast rank 0's parameters to every rank (so all replicas
-        start equal) and build the torch optimizer over them."""
+        start equal), build the torch optimizer over them and the options'
+        state: zero pending gradients, zero residuals, the EMA at the
+        parameters (fp32)."""
         dev = getattr(self.comm, "device", None)
         pdev = next(model.parameters()).device
         if dev is not None and pdev.type != torch.device(dev).type:
@@ -139,11 +228,56 @@ class MultiNodeOptimizer:
             opt = self.actual
         else:
             opt = self.actual(model.parameters())
-        return TrainState(step=0, model=model, optimizer=opt)
+        named = list(model.named_parameters())
+        wire = getattr(self.comm, "allreduce_grad_dtype", None)
+        with torch.no_grad():
+            pending = ({n: torch.zeros_like(p, dtype=wire or p.dtype)
+                        for n, p in named}
+                       if self.double_buffering else None)
+            resid = ({n: torch.zeros_like(p) for n, p in named}
+                     if self.grad_compression is not None else None)
+            # fp32 whatever the parameter dtype: with bf16 parameters a
+            # 0.999-decay increment is below bf16's resolution.
+            ema = ({n: p.detach().float().clone() for n, p in named}
+                   if self.ema_decay is not None else None)
+        return TrainState(step=0, model=model, optimizer=opt,
+                          pending_grads=pending, ef_residual=resid,
+                          ema_params=ema)
 
+    # ------------------------------------------------------------ reduce
+    def _int8_ef_reduce(self, state: TrainState) -> None:
+        """Replace every gradient by its int8 error-feedback mean over the
+        ranks and advance this rank's residuals: one ``max`` all-reduce of
+        the per-parameter ``|grad + residual|`` maxima (the shared
+        scales), one int32 ``sum`` all-reduce of every code."""
+        comm = self.comm
+        named = [(n, p) for n, p in state.model.named_parameters()]
+        with torch.no_grad():
+            cs = []
+            for n, p in named:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                cs.append(g.float() + state.ef_residual[n].float())
+            amax = comm.allreduce(torch.stack([c.abs().amax() for c in cs]),
+                                  op="max")
+            codes = [int8_ef_codes(c, amax[i]) for i, c in enumerate(cs)]
+            tot = comm.allreduce(torch.cat(
+                [q.to(torch.int32).reshape(-1) for q, _ in codes]), op="sum")
+            at, size = 0, comm.size
+            for (n, p), c, (q, s) in zip(named, cs, codes):
+                k = c.numel()
+                y = tot[at:at + k].view(c.shape).float() * s / size
+                at += k
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                p.grad.copy_(y.to(p.grad.dtype))
+                state.ef_residual[n].copy_(
+                    (c - q * s).to(state.ef_residual[n].dtype))
+
+    # ------------------------------------------------------- train step
     def make_train_step(self, loss_fn: Callable, has_aux: bool = False,
                         stateful: bool = False, accum_steps: int = 1,
                         augment: Optional[Callable] = None,
+                        augment_seed: int = 0,
                         health_check: bool = False) -> Callable:
         """``step(state, batch) -> (state, metrics)``.
 
@@ -156,19 +290,28 @@ class MultiNodeOptimizer:
         ``1/k``, the JAX package's contract) before the one gradient
         all-reduce and the update; the model state threads through the
         microbatches in order, as the JAX ``lax.scan`` threads it.
-        ``metrics["loss"]`` and the aux scalars are averaged over ranks."""
-        for flag, what, item in ((augment is not None, "augment", "7"),
-                                 (health_check, "health_check", "12")):
-            if flag:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP Queue 1 item "
-                    f"{item})")
+        ``augment(generator, batch) -> batch`` transforms the batch (moved
+        to the model's device first) before any split, with the
+        generator of :func:`augment_generator` for ``(augment_seed,
+        state.step, rank)``.  ``metrics["loss"]`` and the aux scalars are
+        averaged over ranks and stay device tensors."""
+        if health_check:
+            raise NotImplementedError(
+                "health_check is not ported yet (ROADMAP Queue 1 item 12)")
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         comm = self.comm
+        dbuf = self.double_buffering
+        compress = self.grad_compression is not None
+        decay = self.ema_decay
 
         def step(state: TrainState, batch: Any):
             model, opt = state.model, state.optimizer
+            if augment is not None:
+                dev = next(model.parameters()).device
+                batch = augment(augment_generator(augment_seed, state.step,
+                                                  comm.rank, dev),
+                                _to_device(batch, dev))
             opt.zero_grad(set_to_none=True)
             loss_sum, aux_sum = None, {}
             for mb in _microbatches(batch, accum_steps):
@@ -183,8 +326,24 @@ class MultiNodeOptimizer:
                 for k, v in aux.items():
                     v = torch.as_tensor(v).detach()
                     aux_sum[k] = v if k not in aux_sum else aux_sum[k] + v
-            comm.allreduce_grad(model)
+            if compress:
+                self._int8_ef_reduce(state)
+            else:
+                comm.allreduce_grad(model)
+            if dbuf:
+                # 1-step-stale: apply the previous reduced gradients (real
+                # zero tensors at the first step, which the update applies
+                # as optax applies its zero carry), carry the fresh ones.
+                for n, p in model.named_parameters():
+                    stale = state.pending_grads[n]
+                    state.pending_grads[n] = p.grad.to(stale.dtype)
+                    p.grad = stale.to(p.dtype)
             opt.step()
+            if decay is not None:
+                with torch.no_grad():
+                    for n, p in model.named_parameters():
+                        e = state.ema_params[n]
+                        e.mul_(decay).add_(p.float() * (1.0 - decay))
             metrics = {"loss": comm.allreduce(loss_sum / accum_steps,
                                               op="mean")}
             for k, v in aux_sum.items():
@@ -193,6 +352,32 @@ class MultiNodeOptimizer:
             return state, metrics
 
         return step
+
+    # ------------------------------------------------------------ update
+    def update(self, state: TrainState, batch: Any, loss_fn: Callable,
+               has_aux: bool = False, stateful: bool = False,
+               accum_steps: int = 1, augment: Optional[Callable] = None,
+               augment_seed: int = 0) -> Tuple[TrainState, dict]:
+        """Eager-style API mirroring ``_MultiNodeOptimizer.update``: one
+        step built per ``(loss_fn, flags)``, keyed by the function object
+        itself (holding a reference: an ``id()`` can be recycled), and
+        a warning at the 9th variant (a fresh closure per call builds a
+        fresh step each time)."""
+        key = (loss_fn, has_aux, stateful, accum_steps, augment,
+               augment_seed)
+        step = self._step_cache.get(key)
+        if step is None:
+            step = self._step_cache[key] = self.make_train_step(
+                loss_fn, has_aux, stateful, accum_steps=accum_steps,
+                augment=augment, augment_seed=augment_seed)
+            if len(self._step_cache) == 9:
+                warnings.warn(
+                    "9+ distinct train-step variants built on one "
+                    "optimizer: loss_fn/augment must be the SAME callable "
+                    "across update() calls (build closures like "
+                    "random_crop_flip() once, outside the loop)",
+                    stacklevel=2)
+        return step(state, batch)
 
 
 def create_multi_node_optimizer(actual_optimizer,

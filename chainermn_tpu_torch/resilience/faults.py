@@ -1,4 +1,4 @@
-"""Deterministic fault injection, host half: make failure modes testable.
+"""Deterministic fault injection: make failure modes testable.
 
 One env var drives it, with the JAX package's grammar:
 
@@ -19,9 +19,10 @@ hit count for one-shot kinds, a duration (``200ms``/``1.5s``) for
 ``slow``, or ``N:duration`` for ``skew`` (from hit N on, every hit is
 stretched; a bare duration means ``1:duration``).  crash/hang/slow/skew
 act inside :meth:`FaultInjector.hook`; the value-shaped kinds are
-returned for the caller to apply.  The training-side appliers of those
-(``nan``/``spike`` on a batch, ``flip`` on parameters) come with the
-training slice.
+returned for the caller to apply.  The training loop applies them through
+:func:`poison_batch` (``nan@grad``/``spike@loss`` on the iteration's
+batch) and :func:`corrupt_params` (``flip@param`` on this rank's
+parameters after the update).
 """
 
 from __future__ import annotations
@@ -39,6 +40,9 @@ ONE_SHOT_KINDS = ("crash", "hang", "drop", "nan", "spike", "flip")
 #: Value-shaped one-shot kinds: ``hook()`` returns them as the action (the
 #: caller applies the corruption) instead of acting in-process.
 VALUE_KINDS = ("drop", "nan", "spike", "flip")
+
+#: ``spike@loss`` scales the batch's floating leaves by this.
+SPIKE_SCALE = 1e3
 
 _SPEC_RE = re.compile(
     r"^(?P<kind>[a-z]+)@(?P<site>[A-Za-z_][A-Za-z0-9_]*):(?P<arg>[^@;]+)$"
@@ -190,6 +194,92 @@ class FaultInjector:
         sys.stderr.flush()
         while True:  # pragma: no cover - exercised only multiprocess
             self._sleep(3600)
+
+
+# ----------------------------------------------------- fail-silent injection
+def _map_batch(fn, batch):
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_map_batch(fn, b) for b in batch)
+    if isinstance(batch, dict):
+        return {k: _map_batch(fn, v) for k, v in batch.items()}
+    return fn(batch)
+
+
+def _is_float(x) -> bool:
+    import numpy as np
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.is_floating_point()
+    return hasattr(x, "dtype") and np.issubdtype(x.dtype, np.floating)
+
+
+def poison_batch(injector: "FaultInjector", batch, iteration: int):
+    """Apply ``nan@grad`` / ``spike@loss`` to this iteration's batch
+    (numpy arrays or tensors, nested in tuples, lists or dicts).
+
+    * ``nan`` -- every floating leaf becomes NaN, so the step's loss and
+      gradients are poisoned as silent input corruption poisons them;
+    * ``spike`` -- floating leaves scale by :data:`SPIKE_SCALE`: the loss
+      and the gradient norm blow up but stay finite.
+
+    Counted by trainer iteration (1-based).  A batch with no floating
+    leaf cannot carry the fault, and injecting nothing would invalidate
+    the test built on it, so that raises."""
+    import numpy as np
+    import torch
+
+    def corrupt(fn, kind):
+        hit = [0]
+
+        def one(x):
+            if not _is_float(x):
+                return x
+            hit[0] += 1
+            return fn(x)
+
+        out = _map_batch(one, batch)
+        if not hit[0]:
+            raise InjectedFault(
+                f"injected fault {kind} at iteration {iteration} found no "
+                "floating-point batch leaves to corrupt: an all-integer "
+                "batch cannot carry this fault")
+        return out
+
+    def nan(x):
+        return torch.full_like(x, float("nan")) \
+            if isinstance(x, torch.Tensor) else np.full_like(x, np.nan)
+
+    def spike(x):
+        return x * SPIKE_SCALE if isinstance(x, torch.Tensor) \
+            else x * x.dtype.type(SPIKE_SCALE)
+
+    if injector.hook("grad", count=iteration) == "nan":
+        batch = corrupt(nan, "nan@grad")
+    if injector.hook("loss", count=iteration) == "spike":
+        batch = corrupt(spike, "spike@loss")
+    return batch
+
+
+def corrupt_params(injector: "FaultInjector", state, iteration: int):
+    """Apply ``flip@param``: after iteration N's update, corrupt one
+    element of the first parameter ON THIS RANK ONLY (``-x - 1``, which
+    changes even an exact zero), in place.  "First" is the first name in
+    sorted order, as the JAX package's sorted parameter tree has it, so
+    both packages flip the same element of the same model.  This rank's
+    replica then silently disagrees with its peers."""
+    if injector.hook("param", count=iteration) != "flip":
+        return state
+    import torch
+
+    name, p = min(state.model.named_parameters(), key=lambda kv: kv[0])
+    with torch.no_grad():
+        flat = p.view(-1)
+        flat[0] = -flat[0] - 1
+    sys.stderr.write(
+        f"[chainermn_tpu_torch.resilience] injected fault: flip@param "
+        f"({name}) at iteration {iteration}: local replica diverged\n")
+    return state
 
 
 #: Process-wide injector cache (see :func:`process_injector`).

@@ -26,7 +26,7 @@ D)``, ``moe_b2 (E, D)`` (MoE blocks)
 ==========================================  ================================
 
 Biases flatten the same way as their kernels' output axes.  The ResNet
-mapping is described beside its two functions below.
+and MLP mappings are described beside their functions below.
 """
 
 from __future__ import annotations
@@ -260,3 +260,33 @@ def resnet_params_to_flax(tensors: Dict[str, torch.Tensor]):
             node = node.setdefault(m, {})
         node[leaf] = arr
     return params, stats
+
+
+def mlp_params_from_flax(params: Dict, device=None) -> Dict[str, torch.Tensor]:
+    """The port's ``MLP`` ``state_dict`` from the JAX package's ``MLP``
+    parameters (numpy trees): ``Dense_i.kernel (in, out)`` ->
+    ``layers.i.weight (out, in)``, ``Dense_i.bias`` -> ``layers.i.bias``.
+    ``device`` None means the current CUDA device (raises where there is
+    none)."""
+    dev = resolve_device(device, "mlp_params_from_flax")
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        i = int(name.split("_")[-1])
+        out[f"layers.{i}.weight"] = _tensor(np.asarray(p["kernel"]).T, dev)
+        out[f"layers.{i}.bias"] = _tensor(p["bias"], dev)
+    return out
+
+
+def mlp_params_to_flax(tensors: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`mlp_params_from_flax`, for parameters or
+    gradients (``{name: p.grad}``)."""
+    out: Dict = {}
+    for key, t in tensors.items():
+        _, i, leaf = key.split(".")
+        arr = _np(t)
+        node = out.setdefault(f"Dense_{i}", {})
+        if leaf == "weight":
+            node["kernel"] = arr.T
+        else:
+            node["bias"] = arr
+    return out

@@ -225,6 +225,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2992,9 +2993,10 @@ def phase_training(fa, dev, card, seed):
     from chainermn_tpu_torch.examples import train_lm
 
     t0 = time.perf_counter()
-    loss = train_lm.main(["--steps", "3"])
+    loss = train_lm.main(["--steps", "3", "--eval"])
     check(math.isfinite(loss), f"train_lm example: loss {loss}")
-    emit({"phase": "train_lm_example", "steps": 3, "final_loss": loss,
+    emit({"phase": "train_lm_example", "steps": 3, "eval": True,
+          "final_loss": loss,
           "wall_s": time.perf_counter() - t0})
     return flash
 
@@ -3330,7 +3332,7 @@ def phase_resnet(cf, dev, card, seed):
     check(first[0] > first[1] > first[2],
           f"resnet sync/none: loss did not fall over its first two steps: "
           f"{sync['losses']}")
-    return fused
+    return arms
 
 
 def phase_resnet_agreement(cf, dev, seed):
@@ -3386,10 +3388,575 @@ def phase_train_imagenet_example():
     from chainermn_tpu_torch.examples import train_imagenet
 
     t0 = time.perf_counter()
-    loss = train_imagenet.main(["--steps", "3"])
+    loss = train_imagenet.main(["--steps", "3", "--iters-per-epoch", "4"])
     check(math.isfinite(loss), f"train_imagenet example: loss {loss}")
     emit({"phase": "train_imagenet_example", "steps": 3, "final_loss": loss,
           "wall_s": time.perf_counter() - t0})
+
+
+# ----------------------------------------------------- the training loop
+#: the MNIST example's configuration (examples/mnist/train_mnist.py): the
+#: synthetic task, MLP (1000, 1000) (the class default and the
+#: reference's width), global batch 256, SGD 0.05 momentum 0.9, 3 epochs.
+MNIST_ARGS = ["--epoch", "3", "--unit", "1000", "--batchsize", "256",
+              "--lr", "0.05", "--out", ""]
+MNIST_ARMS = {"plain": [], "double_buffering": ["--double-buffering"],
+              "int8_ef": ["--grad-compression", "int8_ef"],
+              "ema_0.99": ["--ema-decay", "0.99"]}
+#: the Trainer's host cost: pairs of (bare step loop, Trainer.run) turns.
+MNIST_PAIRS, MNIST_PAIR_STEPS = 20, 64
+#: the ImageNet example's pipeline at the bench's ResNet-50 configuration:
+#: the synthetic pool is IMAGENET_ITERS batches (the example's
+#: --iters-per-epoch, cut from its default 50), validation 512 images;
+#: epoch 2 runs IMAGENET_TIMED steps timed by events, then
+#: IMAGENET_PROFILED under torch.profiler, both short of its end.
+IMAGENET_ITERS, IMAGENET_VAL = 12, 512
+IMAGENET_TIMED, IMAGENET_PROFILED = 6, 4
+
+
+def phase_mnist_trainer(dev, card, seed):
+    """The ``train_mnist`` twin through the ``Trainer`` in each arm, then
+    the Trainer's host cost per iteration against a bare step loop."""
+    from chainermn_tpu_torch.examples import train_mnist
+
+    arms = {}
+    for arm, flags in MNIST_ARMS.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer, history = train_mnist.main(MNIST_ARGS + flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log = trainer.extensions[0].log
+        row = dict(phase="mnist_trainer", arm=arm, card=card,
+                   log_entries=len(log),
+                   epoch_loss=[e["loss"] for e in log],
+                   epoch_train_accuracy=[e["accuracy"] for e in log],
+                   epoch_val_accuracy=[h["val/accuracy"] for h in history],
+                   epoch_val_loss=[h["val/loss"] for h in history],
+                   iterations=trainer.iteration,
+                   ms_per_iteration=wall * 1e3 / trainer.iteration,
+                   ms_per_iteration_includes="the run's wall over its "
+                   "iterations: data, steps, 3 LogReport and 3 evaluator "
+                   "passes")
+        emit(row)
+        arms[arm] = row
+        losses = row["epoch_loss"]
+        check(row["log_entries"] == 3,
+              f"mnist_trainer {arm}: {row['log_entries']} LogReport "
+              "entries, expected 3")
+        check(all(math.isfinite(x) for x in losses)
+              and all(b < a for a, b in zip(losses, losses[1:])),
+              f"mnist_trainer {arm}: loss not finite and falling: {losses}")
+        check(row["epoch_val_accuracy"][-1] > 0.1,
+              f"mnist_trainer {arm}: val accuracy "
+              f"{row['epoch_val_accuracy']} not above chance (0.1)")
+        del trainer
+    emit({"phase": "mnist_trainer_host_cost", "card": card,
+          **mnist_host_cost(dev, seed)})
+    return arms
+
+
+class _DeviceBatches:
+    """Epoch-aware iterator cycling over batches already on the card: it
+    costs the host nothing, so a loop driven by it shows its own cost."""
+
+    def __init__(self, batches):
+        self.batches, self.batch_size = batches, len(batches[0][0])
+        self._n = len(batches) * self.batch_size
+        self.epoch, self.iteration, self.is_new_epoch = 0, 0, False
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        b = self.batches[self.iteration % len(self.batches)]
+        self.iteration += 1
+        self.is_new_epoch = self.iteration % len(self.batches) == 0
+        self.epoch += self.is_new_epoch
+        return b
+
+
+def mnist_host_cost(dev, seed):
+    """The same steps driven by a bare ``step`` loop and by ``Trainer.run``
+    with a ``LogReport``, in turns, on batches already on the card: the
+    per-iteration ms of each and the median per-pair difference, the
+    Trainer's host cost per iteration."""
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.datasets import make_synthetic_classification
+    from chainermn_tpu_torch.models import MLP, classification_loss
+    from chainermn_tpu_torch.optimizers import (
+        create_multi_node_optimizer,
+        sgd,
+    )
+    from chainermn_tpu_torch.training import LogReport, Trainer
+
+    comm = create_communicator("hierarchical", device=dev)
+    x, y = make_synthetic_classification(8192, 784, 10, seed=1).arrays
+    it = _DeviceBatches([(torch.from_numpy(x[i:i + 256]).to(dev),
+                          torch.from_numpy(y[i:i + 256]).to(dev))
+                         for i in range(0, 8192, 256)])
+    model = MLP(hidden=(1000, 1000), device=dev, seed=seed)
+    opt = create_multi_node_optimizer(sgd(0.05, momentum=0.9), comm)
+    state = opt.init(model)
+    loss = classification_loss(model)
+    step = opt.make_train_step(loss, has_aux=True)
+    n = MNIST_PAIR_STEPS
+
+    def bare():
+        nonlocal state
+        for _ in range(n):
+            state, _ = step(state, next(it))
+
+    def trainer():
+        tr = Trainer(opt, state, loss, it, stop=(n, "iteration"),
+                     has_aux=True)
+        tr.extend(LogReport(trigger=(n, "iteration"), print_report=False))
+        tr.run()
+
+    for fn in (bare, trainer):  # warm both
+        fn()
+    bare_ms, trainer_ms = [], []
+    turns = [(bare, bare_ms), (trainer, trainer_ms)]
+    for i in range(MNIST_PAIRS):
+        for fn, out in (turns if i % 2 == 0 else turns[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3 / n)
+    diffs = sorted(t - b for t, b in zip(trainer_ms, bare_ms))
+    return dict(pairs=MNIST_PAIRS, steps_per_turn=n,
+                batches="on the card, cycled",
+                bare_ms_per_iteration=sorted(bare_ms)[len(bare_ms) // 2],
+                trainer_ms_per_iteration=sorted(trainer_ms)[
+                    len(trainer_ms) // 2],
+                trainer_host_cost_us_per_iteration=diffs[len(diffs) // 2]
+                * 1e3,
+                trainer_host_cost_us_quartiles=[
+                    diffs[len(diffs) // 4] * 1e3,
+                    diffs[3 * len(diffs) // 4] * 1e3],
+                trainer_faster_pairs=sum(d < 0 for d in diffs),
+                bare_ms_runs=bare_ms, trainer_ms_runs=trainer_ms)
+
+
+class _Fingerprints:
+    """Pass-through of a batch iterator recording, per batch, its labels
+    and each image's sum (device tensors: no sync), so that two pipelines'
+    batches can be compared afterwards."""
+
+    def __init__(self, it):
+        self._it = it
+        self.seen = []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        b = next(self._it)
+        x, y = torch.as_tensor(b[0]), torch.as_tensor(b[1])
+        self.seen.append((y.clone(), x.float().sum(dim=(1, 2, 3))))
+        return b
+
+    def __getattr__(self, name):
+        return getattr(self.__dict__["_it"], name)
+
+
+def device_timeline(prof_path, steps):
+    """Idle time of the card over a profiled stretch of ``steps`` steps,
+    from the trace's kernel, copy and memset events: the union of busy
+    intervals against the span, the largest gap, and the share of the
+    host-to-device copies' time that kernels overlapped."""
+    with open(prof_path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+            e.get("cat", ""), e.get("name", ""))
+           for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                               "gpu_memset")]
+    check(dev, "imagenet_trainer: the profile holds no device event")
+    dev.sort()
+
+    def union(iv):
+        out = []
+        for a, b in sorted(iv):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    busy = union([(a, b) for a, b, _, _ in dev])
+    span = busy[-1][1] - busy[0][0]
+    busy_us = sum(b - a for a, b in busy)
+    gaps = [b2[0] - b1[1] for b1, b2 in zip(busy, busy[1:])]
+    kernels = union([(a, b) for a, b, c, _ in dev if c == "kernel"])
+    h2d = [(a, b) for a, b, c, n in dev if c == "gpu_memcpy" and "HtoD" in n]
+    h2d_us = sum(b - a for a, b in h2d)
+    covered = 0.0
+    for a, b in h2d:
+        for ka, kb in kernels:
+            covered += max(0.0, min(b, kb) - max(a, ka))
+    return dict(steps=steps, span_ms=span / 1e3, busy_ms=busy_us / 1e3,
+                idle_ms=(span - busy_us) / 1e3,
+                idle_ms_per_step=(span - busy_us) / 1e3 / steps,
+                idle_share=(span - busy_us) / span if span else None,
+                largest_gap_ms=max(gaps, default=0.0) / 1e3,
+                h2d_copies=len(h2d), h2d_ms_per_copy=h2d_us / 1e3
+                / max(len(h2d), 1),
+                h2d_overlapped_share=covered / h2d_us if h2d_us else None)
+
+
+def imagenet_args(bn, conv1, ckdir):
+    args = ["--bn", bn, "--conv1", conv1, "--batch-per-chip",
+            str(RESNET_BATCH), "--image-size", str(RESNET_SIZE),
+            "--num-classes", str(RESNET_CLASSES), "--iters-per-epoch",
+            str(IMAGENET_ITERS), "--val-size", str(IMAGENET_VAL),
+            "--augment", "--maxpool", "fused", "--eval", "--checkpoint",
+            ckdir, "--wire-dtype", "bfloat16", "--epoch", "1"]
+    if bn == "frozen":
+        args += ["--branch-scale", str(FROZEN_BRANCH_SCALE)]
+    return args
+
+
+def imagenet_arm(cf, dev, card, seed, bn, conv1, bare_ms):
+    """One arm of the ``train_imagenet`` twin's main path: epoch 1 (K6
+    counted over its steps and the evaluator's batches, the checkpoint
+    written at its end), the evaluator timed, a stretch of epoch 2 timed
+    by events between iterations and a shorter one under
+    ``torch.profiler``; then a fresh model and pipeline restored from the
+    snapshot, byte for byte, whose next batches must be the uninterrupted
+    run's."""
+    import gc
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from chainermn_tpu_torch.examples import train_imagenet
+    from chainermn_tpu_torch.training import Extension
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    arm = f"{bn}/{conv1}"
+    ckdir = tempfile.mkdtemp(prefix="cmn_imagenet_ckpt_")
+    args = train_imagenet.parse_args(imagenet_args(bn, conv1, ckdir))
+    t0 = time.perf_counter()
+    run = train_imagenet.build(args)
+    build_s = time.perf_counter() - t0
+    tr = run.trainer
+    fp = _Fingerprints(tr.train_iter)
+    tr.train_iter = fp
+    marks = []
+    tr.extend(Extension(lambda t: marks.append(_event()), (1, "iteration")))
+    torch.cuda.synchronize()
+    cf.matmul_affine_fwd.launches = 0
+    t0 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    epoch1_s = time.perf_counter() - t0
+    k6_epoch1 = cf.matmul_affine_fwd.launches
+    eval_batches = run.evaluator.batches
+    ckpt = run.checkpointer
+    ckpt.finalize()
+    saved = dict(ckpt.last_save)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val = run.evaluator.evaluate(tr.state.model)
+    torch.cuda.synchronize()
+    eval_ms_per_batch = (time.perf_counter() - t0) * 1e3 / eval_batches
+    # Epoch 2: a timed stretch, then a profiled one (no epoch end inside:
+    # no evaluator, no checkpoint).
+    n_seen = len(fp.seen)
+    marks.clear()
+    tr.stop_n, tr.stop_unit = tr.iteration + IMAGENET_TIMED, "iteration"
+    cf.matmul_affine_fwd.launches = 0
+    tr.run()
+    torch.cuda.synchronize()
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
+    step_ms_med = step_ms[len(step_ms) // 2]
+    trace = os.path.join(ckdir, "trace.json")
+    tr.stop_n = tr.iteration + IMAGENET_PROFILED
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.run()
+        torch.cuda.synchronize()
+    k6_epoch2 = cf.matmul_affine_fwd.launches
+    prof.export_chrome_trace(trace)
+    timeline = device_timeline(trace, IMAGENET_PROFILED)
+    want_next = [(y.cpu(), v.cpu()) for y, v in fp.seen[n_seen:n_seen + 2]]
+    h2d_ms = sorted(run.train_iter.h2d_ms)
+    losses = [float(tr.last_metrics["loss"])]
+    peak = torch.cuda.max_memory_allocated()
+    saved_model = torch.load(ckpt._rank_file(saved["step"]),
+                             map_location="cpu", weights_only=False)["model"]
+    run.train_iter.close()
+    del run, tr, fp, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Resume into a fresh model (at its initial weights), optimizer and
+    # pipeline over the same pool: the twin's build restores the snapshot
+    # itself, and its checkpointer times that restore.
+    run2 = train_imagenet.build(train_imagenet.parse_args(
+        imagenet_args(bn, conv1, ckdir)))
+    tr2 = run2.trainer
+    resumed_at = run2.resumed_at
+    restored = dict(run2.checkpointer.last_restore)
+    now = tr2.state.model.state_dict()
+    exact = sorted(now) == sorted(saved_model) and all(
+        now[k].cpu().numpy().tobytes() == v.numpy().tobytes()
+        for k, v in saved_model.items())
+    fp2 = _Fingerprints(tr2.train_iter)
+    tr2.train_iter = fp2
+    tr2.stop_n, tr2.stop_unit = tr2.iteration + 2, "iteration"
+    tr2.run()
+    got_next = [(y.cpu(), v.cpu()) for y, v in fp2.seen[:2]]
+    same_batches = len(got_next) == len(want_next) == 2 and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        for a, b in zip(got_next, want_next))
+    losses.append(float(tr2.last_metrics["loss"]))
+    run2.train_iter.close()
+    del run2, tr2, fp2, saved_model, now
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckdir, ignore_errors=True)
+    row = dict(
+        phase="imagenet_trainer", arm=arm, card=card, batch=RESNET_BATCH,
+        image_size=RESNET_SIZE, iters_per_epoch=IMAGENET_ITERS,
+        augment=True, maxpool="fused", prefetch_depth=2,
+        build_s=build_s, epoch1_s=epoch1_s,
+        step_ms_median=step_ms_med, step_ms_runs=step_ms,
+        bare_step_ms=bare_ms,
+        step_over_bare=step_ms_med / bare_ms if bare_ms else None,
+        images_per_s=RESNET_BATCH / (step_ms_med / 1e3),
+        device_timeline=timeline,
+        h2d_ms_per_batch_events=h2d_ms[len(h2d_ms) // 2] if h2d_ms
+        else None,
+        eval_batches=eval_batches, eval_ms_per_batch=eval_ms_per_batch,
+        val_accuracy=val.get("val/accuracy"),
+        checkpoint_step=saved.get("step"),
+        checkpoint_bytes=saved.get("bytes"),
+        checkpoint_host_copy_ms=saved.get("host_copy_s", 0) * 1e3,
+        checkpoint_write_ms=saved.get("write_s", 0) * 1e3,
+        restore_step=restored.get("step"),
+        restore_read_ms=restored.get("load_s", math.nan) * 1e3,
+        restore_ms=restored.get("seconds", math.nan) * 1e3,
+        resumed_at=resumed_at,
+        restored_byte_exact=exact, resumed_batches_equal=same_batches,
+        k6_launches_epoch1=k6_epoch1, k6_launches_epoch2=k6_epoch2,
+        training_steps_epoch1=IMAGENET_ITERS,
+        training_steps_epoch2=IMAGENET_TIMED + IMAGENET_PROFILED,
+        losses=losses, peak_memory_gb=peak / 1e9)
+    emit(row)
+    n_k6 = len(k6_launches()) if conv1 == "pallas" else 0
+    check(k6_epoch1 == n_k6 * (IMAGENET_ITERS + eval_batches)
+          and k6_epoch2 == n_k6 * (IMAGENET_TIMED + IMAGENET_PROFILED),
+          f"imagenet_trainer {arm}: K6 launched {k6_epoch1} / {k6_epoch2} "
+          f"times, expected {n_k6} x ({IMAGENET_ITERS} steps + "
+          f"{eval_batches} eval batches) / {n_k6} x "
+          f"{IMAGENET_TIMED + IMAGENET_PROFILED} steps")
+    check(resumed_at == IMAGENET_ITERS == restored.get("step") and exact,
+          f"imagenet_trainer {arm}: resumed at {resumed_at} from "
+          f"{restored}, or the restored model differs from the snapshot")
+    check(same_batches, f"imagenet_trainer {arm}: the resumed run's next "
+          "batches differ from the uninterrupted run's")
+    check(all(math.isfinite(x) for x in losses),
+          f"imagenet_trainer {arm}: non-finite loss {losses}")
+    return row
+
+
+def _event():
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def imagenet_path_extras(dev, card, seed, rows, reps=10):
+    """Device ms of what the twin's path runs and the bare step does not,
+    in turns with events: the fused max-pool's forward and backward at
+    the stem's output against the bare step's ``max_pool_same``, and the
+    crop/flip of one batch (its draw included); their sum beside each
+    arm's step under the ``Trainer`` minus its bare step."""
+    from chainermn_tpu_torch.models.resnet import max_pool_same
+    from chainermn_tpu_torch.ops import max_pool_fused, random_crop_flip
+    from chainermn_tpu_torch.optimizers import augment_generator
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = RESNET_SIZE // 2
+    # The stem's output: NHWC memory, which the bare step sees as an NCHW
+    # channels_last view.
+    x = torch.randn(RESNET_BATCH, h, h, 64, device=dev, generator=g,
+                    dtype=torch.bfloat16).requires_grad_()
+    dy = torch.randn(RESNET_BATCH, h // 2, h // 2, 64, device=dev,
+                     generator=g, dtype=torch.bfloat16)
+    images = torch.rand(RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3,
+                        device=dev, generator=g)
+    labels = torch.zeros(RESNET_BATCH, dtype=torch.long, device=dev)
+    augment = random_crop_flip(padding=4)
+
+    def fused():
+        max_pool_fused(x, (3, 3), (2, 2), "SAME").backward(dy)
+
+    def plain():
+        max_pool_same(x.permute(0, 3, 1, 2), 3, 2).backward(
+            dy.permute(0, 3, 1, 2))
+
+    def crop_flip(step):
+        augment(augment_generator(seed, step, 0, dev), (images, labels))
+
+    ops = {"maxpool_fused": fused, "maxpool_plain": plain,
+           "crop_flip": crop_flip}
+    times = {k: [] for k in ops}
+    for i in range(reps + 1):
+        for k, fn in ops.items():
+            torch.cuda.synchronize()
+            a = _event()
+            fn(i) if k == "crop_flip" else fn()
+            b = _event()
+            b.synchronize()
+            x.grad = None
+            if i:  # the first turn warms
+                times[k].append(a.elapsed_time(b))
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    added = med["maxpool_fused"] - med["maxpool_plain"] + med["crop_flip"]
+    row = {"phase": "imagenet_trainer_path_extras", "card": card,
+           "stem_output": [RESNET_BATCH, h, h, 64], "reps": reps,
+           **{f"{k}_ms": v for k, v in med.items()},
+           **{f"{k}_ms_runs": sorted(v) for k, v in times.items()},
+           "added_ms": added,
+           "trainer_minus_bare_ms": {
+               arm: r["step_ms_median"] - r["bare_step_ms"]
+               for arm, r in rows.items() if r["bare_step_ms"]}}
+    emit(row)
+    check(all(math.isfinite(v) and v > 0 for v in med.values()),
+          f"imagenet_trainer_path_extras: times {med}")
+    return row
+
+
+def phase_imagenet_trainer(cf, dev, card, seed, bare):
+    torch.backends.cudnn.benchmark = True
+    try:
+        rows = {f"{bn}/{c1}": imagenet_arm(cf, dev, card, seed, bn, c1,
+                                           bare.get(f"{bn}/{c1}"))
+                for bn, c1 in (("sync", "none"), ("frozen", "pallas"))}
+        imagenet_path_extras(dev, card, seed, rows)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    return rows
+
+
+#: the wrong-mask control of ``lm_eval``: the plain attention with a
+#: sliding window where the LM is causal over its whole length.
+LM_EVAL_CONTROL_WINDOW = 256
+#: ``lm_eval``'s limit on the largest relative difference between the
+#: flash and the plain evaluation's per-row cross-entropy sums.  On an
+#: H100 (seeds 0-2, 32 rows each) the flash rows differ by at most
+#: 3.8e-5-6.0e-5, and the wrong-mask control's by 2.4e-3-3.3e-3: the
+#: limit sits 5x above the one and 8x below the other.
+LM_EVAL_ROW_RTOL = 3e-4
+
+
+def phase_lm_eval(fa, dev, card, seed, val_rows=32, batch=LM_BATCH):
+    """``train_lm --eval``'s evaluator (its metric and finalize) at the LM
+    bench's geometry with flash attention: K1 launches per val batch, and
+    each val row's cross-entropy sum, as the evaluator's metric computes
+    it, against the same parameters evaluated with the plain attention;
+    a plain evaluation with a wrong mask (a sliding window) is the
+    control that the limit must tell apart."""
+    import gc
+
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.datasets import ArrayDataset
+    from chainermn_tpu_torch.examples.train_lm import (
+        lm_eval_finalize,
+        lm_eval_metric,
+    )
+    from chainermn_tpu_torch.extensions import (
+        Evaluator,
+        create_multi_node_evaluator,
+    )
+    from chainermn_tpu_torch.iterators import SerialIterator
+    from chainermn_tpu_torch.models import TransformerLM
+
+    comm = create_communicator("xla", device=dev)
+    rng = np.random.RandomState(seed + 11)
+    toks = rng.randint(0, LM["vocab"], size=(val_rows, LM["max_len"] + 1))
+    val = ArrayDataset(toks[:, :-1].astype(np.int32),
+                       toks[:, 1:].astype(np.int32))
+    out, rows = {}, {}
+    state = None
+    for arm, impl, window in (("flash", "flash", 0), ("plain", "xla", 0),
+                              ("control", "xla", LM_EVAL_CONTROL_WINDOW)):
+        model = TransformerLM(**LM, attention=impl, window=window,
+                              device=dev, seed=seed)
+        if state is None:
+            state = model.state_dict()
+        else:
+            model.load_state_dict(state)
+        model.eval()
+        metric, kept = lm_eval_metric(model), []
+
+        def recording(m, b, metric=metric, kept=kept):
+            got = metric(m, b)
+            kept.append(got["ce_sum"])
+            return got
+
+        ev = create_multi_node_evaluator(Evaluator(
+            lambda: SerialIterator(val, batch, repeat=False, shuffle=False),
+            recording, comm, finalize=lm_eval_finalize), comm)
+        ev.evaluate(model)  # warm
+        torch.cuda.synchronize()
+        kept.clear()
+        reset_flash(fa)
+        t0 = time.perf_counter()
+        scores = ev.evaluate(model)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / ev.batches
+        rows[arm] = torch.cat(kept).double().cpu()
+        out[arm] = dict(val_ppl=scores["val_ppl"],
+                        val_loss=math.log(scores["val_ppl"]),
+                        val_tokens=scores["val_tokens"], batches=ev.batches,
+                        ms_per_batch=ms, launches=flash_launches(fa))
+        del model, ev, kept
+        gc.collect()
+        torch.cuda.empty_cache()
+    flash, plain, control = out["flash"], out["plain"], out["control"]
+    per_batch = flash["launches"]["flash_attention_fwd"] / flash["batches"]
+
+    def row_gap(arm):
+        d = (rows[arm] - rows["plain"]).abs() / rows["plain"].abs()
+        return float(d.max())
+
+    gap, control_gap = row_gap("flash"), row_gap("control")
+    emit({"phase": "lm_eval", "card": card, "rows": val_rows, "batch": batch,
+          "seq_len": LM["max_len"], "flash": flash, "plain": plain,
+          "control": {**control, "window": LM_EVAL_CONTROL_WINDOW},
+          "k1_launches_per_val_batch": per_batch,
+          "row_ce_sum_max_rel_diff": gap,
+          "control_row_ce_sum_max_rel_diff": control_gap,
+          "control_row_ce_sum_min_rel_diff": float(
+              ((rows["control"] - rows["plain"]).abs()
+               / rows["plain"].abs()).min()),
+          "val_loss_rel_diff": abs(flash["val_loss"] - plain["val_loss"])
+          / abs(plain["val_loss"]),
+          "tolerance": {"row_rtol": LM_EVAL_ROW_RTOL}})
+    check(per_batch == LM["n_layers"]
+          and flash["launches"]["flash_attention_bwd_dkv"] == 0
+          and flash["launches"]["flash_attention_bwd_dq"] == 0,
+          f"lm_eval: flash launches {flash['launches']} over "
+          f"{flash['batches']} val batches, expected {LM['n_layers']} K1 "
+          "per batch and no backward kernel")
+    check(all(v == 0 for a in ("plain", "control")
+              for v in out[a]["launches"].values()),
+          "lm_eval: a plain evaluation launched a flash kernel")
+    check(all(math.isfinite(out[a]["val_loss"]) for a in out)
+          and rows["flash"].shape == (val_rows,),
+          f"lm_eval: val losses {[out[a]['val_loss'] for a in out]}, "
+          f"{tuple(rows['flash'].shape)} rows")
+    check(gap <= LM_EVAL_ROW_RTOL < control_gap,
+          f"lm_eval: per-row cross-entropy sums differ from the plain "
+          f"evaluation's by up to {gap} relative (limit "
+          f"{LM_EVAL_ROW_RTOL}); the wrong-mask control by {control_gap}")
+    return flash
 
 
 # ------------------------------------------------------------------ SASS
@@ -3659,7 +4226,6 @@ def main() -> int:
     phase_flash_sass(_kernels)
     phase_conv_sass(_kernels)
     phase_decode_sass(_kernels)
-
     # The block-table width the serving phase's engine will have.
     _, mb = engine_geometry(draw_requests(
         np.random.RandomState(args.seed), 16, FULL["vocab"]))
@@ -3690,9 +4256,17 @@ def main() -> int:
     errs["matmul_affine_fwd"] = phase_conv_parity(cf, dev, args.seed)
     # K6's row holds the sums over the 36 launches of one training step.
     timing["matmul_affine_fwd"] = phase_conv_timing(cf, dev, args.seed)
-    resnet = phase_resnet(cf, dev, smi, args.seed)
+    resnet_arms = phase_resnet(cf, dev, smi, args.seed)
+    resnet = resnet_arms["frozen/pallas"]
     phase_resnet_agreement(cf, dev, args.seed)
     phase_train_imagenet_example()
+    # The training loop (Trainer, extensions, prefetching, checkpoints).
+    phase_mnist_trainer(dev, smi, args.seed)
+    reset_flash(fa)
+    imagenet = phase_imagenet_trainer(
+        cf, dev, smi, args.seed,
+        {k: a["step_ms_median"] for k, a in resnet_arms.items()})
+    lm_eval = phase_lm_eval(fa, dev, smi, args.seed)
 
     launches = {"paged_decode_attention":
                 serve["launches"]["paged_decode_attention"],
@@ -3712,6 +4286,17 @@ def main() -> int:
         by_phase[k] = {"training_per_step": train["launches_per_step"][k],
                        "moe_training_per_step":
                        moe_train["launches_per_step"][k]}
+    # The evaluator's forward: K1 alone, per val batch and in all.
+    by_phase["flash_attention_fwd"].update(
+        lm_eval=lm_eval["launches"]["flash_attention_fwd"],
+        lm_eval_per_val_batch=lm_eval["launches"]["flash_attention_fwd"]
+        / lm_eval["batches"])
+    pallas = imagenet["frozen/pallas"]
+    by_phase["matmul_affine_fwd"] = {
+        "resnet_per_step": resnet["launches_per_step"],
+        "imagenet_trainer": pallas["k6_launches_epoch1"],
+        "imagenet_trainer_steps": pallas["training_steps_epoch1"],
+        "imagenet_trainer_eval_batches": pallas["eval_batches"]}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": KERNELS[k], "launches": launches[k],

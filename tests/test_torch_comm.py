@@ -82,6 +82,16 @@ def test_one_rank_collectives():
         comm.allreduce(x, op="xor")
 
 
+def test_one_rank_object_plane():
+    comm = create_communicator("xla", device="cpu")
+    assert comm.allgather_obj({"a": [1, 2]}) == [{"a": [1, 2]}]
+    assert comm.gather_obj("x") == ["x"]
+    assert comm.allreduce_obj({"loss": 2.5, "n": (3, 4)}, op="mean") == \
+        {"loss": 2.5, "n": (3, 4)}
+    with pytest.raises(ValueError, match="unknown op"):
+        comm.allreduce_obj(1.0, op="xor")
+
+
 def test_wire_dtype_rounds_the_gradient_once():
     comm = create_communicator("pure_nccl", device="cpu",
                                allreduce_grad_dtype=torch.bfloat16)
@@ -128,13 +138,17 @@ WORKER = textwrap.dedent("""
     p = torch.nn.Parameter(torch.zeros(3))
     p.grad = torch.full((3,), float(r + 1))
     comm.allreduce_grad([p])
+    objs = {{"all": comm.allgather_obj({{"r": r}}),
+            "gather": comm.gather_obj(r * 10, root=1),
+            "sum": comm.allreduce_obj({{"a": r + 1.0, "b": [r, 2 * r]}}),
+            "max": comm.allreduce_obj(np.array([r, -r]), op="max").tolist()}}
     # Each rank holds its half of every global batch; rank 1 starts from
     # other weights, which opt.init's broadcast must overwrite.
     halves = [tuple(a[r * 4:(r + 1) * 4] for a in b)
               for b in t._batches(8)]
     losses, params = t._run(comm, 5 + r, halves)
     np.savez({out!r} + f"/rank{{r}}.npz", **params)
-    json.dump({{"grad": p.grad.tolist(), "losses": losses}},
+    json.dump({{"grad": p.grad.tolist(), "losses": losses, "objs": objs}},
               open({out!r} + f"/rank{{r}}.json", "w"))
 """)
 
@@ -163,6 +177,10 @@ def test_two_gloo_ranks_equal_one_rank_on_the_whole_batch(tmp_path):
     for r in range(2):
         info = json.loads((tmp_path / f"rank{r}.json").read_text())
         assert info["grad"] == [1.5, 1.5, 1.5], "allreduce_grad is the mean"
+        assert info["objs"] == {"all": [{"r": 0}, {"r": 1}],
+                                "gather": [0, 10] if r == 1 else None,
+                                "sum": {"a": 3.0, "b": [1, 2]},
+                                "max": [1, 0]}
         np.testing.assert_allclose(info["losses"], want_losses, rtol=1e-5)
         got = np.load(tmp_path / f"rank{r}.npz")
         for n in want:

@@ -6,10 +6,11 @@ drain on scale-down (slots handed off over the migration path, or, when
 the handoff frame drops, requeued for recompute); the autoscaler's
 decisions, hysteresis, cooldown and flaps, on a fixed clock and on one
 stepped clock fed to both packages; the rolling deploy (new weights: a
-second Flax init carried across with ``params_from_flax``, where the
-JAX package's own test loads them through its checkpointer), its pause
-on a death and its stall watchdog; the env knobs; and the chaos
-harness's elastic schedules.  Tokens by the greedy divergence structure.
+second Flax init carried across with ``params_from_flax``, and the same
+weights round-tripped through each package's multi-node checkpointer, as
+the JAX package's own test loads them), its pause on a death and its
+stall watchdog; the env knobs; and the chaos harness's elastic
+schedules.  Tokens by the greedy divergence structure.
 
 On the port alone: a deregistered or rolled-out engine releases its
 device state, and the autoscaler publishes through no-op instruments
@@ -346,6 +347,61 @@ def test_rolling_deploy_new_weights_zero_loss_matches_jax(pkgs, models,
     assert got["replaced"] == [0, 1] and not got["paused"]
     assert got["report"]["holds"] and got["new"] == [True, True]
     assert set(got["compiles"]) <= {0, 1} and got["states"] == ["live"] * 2
+    assert released == [True, True]
+
+
+def test_rolling_deploy_checkpointed_params_zero_loss_matches_jax(
+        pkgs, models, prompts, tmp_path):
+    """The twin of the JAX package's
+    ``test_rolling_deploy_checkpointed_params_zero_loss``: the port's
+    rollout loads what its checkpointer restored (a model of other weights
+    restored through ``create_multi_node_checkpointer(...).maybe_load``,
+    equal byte for byte to the saved one); the JAX rollout takes the same
+    weights (its own test round-trips them through orbax)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.optimizers import (
+        create_multi_node_optimizer,
+        sgd,
+    )
+    from chainermn_tpu_torch.utils import params_from_flax
+    from torch_fleet_common import KW
+
+    (jm, _, _), _ = models
+    new = jax.jit(jm.init)(jax.random.PRNGKey(1),
+                           jnp.zeros((1, 8), jnp.int32))["params"]
+    new = jax.tree_util.tree_map(np.asarray, new)
+    tcomm = create_communicator("xla", device="cpu")
+
+    def lm(seed):
+        return TransformerLM(**KW, dtype=torch.float32,
+                             decode_attention="fused", device="cpu",
+                             seed=seed)
+
+    src = lm(0)
+    src.load_state_dict(params_from_flax(new, device="cpu"))
+    topt = create_multi_node_optimizer(sgd(0.1), tcomm)
+    create_multi_node_checkpointer("deploy", tcomm, path=str(tmp_path),
+                                   async_save=False).save(topt.init(src))
+    dst = lm(7)
+    state, _ = create_multi_node_checkpointer(
+        "deploy", tcomm, path=str(tmp_path)).maybe_load(topt.init(dst))
+    for n, t in state.model.state_dict().items():
+        assert torch.equal(t, src.state_dict()[n]), n
+    jax_pkg, port_pkg = pkgs
+    ref = rollout_scenario(jax_pkg, prompts, new)
+    got = rollout_scenario(port_pkg, prompts, state.model)
+    released = got.pop("_released")
+    ref.pop("_released")
+    assert_same(got, ref)
+    assert got["replaced"] == [0, 1] and not got["paused"]
+    assert got["report"]["holds"] and got["new"] == [True, True]
     assert released == [True, True]
 
 

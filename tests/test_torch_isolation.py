@@ -116,3 +116,35 @@ def test_model_and_engine_devices_must_agree():
                           d_ff=64, max_len=16, device="cpu")
     with pytest.raises(ValueError, match="parameters are on"):
         DecodeEngine(model, capacity=2, num_blocks=4, device="meta")
+
+
+def test_native_sources_are_the_ports_own():
+    """The port builds only sources inside its package: the CUDA kernels
+    from ``csrc/`` and the batch loader from its copy of the JAX
+    package's ``_native/dataloader.cpp``, into its own ``_build``; none
+    of them includes anything of the JAX package's tree."""
+    import re
+
+    from chainermn_tpu_torch import native
+    from chainermn_tpu_torch.ops import _kernels
+
+    sources = [native.SOURCE, *sorted(_kernels.CSRC_DIR.glob("*.c*"))]
+    assert native.SOURCE.read_bytes() != b""
+    for src in sources:
+        assert PKG in src.resolve().parents, src
+        for inc in re.findall(r'#\s*include\s+"([^"]+)"', src.read_text()):
+            assert (src.parent / inc).resolve().is_relative_to(PKG), inc
+    assert native.library_path().parent == PKG / "_build"
+    assert _kernels.BUILD_DIR == PKG / "_build"
+
+
+def test_training_entry_points_of_the_loop_raise_without_cuda(no_cuda,
+                                                               monkeypatch):
+    from chainermn_tpu_torch.examples import train_mnist
+    from chainermn_tpu_torch.models import MLP
+
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MLP()
+    with pytest.raises(RuntimeError, match="create_communicator"):
+        train_mnist.main([])

@@ -137,12 +137,15 @@ def port_pkg(models):
     (_, _, tm), (_, _, td) = models
 
     def engine(draft=False, params=None, **kw):
-        """``params`` (Flax parameters) builds the engine over a new
-        model carrying them, as a deploy of new weights would."""
+        """``params`` (Flax parameters, or a model already carrying new
+        weights) builds the engine over a new model carrying them, as a
+        deploy of new weights would."""
         extra = (dict(draft_model=td, spec_k=kw.pop("spec_k", 2))
                  if draft else {})
         model = tm
-        if params is not None:
+        if isinstance(params, torch.nn.Module):
+            model = params
+        elif params is not None:
             from chainermn_tpu_torch.models import TransformerLM
             from chainermn_tpu_torch.utils import params_from_flax
 
