@@ -8,6 +8,13 @@ every gradient goes into one flat bucket in the wire dtype, one
 ``all_reduce`` sums it, and each gradient gets its slice back, cast to its
 own dtype and scaled by ``1 / size``.  The collective runs even on one
 rank, so it is on the path the training step takes.
+
+Capture: :meth:`ProcessGroupCommunicator.allreduce_grad` and
+:meth:`~ProcessGroupCommunicator.allreduce` read nothing back to the host
+and allocate only on the card, so on a CUDA device (NCCL) they can be
+recorded into the captured train step's CUDA graph; a group's NCCL
+communicator must exist before the capture (the step's eager first run
+makes it).  On the CPU (gloo) they run eagerly.
 """
 
 from __future__ import annotations
@@ -106,6 +113,13 @@ class ProcessGroupCommunicator(CommunicatorBase):
         ``prod``), as a new tensor on the communicator's device."""
         if op not in _OPS:
             raise ValueError(f"op={op!r}: expected one of {sorted(_OPS)}")
+        if self.device.type == "cuda" and \
+                torch.cuda.is_current_stream_capturing() and not (
+                    isinstance(x, torch.Tensor) and x.is_cuda):
+            raise ValueError(
+                "allreduce under a CUDA-graph capture needs a tensor on "
+                f"{self.device}: a host value would be copied at capture "
+                "time only")
         t = torch.as_tensor(x, device=self.device).clone()
         dist.all_reduce(t, op=_OPS[op], group=self.group)
         return t / self.size if op == "mean" else t

@@ -100,6 +100,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                     help="synthetic validation-set size (no --val-npz)")
     ap.add_argument("--eval", action="store_true",
                     help="validate every epoch (the multi-node evaluator)")
+    ap.add_argument("--eager-step", action="store_true",
+                    help="run the train step eagerly on the card (by "
+                         "default it is captured as a CUDA graph per "
+                         "batch signature and replayed)")
     ap.add_argument("--double-buffering", action="store_true")
     ap.add_argument("--grad-compression", default=None,
                     choices=("int8_ef",))
@@ -192,7 +196,7 @@ def build(args, comm=None):
     # copies each into pinned memory and to the card on a side stream.
     it = PrefetchIterator(ds, local_bs, shuffle=True, seed=0, copy=False)
     it = create_device_prefetch_iterator(it, comm, depth=2)
-    step_kwargs = {}
+    step_kwargs = {"capture": False} if args.eager_step else {}
     if args.augment:
         from chainermn_tpu_torch.ops import random_crop_flip
 

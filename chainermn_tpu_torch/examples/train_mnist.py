@@ -40,6 +40,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                         "parameters with this decay")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (this rank's card) or 'cpu'")
+    p.add_argument("--eager-step", action="store_true",
+                   help="run the train step eagerly on the card (by "
+                        "default it is captured as a CUDA graph per batch "
+                        "signature and replayed)")
     p.add_argument("--out", default="result/mnist_log.json")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint dir; resumes from the latest snapshot")
@@ -112,7 +116,9 @@ def main(argv: Optional[Sequence[str]] = None):
         comm)
 
     trainer = Trainer(opt, state, classification_loss(model), train_iter,
-                      stop=(args.epoch, "epoch"), has_aux=True)
+                      stop=(args.epoch, "epoch"), has_aux=True,
+                      step_kwargs={"capture": False} if args.eager_step
+                      else None)
     trainer.extend(LogReport(trigger=(1, "epoch"), out=args.out or None))
     history = []
 

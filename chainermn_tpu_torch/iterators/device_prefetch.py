@@ -9,7 +9,9 @@ pinned staging buffers, then to the card by a ``non_blocking`` copy on a
 side stream that records an event; the consumer's stream waits on that
 event (no host sync) and the batch's tensors are marked with
 ``record_stream`` so that the caching allocator does not hand their
-memory out again before the consumer is done with it.  A staging set is
+memory out again before the consumer is done with it.  A captured train
+step copies the batch into its graph's static buffers on that same
+stream, so the copy too waits on the batch's event.  A staging set is
 rewritten only after its previous copy's event has completed.
 
 Over a :class:`~chainermn_tpu_torch.iterators.PrefetchIterator` built with

@@ -15,6 +15,9 @@ through the process group the caller passes as ``axis_name`` (the
 communicator's ``axis_name``; None normalizes over the local batch only).
 The forward saves the input in its own dtype and the per-channel
 statistics only; the fp32 intermediates are recomputed in the backward.
+Both all-reduces and the running-statistics update are device work with
+no host read, so they are recorded into the captured train step's CUDA
+graph with the rest of the step and run at each replay.
 
 Layout: channels on dim 1 (``(N, C)`` or ``(N, C, H, W)``, any memory
 format), PyTorch's convention; the statistics reduce over every other dim.

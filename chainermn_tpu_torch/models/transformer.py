@@ -99,7 +99,16 @@ def _layer_norm(x, ln: nn.LayerNorm, dtype):
 
 
 def _is_scalar(pos) -> bool:
+    """One position for the whole chunk: a Python int or a 0-d tensor.
+    A 0-d tensor stays on its device (a CUDA graph replays it with new
+    contents); only a ``(B,)`` vector gives each row its own position."""
     return not isinstance(pos, torch.Tensor) or pos.dim() == 0
+
+
+def _host_int(pos):
+    """``pos`` as a Python int when it is one (or a numpy integer), else
+    None: a tensor position is never read back to the host."""
+    return None if isinstance(pos, torch.Tensor) else int(pos)
 
 
 def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
@@ -227,7 +236,7 @@ class DecoderBlock(nn.Module):
             k = apply_rope(k, tables=rope)
         if cache is None:
             attend = flash_attention if resolve_attention(
-                self.attention, device=q.device) == "flash" \
+                self.attention, T, device=q.device) == "flash" \
                 else reference_attention
             a = attend(q, k, v, causal=True, segment_ids=segment_ids,
                        window=self.window or None)
@@ -310,11 +319,17 @@ class DecoderBlock(nn.Module):
                     f"does) — got T = {T}"
                 )
         ar = torch.arange(T, device=dev)
-        if _is_scalar(decode_pos):
-            p0 = int(decode_pos)
-            q_pos = (p0 + ar)[None].expand(B, T)
+        # ``scalar``: one start position for every row (prefill chunks,
+        # searches); ``p0`` is that start as a host int when the caller
+        # gave one, for slice writes (a 0-d device tensor takes the
+        # indexed writes instead, without a read back).
+        scalar = _is_scalar(decode_pos)
+        p0 = _host_int(decode_pos) if scalar else None
+        if scalar:
+            start = p0 if p0 is not None else \
+                decode_pos.to(device=dev, dtype=torch.long)
+            q_pos = (start + ar)[None].expand(B, T)
         else:
-            p0 = None
             q_pos = decode_pos.to(device=dev, dtype=torch.long)[:, None] + ar
         quant = "k_scale" in cache
         if quant:
@@ -325,7 +340,8 @@ class DecoderBlock(nn.Module):
         if paged:
             return self._decode_paged(q, k_w, v_w, k_sc if quant else None,
                                       v_sc if quant else None, cache,
-                                      q_pos, p0, block_tables, slot_mask)
+                                      q_pos, scalar, block_tables,
+                                      slot_mask)
         kc, vc = cache["k"], cache["v"]
         ks_c = cache.get("k_scale")
         vs_c = cache.get("v_scale")
@@ -394,7 +410,7 @@ class DecoderBlock(nn.Module):
         a = torch.einsum("bkgqt,btkd->bqkgd", p, vc.float())
         return a.reshape(B, T, H, Dh).to(q.dtype)
 
-    def _decode_paged(self, q, k_w, v_w, k_sc, v_sc, cache, q_pos, p0,
+    def _decode_paged(self, q, k_w, v_w, k_sc, v_sc, cache, q_pos, scalar,
                       block_tables, slot_mask):
         B, T, H, Dh = q.shape
         pool_k, pool_v = cache["k"], cache["v"]
@@ -419,7 +435,11 @@ class DecoderBlock(nn.Module):
         if slot_mask is not None:
             valid = torch.where(slot_mask.to(torch.bool), valid,
                                 torch.zeros_like(valid))
-        verify = p0 is None and 1 < T <= MAX_VERIFY_T
+        # Verify chunks (a (B,) position vector, small T: the speculative
+        # round) take the kernel's multi-query mode; prefill chunks (one
+        # start position, a 0-d tensor included) the gathered attention,
+        # as the JAX model decides it (``jnp.ndim(decode_pos) == 1``).
+        verify = not scalar and 1 < T <= MAX_VERIFY_T
         if self.decode_attention == "fused" and not self.window and \
                 (T == 1 or verify):
             a = paged_decode_attention(
@@ -449,10 +469,12 @@ class TransformerLM(nn.Module):
     ``d_model``, ``n_heads``, ``d_ff``, ``max_len`` (the learned position
     table's length), ``dtype`` (compute), ``param_dtype`` (storage),
     ``attention`` (``"flash"``: the flash-attention kernels; ``"xla"``:
-    eager materialized scores; ``"auto"``: flash on a CUDA device, xla on
-    the CPU), ``n_kv_heads`` (0 =
-    ``n_heads``), ``kv_dtype`` (cache storage; ``torch.int8`` stores
-    symmetric-absmax int8 with fp32 scales; None = ``dtype``), ``window``
+    eager materialized scores; ``"auto"``: on a CUDA device flash from
+    the card's measured crossover length on
+    (:func:`~chainermn_tpu_torch.ops.resolve_attention`), xla on the
+    CPU), ``n_kv_heads`` (0 = ``n_heads``), ``kv_dtype`` (cache storage;
+    ``torch.int8`` stores symmetric-absmax int8 with fp32 scales; None =
+    ``dtype``), ``window``
     (sliding-window size, 0 = full), ``decode_attention`` (``"einsum"`` or
     ``"fused"``), ``pos_enc`` (``"learned"`` or ``"rope"``), ``remat``
     (recompute each block in the backward of a training forward),
@@ -601,7 +623,10 @@ class TransformerLM(nn.Module):
         if cache is not None:
             segment_ids = None
             if _is_scalar(decode_pos):
-                pos_arr = int(decode_pos) + torch.arange(T, device=dev)
+                start = _host_int(decode_pos)
+                if start is None:
+                    start = decode_pos.to(device=dev, dtype=torch.long)
+                pos_arr = start + torch.arange(T, device=dev)
             else:
                 pos_arr = decode_pos.to(device=dev, dtype=torch.long)[:, None] \
                     + torch.arange(T, device=dev)
@@ -613,16 +638,16 @@ class TransformerLM(nn.Module):
             pos_arr = torch.arange(T, device=dev)
         rope = None
         if self.pos_enc == "learned":
+            if cache is not None:
+                # Decode positions past the table clamp to its last row,
+                # as the JAX model's gather does (speculative rounds run
+                # finished rows on into their headroom, a prefill chunk's
+                # padding may run past it; their outputs unread); on the
+                # card an index past the table would be a device-side
+                # assert.
+                pos_arr = pos_arr.clamp_max(self.max_len - 1)
             if pos_arr.dim() == 1:
                 h = h + self.pos[pos_arr][None].to(self.dtype)
-            elif cache is not None:
-                # Per-row decode positions past the table clamp to its
-                # last row, as the JAX model's gather does (speculative
-                # rounds run finished rows on into their headroom, their
-                # outputs unread); on the card an index past the table
-                # would be a device-side assert.
-                h = h + self.pos[pos_arr.clamp_max(self.max_len - 1)] \
-                    .to(self.dtype)
             else:
                 h = h + self.pos[pos_arr].to(self.dtype)
         else:
@@ -634,8 +659,11 @@ class TransformerLM(nn.Module):
                         block_tables=block_tables, slot_mask=slot_mask,
                         rolling=rolling)
             elif remat:
+                # No RNG state to keep (the block draws none), and
+                # reading the card's generator state is refused inside a
+                # CUDA-graph capture of the train step.
                 h = checkpoint(blk, h, rope=rope, segment_ids=segment_ids,
-                               use_reentrant=False)
+                               use_reentrant=False, preserve_rng_state=False)
             else:
                 h = blk(h, rope=rope, segment_ids=segment_ids)
         h = _layer_norm(h, self.ln_f, self.dtype)

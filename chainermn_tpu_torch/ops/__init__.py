@@ -32,6 +32,8 @@ from chainermn_tpu_torch.ops.decode_attention import (
     paged_decode_attention_reference,
 )
 from chainermn_tpu_torch.ops.flash_attention import (
+    FLASH_MIN_SEQ,
+    FLASH_MIN_SEQ_NONCAUSAL,
     FlashAttentionFunction,
     flash_attention,
     flash_attention_bwd_dkv,
@@ -66,6 +68,8 @@ __all__ = [
     "fused_decode_attention_reference",
     "paged_decode_attention",
     "paged_decode_attention_reference",
+    "FLASH_MIN_SEQ",
+    "FLASH_MIN_SEQ_NONCAUSAL",
     "FlashAttentionFunction",
     "flash_attention",
     "flash_attention_bwd_dkv",

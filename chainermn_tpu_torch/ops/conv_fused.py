@@ -10,7 +10,8 @@ conv → frozen BN → ReLU is one pass with an epilogue: fp32 accumulation,
   in CUDA C++ (``chainermn_tpu_torch/csrc/conv_fused.cu``; its header says
   what bounds it and how the design answers that).  CPU tensors run the
   plain version; CUDA tensors launch the kernel or raise.  Launches are
-  counted in ``matmul_affine_fwd.launches``.  The bf16 kernel reads and
+  counted in ``matmul_affine_fwd.launches``, launches recorded into a CUDA
+  graph under capture in ``.captured``.  The bf16 kernel reads and
   writes through TMA; :func:`_tma_operands` decides which inputs it takes
   as they are and which it gets as aligned copies.
 * :func:`matmul_affine_reference` -- the plain version, the JAX package's
@@ -167,11 +168,15 @@ def matmul_affine_fwd(x2d, w, scale, bias, relu: bool = True):
         msg = _lib().cmn_conv_fused_error_string(rc).decode()
         raise RuntimeError(f"matmul_affine kernel launch failed: CUDA error "
                            f"{rc} ({msg})")
-    matmul_affine_fwd.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        matmul_affine_fwd.captured += 1
+    else:
+        matmul_affine_fwd.launches += 1
     return out if width == C else out[:, :C].contiguous()
 
 
 matmul_affine_fwd.launches = 0
+matmul_affine_fwd.captured = 0
 
 
 # ------------------------------------------------------------- autograd

@@ -24,12 +24,14 @@ Each wrapper validates its inputs, then runs the plain version for tensors
 on the CPU or launches its kernel for tensors on a CUDA device.  There is
 no fallback: a CUDA tensor the kernel does not take raises.  Each counts
 its launches in a plain integer attribute (``flash_attention_fwd.launches``
-and so on).  Inputs are read through their strides when the head dim is
-contiguous and every other stride and the base are positive multiples of
-16 bytes (the bf16 forward and dK/dV kernels load through TMA tensor maps
-built from those strides; a map the driver refuses raises); otherwise the
-wrapper makes a contiguous copy (the model's fused ``qkv`` views need
-none).
+and so on); a launch recorded into a CUDA graph under capture (the
+captured train step) counts in ``.captured`` instead, and runs only when
+the graph is replayed, without its wrapper.  Inputs are read through
+their strides when the head dim is contiguous and every other stride and
+the base are positive multiples of 16 bytes (the bf16 forward and dK/dV
+kernels load through TMA tensor maps built from those strides; a map the
+driver refuses raises); otherwise the wrapper makes a contiguous copy
+(the model's fused ``qkv`` views need none).
 
 :class:`FlashAttentionFunction` ties them together with the reference's
 custom VJP: ``delta = rowsum(dO * O) - dlse`` in PyTorch, then K2 and K3.
@@ -55,6 +57,16 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD, _DKV, _DQ = 0, 1, 2
 
 _lib_cache = {}
+
+
+def _count(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: ``launches`` counts launches
+    that run now, ``captured`` launches recorded into a CUDA graph being
+    captured (they run at each replay of that graph)."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
 
 
 def _lib():
@@ -268,11 +280,12 @@ def flash_attention_fwd(q, k, v, seg_q=None, seg_kv=None, causal=False,
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     _launch(_FWD, q, k, v, None, None, None, seg_q, seg_kv, o, None, lse,
             causal, window)
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd)
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.captured = 0
 
 
 def _check_bwd(q, do, lse, delta):
@@ -316,11 +329,12 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, seg_q=None,
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch(_DKV, q, k, v, do, lse, delta, seg_q, seg_kv, dk, dv, None,
             causal, window)
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv)
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.captured = 0
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, seg_q=None, seg_kv=None,
@@ -341,11 +355,12 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, seg_q=None, seg_kv=None,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(_DQ, q, k, v, do, lse, delta, seg_q, seg_kv, dq, None, None,
             causal, window)
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq)
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.captured = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -471,12 +486,33 @@ def _reference_attention_lse(q, k, v, causal=False, segment_ids=None,
                                          window)
 
 
-def resolve_attention(impl: str, device=None) -> str:
-    """``"flash"``/``"xla"`` pass through; ``"auto"`` is ``"flash"`` on a
-    CUDA device and ``"xla"`` (the eager materialized-score path) on the
-    CPU, as the reference picks ``"xla"`` off-TPU.  The TPU's measured
-    crossover lengths do not carry over, and an H100 crossover is not
-    measured yet, so the sequence length does not enter the choice."""
+#: The flash-vs-eager crossover on the H100 (``chip_smoke.py``'s
+#: ``flash_crossover`` phase: K1-K3 forward + backward against the eager
+#: ``"xla"`` path at the LM's widths, 12 heads, Dh 64, bf16, batch 16384 /
+#: T, T in {128, ..., 4096}): ``"auto"`` takes flash from this length on
+#: for causal, windowed, segment-masked and cross attention.  On an H100
+#: 80GB HBM3 at 700 W flash won at every measured length, ~6.7x faster at
+#: T 128 and ~46x at T 4096 (causal), so the constant is the shortest
+#: length measured; below it ``auto`` keeps the eager path.  The TPU's
+#: crossovers (1024 / 196) do not carry over.
+FLASH_MIN_SEQ = 128
+
+#: The same crossover for non-causal, unmasked self-attention of one
+#: length (flash ~7.6x faster at T 128, ~31x at T 4096).
+FLASH_MIN_SEQ_NONCAUSAL = 128
+
+
+def resolve_attention(impl: str, *lengths: int, causal: bool = True,
+                      device=None) -> str:
+    """The reference's ``resolve_attention`` for the port:
+    ``"flash"``/``"xla"`` pass through; ``"auto"`` is ``"xla"`` (the
+    eager materialized-score path) on the CPU, as the reference picks
+    ``"xla"`` off-TPU, and on a CUDA device ``"flash"`` when every length
+    in ``lengths`` reaches the card's measured crossover
+    (:data:`FLASH_MIN_SEQ`, or :data:`FLASH_MIN_SEQ_NONCAUSAL` for
+    ``causal=False`` with a single length), else ``"xla"``.  ``device``
+    None means a CUDA device when one exists.  The kernels take any
+    length, so no tiling rule enters the choice."""
     if impl not in ("flash", "xla", "auto"):
         raise ValueError(
             f"attention={impl!r}: expected 'flash', 'xla' or 'auto'")
@@ -486,4 +522,8 @@ def resolve_attention(impl: str, device=None) -> str:
         on_cuda = torch.cuda.is_available()
     else:
         on_cuda = torch.device(device).type == "cuda"
-    return "flash" if on_cuda else "xla"
+    if not on_cuda:
+        return "xla"
+    min_seq = (FLASH_MIN_SEQ_NONCAUSAL if not causal and len(lengths) == 1
+               else FLASH_MIN_SEQ)
+    return "flash" if all(int(n) >= min_seq for n in lengths) else "xla"

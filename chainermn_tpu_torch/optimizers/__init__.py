@@ -3,9 +3,28 @@
 
 The reference's hot loop (SURVEY.md §3.2): forward and backward on each
 rank's batch, ``communicator.allreduce_grad``, then the inner optimizer's
-update.  The JAX package compiles that loop into one SPMD program; here
-it runs eagerly, one process per card, with the gradient all-reduce as
-one flat-bucket collective between the backward and the update.
+update.  The JAX package compiles that loop into one SPMD program per
+batch signature; here it runs one process per card, with the gradient
+all-reduce as one flat-bucket collective between the backward and the
+update.
+
+**Captured once per signature** (the JAX package's compile-once
+contract): on a CUDA device the train step, everything from the forward
+to the update (forward and backward over the microbatches, the gradient
+all-reduce or the int8 error-feedback reduction, double buffering, the
+optimizer's update, the EMA and the cross-rank metric means), is captured
+as a CUDA graph per batch signature and replayed after that.  The first
+call of a signature runs the step eagerly (its update is kept: it builds
+the optimizer's state), then two more eager runs on a side stream warm
+up the libraries and the allocator, their effects undone from a snapshot,
+and then the capture.  Each later call copies the batch into the graph's
+static batch buffers and replays.  The watch
+(:mod:`chainermn_tpu_torch.observability.device`) records each capture
+as a ``train_step`` program, with no budget, as the reference declares
+it: an uneven final batch is a legitimate second signature, and its blame
+names the changed argument and axis.  ``capture=False`` runs the same
+step eagerly on the card, an explicit mode for comparisons; on the CPU
+the step always runs eagerly.
 
 The call shape is the JAX package's::
 
@@ -40,11 +59,14 @@ import warnings
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import time
+
 import numpy as np
 import torch
 import torch.nn as nn
 
 from chainermn_tpu_torch.comm.base import CommunicatorBase
+from chainermn_tpu_torch.observability import device as _odevice
 
 __all__ = ["MultiNodeOptimizer", "TrainState", "adamw",
            "augment_generator", "create_multi_node_optimizer", "ema_model",
@@ -68,10 +90,18 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     """``optax.adamw`` as a torch optimizer factory, with optax's defaults
     (its weight decay is 1e-4 where torch's AdamW defaults to 1e-2).  The
     update is the same: decay and the bias-corrected Adam step both from
-    the old parameters, on every parameter (optax's mask is None)."""
-    return functools.partial(torch.optim.AdamW, lr=learning_rate,
-                             betas=(b1, b2), eps=eps,
-                             weight_decay=weight_decay)
+    the old parameters, on every parameter (optax's mask is None).  On a
+    CUDA device the optimizer is built ``capturable`` (its step count
+    lives on the card), so the train step can be captured."""
+
+    def build(params):
+        params = list(params)
+        return torch.optim.AdamW(
+            params, lr=learning_rate, betas=(b1, b2), eps=eps,
+            weight_decay=weight_decay,
+            capturable=any(p.is_cuda for p in params))
+
+    return build
 
 
 @dataclass
@@ -174,12 +204,102 @@ def _microbatches(batch, k: int):
     return _split(batch, k)
 
 
-def _to_device(batch, dev):
+def _map_batch(fn, batch):
+    """``batch`` with every leaf array replaced by ``fn(leaf)``."""
     if isinstance(batch, (tuple, list)):
-        return type(batch)(_to_device(b, dev) for b in batch)
+        return type(batch)(_map_batch(fn, b) for b in batch)
     if isinstance(batch, dict):
-        return {k: _to_device(v, dev) for k, v in batch.items()}
-    return torch.as_tensor(batch, device=dev)
+        return {k: _map_batch(fn, v) for k, v in batch.items()}
+    return fn(batch)
+
+
+def _to_device(batch, dev):
+    return _map_batch(lambda x: torch.as_tensor(x, device=dev), batch)
+
+
+def _leaves(batch, path="batch"):
+    """``(path, leaf)`` of every leaf array of ``batch``, in order."""
+    if isinstance(batch, (tuple, list)):
+        for i, b in enumerate(batch):
+            yield from _leaves(b, f"{path}[{i}]")
+    elif isinstance(batch, dict):
+        for k, v in batch.items():
+            yield from _leaves(v, f"{path}[{k!r}]")
+    else:
+        yield path, batch
+
+
+def _leaf_dtype(x) -> torch.dtype:
+    if isinstance(x, torch.Tensor):
+        return x.dtype
+    return torch.from_numpy(np.asarray(x)[:0]).dtype
+
+
+#: eager runs of a train step on a side stream before its capture (after
+#: the first, kept, eager step of the signature); their effects undone.
+CAPTURE_WARMUP = 2
+
+#: one side stream per device for the warm-ups, shared by every step.
+_SIDE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _side_stream(dev) -> "torch.cuda.Stream":
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _SIDE_STREAMS:
+        _SIDE_STREAMS[key] = torch.cuda.Stream(dev)
+    return _SIDE_STREAMS[key]
+
+
+def _state_tensors(state: "TrainState"):
+    """Every tensor a train step updates in place: parameters, buffers,
+    the optimizer's state and the options' state."""
+    out = [p.data for p in state.model.parameters()]
+    out += list(state.model.buffers())
+    for st in state.optimizer.state.values():
+        out += [v for v in st.values() if isinstance(v, torch.Tensor)]
+    for opt_state in (state.pending_grads, state.ef_residual,
+                      state.ema_params):
+        if opt_state is not None:
+            out += list(opt_state.values())
+    return out
+
+
+def _check_capturable(opt: torch.optim.Optimizer) -> None:
+    for g in opt.param_groups:
+        if not g.get("capturable", True):
+            raise ValueError(
+                f"{type(opt).__name__} was built with capturable=False: "
+                "the captured train step needs its state on the card "
+                "(build it with capturable=True, as adamw() does on a CUDA "
+                "device, or pass make_train_step(..., capture=False))")
+
+
+def _counted_wrappers():
+    """The training path's kernel wrappers, whose launches a captured
+    train step records (each counts a launch made under capture in
+    ``.captured``)."""
+    import importlib
+
+    from chainermn_tpu_torch.ops import conv_fused as _cf
+
+    # The module (``chainermn_tpu_torch.ops`` re-exports a function of the
+    # same name).
+    _fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+
+    return (_fa.flash_attention_fwd, _fa.flash_attention_bwd_dkv,
+            _fa.flash_attention_bwd_dq, _cf.matmul_affine_fwd)
+
+
+class _TrainGraph:
+    """One train step captured for one batch signature: the graph, its
+    static batch buffers, its static metrics and the kernel launches the
+    capture recorded per counted wrapper (each replay runs them again)."""
+
+    def __init__(self, graph, batch, metrics, captured):
+        self.graph = graph
+        self.batch = batch
+        self.metrics = metrics
+        self.captured = captured
 
 
 class MultiNodeOptimizer:
@@ -278,7 +398,8 @@ class MultiNodeOptimizer:
                         stateful: bool = False, accum_steps: int = 1,
                         augment: Optional[Callable] = None,
                         augment_seed: int = 0,
-                        health_check: bool = False) -> Callable:
+                        health_check: bool = False, *,
+                        capture: Optional[bool] = None) -> Callable:
         """``step(state, batch) -> (state, metrics)``.
 
         ``loss_fn(model, batch)`` returns a scalar, or ``(scalar,
@@ -294,7 +415,16 @@ class MultiNodeOptimizer:
         to the model's device first) before any split, with the
         generator of :func:`augment_generator` for ``(augment_seed,
         state.step, rank)``.  ``metrics["loss"]`` and the aux scalars are
-        averaged over ranks and stay device tensors."""
+        averaged over ranks and stay device tensors, one set per step.
+
+        ``capture`` (keyword only; None: on for a model on a CUDA device)
+        captures the step as a CUDA graph per batch signature (see the
+        module docstring); ``capture=False`` runs it eagerly.  A captured
+        step reads the optimizer's hyperparameters at its capture: a
+        changed learning rate is a new signature, captured anew.  The
+        returned function carries ``graphs`` (by signature), ``program``
+        (the watch's ``train_step`` record) and ``release()``, which
+        frees the graphs and their memory."""
         if health_check:
             raise NotImplementedError(
                 "health_check is not ported yet (ROADMAP Queue 1 item 12)")
@@ -304,14 +434,15 @@ class MultiNodeOptimizer:
         dbuf = self.double_buffering
         compress = self.grad_compression is not None
         decay = self.ema_decay
+        prog = _odevice.watch().register("train_step")
+        graphs: Dict[tuple, _TrainGraph] = {}
+        held: Dict[str, nn.Module] = {}
 
-        def step(state: TrainState, batch: Any):
+        def body(state: TrainState, batch: Any) -> dict:
+            """Forward to update on a device batch: the step's device
+            work, the same eagerly and under capture (no host reads; the
+            double-buffering carry keeps its addresses)."""
             model, opt = state.model, state.optimizer
-            if augment is not None:
-                dev = next(model.parameters()).device
-                batch = augment(augment_generator(augment_seed, state.step,
-                                                  comm.rank, dev),
-                                _to_device(batch, dev))
             opt.zero_grad(set_to_none=True)
             loss_sum, aux_sum = None, {}
             for mb in _microbatches(batch, accum_steps):
@@ -333,11 +464,14 @@ class MultiNodeOptimizer:
             if dbuf:
                 # 1-step-stale: apply the previous reduced gradients (real
                 # zero tensors at the first step, which the update applies
-                # as optax applies its zero carry), carry the fresh ones.
-                for n, p in model.named_parameters():
-                    stale = state.pending_grads[n]
-                    state.pending_grads[n] = p.grad.to(stale.dtype)
-                    p.grad = stale.to(p.dtype)
+                # as optax applies its zero carry), carry the fresh ones,
+                # by copies between buffers that keep their addresses.
+                with torch.no_grad():
+                    for n, p in model.named_parameters():
+                        stale = state.pending_grads[n]
+                        fresh = p.grad.to(stale.dtype, copy=True)
+                        p.grad.copy_(stale)
+                        stale.copy_(fresh)
             opt.step()
             if decay is not None:
                 with torch.no_grad():
@@ -348,28 +482,126 @@ class MultiNodeOptimizer:
                                               op="mean")}
             for k, v in aux_sum.items():
                 metrics[k] = comm.allreduce(v / accum_steps, op="mean")
+            return metrics
+
+        def signature(state: TrainState, batch: Any):
+            """The step's signature: each batch leaf's shape and dtype,
+            the optimizer's hyperparameters (a captured step bakes them
+            in) and the model's mode; as a lookup key and as the watch's
+            named arguments."""
+            hyper = repr([{k: v for k, v in g.items() if k != "params"
+                           and isinstance(v, (bool, int, float, tuple))}
+                          for g in state.optimizer.param_groups])
+            mode = "train" if state.model.training else "eval"
+            leaves = list(_leaves(batch))
+            key = (tuple((path, tuple(np.shape(x)), _leaf_dtype(x))
+                         for path, x in leaves), hyper, mode)
+            return key, {**dict(leaves), "optimizer": hyper, "mode": mode}
+
+        def captured_step(state: TrainState, batch: Any, dev) -> dict:
+            key, args = signature(state, batch)
+            g = graphs.get(key)
+            if g is not None:
+                for (_, dst), (_, src) in zip(_leaves(g.batch),
+                                              _leaves(batch)):
+                    dst.copy_(torch.as_tensor(src), non_blocking=True)
+                g.graph.replay()
+                prog.replays += 1
+                # The graph rewrites its metrics at every replay.
+                return {k: v.clone() for k, v in g.metrics.items()}
+            _check_capturable(state.optimizer)
+            t0 = time.perf_counter()
+            static = _map_batch(
+                lambda x: torch.as_tensor(x, device=dev).clone(), batch)
+            # The signature's first step runs eagerly and is kept (it
+            # builds the optimizer's state); then warm-ups from a
+            # snapshot, undone, and the capture, which runs nothing.
+            metrics = body(state, static)
+            live = _state_tensors(state)
+            saved = [t.clone() for t in live]
+            cur = torch.cuda.current_stream(dev)
+            side = _side_stream(dev)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                for _ in range(CAPTURE_WARMUP):
+                    body(state, static)
+            cur.wait_stream(side)
+            with torch.no_grad():
+                for t, v in zip(live, saved):
+                    t.copy_(v)
+            del saved
+            wrappers = _counted_wrappers()
+            before = [w.captured for w in wrappers]
+            graph = torch.cuda.CUDAGraph()
+            state.optimizer.zero_grad(set_to_none=True)
+            with torch.cuda.graph(graph):
+                out = body(state, static)
+            graphs[key] = _TrainGraph(
+                graph, static, out,
+                {w.__name__: w.captured - b
+                 for w, b in zip(wrappers, before)})
+            held["model"] = state.model
+            torch.cuda.synchronize(dev)
+            _odevice.watch().record(prog, key, args,
+                                    time.perf_counter() - t0, "capture")
+            return metrics
+
+        def step(state: TrainState, batch: Any):
+            dev = next(state.model.parameters()).device
+            if augment is not None:
+                # Before the graph: the generator is seeded per step on
+                # the host, which a capture would bake in.
+                batch = augment(augment_generator(augment_seed, state.step,
+                                                  comm.rank, dev),
+                                _to_device(batch, dev))
+            on = dev.type == "cuda" if capture is None else bool(capture)
+            if on and dev.type != "cuda":
+                raise ValueError(
+                    f"capture=True needs a model on a CUDA device, not "
+                    f"{dev}")
+            if on:
+                metrics = captured_step(state, batch, dev)
+            else:
+                key, args = signature(state, batch)
+                t0 = time.perf_counter()
+                metrics = body(state, batch)
+                if not prog.known(key):
+                    _odevice.watch().record(
+                        prog, key, args, time.perf_counter() - t0, "eager")
             state.step += 1
             return state, metrics
 
+        def release() -> None:
+            """Free the captured graphs and the gradients that live in
+            their memory pools."""
+            if graphs:
+                torch.cuda.synchronize()
+                graphs.clear()
+                held.pop("model").zero_grad(set_to_none=True)
+
+        step.graphs = graphs
+        step.program = prog
+        step.release = release
         return step
 
     # ------------------------------------------------------------ update
     def update(self, state: TrainState, batch: Any, loss_fn: Callable,
                has_aux: bool = False, stateful: bool = False,
                accum_steps: int = 1, augment: Optional[Callable] = None,
-               augment_seed: int = 0) -> Tuple[TrainState, dict]:
+               augment_seed: int = 0, *, capture: Optional[bool] = None
+               ) -> Tuple[TrainState, dict]:
         """Eager-style API mirroring ``_MultiNodeOptimizer.update``: one
         step built per ``(loss_fn, flags)``, keyed by the function object
         itself (holding a reference: an ``id()`` can be recycled), and
         a warning at the 9th variant (a fresh closure per call builds a
         fresh step each time)."""
         key = (loss_fn, has_aux, stateful, accum_steps, augment,
-               augment_seed)
+               augment_seed, capture)
         step = self._step_cache.get(key)
         if step is None:
             step = self._step_cache[key] = self.make_train_step(
                 loss_fn, has_aux, stateful, accum_steps=accum_steps,
-                augment=augment, augment_seed=augment_seed)
+                augment=augment, augment_seed=augment_seed, capture=capture)
             if len(self._step_cache) == 9:
                 warnings.warn(
                     "9+ distinct train-step variants built on one "

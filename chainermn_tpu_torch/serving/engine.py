@@ -31,31 +31,45 @@ Prefill runs one slot's chunk per call, in sizes drawn from a small fixed
 **ladder** (``prefill_chunk`` and its halves down to 8).
 
 **Captured once, replayed** (the JAX engine's compile-once contract): on
-a CUDA device the decode step — the model's forward and the greedy
-``argmax`` — is captured as a CUDA graph the first time it is called
-with a signature (the shapes and dtypes of its control vectors and the
-model's geometry), after two warm-up runs on a side stream that build the
-kernel library, cuBLAS's workspaces and the allocator's blocks.  Every
-later call copies its control vectors into the graph's static device
-buffer (one host-to-device copy) and replays the graph; temperature
-slots then sample from the graph's static logits outside it.  The KV
-pools exist before the capture and the graph writes them in place, so
-their addresses never change; prefill, the copy-on-write copy and the KV
-block reads and writes run eagerly on the same stream between replays.
-A capture that fails raises: the step never quietly runs eagerly on a
-card.  On the CPU the step runs eagerly.
+a CUDA device each hot program is captured as a CUDA graph the first
+time it is called with a signature, after two warm-up runs on a side
+stream that build the kernel library, cuBLAS's workspaces and the
+allocator's blocks, and replayed after that:
+
+* the decode step (:meth:`DecodeEngine.step`): the model's forward and
+  the greedy ``argmax``, one graph per control-vector signature;
+* prefill (:meth:`DecodeEngine.prefill`): one graph per ladder geometry
+  and block-table width.  It runs the target's forward over the chunk
+  (and the draft's, on a speculative engine) from a 0-d device start
+  position, takes the hidden row at the device index ``last_idx`` and
+  applies the fp32 LM head to that row only, as the JAX ``prefill_impl``
+  does.  A prefix-cache hit that starts mid-block changes only the
+  buffer's contents, never the signature;
+* the speculative round (:meth:`DecodeEngine.spec_step`): the ``k + 1``
+  draft steps, the ``(k + 1)``-position verify forward (the paged
+  kernel's multi-query mode), the argmax and the ``cumprod`` acceptance.
+
+Every call copies its control vectors into the graph's static device
+buffer (one host-to-device copy from pinned memory) and replays;
+temperature sampling (and, in a round, the zeroing of sampled slots'
+accepted counts) runs outside the graphs, from their static outputs.  The
+KV pools exist before any capture and the graphs write them in place, so
+their addresses never change; the copy-on-write copy and the KV block
+reads and writes run eagerly on the same stream between replays.  A
+capture that fails raises: no program quietly runs eagerly on a card.
+On the CPU the same function bodies run eagerly.
 
 Every program registers with the process capture watch
 (:mod:`chainermn_tpu_torch.observability.device`) under the JAX engine's
 budgets: ``decode_step`` and ``spec_round`` 1, ``prefill``
 ``len(prefill_ladder)``, ``cow``/``kv_gather``/``kv_put`` 1.  The
-``*_compiles`` properties read it: captures of the decode step on a
-card, distinct input signatures of every program that runs eagerly.
-A second signature records a blame diff naming the changed argument and
-axis.  :attr:`DecodeEngine.decode_replays` counts replays.  A replay
-runs the decode-attention kernels without their wrappers, so their
-``launches`` counters do not move; the kernels count their own runs on
-the card (``ops.decode_attention.kernel_runs``).
+``*_compiles`` properties read it: captures on a card, distinct input
+signatures on the CPU and of the programs that always run eagerly.  A
+second signature records a blame diff naming the changed argument and
+axis.  ``decode_replays``, ``prefill_replays`` and ``spec_replays`` count
+replays.  A replay runs the decode-attention kernels without their
+wrappers, so their ``launches`` counters do not move; the kernels count
+their own runs on the card (``ops.decode_attention.kernel_runs``).
 """
 
 from __future__ import annotations
@@ -116,53 +130,69 @@ def _side_stream(dev) -> "torch.cuda.Stream":
     return _SIDE_STREAMS[key]
 
 
-class _DecodeGraph:
-    """The decode step captured once for one signature: a static int32
-    control buffer (tokens, positions, live mask, block tables) filled by
-    one copy before each replay, and the static logits and greedy tokens
-    the graph writes."""
+def _capture(dev, body):
+    """``body()`` warmed up ``CAPTURE_WARMUP`` times on the shared side
+    stream, then captured once: ``(graph, its static outputs, the kernel
+    launches the capture recorded per counted wrapper)``.  Each replay
+    runs those launches again, and the kernels count the runs on the card
+    (``ops.decode_attention.kernel_runs``)."""
+    side = _side_stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(CAPTURE_WARMUP):
+            body()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    before = [w.captured for w in _COUNTED]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = body()
+    return graph, out, {w.__name__: w.captured - b
+                        for w, b in zip(_COUNTED, before)}
 
-    def __init__(self, engine: "DecodeEngine", S: int, MB: int):
-        dev = engine.device
-        n = S * (3 + MB)
-        self.S = S
+
+#: pinned staging buffers per captured graph: a call fills the next one
+#: while the copies of earlier calls may still be queued behind work on
+#: the card (a prefill chunk that is not a request's last returns without
+#: waiting for the card).
+STAGING = 4
+
+
+class _Graph:
+    """One program captured for one signature over a static int32
+    control buffer, filled from pinned memory by one copy before each
+    replay.  ``fields`` names the buffer's consecutive parts and their
+    lengths; ``body(**views)`` is the program's device work on views of
+    the buffer.  All-zero controls are the warm-ups' inputs: every slot
+    idle and every block-table entry the parking block 0, so warming up
+    writes nothing a request reads.  The pinned buffers go round a ring
+    of ``STAGING``; one is refilled only after its previous copy has run
+    (its event), so a queued copy never reads a later call's values."""
+
+    def __init__(self, dev, fields, body):
+        n = sum(size for _, size in fields)
         self.ctrl = torch.zeros((n,), dtype=torch.int32, device=dev)
-        self.host = torch.zeros((n,), dtype=torch.int32).pin_memory()
-        self.host_np = self.host.numpy()
-        tokens = self.ctrl[:S]
-        pos = self.ctrl[S:2 * S]
-        active = self.ctrl[2 * S:3 * S]
-        tables = self.ctrl[3 * S:].view(S, MB)
+        self.hosts = [torch.zeros((n,), dtype=torch.int32).pin_memory()
+                      for _ in range(STAGING)]
+        self.copied = [torch.cuda.Event() for _ in range(STAGING)]
+        self.next = 0
+        self.slices, views, at = {}, {}, 0
+        for name, size in fields:
+            self.slices[name] = slice(at, at + size)
+            views[name] = self.ctrl[at:at + size]
+            at += size
+        self.graph, self.out, self.captured = _capture(
+            dev, lambda: body(**views))
 
-        def forward():
-            return engine._forward(tokens.long(), pos, tables, active)
-
-        # All-idle warm-up: idle slots write only the parking block 0.
-        side = _side_stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(CAPTURE_WARMUP):
-                forward()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        before = [w.captured for w in _COUNTED]
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.logits, self.greedy = forward()
-        #: kernel launches the capture recorded, per counted wrapper: each
-        #: replay runs them again, and the kernels count those runs on the
-        #: card (``ops.decode_attention.kernel_runs``).
-        self.captured = {
-            w.__name__: w.captured - b for w, b in zip(_COUNTED, before)
-        }
-
-    def replay(self, tokens, pos, active, tables) -> None:
-        S = self.S
-        h = self.host_np
-        h[:S] = tokens
-        h[S:2 * S] = pos
-        h[2 * S:3 * S] = active
-        h[3 * S:] = tables.reshape(-1)
-        self.ctrl.copy_(self.host, non_blocking=True)
+    def replay(self, **values) -> None:
+        i = self.next
+        self.next = (i + 1) % STAGING
+        host, copied = self.hosts[i], self.copied[i]
+        copied.synchronize()  # returns at once if never recorded
+        h = host.numpy()
+        for name, v in values.items():
+            h[self.slices[name]] = np.asarray(v).reshape(-1)
+        self.ctrl.copy_(host, non_blocking=True)
+        copied.record()
         self.graph.replay()
 
 
@@ -313,29 +343,37 @@ class DecodeEngine:
                                 cost_fn=self.decode_cost)
         self._prefill = w.register("prefill",
                                    budget=len(self.prefill_ladder))
-        self._spec = (w.register("spec_round", budget=1)
+        self._spec = (w.register("spec_round", budget=1,
+                                 cost_fn=self.spec_cost)
                       if draft_model is not None else None)
         self._cow = w.register("cow", budget=1)
         self._gather = w.register("kv_gather", budget=1)
         self._put = w.register("kv_put", budget=1)
-        #: captured decode graphs by signature key (CUDA only).
-        self._graphs: Dict[tuple, _DecodeGraph] = {}
+        #: captured graphs by signature key (CUDA only): the decode
+        #: step's, prefill's (one per ladder geometry) and the
+        #: speculative round's.
+        self._graphs: Dict[tuple, _Graph] = {}
+        self._prefill_graphs: Dict[tuple, _Graph] = {}
+        self._spec_graphs: Dict[tuple, _Graph] = {}
         #: set by :meth:`release`: the device state is gone.
         self.released = False
 
     # ----------------------------------------------------------- helpers
     def release(self) -> None:
-        """Free this engine's device state: its captured decode graphs
-        (and with them their memory pools) and every KV pool, target and
-        draft.  The fleet calls it when the engine leaves (a dead,
-        retired or deregistered replica), so the card's memory returns to
-        what the live replicas hold even while the engine object is
-        still referenced.  Host state (allocator, trie, counters) stays
-        readable; any further device call raises."""
+        """Free this engine's device state: its captured graphs (decode,
+        prefill and speculative round, and with them their memory pools)
+        and every KV pool, target and draft.  The fleet calls it when the
+        engine leaves (a dead, retired or deregistered replica), so the
+        card's memory returns to what the live replicas hold even while
+        the engine object is still referenced.  Host state (allocator,
+        trie, counters) stays readable; any further device call
+        raises."""
         if self.released:
             return
         self.sync()
-        self._graphs.clear()
+        for graphs in (self._graphs, self._prefill_graphs,
+                       self._spec_graphs):
+            graphs.clear()
         for layer in self._all_pools():
             layer.clear()
         self.released = True
@@ -363,6 +401,24 @@ class DecodeEngine:
                                             self._geometry},
                                 time.perf_counter() - t0, "eager")
         return out
+
+    def _graph(self, prog, graphs: dict, args: dict, build) -> _Graph:
+        """The graph of ``prog`` for ``args``' signature, captured by
+        ``build()`` on the first call of that signature (recorded with the
+        capture watch), counted as one replay of ``prog``: the caller
+        replays it."""
+        key = tuple(_key_of(v) for v in args.values())
+        g = graphs.get(key)
+        if g is None:
+            t0 = time.perf_counter()
+            g = build()
+            torch.cuda.synchronize(self.device)
+            graphs[key] = g
+            _odevice.watch().record(prog, key, {**args, "model":
+                                                self._geometry},
+                                    time.perf_counter() - t0, "capture")
+        prog.replays += 1
+        return g
 
     def _pick(self, logits: torch.Tensor, slots, positions,
               greedy: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -420,25 +476,44 @@ class DecodeEngine:
                 f"{self.prefill_ladder}, got {chunk.shape}"
             )
         table = np.asarray(table, np.int32)[None]
-        toks = self._up(chunk[None]).long()
-        tbl = self._up(table)
-
-        def run():
-            h, _ = self.model(toks, return_hidden=True, cache=self.pools,
-                              decode_pos=int(p0), block_tables=tbl)
-            if self.draft_model is not None:
-                self.draft_model(toks, return_hidden=True,
-                                 cache=self.draft_pools,
-                                 decode_pos=int(p0), block_tables=tbl)
-            return h
-
-        h = self._run(self._prefill, {"chunk": chunk, "p0": int(p0),
-                                      "table": table}, run)
+        C, MB = chunk.shape[0], table.shape[1]
+        args = {"chunk": chunk, "p0": int(p0), "table": table}
+        if self.device.type == "cuda":
+            g = self._graph(self._prefill, self._prefill_graphs, args,
+                            lambda: _Graph(self.device, (
+                                ("chunk", C), ("p0", 1), ("last", 1),
+                                ("table", MB)), self._prefill_views))
+            g.replay(chunk=chunk, p0=p0, last=max(last_idx, 0), table=table)
+            logits, greedy = g.out
+        else:
+            ctrl = self._up(np.concatenate(
+                [chunk, [p0, max(last_idx, 0)], table[0]]).astype(np.int32))
+            logits, greedy = self._run(
+                self._prefill, args,
+                lambda: self._prefill_views(ctrl[:C], ctrl[C:C + 1],
+                                            ctrl[C + 1:C + 2], ctrl[C + 2:]))
         if last_idx < 0:
             return None
-        # The LM head (fp32) at the sampled position only.
-        logits = self.model.head(h[:, last_idx])
-        return int(self._pick(logits, [slot], [int(p0) + last_idx])[0])
+        return int(self._pick(logits, [slot], [int(p0) + last_idx],
+                              greedy=greedy)[0])
+
+    def _prefill_views(self, chunk, p0, last, table):
+        """Prefill's device work on int32 views of its control buffer:
+        the target's (and the draft's) forward over the chunk from the
+        0-d start position ``p0[0]``, then the fp32 LM head at the
+        in-chunk row ``last[0]`` only.  ``(1, V)`` logits and their
+        greedy token."""
+        toks = chunk.long()[None]
+        tbl = table.view(1, -1)
+        start = p0[0]
+        h, _ = self.model(toks, return_hidden=True, cache=self.pools,
+                          decode_pos=start, block_tables=tbl)
+        if self.draft_model is not None:
+            self.draft_model(toks, return_hidden=True,
+                             cache=self.draft_pools, decode_pos=start,
+                             block_tables=tbl)
+        logits = self.model.head(h.index_select(1, last.long())[:, 0])
+        return logits, torch.argmax(logits, dim=-1)
 
     # ------------------------------------------------------------ decode
     @staticmethod
@@ -446,10 +521,26 @@ class DecodeEngine:
         return (np.asarray(tokens, np.int32), np.asarray(pos, np.int32),
                 np.asarray(tables, np.int32), np.asarray(active, bool))
 
-    def _controls(self, tokens, pos, tables, active):
-        host = self._host(tokens, pos, tables, active)
-        tok, p, tbl, act = (self._up(a) for a in host)
-        return host, (tok.long(), p, tbl, act)
+    _SLOT_ARGS = ("tokens", "pos", "tables", "active")
+
+    def _slot_program(self, prog, graphs: dict, host, body):
+        """``body(tokens, pos, tables, active)`` over the fixed-capacity
+        control vectors ``host``: replayed from its graph for this
+        signature on a card, run eagerly on the CPU (a new signature
+        recorded with the capture watch)."""
+        tokens, pos, tables, active = host
+        args = dict(zip(self._SLOT_ARGS, host))
+        if self.device.type != "cuda":
+            tok, p, tbl, act = (self._up(a) for a in host)
+            return self._run(prog, args,
+                             lambda: body(tok.long(), p, tbl, act))
+        S, MB = tables.shape
+        g = self._graph(prog, graphs, args, lambda: _Graph(self.device, (
+            ("tokens", S), ("pos", S), ("active", S), ("tables", S * MB)),
+            lambda tokens, pos, active, tables: body(
+                tokens.long(), pos, tables.view(S, MB), active)))
+        g.replay(tokens=tokens, pos=pos, active=active, tables=tables)
+        return g.out
 
     def _forward(self, tok, pos, tables, active):
         """The decode step's device work: ``(capacity, V)`` fp32 logits and
@@ -476,36 +567,17 @@ class DecodeEngine:
         and every call replays it.
         """
         self._live()
-        if self.device.type == "cuda":
-            host = self._host(tokens, pos, tables, active)
-            logits, greedy = self._replay(host)
-        else:
-            host, dev_args = self._controls(tokens, pos, tables, active)
-            logits, greedy = self._run(
-                self._step, dict(zip(("tokens", "pos", "tables", "active"),
-                                     host)),
-                lambda: self._forward(*dev_args))
+        host = self._host(tokens, pos, tables, active)
+        logits, greedy = self._replay(host)
         nxt = self._pick(logits, np.arange(self.capacity), host[1],
                          greedy=greedy)
         return nxt.to(torch.int32).cpu().numpy()
 
     def _replay(self, host):
-        tokens, pos, tables, active = host
-        key = tuple(_key_of(v) for v in host)
-        g = self._graphs.get(key)
-        if g is None:
-            t0 = time.perf_counter()
-            g = _DecodeGraph(self, *tables.shape)
-            torch.cuda.synchronize(self.device)
-            self._graphs[key] = g
-            _odevice.watch().record(
-                self._step, key,
-                {"tokens": tokens, "pos": pos, "tables": tables,
-                 "active": active, "model": self._geometry},
-                time.perf_counter() - t0, "capture")
-        g.replay(tokens, pos, active, tables)
-        self._step.replays += 1
-        return g.logits, g.greedy
+        """The decode step over ``host``'s control vectors: its static
+        logits and greedy tokens (a replay on a card)."""
+        return self._slot_program(self._step, self._graphs, host,
+                                  self._forward)
 
     @torch.no_grad()
     def decode_cost(self) -> dict:
@@ -564,39 +636,90 @@ class DecodeEngine:
                 "draft_model/spec_k"
             )
         self._live()
+        host = self._host(tokens, pos, tables, active)
+        toks, n_accept, logits0 = self._slot_program(
+            self._spec, self._spec_graphs, host, self._spec_forward)
+        # Sampling slots sample position 0's logits (the plain step's)
+        # and accept no draft: outside the graph.  One copy to the host.
+        tok0 = self._pick(logits0, np.arange(self.capacity), host[1],
+                          greedy=toks[:, 0])
+        both = torch.cat([tok0[:, None], toks[:, 1:], n_accept[:, None]],
+                         dim=1).to(torch.int32).cpu().numpy()
+        n = both[:, -1].copy()
+        n[self.temp > 0] = 0
+        return both[:, :-1].copy(), n
+
+    def _spec_forward(self, tok, p, tbl, act):
+        """The speculative round's device work: ``k + 1`` draft steps
+        (the last only backfills the final proposal's K/V into the draft
+        pools), one target verify forward over the ``(k + 1)``-position
+        chunk, the greedy argmax and the prefix acceptance.  Returns the
+        round's greedy tokens ``(S, k + 1)``, the accepted draft counts
+        ``(S,)`` and the verify step's position-0 logits ``(S, V)``."""
         k = self.spec_k
-        host, (tok, p, tbl, act) = self._controls(tokens, pos, tables,
-                                                  active)
-
-        def run():
-            # k + 1 draft steps: the last only backfills the final
-            # proposal's K/V into the draft pools.
-            cur, drafts = tok, []
-            for i in range(k + 1):
-                dlogits, _ = self.draft_model(
-                    cur[:, None], cache=self.draft_pools, decode_pos=p + i,
-                    block_tables=tbl, slot_mask=act,
-                )
-                cur = torch.argmax(dlogits[:, 0], dim=-1)
-                drafts.append(cur)
-            chunk = torch.stack([tok] + drafts[:k], dim=1)  # (S, k + 1)
-            logits, _ = self.model(chunk, cache=self.pools, decode_pos=p,
-                                   block_tables=tbl, slot_mask=act)
-            return chunk, logits
-
-        chunk, logits = self._run(
-            self._spec, dict(zip(("tokens", "pos", "tables", "active"),
-                                 host)), run)
+        cur, drafts = tok, []
+        for i in range(k + 1):
+            dlogits, _ = self.draft_model(
+                cur[:, None], cache=self.draft_pools, decode_pos=p + i,
+                block_tables=tbl, slot_mask=act,
+            )
+            cur = torch.argmax(dlogits[:, 0], dim=-1)
+            drafts.append(cur)
+        chunk = torch.stack([tok] + drafts[:k], dim=1)  # (S, k + 1)
+        logits, _ = self.model(chunk, cache=self.pools, decode_pos=p,
+                               block_tables=tbl, slot_mask=act)
         g = torch.argmax(logits, dim=-1)
         agree = (g[:, :k] == chunk[:, 1:]).to(torch.int32)
         n_accept = torch.cumprod(agree, dim=1).sum(dim=1)
-        g[:, 0] = self._pick(logits[:, 0], np.arange(self.capacity),
-                             host[1])
-        n_accept = torch.where(
-            self._up(self.temp) > 0, torch.zeros_like(n_accept), n_accept
-        )
-        return (g.to(torch.int32).cpu().numpy(),
-                n_accept.to(torch.int32).cpu().numpy())
+        return g, n_accept, logits[:, 0]
+
+    @torch.no_grad()
+    def spec_cost(self) -> dict:
+        """The speculative round's cost model for the capture watch's
+        roofline, as :meth:`decode_cost` builds the decode step's: FLOPs
+        counted over one eager all-idle round, every weight of both
+        models read once per forward (``k + 1`` draft steps, one verify),
+        and per attended position the KV bytes each forward reads and,
+        where the paged kernel runs the attention, its FLOPs."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        m, d, S, MB = self.model, self.draft_model, self.capacity, \
+            self.max_blocks
+        k = self.spec_k
+        tables = torch.zeros((S, MB), dtype=torch.int32, device=self.device)
+        idle = tables[:, 0]
+        with FlopCounterMode(display=False) as fc:
+            self._spec_forward(idle.long(), idle, tables, idle)
+
+        def weights(model, rows):
+            gathered = {"embed.weight", "pos"}  # one row per token read
+            return sum((rows * p[0].numel() if n in gathered else p.numel())
+                       * p.element_size()
+                       for n, p in model.named_parameters())
+
+        def kv_pos(model, pools):
+            return model.n_layers * model.kv_heads * sum(
+                t.element_size() * t.shape[-1] if t.dim() == 4
+                else t.element_size() for t in pools[0].values())
+
+        def core(model):
+            kernel = (self.device.type == "cuda"
+                      and model.decode_attention == "fused"
+                      and not model.window)
+            return (model.n_layers * _odevice.attention_core_flops(
+                1, model.n_heads, 1, model.head_dim, kv_len=1,
+                n_backward=0) if kernel else 0.0)
+
+        return {
+            "flops": float(fc.get_total_flops()),
+            "bytes accessed": float(
+                (k + 1) * weights(d, S) + weights(m, S * (k + 1))
+                + S * (3 + MB) * 4 + S * (k + 1) * m.vocab * 4),
+            "kv_bytes_per_position": float(
+                (k + 1) * kv_pos(d, self.draft_pools)
+                + kv_pos(m, self.pools)),
+            "attention_flops_per_position": (k + 1) * (core(d) + core(m)),
+        }
 
     # ----------------------------------------------------- prefix sharing
     def _all_pools(self):
@@ -696,6 +819,16 @@ class DecodeEngine:
         return self._step.replays
 
     @property
+    def prefill_replays(self) -> int:
+        """Replays of the captured prefill graphs (0 on the CPU)."""
+        return self._prefill.replays
+
+    @property
+    def spec_replays(self) -> int:
+        """Replays of the captured speculative round (0 on the CPU)."""
+        return self._spec.replays if self._spec is not None else 0
+
+    @property
     def verify_compiles(self) -> int:
         """Speculative round signatures (0 on a plain engine)."""
         return self._spec.compiles if self._spec is not None else 0
@@ -715,7 +848,8 @@ class DecodeEngine:
 
     @property
     def prefill_compiles(self) -> int:
-        """At most ``len(prefill_ladder)``."""
+        """Captures of prefill on a card (signatures on the CPU): at most
+        ``len(prefill_ladder)``."""
         return self._prefill.compiles
 
     def free_blocks(self) -> int:
@@ -744,6 +878,10 @@ class DecodeEngine:
             out["verify_compiles"] = self.verify_compiles
         if self._graphs:
             out["decode_replays"] = self.decode_replays
+        if self._prefill_graphs:
+            out["prefill_replays"] = self.prefill_replays
+        if self._spec_graphs:
+            out["spec_replays"] = self.spec_replays
         # Programs over their declared budget (empty on a healthy
         # engine); the flight record's "compile" section carries the
         # per-program records and blame diffs.

@@ -9,8 +9,13 @@ epoch-aware iterator, interval-triggered extensions (``(n, "epoch")`` or
 rank-0 reporting.
 
 The hot loop never waits on the card: a step's metrics stay device
-tensors in the trainer's observation window, and :class:`LogReport` and
-:class:`MetricsReport` convert them only when they fire.  The
+tensors in the trainer's observation window (each step's its own copy,
+also when the step replays a captured graph whose metric buffers the next
+replay rewrites), and :class:`LogReport` and :class:`MetricsReport`
+convert them only when they fire.  Under the captured step the fault
+hooks keep their meaning: ``poison_batch`` acts on the batch before it is
+copied into the graph's static buffers, and ``corrupt_params`` writes the
+parameters, which are the graph's own, in place.  The
 ``train.step_ms`` histogram times the host's dispatch of the step, as in
 the JAX package.  Each step runs inside
 :func:`~chainermn_tpu_torch.observability.step_annotation`, a
@@ -344,7 +349,9 @@ class Trainer:
       train_iter: yields batches, with ``epoch`` bookkeeping.
       stop: ``(n, 'epoch'|'iteration')``.
       step_kwargs: further ``update`` options (``accum_steps``,
-        ``augment``, ``augment_seed``).
+        ``augment``, ``augment_seed``, ``capture``: on a CUDA device the
+        step is captured as a CUDA graph per batch signature unless
+        ``capture=False``).
       preemption_guard, health_guard: not ported yet (ROADMAP Queue 1 item
         12); passing one raises.
 

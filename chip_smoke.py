@@ -48,7 +48,7 @@ Phases, each printing one JSON line on stdout:
    headline arm runs them; then ``serving_turns`` (the same 16 requests
    on one engine, 3 rounds of the full run's scheduler set-up and the
    compare turns', in turns: clean decode-step ms and garbage
-   collections per pass), ``obs_overhead`` (a decode-heavy mix, 20 pairs
+   collections per pass), ``obs_overhead`` (a decode-heavy mix, 12 pairs
    of drain-mode passes with the planes off (``CMN_OBS=0``) and on in
    turns: the median of the per-pair ratios of median tick time, the
    planes' cost per decode iteration, and of makespans), ``policy`` (an
@@ -66,7 +66,19 @@ Phases, each printing one JSON line on stdout:
    complete timeline per request and its Chrome trace written and
    parsed, the ledger's books exact, no incident, no leaked block, and a
    ``device.decode_step.mfu_pct`` gauge in (0, 100] against the H100's
-   989 TFLOP/s.
+   989 TFLOP/s.  Prefill is captured too, one graph per ladder geometry
+   (32/16/8), all at the warm-up: the drive checks every chunk replayed
+   one and no capture made in it.
+5b. ``serving_spec``: the serving bench's ``--spec-k 4`` A/B
+   (``benchmarks/serving.py:691-790``): the zero-tail distilled draft of
+   ``layers // 4`` = 3 blocks lifted into the engine, 16 requests of 16
+   tokens and 24 new, drain passes of the plain and the speculative
+   engine in turns (4 pairs): acceptance, the tokens/s ratio, one
+   ``spec_round`` capture replayed every round, K4's runs on the card =
+   rounds x (5 x 3 + 12), ``device.spec_round.*`` gauges published; in
+   fp32 the speculative tokens = the plain engine's (in bf16 the
+   divergence structure is reported: the verify forward and the
+   single-token step round differently).
 5a. The serving fleet on the same model, every replica on this one card
    over one copy of the weights, each engine warmed (its decode step
    captured) as it is built: ``router`` (the JAX bench's ``--replicas``
@@ -104,9 +116,10 @@ Phases, each printing one JSON line on stdout:
    ``lm_generate`` of the same target, K5 = 2 x (k + 1) x rounds; a
    sampled drive; in fp32 the tokens = the target's greedy ones),
    ``rolling`` (window 1024, RoPE, einsum cache,
-   ``lm_generate(rolling=True)`` for 1280 new tokens: every step's cache
+   ``lm_generate(rolling=True)`` for 1024 new tokens: every step's cache
    is the 1024-slot ring, no kernel runs; in fp32 the tokens = the full
-   cache's over 1152), ``moe_generation`` (``benchmarks/moe.py``'s MoE
+   cache's over 128 new tokens after a 960-token prompt),
+   ``moe_generation`` (``benchmarks/moe.py``'s MoE
    model, E 8, F 1536, top-2, capacity factor 1.25, through
    ``lm_generate`` on the fused path: K5 12 x 63, the dropped share of
    the prefill and of a decode step; in fp32 the decode prefill's logits
@@ -129,33 +142,43 @@ Phases, each printing one JSON line on stdout:
    library yardstick is ``F.scaled_dot_product_attention(is_causal=True)``:
    its forward for the forward kernel, its backward (forward + backward
    minus forward) for the two backward kernels together.
+9a. ``flash_crossover``: K1-K3 forward + backward against the eager
+   ``"xla"`` path at the LM's widths for T 128-4096, causal and not, at
+   the LM step's 16384 tokens (the table ``FLASH_MIN_SEQ`` comes from).
 10. ``training``: the LM benchmark's default model (benchmarks/lm.py: batch
    8, seq 2048, 12 layers, d_model 768, 12 heads, d_ff 3072, vocab 32768,
    learned positions, bf16 compute over fp32 params, AdamW 3e-4, remat
    on, a bf16 gradient wire) through the training entry path
    (``create_communicator`` -> ``create_multi_node_optimizer(adamw)`` ->
    ``make_train_step(lm_loss(model))``) on a fixed seeded batch (targets =
-   tokens): 2 warm-up and 5 timed steps with ``attention="flash"``, then
-   the same with the eager ``attention="xla"``; then the ``train_lm``
-   example for 3 steps.  One more step of each arm runs under
-   ``torch.profiler`` (``training_trace``: device time by kernel, busy
-   share).
+   tokens): 2 warm-up and 5 timed steps with ``attention="flash"``, the
+   step captured as a CUDA graph (its first call runs eagerly, warms up
+   and captures; the rest replay), the same steps eager
+   (``capture=False``), then captured with the eager ``attention="xla"``;
+   then the ``train_lm`` example for 3 steps.  One more step of each arm
+   runs under ``torch.profiler`` (``training_trace``: device time by
+   kernel, busy share, and the port's kernels counted in the profile:
+   one replay's must be what the capture recorded).
 11. ``training_agreement``: a 2-layer fp32 model (d_model 128, 4 heads,
    T 256, packed rows) trained 3 steps with the flash kernels and 3 with
    the plain path from the same weights: losses within rtol 1e-5,
    parameters within atol 1e-4 (fp32 sums in another order, through
-   three Adam steps of lr 1e-3).
+   three Adam steps of lr 1e-3); and ``capture_agreement``: the flash
+   arm captured against eager, losses within rtol ``CAPTURE_TOL`` and
+   parameters within its atol (the same kernels on the same inputs).
 11a. ``moe_training``: the MoE model at ``benchmarks/moe.py``'s training
    geometry (batch 8, seq 2048, remat, flash attention,
    ``lm_loss_chunked(chunk_size=8192)``, a bf16 gradient wire; AdamW 3e-4
    where the bench runs adafactor) through the same entry path: 2 warm-up
    and 5 timed steps, K1/K2/K3 24/12/12 per step, finite losses,
-   ``moe_aux`` and ``moe_dropped``; ``moe_training_trace`` traces one
-   more step with every kernel of the MoE FFNs (forward, remat
-   recompute, and the backward nodes of their forward ops) in a group of
-   its own; and a 2-layer fp32 MoE model (d_model 128, T 256, vocab 1000,
-   chunk 384: a ragged tail) holds ``lm_loss_chunked`` against
-   ``lm_loss``: loss within rtol 1e-5, gradients within atol 1e-5.
+   ``moe_aux`` and ``moe_dropped``, captured, then the same steps eager;
+   ``moe_training_trace`` traces one more eager step with every kernel
+   of the MoE FFNs (forward, remat recompute, and the backward nodes of
+   their forward ops) in a group of its own; and a 2-layer fp32 MoE model
+   (d_model 128, T 256, vocab 1000, chunk 384: a ragged tail) holds
+   ``lm_loss_chunked`` against ``lm_loss``: loss within rtol 1e-5,
+   gradients within atol 1e-5, and another one's three steps captured
+   against eager (``capture_agreement``).
 12. ``conv_parity``: the fused 1x1-conv kernel (K6) against its plain
    version at every (N, Cin, Cout) a ResNet-50 training step gives it
    (batch 256, 224 px) and at ragged shapes, ReLU on and off, bf16 and
@@ -182,21 +205,33 @@ Phases, each printing one JSON line on stdout:
    The frozen arms start their residual branches' last affine scales at
    ``FROZEN_BRANCH_SCALE`` (stored-statistics BN does not normalize, so
    from random weights at unit scales the residual stream grows block by
-   block and the loss overflows).  One more step of each arm runs under
-   ``torch.profiler`` (``resnet_trace``).
+   block and the loss overflows).  Every arm's step is captured; the
+   ``sync/none`` and ``frozen/pallas`` steps run eagerly too.  One more
+   step of each arm runs under ``torch.profiler`` (``resnet_trace``; K6
+   counted in the profiled replay: 36).
 15. ``resnet_agreement``: ``ResNetTiny`` in fp32 (width 16, 32 px, 10
    classes, ``bn="frozen"``) trained 3 SGD steps with ``conv1="pallas"``
    (K6's fp32 instantiation) and 3 with ``conv1="xla"`` from the same
    weights, TF32 off and cuDNN deterministic: losses within rtol 1e-5,
-   parameters within atol 1e-4.
+   parameters within atol 1e-4; and ``capture_agreement`` for the
+   frozen K6 model and a sync-BN one, captured against eager.
 16. ``train_imagenet_example``: the ``train_imagenet`` example at its
    defaults for 3 steps.
 
+The training loop's phases (``mnist_trainer`` with an eager arm
+beside the four captured ones and the bare step eager in
+``mnist_trainer_host_cost``, ``imagenet_trainer`` with
+``imagenet_trainer_eager``, ``lm_eval``) follow phase 16.
+
 The launch counters are set to 0 just before each drive of the main path
-(phases 5, 5a, 6, 7a and the timed steps of 10, 11a and 14) and read just
-after it; the ``kernels`` line lists K4's launches in the serving drive
-and each fleet phase, K5's in each decode phase and K1-K3's per step of
-each training phase (``launches_by_phase``).
+(phases 5, 5a, 5b, 6, 7a and the timed steps of 10, 11a and 14) and read
+just after it; the ``kernels`` line lists K4's launches in the serving
+drive, the speculative drive and each fleet phase, K5's in each decode
+phase and K1-K3's per step of each training phase
+(``launches_by_phase``).  A captured train step's replays run its kernels
+without their wrappers: its launches are the wrappers' eager ones (the
+signature's first step and the capture's warm-ups) plus replays x what
+the capture recorded, and a profile of one replay must count the same.
 The decode-attention kernels also count their own runs on the card
 (``ops.decode_attention.kernel_runs``), zeroed and read the same way:
 the serving drive replays K4 from a CUDA graph, where its wrapper does
@@ -284,7 +319,14 @@ K6_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),
 K6_RAGGED = [(1000, 24, 40), (37, 8, 16), (77, 20, 13)]
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the script's seconds so far
+    (``t_s``), so that phase durations read off consecutive lines."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -767,22 +809,43 @@ def engine_geometry(reqs):
     return num_blocks, max_blocks
 
 
+def warm_engine(eng, seed):
+    """Warm ``eng`` before any measured run: one request of 20 new tokens
+    (the decode step's capture, the kernel library, cuBLAS and the
+    allocator, and, its 19 decode iterations crossing the planes' check
+    cadence of 16, the capture watch's one-time cost model), then prompts
+    whose last chunks take every other ladder geometry, so that each
+    prefill graph is captured here (the scheduler sends full chunks,
+    then the smallest geometry covering the tail)."""
+    from chainermn_tpu_torch.serving import Request, Scheduler
+
+    Scheduler(eng).run(draw_requests(np.random.RandomState(seed + 99), 1,
+                                     FULL["vocab"], new=(20, 20)))
+    top = max(eng.prefill_ladder)
+    rng = np.random.RandomState(seed + 98)
+    Scheduler(eng).run([
+        Request(id=i, prompt=rng.randint(1, FULL["vocab"],
+                                         size=top + c).tolist(),
+                max_new_tokens=2)
+        for i, c in enumerate(eng.prefill_ladder)])
+    eng.drop_prefix_cache()
+    if eng.device.type == "cuda" and hasattr(eng, "_prefill_graphs"):
+        check(eng.prefill_compiles == len(eng.prefill_ladder),
+              f"warm-up: {eng.prefill_compiles} prefill captures for the "
+              f"ladder {eng.prefill_ladder}")
+
+
 def serving_engine(dev, seed, reqs, **model_kw):
-    """The full-width engine sized for ``reqs``, warmed by one request of
-    20 new tokens: the decode step's capture, the kernel library,
-    cuBLAS and the allocator, and (its 19 decode iterations cross the
-    planes' check cadence of 16) the capture watch's one-time cost model,
-    all before any measured run."""
+    """The full-width engine sized for ``reqs``, warmed
+    (:func:`warm_engine`)."""
     from chainermn_tpu_torch.models import TransformerLM
-    from chainermn_tpu_torch.serving import DecodeEngine, Scheduler
+    from chainermn_tpu_torch.serving import DecodeEngine
 
     num_blocks, max_blocks = engine_geometry(reqs)
     model = TransformerLM(**{**FULL, **model_kw}, device=dev, seed=seed)
     eng = DecodeEngine(model, num_blocks=num_blocks,
                        max_blocks_per_slot=max_blocks, device=dev, **ENGINE)
-    Scheduler(eng).run(draw_requests(np.random.RandomState(seed + 99), 1,
-                                     FULL["vocab"], new=(20, 20)))
-    eng.drop_prefix_cache()
+    warm_engine(eng, seed)
     return eng, num_blocks, max_blocks
 
 
@@ -822,6 +885,10 @@ def drive_serving(ops, dev, card, seed, label, n_requests, planes=True,
     captured = bool(getattr(eng, "_graphs", None))
     counted = hasattr(ops, "kernel_runs")
     replays0 = eng.decode_replays if captured else None
+    # A tree whose prefill runs eagerly has no prefill graphs.
+    prefill_graphs = hasattr(eng, "prefill_replays")
+    prefill0 = eng.prefill_replays if prefill_graphs else None
+    prefill_caps0 = eng.prefill_compiles
     torch.cuda.synchronize()
     ops.paged_decode_attention.launches = 0
     ops.fused_decode_attention.launches = 0
@@ -881,6 +948,16 @@ def drive_serving(ops, dev, card, seed, label, n_requests, planes=True,
     snap = reg.snapshot()
     clean = snap["serve.decode_ms"]
     prefill = snap["serve.prefill_ms"]
+    prefill_replays = None
+    if prefill_graphs:
+        # Every chunk a replay of a graph the warm-up captured.
+        prefill_replays = eng.prefill_replays - prefill0
+        check(prefill_replays == prefill["count"]
+              and eng.prefill_compiles == prefill_caps0
+              == len(eng.prefill_ladder),
+              f"{label}: {prefill_replays} prefill replays for "
+              f"{prefill['count']} chunks, {eng.prefill_compiles} prefill "
+              f"captures (ladder {eng.prefill_ladder})")
     tokens = sum(len(c.tokens) for c in comps)
     row = dict(
         phase="serving", label=label, card=card, requests=len(reqs),
@@ -900,6 +977,8 @@ def drive_serving(ops, dev, card, seed, label, n_requests, planes=True,
         decode_compiles=eng.decode_compiles,
         captured=captured, replays=replays,
         prefill_compiles=eng.prefill_compiles,
+        prefill_replays=prefill_replays,
+        prefill_ms_max=prefill["max"],
         num_blocks=num_blocks, max_blocks=max_blocks,
         launches=launches, launches_counted_on="card" if counted
         else "host", wrapper_launches=wrapper,
@@ -974,7 +1053,7 @@ def _gc_collections():
     return [g["collections"] for g in gc.get_stats()]
 
 
-def phase_obs_overhead(dev, card, seed, pairs=20):
+def phase_obs_overhead(dev, card, seed, pairs=12):
     """The planes' cost per decode iteration, by the JAX serving
     benchmark's method (drain-mode passes, planes off and on in turns,
     the order swapped every pair, the median of the per-pair ratios) on
@@ -1174,6 +1253,189 @@ def phase_policy(dev, card, seed):
     return row
 
 
+#: the serving bench's ``--spec-k`` A/B (benchmarks/serving.py:691-790):
+#: k draft proposals per round from the zero-tail distilled draft of
+#: ``layers // 4`` blocks; 16 requests of 16-token prompts, 24 new tokens
+#: each (its ``n_sp``/``sp_new`` at the defaults), drain pairs in turns.
+SERVE_SPEC_K = 4
+SERVE_SPEC_PAIRS = 4
+
+
+def zero_tail_pair(dev, seed, dtype, max_len):
+    """The serving bench's distilled draft on the serving model: the
+    target's blocks past ``layers // 4`` write nothing back (``proj`` and
+    ``ff2`` zeroed), so the target's function is its first blocks', which
+    with the embeddings, ``ln_f`` and the head are the draft."""
+    from chainermn_tpu_torch.models import TransformerLM
+
+    dl = max(1, FULL["n_layers"] // 4)
+    cfg = dict(FULL, max_len=max_len)
+    target = TransformerLM(**cfg, dtype=dtype, device=dev, seed=seed)
+    with torch.no_grad():
+        for blk in target.blocks[dl:]:
+            for lin in (blk.proj, blk.ff2):
+                lin.weight.zero_()
+                lin.bias.zero_()
+    draft = TransformerLM(**{**cfg, "n_layers": dl}, dtype=dtype,
+                          device=dev, seed=seed)
+    draft.load_state_dict({
+        n: t for n, t in target.state_dict().items()
+        if not n.startswith("blocks.") or int(n.split(".")[1]) < dl})
+    return target, draft, dl
+
+
+def phase_serving_spec(ops, dev, card, seed):
+    """The engine's speculative round, captured once and replayed every
+    round, against the plain engine on the same zero-tail target:
+    drain-mode passes in turns (plain, spec, spec, plain, ...), the
+    tokens/s ratio the median of the pairs'; acceptance; one
+    ``spec_round`` capture; K4's runs counted on the card = rounds x the
+    launches the capture recorded (``k + 1`` draft steps of the draft's
+    layers and the verify forward's); and in fp32 on the same weights the
+    speculative engine's tokens = the plain engine's (greedy output is
+    the target's own)."""
+    from chainermn_tpu_torch.observability import MetricsRegistry, SLOMonitor
+    from chainermn_tpu_torch.serving import (
+        DecodeEngine,
+        Request,
+        Scheduler,
+        blocks_for,
+    )
+
+    k, cap, bl = SERVE_SPEC_K, ENGINE["capacity"], ENGINE["block_len"]
+    rng = np.random.RandomState(seed + 40)
+    n_sp, sp_new, plen = 16, 24, 16
+    reqs = [Request(id=30_000 + i, prompt=rng.randint(
+        1, FULL["vocab"], size=plen).tolist(), max_new_tokens=sp_new)
+        for i in range(n_sp)]
+    chunk = ENGINE["prefill_chunk"]
+    # Tables as wide as the warm-up's longest request (a 128-token prompt
+    # and 20 new tokens, padded to a chunk) and the round's k headroom.
+    mbs = blocks_for(128 + 20 + chunk + k, bl)
+    geo = dict(num_blocks=1 + cap * (mbs + 1), max_blocks_per_slot=mbs,
+               device=dev, **ENGINE)
+
+    def engines(dtype):
+        target, draft, dl = zero_tail_pair(dev, seed, dtype,
+                                           max(256, mbs * bl))
+        plain = DecodeEngine(target, **geo)
+        spec = DecodeEngine(target, draft_model=draft, spec_k=k, **geo)
+        for eng in (plain, spec):
+            warm_engine(eng, seed)
+        return plain, spec, dl
+
+    plain, spec, dl = engines(torch.bfloat16)
+    check(spec.verify_compiles == 1 and len(spec._spec_graphs) == 1
+          and not spec._graphs,
+          f"serving_spec: {spec.verify_compiles} round captures, "
+          f"{len(spec._graphs)} decode-step captures on the spec engine")
+    per_round = next(iter(spec._spec_graphs.values())).captured
+    want_round = (k + 1) * dl + FULL["n_layers"]
+    check(per_round == {"paged_decode_attention": want_round,
+                        "fused_decode_attention": 0},
+          f"serving_spec: the round's capture recorded {per_round}, "
+          f"expected {want_round} K4 launches")
+
+    def one_pass(eng):
+        eng.drop_prefix_cache()
+        reg = MetricsRegistry()
+        # A check cadence of 4: a pass takes ~11 rounds, and the device
+        # feed publishes on the cadence and at a drain that crossed it.
+        sched = Scheduler(eng, registry=reg,
+                          slo=SLOMonitor(registry=reg, check_every=4))
+        replays0 = eng.spec_replays
+        torch.cuda.synchronize()
+        ops.paged_decode_attention.launches = 0
+        ops.zero_kernel_runs(dev)
+        t0 = time.perf_counter()
+        comps = sched.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs = ops.kernel_runs(dev)["paged_decode_attention"]
+        byid = check_complete("serving_spec", reqs, comps)
+        return dict(wall=wall, sched=sched, byid=byid, runs=runs, reg=reg,
+                    wrapper=ops.paged_decode_attention.launches,
+                    replays=eng.spec_replays - replays0,
+                    span=max(c.finished_at for c in comps))
+
+    ratios, passes = [], {False: [], True: []}
+    for rep in range(SERVE_SPEC_PAIRS):
+        spans = {}
+        for is_spec in ((False, True) if rep % 2 == 0 else (True, False)):
+            p = one_pass(spec if is_spec else plain)
+            passes[is_spec].append(p)
+            spans[is_spec] = p["wall"]
+        ratios.append(spans[False] / spans[True])
+    last = passes[True][-1]
+    sched = last["sched"]
+    rounds = sched.decode_iterations
+    check(last["replays"] == rounds and last["wrapper"] == 0
+          and last["runs"] == rounds * want_round,
+          f"serving_spec: {rounds} rounds, {last['replays']} replays, "
+          f"the wrapper launched {last['wrapper']}, the card counted "
+          f"{last['runs']} K4 runs for {rounds} x {want_round}")
+    accept = sched.spec_accepted / max(sched.spec_proposed, 1)
+    useful = n_sp * sp_new
+
+    def clean_ms(p):
+        h = p["reg"].snapshot()["serve.decode_ms"]
+        return h["sum"] / max(h["count"], 1)
+    # The capture watch's roofline of the round, published at the drain.
+    gauges = {k.split(".")[-1]: v.get("value")
+              for k, v in last["reg"].snapshot().items()
+              if k.startswith("device.spec_round.")}
+    check(gauges.get("tflops", 0) > 0
+          and 0 < (gauges.get("mfu_pct") or 0) <= 100,
+          f"serving_spec: device.spec_round gauges {gauges}")
+    # bf16: reported, as the decode phase's speculative arm reports it
+    # (the verify forward and the single-token step round differently,
+    # so near-ties may flip); the fp32 drive below is the check.
+    firsts = first_divergences(
+        {r: c.tokens for r, c in last["byid"].items()},
+        {r: c.tokens for r, c in passes[False][-1]["byid"].items()})
+    div = sorted(d for d in firsts.values() if d is not None)
+    bf16 = dict(rows_exact=len(firsts) - len(div), rows=len(firsts),
+                first_divergences=div)
+    check(spec.verify_compiles == 1 and plain.decode_compiles == 1
+          and spec.prefill_compiles == len(spec.prefill_ladder),
+          f"serving_spec: captures spec {spec.verify_compiles}, plain "
+          f"{plain.decode_compiles}, prefill {spec.prefill_compiles}")
+    for eng in (plain, spec):
+        eng.release()
+    # fp32: the speculative engine emits the target's greedy tokens.
+    plain32, spec32, _ = engines(torch.float32)
+    got = {c.id: c.tokens for c in Scheduler(spec32).run(reqs[:cap])}
+    want = {c.id: c.tokens for c in Scheduler(plain32).run(reqs[:cap])}
+    fp32 = first_divergences(got, want)
+    for eng in (plain32, spec32):
+        eng.release()
+    row = dict(phase="serving_spec", card=card, k=k, draft_layers=dl,
+               target_layers=FULL["n_layers"], requests=n_sp,
+               max_new=sp_new, prompt_len=plen, pairs=SERVE_SPEC_PAIRS,
+               accept_rate=accept,
+               tokens_per_s_spec=useful / min(p["wall"]
+                                              for p in passes[True]),
+               tokens_per_s_plain=useful / min(p["wall"]
+                                               for p in passes[False]),
+               speedup_vs_plain=float(np.median(ratios)),
+               pair_ratios=ratios, rounds=rounds,
+               clean_round_ms=clean_ms(last),
+               clean_plain_step_ms=clean_ms(passes[False][-1]),
+               plain_steps=passes[False][-1]["sched"].decode_iterations,
+               spec_round_captures=spec.verify_compiles,
+               device_spec_round=gauges,
+               k4_launches_per_round=want_round, k4_runs=last["runs"],
+               bf16_agreement=bf16,
+               fp32_first_divergence=sorted(
+                   (d for d in fp32.values() if d is not None)),
+               fp32_rows_exact=sum(d is None for d in fp32.values()))
+    emit(row)
+    check(all(d is None for d in fp32.values()),
+          f"serving_spec fp32: first divergences {fp32}")
+    check(accept >= 0.5, f"serving_spec: acceptance {accept}")
+    return row
+
+
 # ------------------------------------------------------------------ fleet
 #: requests per fleet phase (the JAX bench's --chaos and --elastic arms
 #: take at most 32: benchmarks/serving.py:1223-1227, :1322).
@@ -1237,17 +1499,14 @@ class Fleet:
         self.build_s = 0.0
 
     def __call__(self, params=None):  # RollingDeploy passes params=
-        from chainermn_tpu_torch.serving import DecodeEngine, Scheduler
+        from chainermn_tpu_torch.serving import DecodeEngine
 
         t0 = time.perf_counter()
         before = card_allocated()
         eng = DecodeEngine(self.model, num_blocks=self.num_blocks,
                            max_blocks_per_slot=self.max_blocks,
                            device=self.dev, **ENGINE)
-        Scheduler(eng).run(draw_requests(
-            np.random.RandomState(self.seed + 99), 1, FULL["vocab"],
-            new=(20, 20)))
-        eng.drop_prefix_cache()
+        warm_engine(eng, self.seed)
         self.footprint.append(card_allocated() - before)
         graph = next(iter(eng._graphs.values()), None)
         self.captured.append(
@@ -1940,7 +2199,12 @@ SPEC_K, DRAFT_LAYERS = 4, 2
 #: the long-context bench's window (benchmarks/longcontext.py:34) and a
 #: generation long enough that the ring wraps; the fp32 check generates
 #: past the window.
-ROLL_WINDOW, ROLL_NEW, ROLL_CHECK_NEW = 1024, 1280, 1152
+#: The prompt's 128 positions and 896 new tokens fill the window: 1024
+#: new tokens run the last 128 steps on a wrapped ring.  The fp32 check
+#: starts from a 960-token prompt, so that its 128 new tokens run the
+#: last 64 on a wrapped ring.
+ROLL_WINDOW, ROLL_NEW = 1024, 1024
+ROLL_CHECK_PROMPT, ROLL_CHECK_NEW = 960, 128
 #: benchmarks/moe.py's MoE model (:26-37, :165-170) at its cf = 1.25 arm.
 MOE = dict(vocab=32768, n_layers=12, d_model=768, n_heads=12, d_ff=1536,
            max_len=2048, n_experts=8, moe_k=2, moe_capacity_factor=1.25)
@@ -2187,10 +2451,11 @@ def phase_speculative(ops, dev, card, seed):
 
 def phase_rolling(ops, dev, card, seed):
     """``lm_generate(rolling=True)`` on the decode model's widths with a
-    1024-position window, RoPE and the einsum cache: 1280 new tokens
+    1024-position window, RoPE and the einsum cache: 1024 new tokens
     after a 128-token prompt, so that the ring wraps.  Every decode step's
     cache must be the W-slot ring; no decode kernel runs.  In fp32 the
-    tokens must equal the full cache's over 1152 new tokens."""
+    tokens must equal the full cache's over 128 new tokens after a
+    960-token prompt (the ring wraps for the last 64)."""
     from chainermn_tpu_torch.models import TransformerLM, lm_generate
 
     B, P, W = DECODE_BATCH, DECODE_PROMPT, ROLL_WINDOW
@@ -2227,15 +2492,17 @@ def phase_rolling(ops, dev, card, seed):
           "rolling: tokens outside the vocab")
     del model
     m32 = TransformerLM(**cfg, dtype=torch.float32, device=dev, seed=seed)
-    ring32 = lm_generate(m32, prompt, ROLL_CHECK_NEW, rolling=True)
-    full32 = lm_generate(m32, prompt, ROLL_CHECK_NEW)
+    long = torch.from_numpy(np.random.RandomState(seed + 23).randint(
+        0, DECODE["vocab"], size=(B, ROLL_CHECK_PROMPT))).to(dev)
+    ring32 = lm_generate(m32, long, ROLL_CHECK_NEW, rolling=True)
+    full32 = lm_generate(m32, long, ROLL_CHECK_NEW)
     row = dict(phase="rolling", card=card, batch=B, prompt=P,
                new_tokens=ROLL_NEW, window=W, cuts=["random weights"],
                wall_s=wall, tokens_per_s=B * ROLL_NEW / wall,
                cache_shape=list(ring), cache_bytes_per_layer=want_bytes,
                full_cache_bytes_per_layer=want_bytes * (P + ROLL_NEW) // W,
                launches=launches,
-               fp32=dict(new_tokens=ROLL_CHECK_NEW,
+               fp32=dict(prompt=ROLL_CHECK_PROMPT, new_tokens=ROLL_CHECK_NEW,
                          equals_full_cache=bool(torch.equal(ring32, full32)),
                          divergence=divergence(ring32, full32)))
     emit(row)
@@ -2405,43 +2672,69 @@ def phase_moe_training(fa, dev, card, seed):
     toks = torch.from_numpy(rng.randint(
         0, MOE["vocab"], size=(MOE_BATCH, MOE["max_len"]))).to(dev)
     batch = (toks, toks)
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    model = TransformerLM(**MOE, attention="flash", remat=True, device=dev,
-                          seed=seed)
+    L = MOE["n_layers"]
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L,
+            "flash_attention_bwd_dq": L}
+
+    def arm(capture):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = TransformerLM(**MOE, attention="flash", remat=True,
+                              device=dev, seed=seed)
+        opt = create_multi_node_optimizer(adamw(3e-4), comm)
+        state = opt.init(model)
+        step = opt.make_train_step(
+            lm_loss_chunked(model, chunk_size=MOE_CHUNK), has_aux=True,
+            capture=capture)
+        losses, aux, dropped = [], [], []
+
+        def one():
+            nonlocal state
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))  # syncs: step done
+            aux.append(float(metrics["moe_aux"]))
+            dropped.append(float(metrics["moe_dropped"]))
+
+        for _ in range(2):
+            one()
+        torch.cuda.synchronize()
+        reset_flash(fa)
+        r0 = replays_of(step)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            one()
+            times.append(time.perf_counter() - t0)
+        launches = step_launches(step, flash_launches(fa),
+                                 replays_of(step) - r0)
+        out = dict(model=model, losses=losses, aux=aux, dropped=dropped,
+                   launches=launches,
+                   step_ms=sorted(times)[len(times) // 2] * 1e3,
+                   times=[t * 1e3 for t in times],
+                   peak=torch.cuda.max_memory_allocated())
+        if capture is None:
+            # The kernels of one replay, counted from its profile.
+            trace = trace_step(step, state, batch)
+            out["traced"] = check_traced_counts(
+                "moe_training captured", trace, step, want)
+            step.release()
+        else:
+            # The eager step's trace groups the MoE FFNs' kernels by the
+            # host ops that launched them.
+            emit({"phase": "moe_training_trace", "card": card,
+                  **moe_trace(step, state, batch)})
+        return out
+
+    cap = arm(None)
+    model = cap.pop("model")
     n_params = sum(p.numel() for p in model.parameters())
     n_expert = sum(p.numel() for n, p in model.named_parameters()
                    if ".moe_" in n)
-    opt = create_multi_node_optimizer(adamw(3e-4), comm)
-    state = opt.init(model)
-    step = opt.make_train_step(lm_loss_chunked(model, chunk_size=MOE_CHUNK),
-                               has_aux=True)
-    losses, aux, dropped = [], [], []
-
-    def one():
-        nonlocal state
-        state, metrics = step(state, batch)
-        losses.append(float(metrics["loss"]))  # syncs: the step is done
-        aux.append(float(metrics["moe_aux"]))
-        dropped.append(float(metrics["moe_dropped"]))
-
-    for _ in range(2):
-        one()
-    torch.cuda.synchronize()
-    reset_flash(fa)
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        one()
-        times.append(time.perf_counter() - t0)
-    launches = flash_launches(fa)
-    peak = torch.cuda.max_memory_allocated()
-    emit({"phase": "moe_training_trace", "card": card,
-          **moe_trace(step, state, batch)})
-    L = MOE["n_layers"]
-    per_step = {k: v / 5 for k, v in launches.items()}
-    step_ms = sorted(times)[len(times) // 2] * 1e3
+    del model
+    eager = arm(False)
+    del eager["model"]
+    per_step = {k: v / 5 for k, v in cap["launches"].items()}
     row = dict(phase="moe_training", card=card, params=n_params,
                expert_params=n_expert, batch=list(toks.shape),
                experts=MOE["n_experts"], k=MOE["moe_k"],
@@ -2450,25 +2743,50 @@ def phase_moe_training(fa, dev, card, seed):
                    "AdamW 3e-4 (the bench runs adafactor, not ported)",
                    "only the bench's cf 1.25 arm of its 1.0/1.25/2.0 sweep",
                    "random weights"],
-               losses=losses, step_ms_median=step_ms,
-               step_ms_runs=[t * 1e3 for t in times],
-               tokens_per_s=toks.numel() / (step_ms / 1e3),
-               peak_memory_gb=peak / 1e9, moe_aux=aux, moe_dropped=dropped,
-               launches=launches, launches_per_step=per_step)
-    del model, opt, state, step
+               losses=cap["losses"], step_ms_median=cap["step_ms"],
+               step_ms_runs=cap["times"],
+               tokens_per_s=toks.numel() / (cap["step_ms"] / 1e3),
+               peak_memory_gb=cap["peak"] / 1e9, moe_aux=cap["aux"],
+               moe_dropped=cap["dropped"], launches=cap["launches"],
+               launches_per_step=per_step,
+               launches_per_replay_profiled=cap["traced"],
+               eager=dict(step_ms_median=eager["step_ms"],
+                          step_ms_runs=eager["times"],
+                          losses=eager["losses"],
+                          peak_memory_gb=eager["peak"] / 1e9,
+                          launches_per_step={
+                              k: v / 5
+                              for k, v in eager["launches"].items()}),
+               captured_over_eager_step_ratio=cap["step_ms"]
+               / eager["step_ms"])
     gc.collect()
     torch.cuda.empty_cache()
     row["fp32_chunked_check"] = chunked_check(dev, seed)
     emit(row)
-    check(all(math.isfinite(x) for x in losses + aux + dropped),
-          f"moe_training: non-finite losses {losses} or statistics")
-    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L,
-            "flash_attention_bwd_dq": L}
-    check(per_step == want, f"moe_training: flash launches per step "
-          f"{per_step}, expected {want} ({L} layers, remat)")
+    check(all(math.isfinite(x)
+              for x in cap["losses"] + cap["aux"] + cap["dropped"]),
+          f"moe_training: non-finite losses {cap['losses']} or statistics")
+    check(per_step == want and row["eager"]["launches_per_step"] == want,
+          f"moe_training: flash launches per step {per_step} (eager "
+          f"{row['eager']['launches_per_step']}), expected {want} "
+          f"({L} layers, remat)")
     c = row["fp32_chunked_check"]
     check(c["loss_rel_diff"] <= 1e-5 and c["grad_max_abs_diff"] <= 1e-5,
           f"moe_training: lm_loss_chunked vs lm_loss (fp32): {c}")
+    moe32 = dict(MOE, n_layers=2, d_model=128, n_heads=4, d_ff=256,
+                 vocab=1000, max_len=256)
+    g = np.random.RandomState(seed + 31)
+    batches = [(torch.from_numpy(t).to(dev),) * 2 for t in
+               (g.randint(0, 1000, size=(4, 256)) for _ in range(3))]
+
+    def make():
+        m = TransformerLM(**moe32, dtype=torch.float32, attention="flash",
+                          remat=True, device=dev, seed=seed)
+        return (m, create_multi_node_optimizer(adamw(1e-3), comm32),
+                lm_loss_chunked(m, chunk_size=384), dict(has_aux=True))
+
+    comm32 = create_communicator("xla", device=dev)
+    capture_agreement("moe", capture_pair(make, batches))
     return row
 
 
@@ -2843,6 +3161,85 @@ def phase_flash_timing(fa, dev, seed):
     return out
 
 
+#: the crossover's sequence lengths; each at the LM step's token count.
+CROSSOVER_T = (128, 256, 512, 1024, 2048, 4096)
+CROSSOVER_TOKENS = LM_BATCH * LM["max_len"]
+
+
+def crossover_min_seq(rows, causal):
+    """The smallest measured T from which flash is at least as fast as
+    the eager path at every longer measured T (None: flash loses at the
+    longest)."""
+    out = None
+    for r in sorted((r for r in rows if r["causal"] == causal),
+                    key=lambda r: -r["T"]):
+        if r["flash_ms"] > r["xla_ms"]:
+            break
+        out = r["T"]
+    return out
+
+
+def phase_flash_crossover(fa, dev, seed, card):
+    """K1-K3 forward + backward (through ``flash_attention``'s autograd
+    Function) against the eager ``"xla"`` path (``reference_attention``:
+    fp32 materialized scores, autograd's backward) at the LM's widths (12
+    heads, Dh 64, bf16), T in ``CROSSOVER_T``, batch ``CROSSOVER_TOKENS //
+    T`` (the LM step's tokens at every T), causal and not: device ms per
+    forward + backward, each timed by CUDA-graph replay as the captured
+    train step runs it, in turns xla, flash, flash, xla.  The lengths
+    from which flash wins are what ``FLASH_MIN_SEQ`` /
+    ``FLASH_MIN_SEQ_NONCAUSAL`` were set from."""
+    H, D = LM["n_heads"], LM["d_model"] // LM["n_heads"]
+    g = torch.Generator(device=dev).manual_seed(seed + 21)
+    rows = []
+    for causal in (True, False):
+        for T in CROSSOVER_T:
+            B = max(1, CROSSOVER_TOKENS // T)
+
+            def draw():
+                return torch.randn((B, T, H, D), generator=g, device=dev,
+                                   dtype=torch.bfloat16)
+
+            inp = {n: draw().requires_grad_(True) for n in ("q", "k", "v")}
+            inp["do"] = draw()
+            copies = [inp] + [{n: (t.detach().clone().requires_grad_(True)
+                                   if n != "do" else t.clone())
+                               for n, t in inp.items()}]
+
+            def run(attend):
+                def f(x):
+                    o = attend(x["q"], x["k"], x["v"], causal=causal)
+                    return torch.autograd.grad(o, (x["q"], x["k"], x["v"]),
+                                               x["do"])
+                return f
+
+            iters = max(2, min(6, 12288 // T))
+            flash, xla = run(fa.flash_attention), run(fa.reference_attention)
+            x1 = time_ms(xla, copies, iters)
+            f1 = time_ms(flash, copies, iters)
+            f2 = time_ms(flash, copies, iters)
+            x2 = time_ms(xla, copies, iters)
+            row = dict(T=T, B=B, causal=causal, flash_ms=min(f1, f2),
+                       xla_ms=min(x1, x2), flash_ms_runs=[f1, f2],
+                       xla_ms_runs=[x1, x2])
+            row["xla_over_flash"] = row["xla_ms"] / row["flash_ms"]
+            rows.append(row)
+            del inp, copies
+            torch.cuda.empty_cache()
+    measured = {"causal": crossover_min_seq(rows, True),
+                "noncausal": crossover_min_seq(rows, False)}
+    constants = {"causal": fa.FLASH_MIN_SEQ,
+                 "noncausal": fa.FLASH_MIN_SEQ_NONCAUSAL}
+    emit({"phase": "flash_crossover", "card": card, "heads": H,
+          "head_dim": D, "dtype": "bfloat16", "tokens": CROSSOVER_TOKENS,
+          "rows": rows, "measured_min_seq": measured,
+          "constants": constants,
+          "agrees_with_constants": measured == constants})
+    check(all(math.isfinite(r["flash_ms"]) and math.isfinite(r["xla_ms"])
+              for r in rows), "flash_crossover: a time is not finite")
+    return rows
+
+
 # ---------------------------------------------------------------- training
 def flash_launches(fa):
     return {k: getattr(fa, k).launches for k in FLASH}
@@ -2851,6 +3248,42 @@ def flash_launches(fa):
 def reset_flash(fa):
     for k in FLASH:
         getattr(fa, k).launches = 0
+
+
+#: a substring of the name of each kernel's functions (bf16 and fp32), as
+#: a profile lists them.
+KERNEL_SYMBOLS = {"flash_attention_fwd": "flash_fwd",
+                  "flash_attention_bwd_dkv": "flash_bwd_dkv",
+                  "flash_attention_bwd_dq": "flash_bwd_dq",
+                  "matmul_affine_fwd": "matmul_affine",
+                  "paged_decode_attention": "decode_paged",
+                  "fused_decode_attention": "decode_fused"}
+
+
+def step_graph(step):
+    """The one graph a captured train step holds (None: it ran
+    eagerly)."""
+    graphs = getattr(step, "graphs", None)
+    if not graphs:
+        return None
+    check(len(graphs) == 1, f"train step: {len(graphs)} captures for one "
+                            "batch signature")
+    return next(iter(graphs.values()))
+
+
+def replays_of(step):
+    prog = getattr(step, "program", None)
+    return prog.replays if prog is not None else 0
+
+
+def step_launches(step, eager, replays):
+    """Each kernel's launches in a stretch of steps: its wrapper's eager
+    launches (``eager``, by kernel name) plus the step's ``replays`` x
+    what its graph's capture recorded; the replays run the kernels
+    without their wrappers."""
+    graph = step_graph(step)
+    return {k: v + (replays * graph.captured[k] if graph is not None
+                    else 0) for k, v in eager.items()}
 
 
 def lm_group(name):
@@ -2897,14 +3330,35 @@ def trace_step(step, state, batch, group=lm_group, top=15):
     groups = {}
     for name, ms, _ in kernels:
         groups[group(name)] = groups.get(group(name), 0.0) + ms
+    # The port's kernels counted from the profile (the card's record of
+    # what ran, a replay included), by kernel.
+    counts = {k: sum(c for n, _, c in kernels if sym in n)
+              for k, sym in KERNEL_SYMBOLS.items()}
     return dict(loss=loss, wall_ms=wall_ms, device_ms=device_ms,
                 busy_share=device_ms / wall_ms if wall_ms else None,
                 groups_ms=groups, kernel_launches=sum(k[2] for k in kernels),
+                kernel_counts=counts,
                 top=[dict(name=n[:100], ms=ms, launches=c, group=group(n))
                      for n, ms, c in kernels[:top]])
 
 
-def train_arm(fa, dev, card, seed, impl, comm, batch, warmup=2, timed=5):
+def check_traced_counts(label, trace, step, kernels):
+    """The kernels a profile saw in one step equal what the step's graph
+    recorded at its capture (one replay), or, for an eager step, what
+    its wrappers launched (``kernels``: expected counts by name)."""
+    graph = step_graph(step)
+    want = {k: (graph.captured[k] if graph is not None else n)
+            for k, n in kernels.items()}
+    got = {k: trace["kernel_counts"][k] for k in kernels}
+    check(got == want, f"{label}: the profile counted {got} kernel runs in "
+                       f"one step, the step launches {want}")
+    return got
+
+
+def train_arm(fa, dev, card, seed, impl, comm, batch, warmup=2, timed=5,
+              capture=None):
+    """``warmup`` + ``timed`` steps of the LM step, captured (the default
+    on the card) or eager (``capture=False``), then one traced step."""
     import gc
 
     from chainermn_tpu_torch.models import TransformerLM, lm_loss
@@ -2921,36 +3375,50 @@ def train_arm(fa, dev, card, seed, impl, comm, batch, warmup=2, timed=5):
     n_params = sum(p.numel() for p in model.parameters())
     opt = create_multi_node_optimizer(adamw(3e-4), comm)
     state = opt.init(model)
-    step = opt.make_train_step(lm_loss(model), has_aux=True)
+    step = opt.make_train_step(lm_loss(model), has_aux=True,
+                               capture=capture)
     losses = []
     for _ in range(warmup):
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
     torch.cuda.synchronize()
     reset_flash(fa)
+    replays0 = replays_of(step)
     times = []
     for _ in range(timed):
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))  # syncs: the step is done
         times.append(time.perf_counter() - t0)
-    launches = flash_launches(fa)
+    launches = step_launches(step, flash_launches(fa),
+                             replays_of(step) - replays0)
     peak = torch.cuda.max_memory_allocated()
-    emit({"phase": "training_trace", "attention": impl, "card": card,
-          **trace_step(step, state, batch)})
+    captured = step_graph(step) is not None
+    arm = "captured" if captured else "eager"
+    trace = trace_step(step, state, batch)
+    emit({"phase": "training_trace", "attention": impl, "arm": arm,
+          "card": card, **trace})
+    traced = check_traced_counts(
+        f"training {impl} {arm}", trace, step,
+        {k: v // timed for k, v in launches.items()})
     check(all(math.isfinite(x) for x in losses),
           f"training {impl}: non-finite loss {losses}")
     tokens = batch[0].numel()
     step_ms = sorted(times)[len(times) // 2] * 1e3
-    row = dict(phase="training", attention=impl, card=card,
+    row = dict(phase="training", attention=impl, arm=arm, card=card,
                params=n_params, batch=list(batch[0].shape),
                warmup_steps=warmup, timed_steps=timed, losses=losses,
                step_ms_median=step_ms,
                step_ms_runs=[t * 1e3 for t in times],
                tokens_per_s=tokens / (step_ms / 1e3),
                peak_memory_gb=peak / 1e9, launches=launches,
-               launches_per_step={k: v / timed for k, v in launches.items()})
+               launches_per_step={k: v / timed for k, v in launches.items()},
+               launches_per_replay_profiled=traced,
+               captures=len(getattr(step, "graphs", {})),
+               replays=replays_of(step))
     emit(row)
+    if captured:
+        step.release()
     del model, opt, state, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -2967,26 +3435,47 @@ def phase_training(fa, dev, card, seed):
         0, LM["vocab"], size=(LM_BATCH, LM["max_len"]))).to(dev)
     batch = (toks, toks)  # benchmarks/lm.py: targets = tokens
     flash = train_arm(fa, dev, card, seed, "flash", comm, batch)
+    check(flash["arm"] == "captured" and flash["captures"] == 1,
+          f"training: the flash step was not captured once: {flash}")
     L = LM["n_layers"]  # remat: the forward runs twice per layer
     want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L,
             "flash_attention_bwd_dq": L}
     for k, n in want.items():
-        check(flash["launches_per_step"][k] == n,
-              f"training: {k} launched {flash['launches_per_step'][k]} "
-              f"times per step, expected {n} ({L} layers, remat)")
+        check(flash["launches_per_step"][k] == n
+              and flash["launches_per_replay_profiled"][k] == n,
+              f"training: {k} ran {flash['launches_per_step'][k]} times per "
+              f"step ({flash['launches_per_replay_profiled'][k]} in the "
+              f"profiled replay), expected {n} ({L} layers, remat)")
     check(flash["losses"][-1] < flash["losses"][0],
           f"training: flash loss did not fall: {flash['losses']}")
-    eager = train_arm(fa, dev, card, seed, "xla", comm, batch)
+    flash_eager = train_arm(fa, dev, card, seed, "flash", comm, batch,
+                            capture=False)
+    check(flash_eager["launches_per_step"] == want,
+          f"training: the eager flash arm launched "
+          f"{flash_eager['launches_per_step']} per step")
+    # The plain-attention arm, captured too (3 timed steps: ~0.58 s
+    # each).
+    eager = train_arm(fa, dev, card, seed, "xla", comm, batch, timed=3)
     check(all(v == 0 for v in eager["launches"].values()),
-          "training: the eager arm launched a flash kernel")
+          "training: the eager-attention arm launched a flash kernel")
     ratio = flash["step_ms_median"] / eager["step_ms_median"]
     emit({"phase": "training_summary", "card": card,
           "flash_step_ms": flash["step_ms_median"],
+          "flash_eager_step_ms": flash_eager["step_ms_median"],
+          "captured_over_eager_step_ratio":
+          flash["step_ms_median"] / flash_eager["step_ms_median"],
+          # Same weights and batch; bf16 (the fp32 check is
+          # phase_training_agreement's).
+          "captured_eager_loss_max_rel_diff": max(
+              abs(a - b) / abs(b) for a, b in zip(flash["losses"],
+                                                  flash_eager["losses"])),
+          "xla_step_ms": eager["step_ms_median"],
           "eager_step_ms": eager["step_ms_median"],
           "flash_over_eager_step_ratio": ratio,
           "flash_tokens_per_s": flash["tokens_per_s"],
           "eager_tokens_per_s": eager["tokens_per_s"],
           "flash_peak_memory_gb": flash["peak_memory_gb"],
+          "flash_eager_peak_memory_gb": flash_eager["peak_memory_gb"],
           "eager_peak_memory_gb": eager["peak_memory_gb"]})
 
     # The example entry point itself, at its own small defaults.
@@ -3001,10 +3490,66 @@ def phase_training(fa, dev, card, seed):
     return flash
 
 
+#: captured against eager train steps in fp32 on the card: the same
+#: kernels on the same inputs, in the same order.  On an H100 80GB HBM3
+#: at 700 W every captured run read the eager one's bits exactly (LM, MoE,
+#: ResNetTiny frozen and sync-BN, MNIST); ``tests/test_torch_capture_cuda.py``
+#: holds the small models to 1e-5.
+CAPTURE_TOL = dict(loss_rtol=1e-6, param_atol=1e-6)
+
+
+def capture_agreement(label, runs):
+    """``runs[True]``/``runs[False]``: (losses, {name: tensor}) of the
+    captured and the eager run from the same weights; emits and checks
+    their largest differences against :data:`CAPTURE_TOL`."""
+    (lc, tc), (le, te) = runs[True], runs[False]
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lc, le))
+    param_err = max((tc[n].float() - te[n].float()).abs().max().item()
+                    for n in te)
+    row = dict(phase="capture_agreement", model=label, dtype="float32",
+               losses_captured=lc, losses_eager=le,
+               loss_max_rel_diff=loss_rel, param_max_abs_diff=param_err,
+               tolerance=CAPTURE_TOL)
+    emit(row)
+    check(loss_rel <= CAPTURE_TOL["loss_rtol"]
+          and param_err <= CAPTURE_TOL["param_atol"],
+          f"{label}: captured and eager steps differ: losses {lc} vs {le}, "
+          f"parameters by {param_err}")
+    return row
+
+
+def capture_pair(make, batches):
+    """Three train steps captured and three eager from the same weights
+    (``make()`` -> ``(model, optimizer, loss_fn, step kwargs)``, called
+    once per run): ``{True: (losses, tensors), False: ...}``, the tensors
+    being the parameters, buffers and the options' state after them."""
+    runs = {}
+    for capture in (True, False):
+        model, opt, loss_fn, kw = make()
+        state = opt.init(model)
+        step = opt.make_train_step(loss_fn, capture=capture, **kw)
+        losses = [float(step(state, b)[1]["loss"]) for b in batches]
+        tensors = {f"p:{n}": p.detach().clone()
+                   for n, p in model.named_parameters()}
+        tensors.update({f"b:{n}": b.clone()
+                        for n, b in model.named_buffers()})
+        for name in ("pending_grads", "ef_residual", "ema_params"):
+            for n, t in (getattr(state, name) or {}).items():
+                tensors[f"{name}:{n}"] = t.clone()
+        check((step_graph(step) is not None) == capture,
+              f"capture_pair: capture={capture} but graphs "
+              f"{len(getattr(step, 'graphs', {}))}")
+        runs[capture] = (losses, tensors)
+        if capture:
+            step.release()
+        del model, opt, state, step
+    return runs
+
+
 def phase_training_agreement(fa, dev, seed):
     """The flash kernels (fp32 instantiations) against the plain path,
     both on the card, through three optimizer steps from the same
-    weights."""
+    weights; and the flash arm captured against eager."""
     from chainermn_tpu_torch.comm import create_communicator
     from chainermn_tpu_torch.models import TransformerLM, lm_loss
     from chainermn_tpu_torch.optimizers import (
@@ -3025,26 +3570,39 @@ def phase_training_agreement(fa, dev, seed):
                              for x in (tok, tgt, seg)))
     comm = create_communicator("xla", device=dev)
     runs = {}
-    for impl in ("flash", "xla"):
+    for impl, capture in (("flash", None), ("xla", None),
+                          ("flash", False)):
         model = TransformerLM(**cfg, dtype=torch.float32, attention=impl,
                               device=dev, seed=seed)
         opt = create_multi_node_optimizer(
             adamw(1e-3, eps=1e-6, weight_decay=0.01), comm)
         state = opt.init(model)
-        step = opt.make_train_step(lm_loss(model), has_aux=True)
+        step = opt.make_train_step(lm_loss(model), has_aux=True,
+                                   capture=capture)
         before = flash_launches(fa)
+        r0 = replays_of(step)
         losses = [float(step(state, b)[1]["loss"]) for b in batches]
-        used = {k: flash_launches(fa)[k] - before[k] for k in FLASH}
-        runs[impl] = (losses, {n: p.detach().clone()
-                               for n, p in model.named_parameters()}, used)
-    check(all(v == 3 * cfg["n_layers"] for v in runs["flash"][2].values()),
-          f"training_agreement: flash arm launches {runs['flash'][2]}")
-    check(all(v == 0 for v in runs["xla"][2].values()),
+        used = step_launches(step, {k: flash_launches(fa)[k] - before[k]
+                                    for k in FLASH}, replays_of(step) - r0)
+        runs[impl, capture] = (losses, {n: p.detach().clone()
+                                        for n, p in model.named_parameters()},
+                               used)
+        if step_graph(step) is not None:
+            step.release()
+    # Captured: the first step eager, its capture's warm-ups, then two
+    # replays.
+    from chainermn_tpu_torch.optimizers import CAPTURE_WARMUP
+
+    for key, n in ((("flash", None), 3 + CAPTURE_WARMUP),
+                   (("flash", False), 3)):
+        check(all(v == n * cfg["n_layers"] for v in runs[key][2].values()),
+              f"training_agreement: flash arm {key} ran {runs[key][2]}")
+    check(all(v == 0 for v in runs["xla", None][2].values()),
           "training_agreement: the plain arm launched a kernel")
-    lf, lx = runs["flash"][0], runs["xla"][0]
+    lf, lx = runs["flash", None][0], runs["xla", None][0]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lf, lx))
-    param_err = max((runs["flash"][1][n] - runs["xla"][1][n]).abs().max()
-                    .item() for n in runs["xla"][1])
+    param_err = max((runs["flash", None][1][n] - runs["xla", None][1][n])
+                    .abs().max().item() for n in runs["xla", None][1])
     emit({"phase": "training_agreement", "dtype": "float32",
           "losses_flash": lf, "losses_plain": lx,
           "loss_max_rel_diff": loss_rel, "param_max_abs_diff": param_err,
@@ -3052,6 +3610,8 @@ def phase_training_agreement(fa, dev, seed):
     check(loss_rel <= 1e-5 and param_err <= 1e-4,
           f"training_agreement: losses {lf} vs {lx}, parameters differ "
           f"by {param_err}")
+    capture_agreement("lm_flash", {True: runs["flash", None][:2],
+                                   False: runs["flash", False][:2]})
 
 
 # -------------------------------------------------------------- conv K6
@@ -3206,9 +3766,10 @@ def resnet_group(name):
 
 
 def resnet_arm(cf, dev, card, seed, bn, conv1, comm, batch, warmup=2,
-               timed=5, total=0):
-    """``warmup`` + ``timed`` steps, one traced step, then untimed steps
-    up to ``total`` (the losses of every step are kept)."""
+               timed=5, total=0, capture=None):
+    """``warmup`` + ``timed`` steps, captured (the default on the card)
+    or eager (``capture=False``), one traced step, then untimed steps up
+    to ``total`` (the losses of every step are kept)."""
     import gc
 
     from chainermn_tpu_torch.models import FusedConv1x1, ResNet50, resnet_loss
@@ -3223,7 +3784,8 @@ def resnet_arm(cf, dev, card, seed, bn, conv1, comm, batch, warmup=2,
         model.scale_residual_branches(FROZEN_BRANCH_SCALE)
     opt = create_multi_node_optimizer(sgd(0.1, 0.9), comm)
     state = opt.init(model)
-    step = opt.make_train_step(resnet_loss(model), stateful=True)
+    step = opt.make_train_step(resnet_loss(model), stateful=True,
+                               capture=capture)
     # The first warm-up step records the (N, Cin, Cout) of every fused 1x1
     # conv, to hold the parity and timing phases' shapes to the model's.
     seen = []
@@ -3243,23 +3805,30 @@ def resnet_arm(cf, dev, card, seed, bn, conv1, comm, batch, warmup=2,
                 h.remove()
     torch.cuda.synchronize()
     cf.matmul_affine_fwd.launches = 0
+    r0 = replays_of(step)
     times = []
     for _ in range(timed):
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))  # syncs: the step is done
         times.append(time.perf_counter() - t0)
-    launches = cf.matmul_affine_fwd.launches
+    launches = step_launches(
+        step, {"matmul_affine_fwd": cf.matmul_affine_fwd.launches},
+        replays_of(step) - r0)["matmul_affine_fwd"]
     peak = torch.cuda.max_memory_allocated()
     arm = f"{bn}/{conv1}"
+    mode = "captured" if step_graph(step) is not None else "eager"
     trace = trace_step(step, state, batch, group=resnet_group, top=20)
-    emit({"phase": "resnet_trace", "arm": arm, "card": card, **trace})
+    emit({"phase": "resnet_trace", "arm": arm, "mode": mode, "card": card,
+          **trace})
+    traced = check_traced_counts(f"resnet {arm} {mode}", trace, step,
+                                 {"matmul_affine_fwd": launches // timed})
     losses.append(trace["loss"])
     while len(losses) < total:
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
     step_ms = sorted(times)[len(times) // 2] * 1e3
-    row = dict(phase="resnet", arm=arm, card=card,
+    row = dict(phase="resnet", arm=arm, mode=mode, card=card,
                params=sum(p.numel() for p in model.parameters()),
                batch=RESNET_BATCH, image_size=RESNET_SIZE,
                cudnn_benchmark=torch.backends.cudnn.benchmark,
@@ -3269,15 +3838,23 @@ def resnet_arm(cf, dev, card, seed, bn, conv1, comm, batch, warmup=2,
                peak_memory_gb=peak / 1e9,
                launches={"matmul_affine_fwd": launches},
                launches_per_step=launches / timed,
+               launches_per_replay_profiled=traced["matmul_affine_fwd"],
                k6_device_ms_per_step=trace["groups_ms"].get("k6", 0.0),
-               fused_conv_shapes_seen=len(seen))
+               fused_conv_shapes_seen=len(seen),
+               captures=len(getattr(step, "graphs", {})))
     emit(row)
     check(all(math.isfinite(x) for x in losses),
           f"resnet {arm}: non-finite loss {losses}")
     if conv1 != "none":
-        check(sorted(seen) == sorted(k6_launches()),
+        # The first call ran the step eagerly, then (captured) its
+        # warm-ups and the capture: each forward the same 36 shapes.
+        want = sorted(k6_launches())
+        check(sorted(seen[:len(want)]) == want
+              and sorted(seen) == sorted(want * (len(seen) // len(want))),
               f"resnet {arm}: the fused convs ran at {sorted(set(seen))}, "
               "not at the shapes the parity and timing phases used")
+    if mode == "captured":
+        step.release()
     del model, opt, state, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -3311,20 +3888,36 @@ def phase_resnet(cf, dev, card, seed):
             arms[f"{bn}/{conv1}"] = resnet_arm(
                 cf, dev, card, seed, bn, conv1, comm, batch,
                 total=RESNET_BENCH_STEPS if bn == "sync" else 0)
+        # The same steps eager, on the same card.
+        eager = {f"{bn}/{conv1}": resnet_arm(
+            cf, dev, card, seed, bn, conv1, comm, batch, capture=False)
+            for bn, conv1 in (("sync", "none"), ("frozen", "pallas"))}
     finally:
         torch.backends.cudnn.benchmark = False
     sync, fused, plain = (arms["sync/none"], arms["frozen/pallas"],
                           arms["frozen/xla"])
     emit({"phase": "resnet_summary", "card": card,
           "step_ms": {k: a["step_ms_median"] for k, a in arms.items()},
+          "eager_step_ms": {k: a["step_ms_median"]
+                            for k, a in eager.items()},
+          "captured_over_eager_step_ratio": {
+              k: arms[k]["step_ms_median"] / a["step_ms_median"]
+              for k, a in eager.items()},
           "images_per_s": {k: a["images_per_s"] for k, a in arms.items()},
           "peak_memory_gb": {k: a["peak_memory_gb"] for k, a in arms.items()},
           "pallas_over_xla_step_ratio": fused["step_ms_median"]
           / plain["step_ms_median"]})
     n = len(k6_launches())
-    check(fused["launches_per_step"] == n,
-          f"resnet frozen/pallas: K6 launched {fused['launches_per_step']} "
-          f"times per step, expected {n}")
+    check(all(a["mode"] == "captured" and a["captures"] == 1
+              for a in arms.values()),
+          "resnet: an arm's step was not captured once")
+    check(fused["launches_per_step"] == n
+          and fused["launches_per_replay_profiled"] == n
+          and eager["frozen/pallas"]["launches_per_step"] == n,
+          f"resnet frozen/pallas: K6 ran {fused['launches_per_step']} "
+          f"times per step ({fused['launches_per_replay_profiled']} in the "
+          f"profiled replay, {eager['frozen/pallas']['launches_per_step']} "
+          f"eager), expected {n}")
     check(sync["launches"]["matmul_affine_fwd"] == 0
           and plain["launches"]["matmul_affine_fwd"] == 0,
           "resnet: the sync or frozen/xla arm launched K6")
@@ -3358,10 +3951,31 @@ def phase_resnet_agreement(cf, dev, seed):
             state = opt.init(model)
             step = opt.make_train_step(resnet_loss(model), stateful=True)
             before = cf.matmul_affine_fwd.launches
+            r0 = replays_of(step)
             losses = [float(step(state, b)[1]["loss"]) for b in batches]
             runs[impl] = (losses, {n: p.detach().clone()
                                    for n, p in model.named_parameters()},
-                          cf.matmul_affine_fwd.launches - before)
+                          step_launches(step, {
+                              "matmul_affine_fwd":
+                              cf.matmul_affine_fwd.launches - before},
+                              replays_of(step) - r0)["matmul_affine_fwd"])
+            step.release()
+        # Captured against eager in fp32: the frozen K6 model and the
+        # sync-BN one (its all-reduces and running statistics inside the
+        # graph).
+        for bn, conv1 in (("frozen", "pallas"), ("sync", "none")):
+            def make():
+                m = ResNetTiny(num_classes=10, width=16,
+                               dtype=torch.float32, bn=bn, conv1=conv1,
+                               axis_name=comm.axis_name, device=dev,
+                               seed=seed)
+                if bn == "frozen":
+                    m.scale_residual_branches(FROZEN_BRANCH_SCALE)
+                return (m, create_multi_node_optimizer(sgd(0.1, 0.9), comm),
+                        resnet_loss(m), dict(stateful=True))
+
+            capture_agreement(f"resnet_tiny_{bn}_{conv1}",
+                              capture_pair(make, batches))
     finally:
         torch.backends.cudnn.deterministic = False
     lf, lx = runs["pallas"][0], runs["xla"][0]
@@ -3373,10 +3987,14 @@ def phase_resnet_agreement(cf, dev, seed):
           "loss_max_rel_diff": loss_rel, "param_max_abs_diff": param_err,
           "launches": {k: v[2] for k, v in runs.items()},
           "tolerance": {"loss_rtol": 1e-5, "param_atol": 1e-4}})
-    check(runs["pallas"][2] == 3 * 12 and runs["xla"][2] == 0,
-          f"resnet_agreement: K6 launches {runs['pallas'][2]} / "
-          f"{runs['xla'][2]}, expected 36 / 0 (4 blocks x fc1, fc3, proj_f "
-          "x 3 steps)")
+    # Three steps (the first eager, two replays) and the capture's
+    # warm-ups, each 4 blocks x fc1, fc3, proj_f.
+    from chainermn_tpu_torch.optimizers import CAPTURE_WARMUP
+
+    want = (3 + CAPTURE_WARMUP) * 12
+    check(runs["pallas"][2] == want and runs["xla"][2] == 0,
+          f"resnet_agreement: K6 ran {runs['pallas'][2]} / "
+          f"{runs['xla'][2]} times, expected {want} / 0")
     check(all(math.isfinite(x) for x in lf + lx),
           f"resnet_agreement: non-finite losses {lf} {lx}")
     check(loss_rel <= 1e-5 and param_err <= 1e-4,
@@ -3402,7 +4020,11 @@ MNIST_ARGS = ["--epoch", "3", "--unit", "1000", "--batchsize", "256",
               "--lr", "0.05", "--out", ""]
 MNIST_ARMS = {"plain": [], "double_buffering": ["--double-buffering"],
               "int8_ef": ["--grad-compression", "int8_ef"],
-              "ema_0.99": ["--ema-decay", "0.99"]}
+              "ema_0.99": ["--ema-decay", "0.99"],
+              "plain_eager": ["--eager-step"]}
+#: the plain arm captured against eager (fp32, TF32 off): per-epoch mean
+#: losses over 96 steps of the same kernels on the same batches.
+MNIST_CAPTURE_RTOL = 1e-5
 #: the Trainer's host cost: pairs of (bare step loop, Trainer.run) turns.
 MNIST_PAIRS, MNIST_PAIR_STEPS = 20, 64
 #: the ImageNet example's pipeline at the bench's ResNet-50 configuration:
@@ -3427,7 +4049,12 @@ def phase_mnist_trainer(dev, card, seed):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         log = trainer.extensions[0].log
+        (step,) = trainer.optimizer._step_cache.values()
+        captures = len(step.graphs)
+        check(captures == (0 if "--eager-step" in flags else 1),
+              f"mnist_trainer {arm}: {captures} captures")
         row = dict(phase="mnist_trainer", arm=arm, card=card,
+                   captures=captures, replays=replays_of(step),
                    log_entries=len(log),
                    epoch_loss=[e["loss"] for e in log],
                    epoch_train_accuracy=[e["accuracy"] for e in log],
@@ -3450,7 +4077,19 @@ def phase_mnist_trainer(dev, card, seed):
         check(row["epoch_val_accuracy"][-1] > 0.1,
               f"mnist_trainer {arm}: val accuracy "
               f"{row['epoch_val_accuracy']} not above chance (0.1)")
-        del trainer
+        if captures:
+            step.release()
+        del trainer, step
+    cap, eag = arms["plain"]["epoch_loss"], arms["plain_eager"]["epoch_loss"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(cap, eag))
+    emit({"phase": "capture_agreement", "model": "mnist_trainer",
+          "dtype": "float32", "epoch_loss_captured": cap,
+          "epoch_loss_eager": eag, "loss_max_rel_diff": rel,
+          "val_accuracy_captured": arms["plain"]["epoch_val_accuracy"],
+          "val_accuracy_eager": arms["plain_eager"]["epoch_val_accuracy"],
+          "tolerance": {"loss_rtol": MNIST_CAPTURE_RTOL}})
+    check(rel <= MNIST_CAPTURE_RTOL,
+          f"mnist_trainer: captured epoch losses {cap}, eager {eag}")
     emit({"phase": "mnist_trainer_host_cost", "card": card,
           **mnist_host_cost(dev, seed)})
     return arms
@@ -3525,7 +4164,22 @@ def mnist_host_cost(dev, seed):
             torch.cuda.synchronize()
             out.append((time.perf_counter() - t0) * 1e3 / n)
     diffs = sorted(t - b for t, b in zip(trainer_ms, bare_ms))
+    # The bare loop's step eager on the same card, for the captured one.
+    eager_step = opt.make_train_step(loss, has_aux=True, capture=False)
+    eager_ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _ = eager_step(state, next(it))
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3 / n)
+    check(len(step.graphs) == 1,
+          f"mnist_host_cost: {len(step.graphs)} captures of the bare step")
+    step.release()
     return dict(pairs=MNIST_PAIRS, steps_per_turn=n,
+                bare_eager_ms_per_iteration=sorted(eager_ms)[2],
+                bare_eager_ms_runs=eager_ms,
                 batches="on the card, cycled",
                 bare_ms_per_iteration=sorted(bare_ms)[len(bare_ms) // 2],
                 trainer_ms_per_iteration=sorted(trainer_ms)[
@@ -3654,7 +4308,14 @@ def imagenet_arm(cf, dev, card, seed, bn, conv1, bare_ms):
     tr.run()
     torch.cuda.synchronize()
     epoch1_s = time.perf_counter() - t0
-    k6_epoch1 = cf.matmul_affine_fwd.launches
+    (step,) = tr.optimizer._step_cache.values()
+    check(len(step.graphs) == 1,
+          f"imagenet_trainer {arm}: {len(step.graphs)} captures")
+    # The step's K6 runs: its wrapper's launches (the first, eager, step,
+    # the capture's warm-ups, the evaluator's batches) and the replays'.
+    k6_epoch1 = step_launches(
+        step, {"matmul_affine_fwd": cf.matmul_affine_fwd.launches},
+        replays_of(step))["matmul_affine_fwd"]
     eval_batches = run.evaluator.batches
     ckpt = run.checkpointer
     ckpt.finalize()
@@ -3670,6 +4331,7 @@ def imagenet_arm(cf, dev, card, seed, bn, conv1, bare_ms):
     marks.clear()
     tr.stop_n, tr.stop_unit = tr.iteration + IMAGENET_TIMED, "iteration"
     cf.matmul_affine_fwd.launches = 0
+    replays1 = replays_of(step)
     tr.run()
     torch.cuda.synchronize()
     step_ms = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
@@ -3680,7 +4342,10 @@ def imagenet_arm(cf, dev, card, seed, bn, conv1, bare_ms):
                              ProfilerActivity.CUDA]) as prof:
         tr.run()
         torch.cuda.synchronize()
-    k6_epoch2 = cf.matmul_affine_fwd.launches
+    k6_epoch2 = step_launches(
+        step, {"matmul_affine_fwd": cf.matmul_affine_fwd.launches},
+        replays_of(step) - replays1)["matmul_affine_fwd"]
+    replays = replays_of(step)
     prof.export_chrome_trace(trace)
     timeline = device_timeline(trace, IMAGENET_PROFILED)
     want_next = [(y.cpu(), v.cpu()) for y, v in fp.seen[n_seen:n_seen + 2]]
@@ -3690,7 +4355,8 @@ def imagenet_arm(cf, dev, card, seed, bn, conv1, bare_ms):
     saved_model = torch.load(ckpt._rank_file(saved["step"]),
                              map_location="cpu", weights_only=False)["model"]
     run.train_iter.close()
-    del run, tr, fp, prof
+    step.release()
+    del run, tr, fp, prof, step
     gc.collect()
     torch.cuda.empty_cache()
     # Resume into a fresh model (at its initial weights), optimizer and
@@ -3743,17 +4409,21 @@ def imagenet_arm(cf, dev, card, seed, bn, conv1, bare_ms):
         resumed_at=resumed_at,
         restored_byte_exact=exact, resumed_batches_equal=same_batches,
         k6_launches_epoch1=k6_epoch1, k6_launches_epoch2=k6_epoch2,
+        captures=1, replays=replays,
         training_steps_epoch1=IMAGENET_ITERS,
         training_steps_epoch2=IMAGENET_TIMED + IMAGENET_PROFILED,
         losses=losses, peak_memory_gb=peak / 1e9)
     emit(row)
+    from chainermn_tpu_torch.optimizers import CAPTURE_WARMUP
+
     n_k6 = len(k6_launches()) if conv1 == "pallas" else 0
-    check(k6_epoch1 == n_k6 * (IMAGENET_ITERS + eval_batches)
+    check(k6_epoch1 == n_k6 * (IMAGENET_ITERS + eval_batches
+                               + CAPTURE_WARMUP)
           and k6_epoch2 == n_k6 * (IMAGENET_TIMED + IMAGENET_PROFILED),
-          f"imagenet_trainer {arm}: K6 launched {k6_epoch1} / {k6_epoch2} "
+          f"imagenet_trainer {arm}: K6 ran {k6_epoch1} / {k6_epoch2} "
           f"times, expected {n_k6} x ({IMAGENET_ITERS} steps + "
-          f"{eval_batches} eval batches) / {n_k6} x "
-          f"{IMAGENET_TIMED + IMAGENET_PROFILED} steps")
+          f"{eval_batches} eval batches + {CAPTURE_WARMUP} warm-ups) / "
+          f"{n_k6} x {IMAGENET_TIMED + IMAGENET_PROFILED} steps")
     check(resumed_at == IMAGENET_ITERS == restored.get("step") and exact,
           f"imagenet_trainer {arm}: resumed at {resumed_at} from "
           f"{restored}, or the restored model differs from the snapshot")
@@ -3832,12 +4502,53 @@ def imagenet_path_extras(dev, card, seed, rows, reps=10):
     return row
 
 
+def imagenet_eager(dev, card, seed, bn, conv1, captured):
+    """The twin's pipeline with ``--eager-step`` on the same card: the
+    Trainer's steps of epoch 1 after the first, timed by events between
+    iterations (no epoch end inside), against the captured arm's."""
+    import gc
+    import shutil
+    import tempfile
+
+    from chainermn_tpu_torch.examples import train_imagenet
+    from chainermn_tpu_torch.training import Extension
+
+    ckdir = tempfile.mkdtemp(prefix="cmn_imagenet_eager_")
+    run = train_imagenet.build(train_imagenet.parse_args(
+        imagenet_args(bn, conv1, ckdir) + ["--eager-step"]))
+    tr = run.trainer
+    marks = []
+    tr.extend(Extension(lambda t: marks.append(_event()), (1, "iteration")))
+    tr.stop_n, tr.stop_unit = IMAGENET_TIMED + 2, "iteration"
+    tr.run()
+    torch.cuda.synchronize()
+    (step,) = tr.optimizer._step_cache.values()
+    check(not step.graphs, f"imagenet_trainer {bn}/{conv1} eager: captured")
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(marks[1:],
+                                                        marks[2:]))
+    run.train_iter.close()
+    del run, tr, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckdir, ignore_errors=True)
+    med = step_ms[len(step_ms) // 2]
+    row = dict(phase="imagenet_trainer_eager", arm=f"{bn}/{conv1}",
+               card=card, step_ms_median=med, step_ms_runs=step_ms,
+               captured_step_ms=captured["step_ms_median"],
+               captured_over_eager=captured["step_ms_median"] / med)
+    emit(row)
+    return row
+
+
 def phase_imagenet_trainer(cf, dev, card, seed, bare):
     torch.backends.cudnn.benchmark = True
     try:
         rows = {f"{bn}/{c1}": imagenet_arm(cf, dev, card, seed, bn, c1,
                                            bare.get(f"{bn}/{c1}"))
                 for bn, c1 in (("sync", "none"), ("frozen", "pallas"))}
+        for key, row in rows.items():
+            row["eager"] = imagenet_eager(dev, card, seed,
+                                          *key.split("/"), row)
         imagenet_path_extras(dev, card, seed, rows)
     finally:
         torch.backends.cudnn.benchmark = False
@@ -4234,6 +4945,7 @@ def main() -> int:
     timing = phase_timing(ops, dev, args.seed, mb)
     phase_long_timing(ops, dev, args.seed)
     timing.update(phase_flash_timing(fa, dev, args.seed))
+    phase_flash_crossover(fa, dev, args.seed, smi)
 
     serve = drive_serving(ops, dev, smi, args.seed, "bf16_mha", 16)
     phase_serving_turns(dev, smi, args.seed)
@@ -4241,6 +4953,7 @@ def main() -> int:
     phase_policy(dev, smi, args.seed)
     drive_serving(ops, dev, smi, args.seed + 10, "int8_gqa", 6,
                   n_kv_heads=4, kv_dtype=torch.int8)
+    serve_spec = phase_serving_spec(ops, dev, smi, args.seed)
     fleet = fleet_phases(ops, dev, smi, args.seed)
     gen = phase_generation(ops, dev, smi, args.seed)
     phase_agreement(dev, args.seed)
@@ -4277,6 +4990,7 @@ def main() -> int:
     # phase, K1-K3 per step of each training phase.
     by_phase = {"paged_decode_attention": {
         "serving": serve["launches"]["paged_decode_attention"],
+        "serving_spec": serve_spec["k4_runs"],
         **{ph: r["launches"] for ph, r in fleet.items()}},
         "fused_decode_attention": {
         "generation": gen["launches"]["fused_decode_attention"],

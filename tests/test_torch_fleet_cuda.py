@@ -171,8 +171,11 @@ def test_engines_that_leave_free_the_card(dev):
     def factory():
         before = _allocated()
         eng = DecodeEngine(model, **ENG, device=dev)
+        # Prompts whose chunks take each prefill ladder geometry (8, 16),
+        # so that every graph the engine captures is in its footprint.
         Scheduler(eng, registry=MetricsRegistry()).run(
-            [Request(id=99, prompt=[3, 4, 5], max_new_tokens=6)])
+            [Request(id=99, prompt=[3, 4, 5], max_new_tokens=6),
+             Request(id=98, prompt=list(range(3, 15)), max_new_tokens=2)])
         eng.drop_prefix_cache()
         footprint[id(eng)] = (eng, _allocated() - before)
         return eng

@@ -17,8 +17,11 @@ Checked:
   pinned staging buffer or a device allocation reused too early would
   show as a changed batch);
 * a ``ResNetTiny`` with ``bn="frozen", conv1="pallas"`` trained through
-  the ``Trainer`` and the device-prefetch stage launches K6 12 times per
-  training step and 12 times per evaluator batch, counted by its wrapper;
+  the ``Trainer`` and the device-prefetch stage runs K6 12 times per
+  training step and 12 times per evaluator batch: the step is captured
+  as a CUDA graph, so its wrapper counts the launches of the first,
+  eager, step and of the capture's warm-ups, the capture records 12, and
+  each later step replays them;
 * a checkpoint restored into a fresh model on the card equals the saved
   tensors byte for byte.
 """
@@ -40,7 +43,11 @@ from chainermn_tpu_torch.iterators import (
 )
 from chainermn_tpu_torch.models import ResNetTiny, resnet_loss
 from chainermn_tpu_torch.ops import conv_fused
-from chainermn_tpu_torch.optimizers import create_multi_node_optimizer, sgd
+from chainermn_tpu_torch.optimizers import (
+    CAPTURE_WARMUP,
+    create_multi_node_optimizer,
+    sgd,
+)
 from chainermn_tpu_torch.training import Trainer
 
 pytestmark = pytest.mark.cuda
@@ -99,7 +106,11 @@ def test_k6_launches_are_counted_under_the_trainer(comm):
     conv_fused.matmul_affine_fwd.launches = 0
     tr.run()
     torch.cuda.synchronize()
-    assert conv_fused.matmul_affine_fwd.launches == 12 * 3
+    (step,) = opt._step_cache.values()
+    (graph,) = step.graphs.values()
+    assert graph.captured["matmul_affine_fwd"] == 12
+    assert step.program.replays == 3 - 1
+    assert conv_fused.matmul_affine_fwd.launches == 12 * (1 + CAPTURE_WARMUP)
     assert np.isfinite(float(tr.last_metrics["loss"]))
     ev = Evaluator(lambda: SerialIterator(ArrayDataset(*_pool(20, 32, 1)), 8,
                                           repeat=False, shuffle=False),
