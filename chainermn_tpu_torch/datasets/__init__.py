@@ -1,7 +1,8 @@
 """Data distribution of the port: numpy copies of the JAX package's
 ``datasets`` (``ArrayDataset``, ``NpzDataset``, ``SubDataset``,
 ``scatter_dataset``, ``create_empty_dataset``,
-``make_synthetic_classification``) and ``datasets/packing.py``, with the
+``make_synthetic_classification``), ``datasets/packing.py`` and
+``datasets/seq.py`` (the seq2seq family's buckets and corpora), with the
 same shuffling and seeds, so the same rows reach both packages.
 
 Sharding is by communicator rank: one PyTorch process drives one card, so
@@ -16,13 +17,15 @@ from typing import Optional
 import numpy as np
 
 from chainermn_tpu_torch.datasets.packing import (
+    pack_pairs,
     pack_sequences,
     packing_efficiency,
 )
 
 __all__ = ["ArrayDataset", "NpzDataset", "SubDataset",
            "create_empty_dataset", "make_synthetic_classification",
-           "scatter_dataset", "pack_sequences", "packing_efficiency"]
+           "scatter_dataset", "pack_pairs", "pack_sequences",
+           "packing_efficiency"]
 
 
 class SubDataset:

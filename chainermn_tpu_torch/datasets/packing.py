@@ -71,6 +71,64 @@ def pack_sequences(docs: Sequence[np.ndarray], seq_len: int,
     return tokens, targets, seg
 
 
+def pack_pairs(
+    pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
+    src_len: int,
+    tgt_len: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Pack (src, tgt) sentence pairs into fixed-shape rows for seq2seq.
+
+    Pair *j* of a row gets the same segment id on both sides, so encoder
+    self-attention isolates source sentences, decoder self-attention
+    isolates target sentences, and cross-attention matches each target to
+    exactly its own source (``TransformerSeq2Seq(..., src_seg, tgt_seg)``).
+    A pair is placed only where both sides fit (best-fit decreasing on the
+    combined length); pairs overlong on either side are dropped.
+
+    Returns ``(src, tgt, src_seg, tgt_seg)``, each ``(N, {src,tgt}_len)``
+    int32; padding is token 0 with segment id 0.
+    """
+    usable = []
+    for s, t in pairs:
+        s = np.asarray(s, np.int32).reshape(-1)
+        t = np.asarray(t, np.int32).reshape(-1)
+        if 0 < len(s) <= src_len and 0 < len(t) <= tgt_len:
+            usable.append((s, t))
+    usable.sort(key=lambda p: len(p[0]) + len(p[1]), reverse=True)
+    rows: List[List[Tuple[np.ndarray, np.ndarray]]] = []
+    space: List[Tuple[int, int]] = []  # per-row (src_free, tgt_free)
+    for s, t in usable:
+        best, best_slack = None, None
+        for r, (fs, ft) in enumerate(space):
+            if len(s) <= fs and len(t) <= ft:
+                slack = (fs - len(s)) + (ft - len(t))
+                if best is None or slack < best_slack:
+                    best, best_slack = r, slack
+        if best is None:
+            rows.append([(s, t)])
+            space.append((src_len - len(s), tgt_len - len(t)))
+        else:
+            rows[best].append((s, t))
+            fs, ft = space[best]
+            space[best] = (fs - len(s), ft - len(t))
+
+    n = len(rows)
+    src = np.zeros((n, src_len), np.int32)
+    tgt = np.zeros((n, tgt_len), np.int32)
+    sseg = np.zeros((n, src_len), np.int32)
+    tseg = np.zeros((n, tgt_len), np.int32)
+    for r, row_pairs in enumerate(rows):
+        at_s = at_t = 0
+        for j, (s, t) in enumerate(row_pairs, start=1):
+            src[r, at_s:at_s + len(s)] = s
+            sseg[r, at_s:at_s + len(s)] = j
+            at_s += len(s)
+            tgt[r, at_t:at_t + len(t)] = t
+            tseg[r, at_t:at_t + len(t)] = j
+            at_t += len(t)
+    return src, tgt, sseg, tseg
+
+
 def packing_efficiency(segment_ids: np.ndarray) -> float:
     """Fraction of non-padding slots (segment id != 0)."""
     seg = np.asarray(segment_ids)

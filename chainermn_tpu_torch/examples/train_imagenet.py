@@ -13,7 +13,11 @@ the card), ``--double-buffering``, ``--grad-compression int8_ef``,
 ``LogReport``, ``--eval`` (top-1 accuracy on ``--val-size`` held-out
 images through the multi-node evaluator, every epoch) and
 ``--checkpoint DIR`` (a snapshot every epoch; a run resumes from the
-newest one).  Runs::
+newest one).  ``--arch vit`` trains a ViT (``--vit s16|s14|b16``, the
+JAX bench's geometries) with the stateless loss; ``--optimizer
+lars|lamb``, ``--base-batch`` (linear LR scaling) and ``--warmup-epochs``
+(warmup into cosine decay) are the large-batch recipe of the JAX
+example.  Runs::
 
     python -m chainermn_tpu_torch.examples.train_imagenet --eval
     python -m chainermn_tpu_torch.examples.train_imagenet --device cpu \\
@@ -22,14 +26,13 @@ newest one).  Runs::
     torchrun --nproc_per_node N -m chainermn_tpu_torch.examples.train_imagenet
 
 ``--steps N`` stops after N iterations instead of ``--epoch`` epochs.
-The JAX example validates every run; here ``--eval`` asks for it.  Flags
-of the JAX example whose modules are not ported are accepted and refused
-when set, naming their ROADMAP item.
+The JAX example validates every run; here ``--eval`` asks for it.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import math
 import time
 import types
@@ -38,11 +41,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-#: flags of the JAX example whose modules are not ported yet, with the
-#: ROADMAP Queue 1 item that ports them.
-_UNPORTED = {
-    "base_batch": ("--base-batch", "11 (optimizers/large_batch.py)"),
-    "warmup_epochs": ("--warmup-epochs", "11 (optimizers/large_batch.py)"),
+#: ``--vit`` geometries: the JAX bench's ``CMN_BENCH_VIT`` variants
+#: (``bench.py:1140-1151``): ViT-S/16, ViT-S/14 (T = 256 at 224 px) and
+#: ViT-B/16.
+VIT_GEOMETRIES = {
+    "s16": dict(patch=16),
+    "s14": dict(patch=14),
+    "b16": dict(patch=16, d_model=768, n_heads=12, d_ff=3072),
 }
 
 
@@ -107,20 +112,20 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--double-buffering", action="store_true")
     ap.add_argument("--grad-compression", default=None,
                     choices=("int8_ef",))
-    ap.add_argument("--base-batch", type=int, default=None)
-    ap.add_argument("--warmup-epochs", type=float, default=0.0)
+    ap.add_argument("--base-batch", type=int, default=None,
+                    help="linear LR scaling: --lr is calibrated at this "
+                         "global batch and scaled by the global batch / "
+                         "base batch")
+    ap.add_argument("--warmup-epochs", type=float, default=0.0,
+                    help="gradual-warmup epochs before cosine decay")
+    ap.add_argument("--vit", default="s16", choices=tuple(VIT_GEOMETRIES),
+                    help="--arch vit geometry: s16 (ViT-S/16), s14, b16")
     args = ap.parse_args(argv)
-    for attr, (flag, item) in _UNPORTED.items():
-        if getattr(args, attr):
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP Queue 1 item {item})")
-    if args.optimizer != "momentum":
-        raise NotImplementedError(
-            f"--optimizer {args.optimizer} is not ported yet (ROADMAP Queue "
-            "1 item 11, optimizers/large_batch.py)")
-    if args.arch == "vit":
-        raise NotImplementedError(
-            "--arch vit is not ported yet (ROADMAP Queue 1 item 9)")
+    if args.arch == "vit" and (args.stem, args.maxpool, args.bn,
+                               args.conv1) != ("conv7", "xla", "sync",
+                                               "none"):
+        ap.error("--stem/--maxpool/--bn/--conv1 are ResNet knobs; they have "
+                 "no meaning for --arch vit")
     return args
 
 
@@ -156,31 +161,49 @@ def build(args, comm=None):
         SerialIterator,
         create_device_prefetch_iterator,
     )
-    from chainermn_tpu_torch.models import ResNet18, ResNet50, resnet_loss
+    from chainermn_tpu_torch.models import (
+        ResNet18,
+        ResNet50,
+        ViT,
+        resnet_loss,
+        vit_loss,
+    )
     from chainermn_tpu_torch.optimizers import (
         create_multi_node_optimizer,
+        kernel_mask,
+        lamb,
+        lars,
+        linear_scaled_lr,
         sgd,
+        warmup_cosine_schedule,
     )
     from chainermn_tpu_torch.training import Extension, LogReport, Trainer
+    from chainermn_tpu_torch.utils import (
+        resnet_params_to_flax,
+        vit_params_to_flax,
+    )
 
     if comm is None:
         dev = None if args.device == "cuda" else args.device
         comm = create_communicator(args.communicator, device=dev,
                                    allreduce_grad_dtype=args.wire_dtype)
     dev = comm.device
-    arch = ResNet50 if args.arch == "resnet50" else ResNet18
-    model = arch(num_classes=args.num_classes, axis_name=comm.axis_name,
-                 stem=args.stem, maxpool=args.maxpool, bn=args.bn,
-                 conv1=args.conv1,
-                 dtype=torch.float32 if dev.type == "cpu" else torch.bfloat16,
-                 device=dev, seed=args.seed)
-    if args.branch_scale is not None:
-        model.scale_residual_branches(args.branch_scale)
-    opt = create_multi_node_optimizer(
-        sgd(args.lr, 0.9, nesterov=True), comm,
-        double_buffering=args.double_buffering,
-        grad_compression=args.grad_compression)
-    state = opt.init(model)
+    dtype = torch.float32 if dev.type == "cpu" else torch.bfloat16
+    if args.arch == "vit":
+        # Stateless (no BN).
+        model = ViT(num_classes=args.num_classes,
+                    image_size=args.image_size, dtype=dtype, device=dev,
+                    seed=args.seed, **VIT_GEOMETRIES[args.vit])
+        loss_fn, stateful = vit_loss(model), False
+    else:
+        arch = ResNet50 if args.arch == "resnet50" else ResNet18
+        model = arch(num_classes=args.num_classes, axis_name=comm.axis_name,
+                     stem=args.stem, maxpool=args.maxpool, bn=args.bn,
+                     conv1=args.conv1, dtype=dtype, device=dev,
+                     seed=args.seed)
+        if args.branch_scale is not None:
+            model.scale_residual_branches(args.branch_scale)
+        loss_fn, stateful = resnet_loss(model), True
 
     local_bs = args.batch_per_chip
     if args.train_npz:
@@ -192,6 +215,29 @@ def build(args, comm=None):
         ds = ArrayDataset(*synthetic_pool(
             args.seed * 1000 + comm.rank, args.iters_per_epoch * local_bs,
             args.image_size, args.num_classes))
+    per_epoch = math.ceil(len(ds) / local_bs)
+    total = args.steps or args.epoch * per_epoch
+    # The large-batch recipe: opt-in linear LR scaling from --base-batch,
+    # gradual warmup into cosine decay (evaluated on the card inside the
+    # step), LARS/LAMB trust ratios with the JAX package's kernel mask.
+    peak_lr = (linear_scaled_lr(args.lr, local_bs * comm.size,
+                                args.base_batch)
+               if args.base_batch else args.lr)
+    lr = (warmup_cosine_schedule(
+        peak_lr, min(int(args.warmup_epochs * per_epoch), total), total)
+        if args.warmup_epochs > 0 else peak_lr)
+    to_flax = (functools.partial(vit_params_to_flax, n_heads=model.n_heads)
+               if args.arch == "vit" else resnet_params_to_flax)
+    tx = {"momentum": lambda: sgd(lr, 0.9, nesterov=True),
+          "lars": lambda: lars(lr, weight_decay=1e-4, momentum=0.9,
+                               mask=kernel_mask(model, to_flax)),
+          "lamb": lambda: lamb(lr, weight_decay=1e-2,
+                               mask=kernel_mask(model, to_flax))
+          }[args.optimizer]()
+    opt = create_multi_node_optimizer(
+        tx, comm, double_buffering=args.double_buffering,
+        grad_compression=args.grad_compression)
+    state = opt.init(model)
     # Native workers assemble batches ahead into a ring; the device stage
     # copies each into pinned memory and to the card on a side stream.
     it = PrefetchIterator(ds, local_bs, shuffle=True, seed=0, copy=False)
@@ -202,10 +248,10 @@ def build(args, comm=None):
 
         step_kwargs["augment"] = random_crop_flip(padding=4)
     stop = (args.steps, "iteration") if args.steps else (args.epoch, "epoch")
-    trainer = Trainer(opt, state, resnet_loss(model), it, stop=stop,
-                      stateful=True, step_kwargs=step_kwargs)
+    trainer = Trainer(opt, state, loss_fn, it, stop=stop,
+                      has_aux=not stateful, stateful=stateful,
+                      step_kwargs=step_kwargs)
     trainer.extend(LogReport(trigger=(1, "epoch")))
-    total = args.steps or args.epoch * math.ceil(len(ds) / local_bs)
 
     def print_step(tr):
         # The first and the last step only: reading the loss waits for
@@ -276,8 +322,9 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     comm = run.comm
     if comm.rank == 0:
         print(f"ranks: {comm.size}  arch: {args.arch}  bn: {args.bn}  "
-              f"conv1: {args.conv1}  maxpool: {args.maxpool}  batch per "
-              f"chip: {args.batch_per_chip}", flush=True)
+              f"conv1: {args.conv1}  maxpool: {args.maxpool}  optimizer: "
+              f"{args.optimizer}  batch per chip: {args.batch_per_chip}",
+              flush=True)
     t0 = time.perf_counter()
     it0 = run.trainer.iteration
     run.trainer.run()

@@ -15,11 +15,17 @@ the serial iterator for the seed).  ``--eval`` holds out the last tenth
 of the rows before training and, after it, reports the validation
 perplexity through the multi-node evaluator (token-weighted sums over
 every rank's share, finalized once: the exact corpus perplexity).
+``--lora RANK`` freezes the model and trains adapters on its attention
+projections (``--eval``/``--generate`` run on the merged export);
+``--optimizer adafactor`` and ``--warmup N`` (linear warmup into cosine
+decay) follow the JAX example's optax arithmetic, on the card inside the
+captured step.  ``--zero`` is not ported and raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -70,25 +76,27 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                          "corpus prompt (KV-cache decode)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (this rank's card) or 'cpu'")
-    # Flags of the JAX example whose modules are not ported yet: accepted
-    # so that the command lines match, refused when set.
+    # The JAX example's ZeRO tier is not ported yet: the flag is accepted
+    # so that the command lines match, and refused when set.
     ap.add_argument("--zero", action="store_true")
-    ap.add_argument("--lora", type=int, default=0)
+    ap.add_argument("--lora", type=int, default=0, metavar="RANK",
+                    help="LoRA fine-tuning: freeze the base after init and "
+                         "train rank-RANK adapters on the attention "
+                         "projections; --eval/--generate run on the merged "
+                         "export")
     ap.add_argument("--optimizer", default="adamw",
-                    choices=("adamw", "adafactor"))
-    ap.add_argument("--warmup", type=int, default=0)
+                    choices=("adamw", "adafactor"),
+                    help="adafactor = factored second moments "
+                         "(optax.adafactor's arithmetic)")
+    ap.add_argument("--warmup", type=int, default=0,
+                    help="linear-warmup steps into a cosine decay schedule")
     ap.add_argument("--eval", action="store_true",
                     help="after training, validation perplexity over a "
                          "held-out split via the multi-node evaluator")
     args = ap.parse_args(argv)
-    for on, flag, item in ((args.zero, "--zero", "11"),
-                           (args.lora, "--lora", "9"),
-                           (args.optimizer != "adamw",
-                            "--optimizer adafactor", "11"),
-                           (args.warmup, "--warmup", "11")):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP Queue 1 item {item})")
+    if args.zero:
+        raise NotImplementedError(
+            "--zero is not ported yet (ROADMAP Queue 1 item 11)")
     if args.generate and 16 + args.generate > args.seq_len and not args.rope:
         ap.error(f"--generate {args.generate} + 16-token prompt exceeds "
                  f"--seq-len {args.seq_len}")
@@ -144,11 +152,21 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
         SerialIterator,
         create_device_prefetch_iterator,
     )
-    from chainermn_tpu_torch.models import TransformerLM, lm_loss
+    from chainermn_tpu_torch.models import (
+        TransformerLM,
+        lm_loss,
+        lora_init,
+        lora_merge,
+        lora_param_count,
+        make_lora_loss,
+    )
     from chainermn_tpu_torch.optimizers import (
+        adafactor,
         adamw,
         create_multi_node_optimizer,
+        warmup_cosine_schedule,
     )
+    from chainermn_tpu_torch.utils import flax_shapes, params_to_flax
 
     dev = None if args.device == "cuda" else args.device
     comm = create_communicator("xla", device=dev)
@@ -196,11 +214,27 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
         remat=args.remat, pos_enc="rope" if args.rope else "learned",
         n_kv_heads=args.kv_heads, window=args.window, device=dev, seed=0,
     )
-    opt = create_multi_node_optimizer(adamw(args.lr, weight_decay=0.01),
-                                      comm)
-    state = opt.init(model)
-    step = opt.make_train_step(lm_loss(model), has_aux=True,
-                               accum_steps=args.accum)
+    # optax.warmup_cosine_decay_schedule(0, lr, warmup, max(steps,
+    # warmup + 1)), evaluated on the card inside the step.
+    lr = (warmup_cosine_schedule(args.lr, args.warmup,
+                                 max(args.steps, args.warmup + 1))
+          if args.warmup else args.lr)
+    to_flax = functools.partial(params_to_flax, n_heads=model.n_heads,
+                                n_kv_heads=model.n_kv_heads)
+    tx = (adafactor(lr, shapes=flax_shapes(model, to_flax))
+          if args.optimizer == "adafactor" else adamw(lr, weight_decay=0.01))
+    opt = create_multi_node_optimizer(tx, comm)
+    loss_fn = lm_loss(model)
+    trained = model
+    if args.lora:
+        total = lora_param_count(model)
+        trained = lora_init(model, args.lora, seed=1)
+        loss_fn = make_lora_loss(loss_fn)
+        if comm.rank == 0:
+            print(f"lora rank {args.lora}: {lora_param_count(trained)} "
+                  f"trainable / {total} total params", flush=True)
+    state = opt.init(trained)
+    step = opt.make_train_step(loss_fn, has_aux=True, accum_steps=args.accum)
     metrics = {}
     for i in range(args.steps):
         state, metrics = step(state, next(it))
@@ -209,6 +243,10 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
             if comm.rank == 0:
                 print(f"step {i}: loss {loss:.4f}", flush=True)
     it.close()
+    if args.lora and (args.eval or args.generate):
+        # The merged export: eval and decoding run as on a fully
+        # fine-tuned model.
+        model = lora_merge(trained)
     if args.eval:
         val = scatter_dataset(ArrayDataset(*val_arrays), comm,
                               force_equal_length=False)

@@ -49,6 +49,13 @@ parameters after every update), ``augment`` (a transform of the batch
 drawn from a generator seeded by ``(augment_seed, step, rank)``) and the
 eager ``update`` facade, which caches one step per loss function and
 flags.
+
+The update rules: :func:`sgd` and :func:`adamw` (``torch.optim``; a
+scheduled AdamW keeps its learning rate on the card), and, following
+optax's arithmetic on the card (:mod:`~chainermn_tpu_torch.optimizers.
+rules`), the scheduled SGD, :func:`adafactor`, and the large-batch tier's
+:func:`lars` and :func:`lamb` (:mod:`~chainermn_tpu_torch.optimizers.
+large_batch`).
 """
 
 from __future__ import annotations
@@ -67,41 +74,97 @@ import torch.nn as nn
 
 from chainermn_tpu_torch.comm.base import CommunicatorBase
 from chainermn_tpu_torch.observability import device as _odevice
+from chainermn_tpu_torch.optimizers.large_batch import (
+    Lamb,
+    Lars,
+    kernel_mask,
+    lamb,
+    lars,
+    linear_scaled_lr,
+    warmup_cosine_schedule,
+)
+from chainermn_tpu_torch.optimizers.rules import (
+    Adafactor,
+    LearningRate,
+    ScheduledSGD,
+)
 
-__all__ = ["MultiNodeOptimizer", "TrainState", "adamw",
-           "augment_generator", "create_multi_node_optimizer", "ema_model",
-           "int8_ef_codes", "int8_ef_mean", "sgd"]
+__all__ = ["Adafactor", "Lamb", "Lars", "MultiNodeOptimizer", "TrainState",
+           "adafactor", "adamw", "augment_generator",
+           "create_multi_node_optimizer", "ema_model", "int8_ef_codes",
+           "int8_ef_mean", "kernel_mask", "lamb", "lars", "linear_scaled_lr",
+           "sgd", "warmup_cosine_schedule"]
 
 
-def sgd(learning_rate: float, momentum: Optional[float] = None,
+def sgd(learning_rate: LearningRate, momentum: Optional[float] = None,
         nesterov: bool = False):
     """``optax.sgd`` as a torch optimizer factory: ``trace = g + momentum
     · trace``, ``p -= lr · trace`` (``nesterov``: ``p -= lr · (g +
     momentum · trace)``), no dampening, no weight decay -- which is
     ``torch.optim.SGD`` with ``dampening=0``; plain SGD when ``momentum``
-    is None."""
+    is None.  A schedule (a function of the step count, such as
+    :func:`warmup_cosine_schedule`) builds :class:`~chainermn_tpu_torch.
+    optimizers.rules.ScheduledSGD`, which evaluates it on the card."""
+    if callable(learning_rate):
+        return functools.partial(ScheduledSGD, learning_rate=learning_rate,
+                                 momentum=momentum, nesterov=nesterov)
     return functools.partial(torch.optim.SGD, lr=learning_rate,
                              momentum=momentum or 0.0, dampening=0.0,
                              nesterov=nesterov, weight_decay=0.0)
 
 
-def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+def adafactor(learning_rate: LearningRate,
+              shapes: Optional[Dict[torch.Tensor, tuple]] = None):
+    """``optax.adafactor(learning_rate)`` as a torch optimizer factory
+    (:class:`~chainermn_tpu_torch.optimizers.rules.Adafactor`, optax's
+    defaults); capturable.  ``shapes``: the bridge's
+    :func:`~chainermn_tpu_torch.utils.bridge.flax_shapes` of the model, so
+    that it factors the JAX layout."""
+    return functools.partial(Adafactor, learning_rate=learning_rate,
+                             shapes=shapes)
+
+
+def adamw(learning_rate: LearningRate, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 1e-4):
     """``optax.adamw`` as a torch optimizer factory, with optax's defaults
     (its weight decay is 1e-4 where torch's AdamW defaults to 1e-2).  The
     update is the same: decay and the bias-corrected Adam step both from
     the old parameters, on every parameter (optax's mask is None).  On a
     CUDA device the optimizer is built ``capturable`` (its step count
-    lives on the card), so the train step can be captured."""
-
+    lives on the card), so the train step can be captured.  A schedule of
+    the step count (such as :func:`warmup_cosine_schedule`) is evaluated
+    on the card: the learning rate is a 0-d tensor on the parameters'
+    device, rewritten from the optimizer's step count before every
+    ``step()``."""
     def build(params):
         params = list(params)
-        return torch.optim.AdamW(
-            params, lr=learning_rate, betas=(b1, b2), eps=eps,
+        scheduled = callable(learning_rate)
+        lr = (torch.zeros((), dtype=torch.float32, device=params[0].device)
+              if scheduled else learning_rate)
+        opt = torch.optim.AdamW(
+            params, lr=lr, betas=(b1, b2), eps=eps,
             weight_decay=weight_decay,
             capturable=any(p.is_cuda for p in params))
+        if scheduled:
+            opt.register_step_pre_hook(functools.partial(
+                _scheduled_lr, lr=lr, schedule=learning_rate))
+        return opt
 
     return build
+
+
+def _scheduled_lr(opt, args, kwargs, lr: torch.Tensor,
+                  schedule: Callable) -> None:
+    """A step pre-hook: ``lr`` <- ``schedule(count)``, ``count`` the
+    updates made so far (optax's count: 0 at the first update), read from
+    the optimizer's state on its device, so a captured step records it.
+    Every group holds ``lr`` itself (a checkpoint's ``load_state_dict``
+    puts its own copy there)."""
+    count = next((s["step"] for s in opt.state.values() if "step" in s),
+                 None)
+    lr.copy_(schedule(torch.zeros_like(lr) if count is None else count))
+    for g in opt.param_groups:
+        g["lr"] = lr
 
 
 @dataclass

@@ -25,13 +25,16 @@ D)``, ``moe_b2 (E, D)`` (MoE blocks)
 ``ln_f``, ``lm_head.kernel (D, V)``          ``ln_f``, ``lm_head.weight (V, D)``
 ==========================================  ================================
 
-Biases flatten the same way as their kernels' output axes.  The ResNet
-and MLP mappings are described beside their functions below.
+Biases flatten the same way as their kernels' output axes.  The ResNet,
+MLP, seq2seq, ViT and LoRA mappings are described beside their functions
+below.  :func:`flax_shapes` reads a model's Flax shapes off its ``*_to_flax``
+mapping, for the optimizers that follow the JAX layout.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -49,11 +52,13 @@ def _tensor(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)
 
 
-def _dense(out: Dict, name: str, p: Dict, device) -> None:
+def _dense(out: Dict, name: str, p: Dict, device, in_axes: int = 1) -> None:
     """A Flax ``Dense``/``DenseGeneral`` whose kernel contracts its first
-    axis: kernel ``(D, *out_axes)`` -> weight ``(prod(out_axes), D)``."""
+    ``in_axes`` axes: kernel ``(*in_axes, *out_axes)`` -> weight
+    ``(prod(out_axes), prod(in_axes))``."""
     k = np.asarray(p["kernel"])
-    out[f"{name}.weight"] = _tensor(k.reshape(k.shape[0], -1).T, device)
+    n_in = int(np.prod(k.shape[:in_axes]))
+    out[f"{name}.weight"] = _tensor(k.reshape(n_in, -1).T, device)
     out[f"{name}.bias"] = _tensor(np.asarray(p["bias"]).reshape(-1), device)
 
 
@@ -110,9 +115,10 @@ def _np(t) -> np.ndarray:
         if t.dtype == torch.bfloat16 else t.detach().cpu().numpy()
 
 
-def _dense_back(sd, name: str, out_axes) -> Dict:
+def _dense_back(sd, name: str, out_axes, in_axes=None) -> Dict:
     w = _np(sd[f"{name}.weight"])
-    return {"kernel": w.T.reshape(w.shape[1], *out_axes),
+    ins = (w.shape[1],) if in_axes is None else tuple(in_axes)
+    return {"kernel": w.T.reshape(*ins, *out_axes),
             "bias": _np(sd[f"{name}.bias"]).reshape(out_axes)}
 
 
@@ -289,4 +295,303 @@ def mlp_params_to_flax(tensors: Dict[str, torch.Tensor]) -> Dict:
             node["kernel"] = arr.T
         else:
             node["bias"] = arr
+    return out
+
+
+# --------------------------------------------------------------- seq2seq
+# TransformerSeq2Seq: ``enc_i`` -> ``enc.i`` (``ln1``, ``qkv`` (D, 3, H,
+# Dh), ``proj`` (H, Dh, D), ``ln2``, ``ff1``, ``ff2``), ``dec_i`` -> ``dec.i``
+# (``ln1``, ``qkv``, ``self_proj`` (H, Dh, D), ``ln2``, ``cross_q`` (D, H,
+# Dh), ``cross_kv`` (D, 2, H, Dh), ``cross_proj`` (H, Dh, D), ``ln3``,
+# ``ff1``, ``ff2``); ``embed_src``/``embed_tgt`` ``.embedding`` ->
+# ``.weight``; ``pos``, ``ln_enc``, ``ln_dec`` and the head ``proj`` (D, V)
+# keep their names.  Kernels contracting ``(H, Dh)`` flatten it as the
+# port's ``(D, H·Dh)`` weight; output axes flatten as for the LM.
+_S2S_ENC = (("ln1", None), ("qkv", 1), ("proj", 2), ("ln2", None),
+            ("ff1", 1), ("ff2", 1))
+_S2S_DEC = (("ln1", None), ("qkv", 1), ("self_proj", 2), ("ln2", None),
+            ("cross_q", 1), ("cross_kv", 1), ("cross_proj", 2),
+            ("ln3", None), ("ff1", 1), ("ff2", 1))
+
+
+def _block_from(out, pre, b, layout, dev) -> None:
+    for name, in_axes in layout:
+        if in_axes is None:
+            _ln(out, f"{pre}.{name}", b[name], dev)
+        else:
+            _dense(out, f"{pre}.{name}", b[name], dev, in_axes)
+
+
+def seq2seq_params_from_flax(params: Dict, device=None
+                             ) -> Dict[str, torch.Tensor]:
+    """The port's ``TransformerSeq2Seq`` ``state_dict`` from the JAX
+    package's parameter tree (numpy leaves).  ``device`` None means the
+    current CUDA device (raises where there is none)."""
+    dev = resolve_device(device, "seq2seq_params_from_flax")
+    out: Dict[str, torch.Tensor] = {}
+    for side in ("src", "tgt"):
+        out[f"embed_{side}.weight"] = _tensor(
+            params[f"embed_{side}"]["embedding"], dev)
+    out["pos"] = _tensor(params["pos"], dev)
+    for kind, layout in (("enc", _S2S_ENC), ("dec", _S2S_DEC)):
+        i = 0
+        while f"{kind}_{i}" in params:
+            _block_from(out, f"{kind}.{i}", params[f"{kind}_{i}"], layout,
+                        dev)
+            i += 1
+    _ln(out, "ln_enc", params["ln_enc"], dev)
+    _ln(out, "ln_dec", params["ln_dec"], dev)
+    _dense(out, "proj", params["proj"], dev)
+    return out
+
+
+def seq2seq_params_to_flax(tensors: Dict[str, torch.Tensor],
+                           n_heads: int) -> Dict:
+    """The inverse of :func:`seq2seq_params_from_flax`, for parameters or
+    gradients (``{name: p.grad}``), as numpy Flax trees."""
+    sd = dict(tensors)
+    D = sd["pos"].shape[1]
+    H = n_heads
+    Dh = D // H
+    axes = {"qkv": ((3, H, Dh), None), "proj": ((D,), (H, Dh)),
+            "self_proj": ((D,), (H, Dh)), "cross_proj": ((D,), (H, Dh)),
+            "cross_q": ((H, Dh), None), "cross_kv": ((2, H, Dh), None)}
+    out: Dict = {f"embed_{s}": {"embedding": _np(sd[f"embed_{s}.weight"])}
+                 for s in ("src", "tgt")}
+    out["pos"] = _np(sd["pos"])
+    for kind, layout in (("enc", _S2S_ENC), ("dec", _S2S_DEC)):
+        i = 0
+        while f"{kind}.{i}.ln1.weight" in sd:
+            pre, b = f"{kind}.{i}", {}
+            for name, in_axes in layout:
+                if in_axes is None:
+                    b[name] = _ln_back(sd, f"{pre}.{name}")
+                    continue
+                outs, ins = axes.get(
+                    name, ((sd[f"{pre}.{name}.weight"].shape[0],), None))
+                b[name] = _dense_back(sd, f"{pre}.{name}", outs, ins)
+            out[f"{kind}_{i}"] = b
+            i += 1
+    out["ln_enc"] = _ln_back(sd, "ln_enc")
+    out["ln_dec"] = _ln_back(sd, "ln_dec")
+    out["proj"] = _dense_back(sd, "proj", (sd["proj.weight"].shape[0],))
+    return out
+
+
+# The LSTM Seq2Seq: Flax's ``OptimizedLSTMCell_0`` (the encoder) and
+# ``OptimizedLSTMCell_1`` (the decoder) keep one kernel per gate, input
+# kernels ``ii``/``if``/``ig``/``io`` (E, H) without bias and recurrent
+# ``hi``/``hf``/``hg``/``ho`` (H, H) with bias; the port's ``_LSTM`` stacks
+# them in the gate order i, f, g, o: ``weight_ih`` (4H, E), ``weight_hh``
+# (4H, H), ``bias`` (4H,).  ``embed_*`` and ``proj`` as above.
+_GATES = ("i", "f", "g", "o")
+_CELLS = (("OptimizedLSTMCell_0", "encoder"),
+          ("OptimizedLSTMCell_1", "decoder"))
+
+
+def lstm_seq2seq_params_from_flax(params: Dict, device=None
+                                  ) -> Dict[str, torch.Tensor]:
+    """The port's LSTM ``Seq2Seq`` ``state_dict`` from the JAX package's
+    ``Seq2Seq`` parameters (numpy trees)."""
+    dev = resolve_device(device, "lstm_seq2seq_params_from_flax")
+    out: Dict[str, torch.Tensor] = {}
+    for side in ("src", "tgt"):
+        out[f"embed_{side}.weight"] = _tensor(
+            params[f"embed_{side}"]["embedding"], dev)
+    for flax_name, port in _CELLS:
+        c = params[flax_name]
+        out[f"{port}.weight_ih"] = _tensor(np.concatenate(
+            [np.asarray(c[f"i{g}"]["kernel"]) for g in _GATES], 1).T, dev)
+        out[f"{port}.weight_hh"] = _tensor(np.concatenate(
+            [np.asarray(c[f"h{g}"]["kernel"]) for g in _GATES], 1).T, dev)
+        out[f"{port}.bias"] = _tensor(np.concatenate(
+            [np.asarray(c[f"h{g}"]["bias"]) for g in _GATES]), dev)
+    _dense(out, "proj", params["proj"], dev)
+    return out
+
+
+def lstm_seq2seq_params_to_flax(tensors: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`lstm_seq2seq_params_from_flax`, for
+    parameters or gradients."""
+    sd = dict(tensors)
+    out: Dict = {f"embed_{s}": {"embedding": _np(sd[f"embed_{s}.weight"])}
+                 for s in ("src", "tgt")}
+    for flax_name, port in _CELLS:
+        wi = np.split(_np(sd[f"{port}.weight_ih"]).T, 4, axis=1)
+        wh = np.split(_np(sd[f"{port}.weight_hh"]).T, 4, axis=1)
+        bh = np.split(_np(sd[f"{port}.bias"]), 4)
+        cell = {}
+        for k, g in enumerate(_GATES):
+            cell[f"i{g}"] = {"kernel": wi[k]}
+            cell[f"h{g}"] = {"kernel": wh[k], "bias": bh[k]}
+        out[flax_name] = cell
+    out["proj"] = _dense_back(sd, "proj", (sd["proj.weight"].shape[0],))
+    return out
+
+
+# ------------------------------------------------------------------- ViT
+# ``patch_embed.kernel`` (p, p, C, D) HWIO -> ``patch_embed.weight`` (D, C,
+# p, p); ``pos_embed`` (1, T, D) as it is; ``block{i}`` -> ``blocks.i``
+# with the encoder block's layout above; ``ln_f``; ``head.kernel`` (D, K)
+# -> ``head.weight`` (K, D).
+def vit_params_from_flax(params: Dict, device=None
+                         ) -> Dict[str, torch.Tensor]:
+    """The port's ``ViT`` ``state_dict`` from the JAX package's ``ViT``
+    parameters (numpy trees)."""
+    dev = resolve_device(device, "vit_params_from_flax")
+    pk = np.asarray(params["patch_embed"]["kernel"])
+    out: Dict[str, torch.Tensor] = {
+        "patch_embed.weight": _tensor(pk.transpose(3, 2, 0, 1), dev),
+        "patch_embed.bias": _tensor(params["patch_embed"]["bias"], dev),
+        "pos_embed": _tensor(params["pos_embed"], dev)}
+    i = 0
+    while f"block{i}" in params:
+        _block_from(out, f"blocks.{i}", params[f"block{i}"], _S2S_ENC, dev)
+        i += 1
+    _ln(out, "ln_f", params["ln_f"], dev)
+    _dense(out, "head", params["head"], dev)
+    return out
+
+
+def vit_params_to_flax(tensors: Dict[str, torch.Tensor], n_heads: int
+                       ) -> Dict:
+    """The inverse of :func:`vit_params_from_flax`, for parameters or
+    gradients."""
+    sd = dict(tensors)
+    D = sd["pos_embed"].shape[-1]
+    H = n_heads
+    Dh = D // H
+    out: Dict = {
+        "patch_embed": {
+            "kernel": _np(sd["patch_embed.weight"]).transpose(2, 3, 1, 0),
+            "bias": _np(sd["patch_embed.bias"])},
+        "pos_embed": _np(sd["pos_embed"])}
+    i = 0
+    while f"blocks.{i}.ln1.weight" in sd:
+        pre = f"blocks.{i}"
+        F_ = sd[f"{pre}.ff1.weight"].shape[0]
+        out[f"block{i}"] = {
+            "ln1": _ln_back(sd, f"{pre}.ln1"),
+            "qkv": _dense_back(sd, f"{pre}.qkv", (3, H, Dh)),
+            "proj": _dense_back(sd, f"{pre}.proj", (D,), (H, Dh)),
+            "ln2": _ln_back(sd, f"{pre}.ln2"),
+            "ff1": _dense_back(sd, f"{pre}.ff1", (F_,)),
+            "ff2": _dense_back(sd, f"{pre}.ff2", (D,))}
+        i += 1
+    out["ln_f"] = _ln_back(sd, "ln_f")
+    out["head"] = _dense_back(sd, "head", (sd["head.weight"].shape[0],))
+    return out
+
+
+# ------------------------------------------------------------------ LoRA
+# The adapter tree: a Flax module path (``block_0/qkv``, ``enc_1/proj``,
+# the seq2seq head ``proj``) -> the ``LoRA`` module's ``adapters.<port
+# path>`` (``blocks.0.qkv``, ``enc.1.proj``, ``proj``).  ``a`` (d_in,
+# rank) and ``b`` (rank, d_out) keep their layouts: ``d_in``/``d_out`` are
+# the JAX ``_split_shape`` of the kernel, which are the port's
+# ``in_features``/``out_features``, including the ``proj`` kernel's
+# ``(heads, head_dim)`` input axes.
+_FLAX_BLOCKS = (("block_", "blocks"), ("enc_", "enc"), ("dec_", "dec"))
+
+
+def _port_lora_path(path) -> str:
+    parts = []
+    for name in path:
+        for pre, port in _FLAX_BLOCKS:
+            if name.startswith(pre) and name[len(pre):].isdigit():
+                parts += [port, name[len(pre):]]
+                break
+        else:
+            parts.append(name)
+    return ".".join(parts)
+
+
+def lora_params_from_flax(lora: Dict, device=None) -> Dict[str, torch.Tensor]:
+    """The port's ``LoRA`` module ``state_dict`` from the JAX package's
+    adapter tree (numpy leaves ``{... {"a", "b"}}``)."""
+    dev = resolve_device(device, "lora_params_from_flax")
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _walk(lora):
+        key = _port_lora_path(path[:-1])
+        out[f"adapters.{key}.{path[-1]}"] = _tensor(leaf, dev)
+    return out
+
+
+def lora_params_to_flax(tensors: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`lora_params_from_flax`, for parameters or
+    gradients."""
+    out: Dict = {}
+    for key, t in tensors.items():
+        parts = key.split(".")[1:]  # drop "adapters"
+        mods, i = [], 0
+        while i < len(parts) - 1:
+            if parts[i] in ("blocks", "enc", "dec") and i + 1 < len(parts) - 1:
+                pre = "block" if parts[i] == "blocks" else parts[i]
+                mods.append(f"{pre}_{parts[i + 1]}")
+                i += 2
+            else:
+                mods.append(parts[i])
+                i += 1
+        node = out
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[parts[-1]] = _np(t)
+    return out
+
+
+# ---------------------------------------------------------- Flax shapes
+#: a stand-in's row code: parameter ``k``'s row ``r`` holds ``k + r / 2**20``
+#: (exact in float64 for up to 2**20 parameters of up to 2**20 rows).
+_ROW = 2.0 ** -20
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def flax_shapes(model: torch.nn.Module, to_flax: Callable
+                ) -> Dict[torch.nn.Parameter, Tuple[int, ...]]:
+    """``{parameter: shape}``: each parameter's shape in the JAX package's
+    layout, read off ``to_flax``, the model's mapping into it in this
+    module (``functools.partial(params_to_flax, n_heads=H)``,
+    ``vit_params_to_flax``, ``resnet_params_to_flax``, ...).
+
+    The mapping runs on stand-ins of the parameters' shapes that allocate
+    a row each, not the model: parameter ``k``'s row ``r`` holds ``k + r
+    * 2**-20``, broadcast along the other axes.  A leaf's first element
+    names its parameter; a parameter that the mapping splits (the LSTM's
+    stacked gates) takes its first leaf's shape.  A 2-D weight whose Flax
+    kernel has another rank must be that kernel transposed, its axes
+    split (``_dense_back``'s rule for an ``nn.Linear``): the optimizers
+    view it so, and any other mapping raises."""
+    named = list(model.named_parameters())
+    stand = {}
+    for k, (n, p) in enumerate(named):
+        rows = k + _ROW * torch.arange(p.shape[0] if p.dim() else 1,
+                                       dtype=torch.float64)
+        stand[n] = rows.view(-1, *[1] * (p.dim() - 1)).expand(p.shape) \
+            if p.dim() else rows[0]
+    out: Dict[torch.nn.Parameter, Tuple[int, ...]] = {}
+    for leaf in _leaves(to_flax(stand)):
+        leaf = np.asarray(leaf)
+        if leaf.size == 0:
+            continue
+        k = math.floor(float(leaf.flat[0]))
+        p = named[k][1]
+        if p in out:
+            continue
+        out[p] = tuple(leaf.shape)
+        if p.dim() == 2 and leaf.ndim != 2 and min(p.shape) > 1 \
+                and float(leaf.flat[1]) == float(leaf.flat[0]):
+            raise ValueError(
+                f"{named[k][0]}: the mapping splits the axes of the "
+                f"(out, in) weight {tuple(p.shape)} into {leaf.shape} "
+                "without transposing it")
     return out

@@ -21,7 +21,9 @@ Checked, in fp32 with TF32 off:
   from the same weights, for an MLP with SGD momentum, a small LM on the
   flash kernels with AdamW and a small sync-BN ResNet, each plain and
   with double buffering, int8 error feedback and an EMA: losses within
-  rtol 1e-5, parameters and the options' state within atol 1e-5;
+  rtol 1e-5, parameters and the options' state within atol 1e-5; the
+  LM under each scheduled rule (AdamW, SGD, LARS, LAMB, Adafactor), the
+  same;
 * one capture per batch signature, an uneven last batch being a second
   one, and the kernel launches each capture recorded (the LM's K1/K2/K3,
   remat: 2L/L/L per step);
@@ -45,9 +47,13 @@ from chainermn_tpu_torch.models import (
 from chainermn_tpu_torch.observability import device as odev
 from chainermn_tpu_torch.optimizers import (
     CAPTURE_WARMUP,
+    adafactor,
     adamw,
     create_multi_node_optimizer,
+    lamb,
+    lars,
     sgd,
+    warmup_cosine_schedule,
 )
 from chainermn_tpu_torch.serving import DecodeEngine
 
@@ -249,12 +255,13 @@ def _batches(kind, dev, n=3, rows=8):
     return out
 
 
-def _run(kind, dev, comm, opts, capture):
+def _run(kind, dev, comm, opts, capture, tx=None):
     if kind == "mlp":
         model, tx = _mlp(dev, 0), sgd(0.05, momentum=0.9)
         loss, kw = classification_loss(model), dict(has_aux=True)
     elif kind == "lm":
-        model, tx = _lm(dev, 0), adamw(1e-3, eps=1e-6, weight_decay=0.01)
+        model = _lm(dev, 0)
+        tx = tx or adamw(1e-3, eps=1e-6, weight_decay=0.01)
         loss, kw = lm_loss(model), dict(has_aux=True)
     else:
         model, tx = _resnet(dev, 0, comm), sgd(0.05, momentum=0.9)
@@ -299,6 +306,35 @@ def test_captured_train_step_equals_eager(comm, kind, option):
         assert (graph.captured["flash_attention_fwd"],
                 graph.captured["flash_attention_bwd_dkv"],
                 graph.captured["flash_attention_bwd_dq"]) == (4, 2, 2)
+    step.release()
+
+
+def _scheduled(rule):
+    """``rule`` under a ramp from 0 over 2 steps into cosine decay: each
+    of three steps has another learning rate."""
+    s = warmup_cosine_schedule(1e-2, 2, 6)
+    return {"adamw": lambda: adamw(s, eps=1e-6, weight_decay=0.01),
+            "sgd": lambda: sgd(s, momentum=0.9),
+            "lars": lambda: lars(s), "lamb": lambda: lamb(s),
+            "adafactor": lambda: adafactor(s)}[rule]()
+
+
+@pytest.mark.parametrize("rule", ["adamw", "sgd", "lars", "lamb",
+                                  "adafactor"])
+def test_captured_schedule_equals_eager(comm, rule):
+    """The schedule is evaluated inside the captured step: three captured
+    steps of the small LM under each scheduled rule equal three eager ones
+    (a rate baked in at the capture would differ from the third step
+    on)."""
+    dev = comm.device
+    lc, tc, step = _run("lm", dev, comm, {}, True, tx=_scheduled(rule))
+    le, te, _ = _run("lm", dev, comm, {}, False, tx=_scheduled(rule))
+    assert all(np.isfinite(lc))
+    np.testing.assert_allclose(lc, le, rtol=LOSS_RTOL)
+    for n in tc:
+        err = (tc[n].float() - te[n].float()).abs().max().item()
+        assert err <= PARAM_ATOL, f"{rule} {n}: {err}"
+    assert step.program.compiles == 1 and step.program.replays == 2
     step.release()
 
 

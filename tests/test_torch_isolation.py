@@ -148,3 +148,28 @@ def test_training_entry_points_of_the_loop_raise_without_cuda(no_cuda,
         MLP()
     with pytest.raises(RuntimeError, match="create_communicator"):
         train_mnist.main([])
+
+
+def test_zoo_entry_points_raise_without_cuda(no_cuda, monkeypatch):
+    """The seq2seq models, ViT, their bridges and the seq2seq twin run on
+    the card by default and raise without one."""
+    from chainermn_tpu_torch.examples import seq2seq
+    from chainermn_tpu_torch.models import Seq2Seq, TransformerSeq2Seq, ViT
+    from chainermn_tpu_torch.utils import (
+        lora_params_from_flax,
+        seq2seq_params_from_flax,
+        vit_params_from_flax,
+    )
+
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    for build in (lambda: Seq2Seq(8, 8),
+                  lambda: TransformerSeq2Seq(8, 8),
+                  lambda: ViT(num_classes=2, image_size=32, n_layers=1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    for bridge in (seq2seq_params_from_flax, vit_params_from_flax,
+                   lora_params_from_flax):
+        with pytest.raises(RuntimeError, match=bridge.__name__):
+            bridge({})
+    with pytest.raises(RuntimeError, match="create_communicator"):
+        seq2seq.main([])

@@ -373,6 +373,17 @@ FLASH_CASES = {
         segment_ids=_runs([[(1, 90), (2, 110)], [(4, 200)]], 200),
         kv_segment_ids=_runs([[(1, 150), (2, 183)],
                               [(4, 300), (0, 33)]], 333))),
+    # The seq2seq model's cross-attention at its 8 heads: packed target
+    # rows against source rows of another length, the first source row
+    # with no pad tail, so its pad queries match no key (dead rows).
+    "seq2seq_cross_dead_rows": (2, 448, 512, 8, 8, dict(
+        segment_ids=_runs([[(1, 200), (2, 180), (0, 68)],
+                           [(1, 300), (0, 148)]], 448),
+        kv_segment_ids=_runs([[(1, 260), (2, 252)],
+                              [(1, 400), (0, 112)]], 512))),
+    # ViT-S/16 at 224 px: non-causal self-attention over 196 tokens (a
+    # multiple of no tile) at its 6 heads.
+    "vit_196": (2, 196, 196, 6, 6, dict()),
 }
 
 

@@ -449,8 +449,10 @@ def test_train_imagenet_twin_runs_on_cpu(capsys):
 def test_unported_options_raise(tmp_path):
     """The options of ROADMAP items 6 and 7 are ported and run (the fused
     max-pool, augmentation, the evaluator, the checkpointer, file-backed
-    data, double buffering, int8 error feedback); those of items 9 and 11
-    still raise, naming their item."""
+    data, double buffering, int8 error feedback), and since items 9 and 11
+    so are ``--arch vit``, ``--optimizer lars|lamb``, ``--base-batch`` and
+    ``--warmup-epochs``; none of the example's flags raises any more, and
+    the ResNet knobs refuse ``--arch vit``."""
     from chainermn_tpu_torch.examples import train_imagenet
 
     m = ResNetTiny(**TINY, maxpool="fused", device="cpu")
@@ -470,10 +472,16 @@ def test_unported_options_raise(tmp_path):
                    "--iters-per-epoch", "2"]):
         assert np.isfinite(train_imagenet.main(base + flags))
     assert os.listdir(tmp_path / "ck" / "imagenet") == ["2"]
-    for flags in (["--optimizer", "lars"], ["--base-batch", "256"],
-                  ["--warmup-epochs", "5"], ["--arch", "vit"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_imagenet.main(["--device", "cpu", *flags])
+    short = ["--steps", "2", "--iters-per-epoch", "2"]
+    for flags in (["--optimizer", "lars", "--base-batch", "256",
+                   "--warmup-epochs", "5"],
+                  ["--optimizer", "lamb", "--warmup-epochs", "0.5"],
+                  ["--arch", "vit", "--vit", "s16", "--optimizer", "lars",
+                   "--eval", "--val-size", "6"]):
+        assert np.isfinite(train_imagenet.main(base + short + flags))
+    with pytest.raises(SystemExit):
+        train_imagenet.main(["--device", "cpu", "--arch", "vit", "--bn",
+                             "frozen"])
     for kw, match in ((dict(bn="nope"), "bn="), (dict(conv1="fused"), "conv1="),
                       (dict(conv1="pallas"), "bn='frozen'"),
                       (dict(stem="conv3"), "stem="),

@@ -34,8 +34,13 @@ from chainermn_tpu.models import lm_loss as jax_lm_loss
 from chainermn_tpu_torch.comm import create_communicator
 from chainermn_tpu_torch.models import TransformerLM, lm_loss
 from chainermn_tpu_torch.optimizers import (
+    adafactor,
     adamw,
     create_multi_node_optimizer,
+    lamb,
+    lars,
+    sgd,
+    warmup_cosine_schedule,
 )
 from chainermn_tpu_torch.utils import params_from_flax, params_to_flax
 
@@ -224,11 +229,26 @@ def test_unported_optimizer_options_raise():
     """The options of ROADMAP item 6 are ported (double buffering, int8
     error feedback, the EMA, augmentation; ``tests/
     test_torch_optimizer_options.py`` holds them against the JAX package)
-    and build; those of items 8 and 12 still raise, naming their item."""
+    and build, and so do item 11's update rules (LARS, LAMB, Adafactor and
+    the scheduled SGD/AdamW; ``tests/test_torch_large_batch.py``): the
+    optax-arithmetic rules are capturable on any device, and torch's
+    AdamW, capturable on a CUDA device only, keeps a schedule's learning
+    rate as a tensor; those of items 8 and 12 still raise, naming their
+    item."""
     comm = create_communicator("xla", device="cpu")
     for kw in (dict(double_buffering=True), dict(grad_compression="int8_ef"),
                dict(ema_decay=0.99)):
         create_multi_node_optimizer(adamw(1e-3), comm, **kw)
+    sched = warmup_cosine_schedule(1e-3, 2, 10)
+    for tx in (lars(1e-3), lamb(sched), adafactor(sched), adamw(sched),
+               sgd(sched, 0.9)):
+        model = TransformerLM(**BASE, dtype=torch.float32, device="cpu")
+        opt = create_multi_node_optimizer(tx, comm)
+        state = opt.init(model)
+        if isinstance(state.optimizer, torch.optim.AdamW):
+            assert torch.is_tensor(state.optimizer.param_groups[0]["lr"])
+        else:
+            assert state.optimizer.defaults["capturable"]
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
         create_multi_node_optimizer(adamw(1e-3), comm,
                                     grad_reduce=lambda g: g)
@@ -257,7 +277,13 @@ def test_train_lm_twin_runs_on_cpu(capsys):
     ppl = [ln for ln in capsys.readouterr().out.splitlines()
            if ln.startswith("val_ppl ")]
     assert len(ppl) == 1 and np.isfinite(float(ppl[0].split()[1]))
-    for flag in (["--zero"], ["--lora", "4"],
-                 ["--optimizer", "adafactor"], ["--warmup", "5"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_lm.main(["--device", "cpu", *flag])
+    # --lora (item 9), --optimizer adafactor and --warmup (item 11) are
+    # ported and run (tests/test_torch_lora.py and
+    # tests/test_torch_large_batch.py hold them against the JAX package);
+    # --zero still raises, naming its item.
+    assert np.isfinite(train_lm.main([
+        "--device", "cpu", "--steps", "2", "--seq-len", "32",
+        "--batch-per-chip", "4", "--d-model", "32", "--lora", "2",
+        "--optimizer", "adafactor", "--warmup", "5"]))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+        train_lm.main(["--device", "cpu", "--zero"])
