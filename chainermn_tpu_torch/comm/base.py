@@ -1,19 +1,16 @@
 """The communicator interface of the port (``chainermn_tpu/comm/base.py``
 ``CommunicatorBase``): ranks and sizes, the gradient all-reduce of the
-data-parallel optimizer, the few collectives training needs and the
-object plane's gathers and reductions (``gather_obj``, ``allgather_obj``,
-``allreduce_obj``).  The rest of the JAX surface raises until it is
-ported."""
+data-parallel optimizer, the array collectives (each rank passes its own
+tensor), the object plane (broadcast, gathers, reductions and
+rank-addressed point to point) and the structuring calls (``split``,
+``axis_name``).  :class:`~chainermn_tpu_torch.comm.process_group.
+ProcessGroupCommunicator` implements all of it."""
 
 from __future__ import annotations
 
 from typing import Any, List
 
 import numpy as np
-
-_REST = ("not ported yet (ROADMAP Queue 1 item 4: the rest of the "
-         "communicator surface)")
-
 
 class CommunicatorBase:
     """Abstract communicator; see :class:`ProcessGroupCommunicator`."""
@@ -63,24 +60,25 @@ class CommunicatorBase:
         """Parity with the reference API: nothing to tear down (the
         process group belongs to the program)."""
 
-    def _unported(self, name: str):
-        raise NotImplementedError(f"{type(self).__name__}.{name} is "
-                                  f"{_REST}")
-
     def alltoall(self, xs):
-        self._unported("alltoall")
+        """Row ``j`` of this rank's ``(size, ...)`` ``xs`` goes to rank
+        ``j``; row ``j`` of the result came from rank ``j``."""
+        raise NotImplementedError
 
     def allgather(self, x):
-        self._unported("allgather")
+        """Every rank's ``x`` stacked in rank order."""
+        raise NotImplementedError
 
     def permute(self, x, perm):
-        self._unported("permute")
+        """``x`` moved along ``[(src, dst), ...]``; zeros where no edge
+        arrives (the reference's paired ``send``/``recv``)."""
+        raise NotImplementedError
 
     def gather(self, x, root: int = 0):
-        self._unported("gather")
+        raise NotImplementedError
 
     def scatter(self, x, root: int = 0):
-        self._unported("scatter")
+        raise NotImplementedError
 
     def gather_obj(self, obj, root: int = 0):
         """Every rank's picklable ``obj`` as a list on ``root`` (None
@@ -99,18 +97,24 @@ class CommunicatorBase:
         return reduce_objs(self.allgather_obj(obj), op)
 
     def send_obj(self, obj, dest: int, source=None):
-        self._unported("send_obj")
+        """Rank-addressed object send (reference anchor
+        ``MpiCommunicatorBase.send_obj``), FIFO per ``(source, dest)``."""
+        raise NotImplementedError
 
     def recv_obj(self, source: int, dest=None, timeout=None):
-        self._unported("recv_obj")
+        """The next object ``source`` sent to this rank; raises
+        ``TimeoutError`` after ``timeout`` seconds."""
+        raise NotImplementedError
 
     def split(self, color, key=None):
-        self._unported("split")
+        """MPI_Comm_split in the JAX package's form: per-rank ``color``
+        and ``key`` sequences, ``{color: communicator}`` back."""
+        raise NotImplementedError
 
     @property
     def axis_name(self):
-        self._unported("axis_name")
-
+        """What a model takes for collectives inside its forward."""
+        raise NotImplementedError
 
 _REDUCE = {"sum": lambda c: np.sum(np.asarray(c), axis=0),
            "mean": lambda c: np.mean(np.asarray(c), axis=0),

@@ -19,6 +19,8 @@ validates).  Runs::
     python -m chainermn_tpu_torch.examples.seq2seq --epoch 3
     python -m chainermn_tpu_torch.examples.seq2seq --device cpu --epoch 1
     torchrun --nproc_per_node N -m chainermn_tpu_torch.examples.seq2seq
+    python -m chainermn_tpu_torch.launch --nproc 2 -m chainermn_tpu_torch.examples.seq2seq \
+        --communicator naive --device cuda:0     # two ranks sharing one card
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@ experts), its generation loop (the serving slice), beam search and
 speculative generation, and its training losses; ResNet and its stateful
 loss; the MNIST example's MLP and its classification loss and metrics;
 the seq2seq family (LSTM and Transformer encoder-decoders, their loss and
-decoders); ViT; LoRA adapters over any of them."""
+decoders); ViT; LoRA adapters over any of them; VGG's stages and their
+model-parallel chain."""
 
 from chainermn_tpu_torch.models.decoding import (
     lm_beam_search,
@@ -50,6 +51,15 @@ from chainermn_tpu_torch.models.transformer import (
     moe_stats,
     segment_positions,
 )
+from chainermn_tpu_torch.models.vgg import (
+    VGG_CFGS,
+    VGGHead,
+    VGGStage,
+    apply_sequential,
+    build_chain,
+    vgg_loss,
+    vgg_stage_modules,
+)
 from chainermn_tpu_torch.models.vit import ViT, vit_loss
 from chainermn_tpu_torch.ops.flash_attention import reference_attention
 
@@ -63,4 +73,5 @@ __all__ = ["MLP", "classification_loss", "classification_metrics",
            "lora_param_count", "make_lora_loss", "moe_stats",
            "reference_attention", "resnet_loss", "s2d_stem_kernel",
            "segment_positions", "seq2seq_loss", "space_to_depth",
-           "vit_loss"]
+           "VGG_CFGS", "VGGHead", "VGGStage", "apply_sequential",
+           "build_chain", "vgg_loss", "vgg_stage_modules", "vit_loss"]

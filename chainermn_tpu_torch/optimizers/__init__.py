@@ -93,7 +93,7 @@ __all__ = ["Adafactor", "Lamb", "Lars", "MultiNodeOptimizer", "TrainState",
            "adafactor", "adamw", "augment_generator",
            "create_multi_node_optimizer", "ema_model", "int8_ef_codes",
            "int8_ef_mean", "kernel_mask", "lamb", "lars", "linear_scaled_lr",
-           "sgd", "warmup_cosine_schedule"]
+           "model_parallel_grad_reduce", "sgd", "warmup_cosine_schedule"]
 
 
 def sgd(learning_rate: LearningRate, momentum: Optional[float] = None,
@@ -375,9 +375,9 @@ class MultiNodeOptimizer:
                  grad_reduce: Optional[Callable] = None,
                  grad_compression: Optional[str] = None,
                  ema_decay: Optional[float] = None):
-        if grad_reduce is not None:
-            raise NotImplementedError(
-                "grad_reduce is not ported yet (ROADMAP Queue 1 item 8)")
+        if grad_reduce is not None and not callable(grad_reduce):
+            raise TypeError("grad_reduce must be a function of the model "
+                            "(see model_parallel_grad_reduce)")
         if ema_decay is not None and not 0.0 < ema_decay < 1.0:
             raise ValueError(f"ema_decay must be in (0, 1), got {ema_decay}")
         if grad_compression not in (None, "int8_ef"):
@@ -388,6 +388,11 @@ class MultiNodeOptimizer:
         self.double_buffering = bool(double_buffering)
         self.grad_compression = grad_compression
         self.ema_decay = ema_decay
+        # Replaces the communicator's gradient mean (the JAX package's
+        # per-leaf seam, here per model: it reduces every gradient of the
+        # model in place); model_parallel_grad_reduce is the one the
+        # model-parallel chains need.
+        self.grad_reduce = grad_reduce
         self._step_cache: Dict[tuple, Callable] = {}
 
     def init(self, model: nn.Module) -> TrainState:
@@ -496,6 +501,8 @@ class MultiNodeOptimizer:
         comm = self.comm
         dbuf = self.double_buffering
         compress = self.grad_compression is not None
+        capturable = getattr(comm, "capturable", True) and getattr(
+            self.grad_reduce, "capturable", True)
         decay = self.ema_decay
         prog = _odevice.watch().register("train_step")
         graphs: Dict[tuple, _TrainGraph] = {}
@@ -522,6 +529,8 @@ class MultiNodeOptimizer:
                     aux_sum[k] = v if k not in aux_sum else aux_sum[k] + v
             if compress:
                 self._int8_ef_reduce(state)
+            elif self.grad_reduce is not None:
+                self.grad_reduce(model)
             else:
                 comm.allreduce_grad(model)
             if dbuf:
@@ -617,11 +626,19 @@ class MultiNodeOptimizer:
                 batch = augment(augment_generator(augment_seed, state.step,
                                                   comm.rank, dev),
                                 _to_device(batch, dev))
-            on = dev.type == "cuda" if capture is None else bool(capture)
+            on = dev.type == "cuda" and capturable if capture is None \
+                else bool(capture)
             if on and dev.type != "cuda":
                 raise ValueError(
                     f"capture=True needs a model on a CUDA device, not "
                     f"{dev}")
+            if on and not capturable:
+                raise ValueError(
+                    "capture=True needs collectives a CUDA graph can "
+                    "record: this step's communicator is gloo, or its "
+                    "gradient reduction follows point-to-point receives "
+                    "that read their headers on the host; pass "
+                    "capture=False")
             if on:
                 metrics = captured_step(state, batch, dev)
             else:
@@ -689,3 +706,32 @@ def create_multi_node_optimizer(actual_optimizer,
                               grad_reduce=grad_reduce,
                               grad_compression=grad_compression,
                               ema_decay=ema_decay)
+
+
+def model_parallel_grad_reduce(data_comm, model_comm) -> Callable:
+    """The gradient reduction of hybrid data × model training over
+    one-stage-per-rank chains (:class:`~chainermn_tpu_torch.links.
+    MultiNodeChainList`), for ``create_multi_node_optimizer(...,
+    grad_reduce=...)``; the JAX package's ``model_parallel_grad_reduce``.
+
+    The loss is computed alike on every model rank (``F.bcast`` of the
+    chain's output, then the loss everywhere), so the broadcast's backward
+    sums ``model_size`` equal gradients onto the last stage, and every
+    stage's owner holds ``model_size ×`` the true gradient.  Dividing by
+    the model size restores it, then the usual mean over the data ranks:
+    the same update as the JAX reducer, whose model-axis mean both moves
+    each owner's gradient to every shard and cancels the same factor.
+    The chain's point-to-point receives read their headers on the host,
+    so a step that uses this reducer runs eagerly (``capturable``
+    False)."""
+
+    def reduce(model) -> None:
+        model_comm.wait_pending()
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(model_comm.size)
+        data_comm.allreduce_grad(model)
+
+    reduce.capturable = False
+    return reduce

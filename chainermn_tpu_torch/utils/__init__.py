@@ -14,6 +14,8 @@ from chainermn_tpu_torch.utils.bridge import (
     resnet_params_to_flax,
     seq2seq_params_from_flax,
     seq2seq_params_to_flax,
+    vgg_stage_params_from_flax,
+    vgg_stage_params_to_flax,
     vit_params_from_flax,
     vit_params_to_flax,
 )
@@ -25,4 +27,5 @@ __all__ = ["flax_shapes", "lora_params_from_flax", "lora_params_to_flax",
            "params_to_flax", "resnet_params_from_flax",
            "resnet_params_to_flax", "resolve_device",
            "seq2seq_params_from_flax", "seq2seq_params_to_flax",
+           "vgg_stage_params_from_flax", "vgg_stage_params_to_flax",
            "vit_params_from_flax", "vit_params_to_flax"]

@@ -27,7 +27,8 @@ D)``, ``moe_b2 (E, D)`` (MoE blocks)
 
 Biases flatten the same way as their kernels' output axes.  The ResNet,
 MLP, seq2seq, ViT and LoRA mappings are described beside their functions
-below.  :func:`flax_shapes` reads a model's Flax shapes off its ``*_to_flax``
+below (VGG's stages at :func:`vgg_stage_params_from_flax`).
+:func:`flax_shapes` reads a model's Flax shapes off its ``*_to_flax``
 mapping, for the optimizers that follow the JAX layout.
 """
 
@@ -536,6 +537,47 @@ def lora_params_to_flax(tensors: Dict[str, torch.Tensor]) -> Dict:
         for m in mods:
             node = node.setdefault(m, {})
         node[parts[-1]] = _np(t)
+    return out
+
+
+def vgg_stage_params_from_flax(params: Dict, device=None
+                               ) -> Dict[str, torch.Tensor]:
+    """One VGG stage's ``state_dict`` from the JAX package's stage
+    parameters (numpy trees; a pool-only stage's are empty).  A conv
+    stage's ``Conv_i.kernel (3, 3, in, out)`` (HWIO) -> ``convs.i.weight
+    (out, in, 3, 3)`` (OIHW); the head's ``Dense_0``/``Dense_1.kernel (in,
+    out)`` -> ``fc1``/``fc2.weight (out, in)``; biases as they are.
+    ``device`` None means the current CUDA device."""
+    dev = resolve_device(device, "vgg_stage_params_from_flax")
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        kind, i = name.rsplit("_", 1)
+        k = np.asarray(p["kernel"])
+        if kind == "Conv":
+            out[f"convs.{i}.weight"] = _tensor(k.transpose(3, 2, 0, 1), dev)
+            out[f"convs.{i}.bias"] = _tensor(p["bias"], dev)
+        else:
+            out[f"fc{int(i) + 1}.weight"] = _tensor(k.T, dev)
+            out[f"fc{int(i) + 1}.bias"] = _tensor(p["bias"], dev)
+    return out
+
+
+def vgg_stage_params_to_flax(tensors: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`vgg_stage_params_from_flax`, for a stage's
+    parameters or gradients (``{name: p.grad}``)."""
+    out: Dict = {}
+    for key, t in tensors.items():
+        mod, leaf = key.rsplit(".", 1)
+        arr = _np(t)
+        if mod.startswith("convs."):
+            node = out.setdefault(f"Conv_{mod.split('.')[1]}", {})
+            if leaf == "weight":
+                arr = arr.transpose(2, 3, 1, 0)
+        else:
+            node = out.setdefault(f"Dense_{int(mod[2:]) - 1}", {})
+            if leaf == "weight":
+                arr = arr.T
+        node["kernel" if leaf == "weight" else "bias"] = arr
     return out
 
 

@@ -245,6 +245,25 @@ beside the four captured ones and the bare step eager in
    ``large_batch`` (ResNet-50 ``sync/none`` under LARS, LAMB and a
    scheduled SGD, the LM step under Adafactor and a scheduled AdamW,
    against this run's constant-rate SGD and AdamW steps).
+18. The rest of the communicator and the model-parallel surface:
+   ``collectives_nccl`` (every new collective, its differentiable form
+   and the ragged functions on one NCCL rank: identities, error 0),
+   ``model_parallel`` (BASELINE.json configuration 4: VGG-11 at its
+   published widths, 32x32x3, 10 classes, batch 64, 4 stages on 4 ranks
+   x 1 data rank, all sharing this card through the port's launcher over
+   the gloo (``naive``) communicator, compute on the card and each wire
+   message staged through pinned host memory; 3 SGD-momentum steps held
+   against the same network in one process through ``apply_sequential``
+   (``MP_TOL``), then each side's step ms and the wire's share of the
+   4-rank step), ``model_parallel_example`` (the twin through ``python
+   -m chainermn_tpu_torch.launch --nproc 4 -m ...``),
+   ``model_parallel_grid`` (2 ranks as a ``data x model`` = 2 x 1 grid:
+   NCCL refuses two ranks on one card, naming ``naive``; ``sub``,
+   ``split`` and the collectives on card tensors; the differentiable
+   broadcast and point-to-point gradients, a ragged all-reduce) and
+   ``seq2seq_two_ranks`` (the seq2seq twin data-parallel over 2 ranks:
+   its BLEU covers every held-out sentence once).  Each launched job has a
+   time limit (``MP_TIMEOUT_S``); a hang fails the run.
 
 The launch counters are set to 0 just before each drive of the main path
 (phases 5, 5a, 5b, 6, 7a and the timed steps of 10, 11a and 14) and read
@@ -3327,6 +3346,16 @@ def lm_group(name):
     return "other"
 
 
+#: Kernels (``torch.cuda._sleep``'s ``spin_kernel``) that ``trace_step``
+#: launches and waits for inside each profile, before the step: a
+#: profile can miss its first few kernel records (every trace of one call
+#: read 3-7 kernels short, a K1 among the LM step's first ones), and
+#: these take that loss instead of the step.  ``device_kernels`` leaves
+#: them out of every count and time.
+PROFILE_LEAD_KERNELS = 16
+PROFILE_LEAD_NAME = "spin_kernel"
+
+
 def device_kernels(prof):
     """``(name, device ms, launches)`` of each kernel a profile saw,
     longest first.  Device-side events only: a host op's entry repeats
@@ -3334,6 +3363,8 @@ def device_kernels(prof):
     kernels = []
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        if PROFILE_LEAD_NAME in e.key:
             continue
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
@@ -3352,6 +3383,9 @@ def trace_step(step, state, batch, group=lm_group, top=15):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD_KERNELS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         loss = float(metrics["loss"])
@@ -5324,6 +5358,498 @@ def phase_large_batch(fa, dev, card, seed, sgd_resnet_ms, adamw_lm_ms):
 #: instantiated at head dims 32, 64 and 128, and the bf16 fused 1x1-conv
 #: kernel (K6), instantiated at column tiles 64 and 128: every one must be
 #: built on Hopper's wgmma and TMA.
+# ------------------------------------------------------ model parallel
+#: BASELINE.json configuration 4 at VGG-11's published widths (64-512):
+#: 32x32x3 inputs, 10 classes, 4 stages on 4 ranks x 1 data rank.
+MP = dict(cfg="vgg11", num_classes=10, n_stages=4, width_mult=1.0)
+MP_BATCH = 64
+MP_LR = 0.01
+MP_AGREE_STEPS = 3
+MP_WARMUP, MP_TIMED = 2, 5
+#: Each launched job's time limit: a hang fails the phase.
+MP_TIMEOUT_S = 420
+#: The seq2seq twin's held-out pairs (``make_synthetic_translation(512,
+#: ..., seed=99)``), which its evaluator shares out over the ranks.
+S2S_HELD_OUT = 512
+#: The 4-rank chain against the one-process network, fp32 with TF32 off
+#: and cuDNN deterministic on both sides: the same convolutions on the
+#: same shapes, so the only differences are the order of the gradient
+#: sums (the broadcast's backward adds four equal copies, then divides by
+#: 4).  Losses within rtol 1e-5; parameters elementwise within atol 1e-6
+#: + rtol 1e-5 after 3 SGD steps of lr 0.01.
+MP_TOL = dict(loss_rtol=1e-5, param_atol=1e-6, param_rtol=1e-5)
+MP_NOTE = ("4 ranks share one card over gloo, each wire message staged "
+           "through pinned host memory: a check of the model-parallel "
+           "path, not a scaling figure")
+
+
+def mp_batches(n: int):
+    """The twin's synthetic CIFAR-shaped data (``RandomState(0)``), cut
+    into ``n`` batches of ``MP_BATCH``."""
+    from chainermn_tpu_torch.examples.train_vgg_model_parallel import (
+        synthetic_cifar,
+    )
+
+    x, y = synthetic_cifar(MP["num_classes"])
+    return [(x[i * MP_BATCH:(i + 1) * MP_BATCH],
+             y[i * MP_BATCH:(i + 1) * MP_BATCH]) for i in range(n)]
+
+
+def _fp32_exact() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+WIRE_METHODS = ("post_send", "recv_tensor", "wait_pending", "broadcast",
+                "reduce", "bcast_obj", "allreduce", "allreduce_grad")
+
+
+def time_wire(comms, dev, box):
+    """Wrap the communicators' wire methods to add their wall seconds
+    (after a card sync, so queued compute is not counted) to
+    ``box["s"]``."""
+    def wrap(fn):
+        def timed(*a, **k):
+            _sync(dev)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                _sync(dev)
+                box["s"] += time.perf_counter() - t0
+        return timed
+
+    for c in comms:
+        for name in WIRE_METHODS:
+            setattr(c, name, wrap(getattr(c, name)))
+
+
+def mp_vgg_rank(out: str, device: str) -> None:
+    """One rank of the 4-rank model-parallel VGG-11 (run by
+    ``phase_model_parallel`` through the port's launcher): the user's
+    path (``create_communicator("naive", device=...)`` on a ``data x
+    model`` grid, ``build_chain``, ``create_multi_node_optimizer`` with
+    ``model_parallel_grad_reduce``, ``make_train_step``), 3 agreement
+    steps, then timed steps, then steps with the wire timed."""
+    import pickle
+
+    from chainermn_tpu_torch import functions as MF
+    from chainermn_tpu_torch.comm import create_communicator, hybrid_mesh
+    from chainermn_tpu_torch.models import (
+        build_chain,
+        vgg_loss,
+        vgg_stage_modules,
+    )
+    from chainermn_tpu_torch.optimizers import (
+        create_multi_node_optimizer,
+        model_parallel_grad_reduce,
+        sgd,
+    )
+
+    dev = torch.device(device)
+    _fp32_exact()
+    S = MP["n_stages"]
+    comm = create_communicator("naive", device=dev,
+                               mesh=hybrid_mesh({"data": 1, "model": S}))
+    dcomm, mcomm = comm.sub("data"), comm.sub("model")
+    r = mcomm.rank
+    chain = build_chain(vgg_stage_modules(**MP, device=dev, seed=0,
+                                          stages=[r]), mcomm)
+
+    def loss_fn(model, batch):
+        x = torch.as_tensor(batch[0], device=dev)
+        logits = MF.bcast(mcomm, model(x), root=S - 1)
+        return vgg_loss(logits, batch[1])[0]
+
+    opt = create_multi_node_optimizer(
+        sgd(MP_LR, momentum=0.9), dcomm,
+        grad_reduce=model_parallel_grad_reduce(dcomm, mcomm))
+    state = opt.init(chain)
+    step = opt.make_train_step(loss_fn)
+    batches = mp_batches(MP_AGREE_STEPS)
+    losses = [float(step(state, b)[1]["loss"]) for b in batches]
+    params = {n: p.detach().cpu().numpy().copy()
+              for n, p in chain.stages[0].named_parameters()}
+    times = []
+    for i in range(MP_WARMUP + MP_TIMED):
+        _sync(dev)
+        t0 = time.perf_counter()
+        float(step(state, batches[0])[1]["loss"])
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    box = {"s": 0.0}
+    time_wire((mcomm, dcomm), dev, box)
+    t0 = time.perf_counter()
+    for _ in range(MP_TIMED):
+        float(step(state, batches[0])[1]["loss"])
+    _sync(dev)
+    wired = time.perf_counter() - t0
+    with open(os.path.join(out, f"vgg.rank{comm.rank}.pkl"), "wb") as f:
+        pickle.dump({"rank": r, "losses": losses, "params": params,
+                     "step_ms": times[MP_WARMUP:],
+                     "wire_share": box["s"] / wired,
+                     "params_held": sum(p.numel()
+                                        for p in chain.parameters()),
+                     "captured": bool(step.graphs)}, f)
+    comm.barrier()
+
+
+def mp_grid_rank(out: str, device: str) -> None:
+    """One rank of the 2-rank ``data x model`` = 2 x 1 grid on one card
+    (``phase_model_parallel_grid``): ``sub``/``split`` and every
+    collective on card tensors through the staged gloo wire, the
+    differentiable broadcast and the MPMD send/recv with their
+    gradients, and a ragged all-reduce."""
+    import pickle
+
+    from chainermn_tpu_torch import functions as MF
+    from chainermn_tpu_torch.comm import (
+        create_communicator,
+        hybrid_mesh,
+        ragged_allreduce,
+    )
+
+    dev = torch.device(device)
+    res = {}
+    try:
+        create_communicator("xla", device=dev)
+        res["nccl_same_card"] = "no error"
+    except ValueError as e:
+        res["nccl_same_card"] = str(e)
+    comm = create_communicator("naive", device=dev,
+                               mesh=hybrid_mesh({"data": 2, "model": 1}))
+    # The refusal came before any group: the default group is gloo.
+    res["default_backend"] = torch.distributed.get_backend()
+    torch.distributed.barrier()
+    d, m = comm.sub("data"), comm.sub("model")
+    r = comm.rank
+    res["sub"] = (d.members, m.members, d.rank, m.rank)
+    res["split"] = {c: s.members for c, s in comm.split([0, 1]).items()}
+    x = torch.tensor([r + 1.0, -r], device=dev)
+    got = {"allgather": d.allgather(x), "alltoall": d.alltoall(
+        torch.stack([x, 10 * x])), "permute": d.permute(x, [(0, 1),
+                                                            (1, 0)]),
+           "allreduce": d.allreduce(x), "broadcast": d.broadcast(x, 1),
+           "scatter": d.scatter(torch.stack([x, 2 * x]), 0),
+           "gather": d.gather(x, 1), "reduce": d.reduce(x, 0)}
+    res["devices"] = sorted({t.device.type for t in got.values()
+                             if t is not None})
+    res.update({k: None if t is None else t.cpu().numpy()
+                for k, t in got.items()})
+    leaf = torch.tensor([2.0 + r], device=dev, requires_grad=True)
+    (MF.bcast(d, leaf, root=0) * (r + 1)).sum().backward()
+    res["bcast_grad"] = leaf.grad.cpu().numpy()
+    v = torch.tensor([[0.5 + r, -1.0]], device=dev, requires_grad=True)
+    if r == 0:
+        MF.send(v * 2.0, d, rank=1).data.sum().backward()
+    else:
+        (MF.recv(d, rank=0) ** 2).sum().backward()
+    res["p2p_grad"] = None if v.grad is None else v.grad.cpu().numpy()
+    res["ragged"] = ragged_allreduce(
+        d, torch.arange(3.0 + 2 * r, device=dev), bucket_width=4
+    ).cpu().numpy()
+    with open(os.path.join(out, f"grid.rank{r}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    comm.barrier()
+
+
+RANK_BODIES = {"vgg": mp_vgg_rank, "grid": mp_grid_rank}
+
+
+def rank_pythonpath() -> str:
+    """This checkout first on the ranks' path, then the caller's."""
+    return os.pathsep.join(p for p in (
+        os.path.dirname(os.path.abspath(__file__)),
+        os.environ.get("PYTHONPATH")) if p)
+
+
+def launch_ranks(n: int, argv, label: str, env=None):
+    """``argv`` on ``n`` ranks through the port's launcher with
+    ``MP_TIMEOUT_S``; fails the phase on a non-zero exit or the limit."""
+    from chainermn_tpu_torch.launch import launch
+
+    extra = {"PYTHONPATH": rank_pythonpath(), **(env or {})}
+    t0 = time.perf_counter()
+    rc = launch(n, list(argv), grace_s=5.0, env_extra=extra,
+                timeout_s=MP_TIMEOUT_S)
+    check(rc == 0, f"{label}: {n} ranks exited {rc} (124: the "
+          f"{MP_TIMEOUT_S}s limit)")
+    return time.perf_counter() - t0
+
+
+def rank_results(out: str, name: str, n: int):
+    import pickle
+
+    res = []
+    for r in range(n):
+        with open(os.path.join(out, f"{name}.rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+def phase_collectives_nccl(dev, card):
+    """Every collective of the rest of the communicator, its
+    differentiable form and the ragged functions on one NCCL rank (the
+    card run has one card): each an identity on one rank."""
+    from chainermn_tpu_torch import functions as MF
+    from chainermn_tpu_torch.comm import (
+        create_communicator,
+        ragged_allreduce,
+        ragged_permute,
+    )
+
+    comm = create_communicator("xla", device=dev)
+    check(comm.backend == "nccl" and comm.capturable,
+          f"the one-rank communicator is {comm.backend}")
+    x = torch.arange(6.0, device=dev).reshape(2, 3)
+    outs = {"allgather": (comm.allgather(x), x[None]),
+            "alltoall": (comm.alltoall(x[None]), x[None]),
+            "permute": (comm.permute(x, [(0, 0)]), x),
+            "permute_no_edge": (comm.permute(x, []), torch.zeros_like(x)),
+            "gather": (comm.gather(x, 0), x[None]),
+            "scatter": (comm.scatter(x[None], 0), x),
+            "reduce": (comm.reduce(x, 0), x),
+            "broadcast": (comm.broadcast(x, 0), x),
+            "reduce_scatter": (comm.reduce_scatter(x[None]), x),
+            "split": (comm.split([5])[5].allreduce(x), x),
+            "sub": (comm.sub("data").allreduce(x), x),
+            "ragged_permute": (ragged_permute(comm, x, [(0, 0)]), x),
+            "ragged_allreduce": (ragged_allreduce(comm, x), x)}
+    leaf = x.clone().requires_grad_()
+    y = MF.bcast(comm, MF.allgather(comm, MF.alltoall(comm, leaf[None]))
+                 [0, 0], root=0)
+    (y * 3.0).sum().backward()
+    outs["grad_bcast_allgather_alltoall"] = (leaf.grad,
+                                             torch.full_like(x, 3.0))
+    errs = {k: float((a.float() - b.float()).abs().max())
+            for k, (a, b) in outs.items()}
+    devices = sorted({a.device.type for a, _ in outs.values()})
+    comm.send_obj({"k": 1}, 0)
+    obj = comm.recv_obj(0, timeout=5.0)
+    emit({"phase": "collectives_nccl", "card": card, "backend": "nccl",
+          "ranks": comm.size, "errs": errs, "devices": devices,
+          "send_obj": obj})
+    check(all(e == 0.0 for e in errs.values()) and devices == ["cuda"]
+          and obj == {"k": 1}, f"collectives on one NCCL rank: {errs}")
+
+
+def mp_one_process(dev, batches, capture):
+    """The same VGG-11 in one process on the card: all stages through
+    ``apply_sequential`` (one ``nn.Sequential``), the same seeds and
+    batches, SGD with momentum over a one-rank NCCL communicator."""
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.models import (
+        apply_sequential,
+        vgg_loss,
+        vgg_stage_modules,
+    )
+    from chainermn_tpu_torch.optimizers import (
+        create_multi_node_optimizer,
+        sgd,
+    )
+
+    stages = torch.nn.Sequential(*vgg_stage_modules(**MP, device=dev,
+                                                    seed=0))
+
+    def loss_fn(model, batch):
+        x = torch.as_tensor(batch[0], device=dev)
+        return vgg_loss(apply_sequential(list(model), x), batch[1])[0]
+
+    opt = create_multi_node_optimizer(sgd(MP_LR, momentum=0.9),
+                                      create_communicator("xla", device=dev))
+    state = opt.init(stages)
+    step = opt.make_train_step(loss_fn, capture=capture)
+    return stages, state, step
+
+
+def phase_model_parallel(dev, card):
+    """BASELINE.json configuration 4 on the card: 4 ranks sharing it
+    through the port's launcher (gloo, host-staged wire, compute on the
+    card) train the model-parallel VGG-11 and must agree with the
+    one-process network at each of 3 steps; then each side's step ms and
+    the wire's share of the 4-rank step; then the twin
+    ``examples/train_vgg_model_parallel.py`` through ``python -m
+    chainermn_tpu_torch.launch --nproc 4 -m ...`` for 2 steps."""
+    import tempfile
+
+    _fp32_exact()
+    out = tempfile.mkdtemp(prefix="cmn_mp_")
+    S = MP["n_stages"]
+    launch_s = launch_ranks(S, [os.path.abspath(__file__), "--rank-body",
+                                "vgg", out, "--rank-device", str(dev)],
+                            "model_parallel")
+    ranks = rank_results(out, "vgg", S)
+    batches = mp_batches(MP_AGREE_STEPS)
+    stages, state, step = mp_one_process(dev, batches, capture=False)
+    ref_losses = [float(step(state, b)[1]["loss"]) for b in batches]
+    loss_err = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["losses"], ref_losses))
+    # Elementwise |got - want| - rtol |want|, its largest value over every
+    # stage's tensors: at most atol.
+    excess = {}
+    for r in ranks:
+        ref = {n: p.detach().cpu().numpy()
+               for n, p in stages[r["rank"]].named_parameters()}
+        check(set(ref) == set(r["params"]), f"stage {r['rank']} names")
+        for n, want in ref.items():
+            excess[f"stage{r['rank']}.{n}"] = float(np.max(
+                np.abs(r["params"][n] - want)
+                - MP_TOL["param_rtol"] * np.abs(want)))
+    worst = max(excess, key=excess.get)
+    param_err = excess[worst]
+    # The one-process step, eager and captured, on the same batch.
+    one = {}
+    for mode, cap in (("eager", False), ("captured", True)):
+        stages, st, stp = mp_one_process(dev, batches, capture=cap)
+        times = []
+        for _ in range(MP_WARMUP + MP_TIMED):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            float(stp(st, batches[0])[1]["loss"])
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        one[mode] = float(np.median(times[MP_WARMUP:]))
+        if cap:
+            stp.release()
+    rank_ms = [float(np.median(r["step_ms"])) for r in ranks]
+    row = {"phase": "model_parallel", "card": card, "config":
+           "VGG-11 width_mult 1.0, 32x32x3, 10 classes, batch 64, "
+           "4 stages x 1 data rank, fp32, SGD 0.01 momentum 0.9",
+           "ranks": S, "wire": "gloo (naive), host-staged",
+           "losses_4rank": ranks[0]["losses"],
+           "losses_one_process": ref_losses,
+           "loss_max_rel_err": loss_err, "param_max_excess": param_err,
+           "param_worst": worst, "tol": MP_TOL,
+           "params_held_per_rank": [r["params_held"] for r in ranks],
+           "step_ms_4rank_per_rank": rank_ms,
+           "step_ms_4rank": max(rank_ms),
+           "step_ms_one_process_eager": one["eager"],
+           "step_ms_one_process_captured": one["captured"],
+           "wire_share_per_rank": [r["wire_share"] for r in ranks],
+           "captured_4rank": ranks[0]["captured"],
+           "launch_s": launch_s, "note": MP_NOTE}
+    emit(row)
+    check(all(np.isfinite(row["losses_4rank"])), "4-rank losses finite")
+    check(loss_err <= MP_TOL["loss_rtol"],
+          f"4-rank losses {ranks[0]['losses']} vs one process "
+          f"{ref_losses}")
+    check(param_err <= MP_TOL["param_atol"],
+          f"stage parameters differ by {param_err} ({worst})")
+    check(len({tuple(r["losses"]) for r in ranks}) == 1,
+          "every model rank computes the same loss")
+    check(not ranks[0]["captured"], "a gloo step runs eagerly")
+    check(sum(row["params_held_per_rank"]) == sum(
+        p.numel() for p in stages.parameters()),
+          "the ranks hold the network's parameters once between them")
+    twin_s = launch_ranks(
+        S, ["-m", "chainermn_tpu_torch.examples.train_vgg_model_parallel",
+            "--communicator", "naive", "--device", "cuda:0",
+            "--width-mult", "1.0", "--iters-per-epoch", "2", "--epoch", "1"],
+        "train_vgg_model_parallel")
+    emit({"phase": "model_parallel_example", "card": card,
+          "command": "python -m chainermn_tpu_torch.launch --nproc 4 -m "
+          "chainermn_tpu_torch.examples.train_vgg_model_parallel "
+          "--communicator naive --device cuda:0 --width-mult 1.0 "
+          "--iters-per-epoch 2 --epoch 1", "seconds": twin_s})
+    return row
+
+
+def phase_model_parallel_grid(dev, card):
+    """2 ranks on the card as a ``data x model`` = 2 x 1 grid: NCCL
+    refuses them (one card), the gloo communicator's sub-grids, ``split``
+    and collectives on card tensors, the differentiable broadcast and
+    point-to-point with gradients, a ragged all-reduce; then the seq2seq
+    twin data-parallel over 2 ranks (1 epoch, LSTM, its defaults)."""
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="cmn_grid_")
+    launch_ranks(2, [os.path.abspath(__file__), "--rank-body", "grid", out,
+                     "--rank-device", str(dev)], "model_parallel_grid")
+    g = rank_results(out, "grid", 2)
+    x = [np.array([r + 1.0, -r], np.float32) for r in range(2)]
+    want = {0: {"allgather": np.stack(x), "alltoall": np.stack(
+        [x[0], x[1]]), "permute": x[1], "allreduce": x[0] + x[1],
+        "broadcast": x[1], "scatter": x[0], "gather": None,
+        "reduce": x[0] + x[1], "bcast_grad": np.array([3.0], np.float32),
+        "p2p_grad": 8.0 * np.array([[0.5, -1.0]], np.float32)},
+        1: {"allgather": np.stack(x), "alltoall": np.stack(
+            [10 * x[0], 10 * x[1]]), "permute": x[0],
+            "allreduce": x[0] + x[1], "broadcast": x[1],
+            "scatter": 2 * x[0], "gather": np.stack(x), "reduce": None,
+            "bcast_grad": np.array([0.0], np.float32), "p2p_grad": None}}
+    bad = []
+    for r in range(2):
+        for k, w in want[r].items():
+            got = g[r][k]
+            if (got is None) != (w is None) or (
+                    w is not None and not np.array_equal(got, w)):
+                bad.append((r, k, got, w))
+    ragged = np.arange(5.0)
+    ragged[:3] += np.arange(3.0)
+    row = {"phase": "model_parallel_grid", "card": card, "ranks": 2,
+           "grid": "data 2 x model 1", "sub": [g[r]["sub"] for r in range(2)],
+           "split": g[0]["split"], "devices": g[0]["devices"],
+           "nccl_same_card": g[0]["nccl_same_card"], "mismatches": len(bad),
+           "ragged_allreduce": g[0]["ragged"].tolist()}
+    emit(row)
+    check(not bad, f"2-rank collectives on the card: {bad[:3]}")
+    check("naive" in g[0]["nccl_same_card"]
+          and "same card" in g[0]["nccl_same_card"],
+          f"NCCL with two ranks on one card: {g[0]['nccl_same_card']}")
+    check(g[0]["default_backend"] == g[1]["default_backend"] == "gloo",
+          "the refused NCCL attempt left no NCCL default group")
+    check(g[0]["sub"] == ((0, 1), (0,), 0, 0) and g[1]["sub"] ==
+          ((0, 1), (1,), 1, 0), f"sub-grids {row['sub']}")
+    check(g[0]["devices"] == ["cuda"], "collective results on the card")
+    check(np.array_equal(g[0]["ragged"], ragged) and np.array_equal(
+        g[1]["ragged"], ragged), f"ragged all-reduce {row['ragged_allreduce']}")
+    phase_seq2seq_two_ranks(dev, card)
+
+
+def phase_seq2seq_two_ranks(dev, card):
+    """The seq2seq twin data-parallel over 2 ranks sharing the card
+    (gloo): both ranks train an epoch of their shards of the buckets, and
+    the multi-node evaluator's corpus BLEU covers every held-out
+    sentence once."""
+    import re
+    import tempfile
+
+    from chainermn_tpu_torch.launch import launch
+
+    log = os.path.join(tempfile.mkdtemp(prefix="cmn_s2s_"), "ranks.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        saved = os.dup(1)
+        os.dup2(f.fileno(), 1)
+        try:
+            rc = launch(2, ["-m", "chainermn_tpu_torch.examples.seq2seq",
+                            "--communicator", "naive", "--device",
+                            str(dev), "--epoch", "1"], grace_s=5.0,
+                        env_extra={"PYTHONPATH": rank_pythonpath()},
+                        timeout_s=MP_TIMEOUT_S)
+        finally:
+            os.dup2(saved, 1)
+            os.close(saved)
+    text = open(log).read()
+    m = re.search(r"corpus BLEU ([0-9.]+) +\((\d+) sentences\)", text)
+    row = {"phase": "seq2seq_two_ranks", "card": card, "ranks": 2,
+           "rc": rc, "seconds": time.perf_counter() - t0,
+           "bleu": float(m.group(1)) if m else None,
+           "sentences": int(m.group(2)) if m else None}
+    emit(row)
+    check(rc == 0, f"seq2seq twin on 2 ranks exited {rc}: {text[-2000:]}")
+    check(m is not None and np.isfinite(row["bleu"])
+          and row["sentences"] == S2S_HELD_OUT,
+          f"seq2seq twin's BLEU over both ranks: {row}")
+
+
 FLASH_SASS = ("flash_fwd_bf16", "flash_bwd_dkv_bf16", "flash_bwd_dq_bf16")
 CONV_SASS = ("matmul_affine_bf16",)
 CONV_TILES = (64, 128)
@@ -5543,7 +6069,16 @@ def main() -> int:
                     help="with --compare-with: which of "
                          f"{','.join(COMPARE_PHASES)} to time "
                          "(comma-separated; default all)")
+    ap.add_argument("--rank-body", nargs=2, metavar=("NAME", "OUT"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rank-device", default="cuda:0",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rank_body:
+        # One rank of a model-parallel phase, started by launch_ranks.
+        name, out = args.rank_body
+        RANK_BODIES[name](out, args.rank_device)
+        return 0
     phases = args.compare_phases.split(",")
     if any(ph not in COMPARE_PHASES for ph in phases):
         ap.error(f"--compare-phases takes {COMPARE_PHASES}, got {phases}")
@@ -5637,6 +6172,11 @@ def main() -> int:
     large = phase_large_batch(fa, dev, smi, args.seed,
                               resnet_arms["sync/none"]["step_ms_median"],
                               train["step_ms_median"])
+    # The rest of the communicator and the model-parallel surface.
+    torch.cuda.empty_cache()
+    phase_collectives_nccl(dev, smi)
+    phase_model_parallel(dev, smi)
+    phase_model_parallel_grid(dev, smi)
 
     launches = {"paged_decode_attention":
                 serve["launches"]["paged_decode_attention"],

@@ -21,6 +21,8 @@ from jax.experimental import pallas as pl
 from chainermn_tpu.ops import conv_fused as jcf
 from chainermn_tpu_torch.ops import conv_fused as tcf
 
+import torch_threads  # noqa: E402,F401  (one torch pool per xdist worker)
+
 pytestmark = pytest.mark.tier1
 
 FP32 = dict(atol=1e-5, rtol=1e-5)

@@ -21,6 +21,8 @@ import jax.numpy as jnp
 from chainermn_tpu.ops import decode_attention as jda
 from chainermn_tpu_torch.ops import decode_attention as tda
 
+import torch_threads  # noqa: E402,F401  (one torch pool per xdist worker)
+
 pytestmark = pytest.mark.tier1
 
 ATOL = 1e-5  # fp32, O(1) values, different summation order

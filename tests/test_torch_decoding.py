@@ -31,6 +31,8 @@ from chainermn_tpu_torch.models import (
 from chainermn_tpu_torch.models.decoding import speculative_accept
 from chainermn_tpu_torch.utils import params_from_flax
 
+import torch_threads  # noqa: E402,F401  (one torch pool per xdist worker)
+
 pytestmark = pytest.mark.tier1
 
 BASE = dict(vocab=40, n_layers=2, d_model=32, n_heads=2, d_ff=64,

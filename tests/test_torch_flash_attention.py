@@ -25,6 +25,8 @@ from chainermn_tpu_torch.ops import (
     resolve_attention,
 )
 
+import torch_threads  # noqa: E402,F401  (one torch pool per xdist worker)
+
 pytestmark = pytest.mark.tier1
 
 # The module, not the function of the same name that ``chainermn_tpu.ops``

@@ -128,8 +128,10 @@ def test_native_sources_are_the_ports_own():
     from chainermn_tpu_torch import native
     from chainermn_tpu_torch.ops import _kernels
 
-    sources = [native.SOURCE, *sorted(_kernels.CSRC_DIR.glob("*.c*"))]
+    sources = [native.SOURCE, native.HOSTCOMM_SOURCE,
+               *sorted(_kernels.CSRC_DIR.glob("*.c*"))]
     assert native.SOURCE.read_bytes() != b""
+    assert native.HOSTCOMM_SOURCE.read_bytes() != b""
     for src in sources:
         assert PKG in src.resolve().parents, src
         for inc in re.findall(r'#\s*include\s+"([^"]+)"', src.read_text()):

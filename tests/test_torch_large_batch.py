@@ -69,6 +69,8 @@ from chainermn_tpu_torch.utils import (
     vit_params_to_flax,
 )
 
+import torch_threads  # noqa: E402,F401  (one torch pool per xdist worker)
+
 pytestmark = pytest.mark.tier1
 
 REL = 1e-6

@@ -63,11 +63,19 @@ def _close(got, want, rel):
                                atol=rel * max(np.abs(want).max(), 1e-30))
 
 
+#: Flax parameters by model geometry, built once per module (the port
+#: model, which LoRA rewires, is built afresh each time).
+_PARAMS = {}
+
+
 def _lm(**over):
     kw = {**LM, **over}
     jm = JaxLM(**kw, dtype=jnp.float32, attention="xla")
-    params = jax.tree_util.tree_map(np.asarray, jm.init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"])
+    key = tuple(sorted(over.items()))
+    if key not in _PARAMS:
+        _PARAMS[key] = jax.tree_util.tree_map(np.asarray, jm.init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"])
+    params = _PARAMS[key]
     tm = TransformerLM(**kw, dtype=torch.float32, attention="xla",
                        device="cpu")
     tm.load_state_dict(params_from_flax(params, device="cpu"))

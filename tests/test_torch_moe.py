@@ -35,6 +35,8 @@ from chainermn_tpu_torch.ops import chunked_softmax_cross_entropy
 from chainermn_tpu_torch.parallel.moe import _topk_dispatch
 from chainermn_tpu_torch.utils import params_from_flax, params_to_flax
 
+import torch_threads  # noqa: E402,F401  (one torch pool per xdist worker)
+
 pytestmark = pytest.mark.tier1
 
 ATOL = 1e-5

@@ -243,8 +243,12 @@ def test_update_caches_one_step_per_variant(setup):
     assert sum("9+ distinct" in str(w.message) for w in caught) == 1
     with pytest.raises(NotImplementedError, match="item 12"):
         opt.make_train_step(loss, health_check=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        create_multi_node_optimizer(sgd(0.1), None, grad_reduce=lambda g: g)
+    # Item 8's seam is ported: it takes a function of the model and
+    # refuses anything else.
+    assert create_multi_node_optimizer(
+        sgd(0.1), None, grad_reduce=print).grad_reduce is print
+    with pytest.raises(TypeError, match="grad_reduce"):
+        create_multi_node_optimizer(sgd(0.1), None, grad_reduce="mean")
 
 
 WORKER = textwrap.dedent("""

@@ -31,6 +31,8 @@ from chainermn_tpu.ops import augment as jax_aug
 from chainermn_tpu_torch.ops import augment, max_pool_fused
 from chainermn_tpu_torch.optimizers import augment_generator
 
+import torch_threads  # noqa: E402,F401  (one torch pool per xdist worker)
+
 pytestmark = pytest.mark.tier1
 
 CONFIGS = [

@@ -28,6 +28,8 @@ from chainermn_tpu_torch.serving import PolicyPlane
 from chainermn_tpu_torch.serving.engine import lane_seed
 from chainermn_tpu_torch.utils import params_from_flax
 
+import torch_threads  # noqa: E402,F401  (one torch pool per xdist worker)
+
 pytestmark = pytest.mark.tier1
 
 KW = dict(vocab=257, n_layers=2, d_model=64, n_heads=4, d_ff=128,

@@ -233,8 +233,8 @@ def test_unported_optimizer_options_raise():
     the scheduled SGD/AdamW; ``tests/test_torch_large_batch.py``): the
     optax-arithmetic rules are capturable on any device, and torch's
     AdamW, capturable on a CUDA device only, keeps a schedule's learning
-    rate as a tensor; those of items 8 and 12 still raise, naming their
-    item."""
+    rate as a tensor; item 8's ``grad_reduce`` takes a function of the
+    model; item 12's health check still raises, naming its item."""
     comm = create_communicator("xla", device="cpu")
     for kw in (dict(double_buffering=True), dict(grad_compression="int8_ef"),
                dict(ema_decay=0.99)):
@@ -249,9 +249,17 @@ def test_unported_optimizer_options_raise():
             assert torch.is_tensor(state.optimizer.param_groups[0]["lr"])
         else:
             assert state.optimizer.defaults["capturable"]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        create_multi_node_optimizer(adamw(1e-3), comm,
-                                    grad_reduce=lambda g: g)
+    # Since item 8 the grad_reduce seam takes a function of the model,
+    # which the step calls in place of the communicator's mean.
+    seen = []
+    opt = create_multi_node_optimizer(adamw(1e-3), comm,
+                                      grad_reduce=seen.append)
+    model = TransformerLM(**BASE, dtype=torch.float32, device="cpu")
+    step = opt.make_train_step(lambda m, b: m.embed.weight.sum())
+    step(opt.init(model), np.zeros((2, 4), np.int32))
+    assert seen == [model]
+    with pytest.raises(TypeError, match="grad_reduce"):
+        create_multi_node_optimizer(adamw(1e-3), comm, grad_reduce=1)
     with pytest.raises(ValueError, match="grad_compression"):
         create_multi_node_optimizer(adamw(1e-3), comm, grad_compression="fp8")
     opt = create_multi_node_optimizer(adamw(1e-3), comm)

@@ -21,6 +21,8 @@ from chainermn_tpu_torch.models import TransformerLM, lm_generate
 from chainermn_tpu_torch.models import transformer as tt
 from chainermn_tpu_torch.utils import params_from_flax
 
+import torch_threads  # noqa: E402,F401  (one torch pool per xdist worker)
+
 pytestmark = pytest.mark.tier1
 
 LOGIT_ATOL = 1e-4

@@ -22,6 +22,8 @@ from chainermn_tpu.models import vit_loss as jax_vit_loss
 from chainermn_tpu_torch.models import ViT, vit_loss
 from chainermn_tpu_torch.utils import vit_params_from_flax, vit_params_to_flax
 
+import torch_threads  # noqa: E402,F401  (one torch pool per xdist worker)
+
 pytestmark = pytest.mark.tier1
 
 REL = 1e-5
@@ -40,12 +42,20 @@ def _close(got, want, rel=REL):
                                atol=rel * max(np.abs(want).max(), 1e-30))
 
 
+#: Flax parameters by model geometry, built once per module (the port
+#: model, which the tests mutate, is built afresh each time).
+_PARAMS = {}
+
+
 def _pair(attention="xla", **over):
     kw = {**GEOM, **over}
     jm = JaxViT(**kw, dtype=jnp.float32, attention=attention)
-    x = np.zeros((1, 32, 32, 3), np.float32)
-    params = jax.tree_util.tree_map(
-        np.asarray, jm.init(jax.random.PRNGKey(0), x)["params"])
+    key = tuple(sorted(over.items()))
+    if key not in _PARAMS:
+        x = np.zeros((1, 32, 32, 3), np.float32)
+        _PARAMS[key] = jax.tree_util.tree_map(
+            np.asarray, jm.init(jax.random.PRNGKey(0), x)["params"])
+    params = _PARAMS[key]
     tm = ViT(**kw, image_size=32, dtype=torch.float32, attention=attention,
              device="cpu")
     tm.load_state_dict(vit_params_from_flax(params, device="cpu"))

@@ -15,6 +15,8 @@ import sys
 import pytest
 import torch.distributed as dist
 
+import torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
+
 
 @pytest.fixture(scope="module", autouse=True)
 def restore_process_state():
