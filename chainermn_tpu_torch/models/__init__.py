@@ -3,8 +3,8 @@ experts), its generation loop (the serving slice), beam search and
 speculative generation, and its training losses; ResNet and its stateful
 loss; the MNIST example's MLP and its classification loss and metrics;
 the seq2seq family (LSTM and Transformer encoder-decoders, their loss and
-decoders); ViT; LoRA adapters over any of them; VGG's stages and their
-model-parallel chain."""
+decoders); ViT; LoRA adapters over any of them; VGG's stages, their
+model-parallel chain and pipeline; the 5-way-parallel ``ParallelLM``."""
 
 from chainermn_tpu_torch.models.decoding import (
     lm_beam_search,
@@ -43,12 +43,18 @@ from chainermn_tpu_torch.models.seq2seq import (
     seq2seq_loss,
 )
 from chainermn_tpu_torch.models.transformer import (
+    PARALLEL_LM_AXES,
     DecoderBlock,
+    ParallelLM,
+    ParallelLMConfig,
     TransformerLM,
+    dense_lm_reference,
+    init_parallel_lm,
     lm_generate,
     lm_loss,
     lm_loss_chunked,
     moe_stats,
+    parallel_lm_specs,
     segment_positions,
 )
 from chainermn_tpu_torch.models.vgg import (
@@ -57,13 +63,16 @@ from chainermn_tpu_torch.models.vgg import (
     VGGStage,
     apply_sequential,
     build_chain,
+    build_hetero_pipeline,
     vgg_loss,
     vgg_stage_modules,
 )
 from chainermn_tpu_torch.models.vit import ViT, vit_loss
 from chainermn_tpu_torch.ops.flash_attention import reference_attention
 
-__all__ = ["MLP", "classification_loss", "classification_metrics",
+__all__ = ["MLP", "PARALLEL_LM_AXES", "ParallelLM", "ParallelLMConfig",
+           "dense_lm_reference", "init_parallel_lm", "parallel_lm_specs",
+           "classification_loss", "classification_metrics",
            "BasicBlock", "BottleneckBlock", "DEFAULT_TARGETS", "DecoderBlock",
            "FusedConv1x1", "LoRA", "ResNet", "ResNet18", "ResNet50",
            "ResNetTiny", "Seq2Seq", "TransformerLM", "TransformerSeq2Seq",
@@ -74,4 +83,5 @@ __all__ = ["MLP", "classification_loss", "classification_metrics",
            "reference_attention", "resnet_loss", "s2d_stem_kernel",
            "segment_positions", "seq2seq_loss", "space_to_depth",
            "VGG_CFGS", "VGGHead", "VGGStage", "apply_sequential",
-           "build_chain", "vgg_loss", "vgg_stage_modules", "vit_loss"]
+           "build_chain", "build_hetero_pipeline", "vgg_loss",
+           "vgg_stage_modules", "vit_loss"]

@@ -51,18 +51,30 @@ recomputes each block in the backward (``torch.utils.checkpoint``).
 chunks (:func:`~chainermn_tpu_torch.ops.chunked_softmax_cross_entropy`).
 Beam search and speculative generation are in
 :mod:`chainermn_tpu_torch.models.decoding`.
+
+The functional *parallel* tier (:class:`ParallelLM`,
+:func:`init_parallel_lm`, :func:`dense_lm_reference`) is the JAX
+package's 5-way-parallel program: data parallel over ``data``, GPipe over
+``stage`` (:class:`~chainermn_tpu_torch.links.PipelineChain`),
+tensor-parallel heads and the expert-parallel MoE over ``model``
+(:class:`~chainermn_tpu_torch.parallel.MoELayer`), ring attention over
+``seq``.  One process per rank of a 4-axis rank grid, each holding its
+own slice of the parameters.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from chainermn_tpu_torch.functions.collective import allgather, allreduce
+from chainermn_tpu_torch.links.chain_list import PipelineChain
 from chainermn_tpu_torch.ops.decode_attention import (
     MAX_FUSED_LEN,
     MAX_VERIFY_T,
@@ -77,7 +89,11 @@ from chainermn_tpu_torch.ops.flash_attention import (
 )
 from chainermn_tpu_torch.ops.chunked_ce import chunked_softmax_cross_entropy
 from chainermn_tpu_torch.ops.rope import apply_rope, rope_tables
-from chainermn_tpu_torch.parallel.moe import _topk_dispatch
+from chainermn_tpu_torch.parallel.moe import MoELayer, _topk_dispatch
+from chainermn_tpu_torch.parallel.ring_attention import (
+    ring_flash_self_attention,
+    ring_self_attention,
+)
 from chainermn_tpu_torch.utils.device import resolve_device
 
 #: Flax ``LayerNorm``'s epsilon (torch's default is 1e-5).
@@ -922,3 +938,405 @@ def lm_loss_chunked(model: TransformerLM, chunk_size: int = 4096):
         return _with_moe(m, loss, {"ppl_log": loss.detach()})
 
     return loss_fn
+
+
+# =====================================================================
+# The functional tier: data x stage x model x seq parallel LM
+# =====================================================================
+#: The rank grid's axes, in ``hybrid_mesh`` order.
+PARALLEL_LM_AXES = ("data", "stage", "model", "seq")
+
+
+class ParallelLMConfig(NamedTuple):
+    """The JAX package's ``ParallelLMConfig``: one transformer block per
+    pipeline stage; heads and experts (one per rank) sharded over
+    ``model``; ``pos_enc`` "learned" (this shard's slice of a position
+    table) or "rope" (rotation at global positions, ``seq_rank *
+    T_local + arange``); ``attention`` "auto" (the flash ring on a card
+    from ``ops.FLASH_MIN_SEQ`` local positions, the plain ring below and
+    on the CPU), "flash" or "xla"; ``n_kv_heads`` 0 (dense) or the kv
+    head count (GQA, sharded over ``model`` like the query heads)."""
+
+    vocab: int
+    n_stages: int
+    d_model: int
+    n_heads: int
+    d_ff: int  # per expert
+    max_len: int
+    n_experts: int  # == size of the model axis
+    moe_k: int = 2
+    capacity_factor: float = 0.0  # 0: ample (no drops; exact vs dense)
+    pos_enc: str = "learned"
+    attention: str = "auto"
+    n_kv_heads: int = 0
+
+
+def _check_pos_enc(cfg: ParallelLMConfig) -> None:
+    if cfg.pos_enc not in ("learned", "rope"):
+        raise ValueError(
+            f"pos_enc={cfg.pos_enc!r}: expected 'learned' or 'rope'")
+
+
+def init_parallel_lm(rng: np.random.RandomState, cfg: ParallelLMConfig
+                     ) -> Dict:
+    """The stage-stacked parameter tree on the host, as numpy arrays: the
+    JAX package's ``init_parallel_lm`` line for line, so the same
+    ``RandomState`` gives bit-equal parameters."""
+    _check_pos_enc(cfg)
+    S, D, H, F_, E = (cfg.n_stages, cfg.d_model, cfg.n_heads, cfg.d_ff,
+                      cfg.n_experts)
+    Dh = D // H
+
+    def g(*shape, scale=None):
+        scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    KH = cfg.n_kv_heads or H
+    if KH != H:
+        qkv_leaves = {
+            "wq": g(S, D, H, Dh, scale=1.0 / math.sqrt(D)),
+            "wkv": g(S, D, 2, KH, Dh, scale=1.0 / math.sqrt(D)),
+        }
+    else:
+        qkv_leaves = {"wqkv": g(S, D, 3, H, Dh, scale=1.0 / math.sqrt(D))}
+    tree = {
+        "embed": g(cfg.vocab, D, scale=0.02),
+        "pos": g(cfg.max_len, D, scale=0.02),
+        "stages": {
+            "ln1_scale": np.ones((S, D), np.float32),
+            "ln1_bias": np.zeros((S, D), np.float32),
+            **qkv_leaves,
+            "wo": g(S, H, Dh, D, scale=1.0 / math.sqrt(D)),
+            "ln2_scale": np.ones((S, D), np.float32),
+            "ln2_bias": np.zeros((S, D), np.float32),
+            "router": g(S, D, E, scale=1.0 / math.sqrt(D)),
+            "w1": g(S, E, D, F_, scale=1.0 / math.sqrt(D)),
+            "w2": g(S, E, F_, D, scale=1.0 / math.sqrt(F_)),
+        },
+        "ln_f_scale": np.ones((D,), np.float32),
+        "ln_f_bias": np.zeros((D,), np.float32),
+        "lm_head": g(D, cfg.vocab, scale=1.0 / math.sqrt(D)),
+    }
+    if cfg.pos_enc == "rope":
+        del tree["pos"]
+    return tree
+
+
+def parallel_lm_specs(cfg: ParallelLMConfig) -> Dict:
+    """The axes each leaf of :func:`init_parallel_lm`'s tree is sharded
+    over, one entry per array axis (the JAX package's PartitionSpecs as
+    plain tuples): ``"stage"`` -- rank ``s`` of the stage axis holds
+    index ``s`` (the axis is dropped from its slice); ``"model"`` -- the
+    axis is cut in ``n_experts`` equal blocks, block ``m`` on model rank
+    ``m``; None -- whole.  A leaf is replicated over every axis its spec
+    does not name (:meth:`ParallelLM.grad_reduce` sums it there)."""
+    _check_pos_enc(cfg)
+    if cfg.n_kv_heads and cfg.n_kv_heads != cfg.n_heads:
+        qkv = {"wq": ("stage", None, "model", None),
+               "wkv": ("stage", None, None, "model", None)}
+    else:
+        qkv = {"wqkv": ("stage", None, None, "model", None)}
+    specs = {
+        "embed": (),
+        "pos": (),
+        "stages": {
+            "ln1_scale": ("stage", None),
+            "ln1_bias": ("stage", None),
+            **qkv,
+            "wo": ("stage", "model", None, None),
+            "ln2_scale": ("stage", None),
+            "ln2_bias": ("stage", None),
+            "router": ("stage", None, None),
+            "w1": ("stage", "model", None, None),
+            "w2": ("stage", "model", None, None),
+        },
+        "ln_f_scale": (),
+        "ln_f_bias": (),
+        "lm_head": (),
+    }
+    if cfg.pos_enc == "rope":
+        del specs["pos"]
+    return specs
+
+
+def _tree_items(tree, prefix=()):
+    """``(path, leaf)`` of a nested dict, keys in sorted order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _tree_items(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _tree_set(tree: Dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _tree_get(tree: Dict, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _plm_layer_norm(x, scale, bias, eps=1e-5):
+    """The JAX package's ``_layer_norm`` of the parallel tier (eps
+    1e-5)."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+class ParallelLM:
+    """The 5-way-parallel LM program, one process per rank.
+
+    ``comm`` spans every rank of the job on a 4-axis grid
+    ``hybrid_mesh({"data": D, "stage": S, "model": M, "seq": Q})`` with
+    ``S == cfg.n_stages`` and ``M == cfg.n_experts``.  The constructor
+    makes one communicator per axis and per set of axes the gradient
+    reduction needs, every rank all of them in the same order.  Each rank
+    holds its slice of the parameters
+    (:func:`~chainermn_tpu_torch.utils.parallel_lm_shard`) and its
+    ``(B_local, T_local)`` block of the tokens (batch split over
+    ``data``, sequence over ``seq``).
+
+    Per stage: tensor-parallel heads with an all-reduce over ``model``
+    after ``wo``; GQA with the compact K/V circulating the ring; RoPE at
+    global positions before the ring; the MoE over ``model`` with each
+    model rank routing its ``1/M`` of the tokens and the outputs
+    all-gathered back.  :meth:`loss` is this rank's share of the global
+    loss, divided by the ``stage x model`` ranks that compute it alike,
+    so that the sum over every rank (the loss the port's differentiable
+    collectives differentiate) is the global loss; :meth:`grad_reduce`
+    then sums each leaf's gradient over the axes it is replicated on."""
+
+    def __init__(self, cfg: ParallelLMConfig, comm, n_microbatches: int):
+        _check_pos_enc(cfg)
+        resolve_attention(cfg.attention, 1)
+        if cfg.n_kv_heads and (not 0 < cfg.n_kv_heads <= cfg.n_heads
+                               or cfg.n_heads % cfg.n_kv_heads):
+            raise ValueError(
+                f"n_kv_heads ({cfg.n_kv_heads}) must be in (0, n_heads] "
+                f"and divide n_heads ({cfg.n_heads})")
+        shape = comm.mesh.shape
+        if set(shape) != set(PARALLEL_LM_AXES):
+            raise ValueError(f"ParallelLM needs a rank grid over "
+                             f"{PARALLEL_LM_AXES}, got {tuple(shape)}")
+        if shape["stage"] != cfg.n_stages or \
+                shape["model"] != cfg.n_experts:
+            raise ValueError(
+                f"grid {shape} for n_stages {cfg.n_stages} and n_experts "
+                f"{cfg.n_experts}: one stage per stage rank, one expert "
+                "per model rank")
+        self.cfg = cfg
+        self.comm = comm
+        self.n_micro = n_microbatches
+        self.scomm = comm.sub("stage")
+        self.mcomm = comm.sub("model")
+        self.qcomm = comm.sub("seq")
+        self.dcomm = comm.sub("data")
+        self._token_comm = comm.sub(("data", "seq"))
+        self._free = {}
+        for path, spec in _tree_items(parallel_lm_specs(cfg)):
+            free = tuple(a for a in PARALLEL_LM_AXES if a not in spec)
+            self._free[path] = free
+            if free:
+                comm.sub(free)
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        """This rank's position on each axis of the grid."""
+        return {"data": self.dcomm.rank, "stage": self.scomm.rank,
+                "model": self.mcomm.rank, "seq": self.qcomm.rank}
+
+    # --------------------------------------------------- one stage
+    def _stage_apply(self, p, h, rope=None):
+        """One block on this rank's ``(stage, model)`` slice ``p``; ``h``
+        ``(B, T_local, D)``."""
+        cfg = self.cfg
+        B, Tl, D = h.shape
+        x = _plm_layer_norm(h, p["ln1_scale"], p["ln1_bias"])
+        if "wkv" in p:
+            # GQA: k/v stay compact on the ring.
+            q = torch.einsum("btd,dhe->bthe", x, p["wq"])
+            kv = torch.einsum("btd,dche->btche", x, p["wkv"])
+            k, v = kv[:, :, 0], kv[:, :, 1]
+        else:
+            qkv = torch.einsum("btd,dche->btche", x, p["wqkv"])
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if rope is not None:
+            # Rotation at global positions before the ring: the keys each
+            # shard circulates carry their true positions.
+            q = apply_rope(q, tables=rope)
+            k = apply_rope(k, tables=rope)
+        if resolve_attention(cfg.attention, Tl, device=h.device) == "flash":
+            a = ring_flash_self_attention(q, k, v, self.qcomm, causal=True)
+        else:
+            a = ring_self_attention(q, k, v, self.qcomm, causal=True)
+        o = torch.einsum("bthe,hed->btd", a, p["wo"])
+        h = h + allreduce(self.mcomm, o)  # the heads' contraction
+        x = _plm_layer_norm(h, p["ln2_scale"], p["ln2_bias"])
+        E = cfg.n_experts
+        N = B * Tl
+        if N % E:
+            raise ValueError(f"local tokens {N} not divisible by experts "
+                             f"{E}")
+        n = N // E
+        m = self.mcomm.rank
+        mine = x.reshape(N, D)[m * n:(m + 1) * n]
+
+        def expert_apply(ep, t):
+            w1, w2 = ep  # this rank's expert, (1, D, F) and (1, F, D)
+            return F.gelu(t @ w1[0], approximate="tanh") @ w2[0]
+
+        cap_f = cfg.capacity_factor if cfg.capacity_factor > 0 \
+            else float(E)
+        moe = MoELayer(expert_apply, self.mcomm, k=cfg.moe_k,
+                       capacity_factor=cap_f)
+        y, _ = moe(p["router"], (p["w1"], p["w2"]), mine)
+        # Every model rank's slice back in token order.
+        y = allgather(self.mcomm, y).reshape(N, D)
+        return h + y.reshape(B, Tl, D)
+
+    # ------------------------------------------------------- forward
+    def apply(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+        """This rank's tokens ``(B_local, T_local)`` -> logits ``(B_local,
+        T_local, V)`` (on every stage and model rank alike); every rank
+        of the grid calls it."""
+        cfg = self.cfg
+        B, Tl = tokens.shape
+        tokens = tokens.long()
+        seq_rank = self.qcomm.rank
+        h = params["embed"][tokens]
+        rope = None
+        if cfg.pos_enc == "rope":
+            pos = seq_rank * Tl + torch.arange(Tl, device=h.device)
+            rope = rope_tables(pos, cfg.d_model // cfg.n_heads)
+        else:
+            h = h + params["pos"][seq_rank * Tl:(seq_rank + 1) * Tl][None]
+        pipe = PipelineChain(lambda p, x: self._stage_apply(p, x, rope),
+                             self.scomm, self.n_micro)
+        h = pipe(params["stages"], h)
+        h = _plm_layer_norm(h, params["ln_f_scale"], params["ln_f_bias"])
+        return h @ params["lm_head"]
+
+    def loss(self, params: Dict, batch) -> torch.Tensor:
+        """This rank's share of the global masked cross-entropy: its
+        local numerator over the GLOBAL valid-token count (an all-reduce
+        over ``data x seq``), divided by the ``stage x model`` ranks that
+        hold the same value (the JAX package's ``check_vma=False``
+        convention).  :meth:`total_loss` sums it over the grid."""
+        tokens, targets = batch
+        logits = self.apply(params, tokens)
+        targets = targets.long()
+        mask = (targets >= 0).to(torch.float32)
+        safe = targets.clamp_min(0)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ce = -logp.gather(-1, safe[..., None])[..., 0]
+        n_total = self._token_comm.allreduce(mask.sum())
+        share = (ce * mask).sum() / n_total.clamp_min(1.0)
+        return share / (self.scomm.size * self.mcomm.size)
+
+    def total_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The global loss from every rank's :meth:`loss` (a sum over the
+        grid, no gradient)."""
+        return self.comm.allreduce(loss.detach())
+
+    # ------------------------------------------------ grad reduction
+    @staticmethod
+    def grads_of(params: Dict) -> Dict:
+        """The tree of ``params``' ``.grad``, zeros where a leaf got none
+        (``embed`` on a stage rank other than 0: the pipeline reads its
+        input there only)."""
+        out: Dict = {}
+        for path, t in _tree_items(params):
+            _tree_set(out, path, torch.zeros_like(t) if t.grad is None
+                      else t.grad)
+        return out
+
+    def grad_reduce(self, grads: Dict) -> Dict:
+        """Each leaf's gradient summed over exactly the axes its spec
+        does not shard (a replicated leaf's gradient is the sum of its
+        copies'), one all-reduce per set of axes; ``grads`` is a tree
+        like this rank's parameters (:meth:`grads_of`).  With
+        :meth:`loss`'s normalization the result is the JAX package's
+        reduced gradient, leaf by leaf."""
+        out: Dict = {}
+        groups: Dict[tuple, list] = {}
+        for path, g in _tree_items(grads):
+            free = self._free[path]
+            if free:
+                groups.setdefault(free, []).append((path, g))
+            else:
+                _tree_set(out, path, g)
+        for free, items in groups.items():
+            flat = torch.cat([g.reshape(-1) for _, g in items])
+            flat = self.comm.sub(free).allreduce(flat)
+            at = 0
+            for path, g in items:
+                _tree_set(out, path, flat[at:at + g.numel()].view(g.shape))
+                at += g.numel()
+        return out
+
+
+def dense_lm_reference(params: Dict, cfg: ParallelLMConfig, tokens,
+                       device=None) -> torch.Tensor:
+    """One-process oracle with the same arithmetic and no parallelism;
+    ``params`` is :func:`init_parallel_lm`'s tree (numpy arrays, or
+    tensors to differentiate).  ``device`` None means the current CUDA
+    device (numpy leaves are moved there)."""
+    dev = resolve_device(device, "dense_lm_reference")
+    p = {}
+    for path, v in _tree_items(params):
+        _tree_set(p, path, v if isinstance(v, torch.Tensor)
+                  else torch.as_tensor(np.asarray(v), device=dev))
+    tokens = torch.as_tensor(np.asarray(tokens) if not isinstance(
+        tokens, torch.Tensor) else tokens, device=dev).long()
+    B, T = tokens.shape
+    D = cfg.d_model
+    h = p["embed"][tokens]
+    rope = None
+    if cfg.pos_enc == "rope":
+        rope = rope_tables(torch.arange(T, device=dev), D // cfg.n_heads)
+    else:
+        h = h + p["pos"][None, :T]
+    causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))
+    for s in range(cfg.n_stages):
+        st = {k: v[s] for k, v in p["stages"].items()}
+        x = _plm_layer_norm(h, st["ln1_scale"], st["ln1_bias"])
+        if "wkv" in st:
+            q = torch.einsum("btd,dhe->bthe", x, st["wq"])
+            kv = torch.einsum("btd,dche->btche", x, st["wkv"])
+            k, v = kv[:, :, 0], kv[:, :, 1]
+            G = q.shape[2] // k.shape[2]
+            k = k.repeat_interleave(G, dim=2)
+            v = v.repeat_interleave(G, dim=2)
+        else:
+            qkv = torch.einsum("btd,dche->btche", x, st["wqkv"])
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if rope is not None:
+            q = apply_rope(q, tables=rope)
+            k = apply_rope(k, tables=rope)
+        sc = torch.einsum("bqhe,bkhe->bhqk", q, k) / math.sqrt(q.shape[-1])
+        sc = sc.masked_fill(~causal[None, None], float("-inf"))
+        a = torch.einsum("bhqk,bkhe->bqhe", torch.softmax(sc, dim=-1), v)
+        h = h + torch.einsum("bthe,hed->btd", a, st["wo"])
+        x = _plm_layer_norm(h, st["ln2_scale"], st["ln2_bias"])
+        toks = x.reshape(B * T, D)
+        probs = torch.softmax(toks @ st["router"], dim=-1)
+        # Dense top-k with renormalized gates (MoELayer with ample
+        # capacity).
+        top = probs.topk(cfg.moe_k, dim=-1).indices
+        sel = F.one_hot(top, cfg.n_experts).sum(dim=1).to(probs.dtype)
+        gates = probs * sel
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(
+            torch.finfo(torch.float32).tiny)
+        expert_out = torch.stack(
+            [F.gelu(toks @ st["w1"][e], approximate="tanh") @ st["w2"][e]
+             for e in range(cfg.n_experts)], dim=1)
+        y = torch.einsum("ne,ned->nd", gates, expert_out)
+        h = h + y.reshape(B, T, D)
+    h = _plm_layer_norm(h, p["ln_f_scale"], p["ln_f_bias"])
+    return h @ p["lm_head"]

@@ -6,8 +6,10 @@ BASELINE.json configuration 4: model-parallel VGG through
 ReLU, 2×2 max-pool) cut into contiguous stages, plus a head (global
 average pool, ``Dense(hidden)`` + ReLU, ``Dense(num_classes)``) as the
 last stage.  The same stage modules compose into the one-process oracle
-(:func:`apply_sequential`) and into a chain with one stage per rank
-(:func:`build_chain`), so the two share parameters exactly.
+(:func:`apply_sequential`), into a chain with one stage per rank
+(:func:`build_chain`) and into a GPipe pipeline over the same ranks
+(:func:`build_hetero_pipeline`, the configuration's distributed-speedup
+tier), so all three share parameters exactly.
 
 Stages take and return NHWC activations, as the JAX package's do; inside,
 each runs its convolutions on an NCHW view in ``channels_last`` memory
@@ -27,7 +29,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from chainermn_tpu_torch.links.chain_list import MultiNodeChainList
+from chainermn_tpu_torch.links.chain_list import (
+    HeteroPipelineChain,
+    MultiNodeChainList,
+)
 from chainermn_tpu_torch.utils.device import resolve_device
 
 __all__ = ["VGG_CFGS", "VGGHead", "VGGStage", "apply_sequential",
@@ -184,6 +189,40 @@ def build_chain(modules: Sequence[Optional[nn.Module]], comm
         chain.add_link(m, rank=s, rank_in=s - 1 if s > 0 else None,
                        rank_out=s + 1 if s < S - 1 else None)
     return chain
+
+
+def build_hetero_pipeline(modules: Sequence[Optional[nn.Module]], comm,
+                          sample_input, n_microbatches: int = 4
+                          ) -> HeteroPipelineChain:
+    """The VGG chain on :class:`~chainermn_tpu_torch.links.
+    HeteroPipelineChain` (the JAX package's ``build_hetero_pipeline``):
+    rank ``s`` of ``comm`` runs stage ``s`` on GPipe microbatches.
+    ``modules`` holds this rank's stage (the others may be None);
+    ``sample_input`` is one example batch, ``(1, H, W, C)`` or more rows,
+    from which each stage's activation shapes are read: the owner of
+    stage ``s`` runs it on one row of zeros and broadcasts the shape, so
+    no rank needs another's stage."""
+    S = len(modules)
+    if S != comm.size:
+        raise ValueError(
+            f"{S} stages must equal the stage-axis size {comm.size}")
+    in_shape = tuple(sample_input.shape[1:])
+    io_shapes = []
+    for s in range(S):
+        out = None
+        if comm.rank == s:
+            m = modules[s]
+            p = next(m.parameters(), None)
+            with torch.no_grad():
+                y = m(torch.zeros((1, *in_shape), device=comm.device,
+                                  dtype=p.dtype if p is not None
+                                  else torch.float32))
+            out = tuple(y.shape[1:])
+        out = tuple(comm.bcast_obj(out, root=s))
+        io_shapes.append((in_shape, out))
+        in_shape = out
+    return HeteroPipelineChain(comm, list(modules), io_shapes,
+                               n_microbatches)
 
 
 def vgg_loss(logits: torch.Tensor, labels) -> Tuple[torch.Tensor, Any]:

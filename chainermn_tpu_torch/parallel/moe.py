@@ -1,18 +1,28 @@
-"""Capacity-based top-k MoE routing, the counterpart of
-``chainermn_tpu/parallel/moe.py``'s ``_topk_dispatch``.
+"""Expert parallelism: capacity-based top-k MoE dispatch over an expert
+process group (``chainermn_tpu/parallel/moe.py``).
 
 Routing is static-shaped, as in the JAX package: token -> (expert, slot)
-assignments are one-hot ``(N, E, C)`` masks that the callers contract
-with einsums, never a gather or scatter.  Only the routing is ported; the
-expert-parallel layer over an ``expert`` process group is not.
+assignments are one-hot ``(N, E, C)`` masks contracted with einsums,
+never a gather or scatter (:func:`_topk_dispatch`, which the single-card
+MoE FFN of ``models.TransformerLM`` runs too).  Across ranks, tokens are
+sharded over the expert communicator: each rank routes its ``N`` tokens
+into an ``(E, C, D)`` buffer (row ``e`` for the rank that holds expert
+``e``), an all-to-all (the reference's
+``chainermn.functions.alltoall``) hands each rank the tokens for its
+expert, the expert runs, and the reverse all-to-all and the combine
+weights put the results back on their tokens.  The wire carries the
+activation dtype.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Callable, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from chainermn_tpu_torch.functions.collective import alltoall
 
 
 def _topk_dispatch(probs: torch.Tensor, capacity: int, k: int
@@ -63,3 +73,63 @@ def _topk_dispatch(probs: torch.Tensor, capacity: int, k: int
     denom = torch.clamp_min(gate_sum, torch.finfo(dt).tiny)
     combine = gates / denom[..., None, None]
     return dispatch, combine, first_choice
+
+
+def moe_dispatch(x: torch.Tensor, gate_logits: torch.Tensor, comm,
+                 capacity: int, k: int = 2):
+    """Route this rank's tokens ``x`` ``(N, D)`` (router logits ``(N,
+    E)``) to their experts across ``comm``; every rank calls it.  Returns
+    ``(expert_batch, combine, aux)``: the ``(E*C, D)`` tokens for this
+    rank's expert (row block ``s`` from rank ``s``), the ``(N, E, C)``
+    weights for :func:`moe_combine`, and this rank's Switch load-balance
+    loss."""
+    E = comm.size
+    if gate_logits.shape[-1] != E:
+        raise ValueError(
+            f"router width {gate_logits.shape[-1]} != expert axis size {E}")
+    probs = torch.softmax(gate_logits.float(), dim=-1)
+    dispatch, combine, first = _topk_dispatch(probs, capacity, k)
+    # Switch load-balance loss: E * sum_e fraction_dispatched_e * mean_p_e.
+    aux = E * (first.mean(dim=0) * probs.mean(dim=0)).sum()
+    # Slot selection in fp32, the wire in the activation dtype.
+    send = torch.einsum("nec,nd->ecd", dispatch, x.float()).to(x.dtype)
+    recv = alltoall(comm, send)
+    return recv.reshape(E * capacity, x.shape[-1]), combine, aux
+
+
+def moe_combine(expert_out: torch.Tensor, combine: torch.Tensor, comm
+                ) -> torch.Tensor:
+    """Inverse of :func:`moe_dispatch`: ``(E*C, F)`` expert outputs ->
+    ``(N, F)`` on the tokens' own ranks."""
+    N, E, C = combine.shape
+    back = alltoall(comm, expert_out.reshape(E, C, -1))
+    out = torch.einsum("nec,ecf->nf", combine, back.float())
+    return out.to(expert_out.dtype)
+
+
+class MoELayer:
+    """Mixture-of-experts layer over an expert communicator (one expert
+    per rank).  ``expert_apply(expert_params, tokens) -> tokens`` is the
+    local expert; ``layer(router_w, expert_params, x)`` on every rank,
+    with this rank's tokens ``(N, D)`` and the replicated router ``(D,
+    E)``, returns ``(out, aux_loss)``."""
+
+    def __init__(self, expert_apply: Callable, comm, k: int = 2,
+                 capacity_factor: float = 1.25):
+        self.expert_apply = expert_apply
+        self.comm = comm
+        self.k = k
+        self.capacity_factor = capacity_factor
+
+    def capacity(self, n_tokens: int, n_experts: int) -> int:
+        return max(1, math.ceil(self.k * self.capacity_factor * n_tokens
+                                / n_experts))
+
+    def __call__(self, router_w, expert_params, x):
+        E = self.comm.size
+        C = self.capacity(x.shape[0], E)
+        logits = x @ router_w
+        expert_batch, combine, aux = moe_dispatch(x, logits, self.comm, C,
+                                                  self.k)
+        h = self.expert_apply(expert_params, expert_batch)
+        return moe_combine(h, combine, self.comm), aux

@@ -1,4 +1,5 @@
-"""Utilities of the port: device resolution and the Flax weight bridge."""
+"""Utilities of the port: device resolution, the Flax weight bridge and
+the per-rank slices of ``ParallelLM``'s parameters."""
 
 from chainermn_tpu_torch.utils.bridge import (
     flax_shapes,
@@ -8,6 +9,8 @@ from chainermn_tpu_torch.utils.bridge import (
     lstm_seq2seq_params_to_flax,
     mlp_params_from_flax,
     mlp_params_to_flax,
+    parallel_lm_shard,
+    parallel_lm_unshard,
     params_from_flax,
     params_to_flax,
     resnet_params_from_flax,
@@ -23,7 +26,8 @@ from chainermn_tpu_torch.utils.device import resolve_device
 
 __all__ = ["flax_shapes", "lora_params_from_flax", "lora_params_to_flax",
            "lstm_seq2seq_params_from_flax", "lstm_seq2seq_params_to_flax",
-           "mlp_params_from_flax", "mlp_params_to_flax", "params_from_flax",
+           "mlp_params_from_flax", "mlp_params_to_flax", "parallel_lm_shard",
+           "parallel_lm_unshard", "params_from_flax",
            "params_to_flax", "resnet_params_from_flax",
            "resnet_params_to_flax", "resolve_device",
            "seq2seq_params_from_flax", "seq2seq_params_to_flax",

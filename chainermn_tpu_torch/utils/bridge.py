@@ -581,6 +581,90 @@ def vgg_stage_params_to_flax(tensors: Dict[str, torch.Tensor]) -> Dict:
     return out
 
 
+# ------------------------------------------------------- ParallelLM
+def _spec_slice(spec, shape, coords, n_model: int):
+    """The index of one rank's block of a leaf with ``spec`` (see
+    ``parallel_lm_specs``): an int for ``"stage"`` (the axis drops), the
+    rank's ``1/n_model`` block for ``"model"``."""
+    idx = []
+    for dim, ax in enumerate(spec):
+        if ax == "stage":
+            idx.append(int(coords["stage"]))
+        elif ax == "model":
+            if shape[dim] % n_model:
+                raise ValueError(f"axis {dim} of {tuple(shape)} does not "
+                                 f"split over {n_model} model ranks")
+            n = shape[dim] // n_model
+            m = int(coords["model"])
+            idx.append(slice(m * n, (m + 1) * n))
+        else:
+            idx.append(slice(None))
+    return tuple(idx)
+
+
+def parallel_lm_shard(params: Dict, cfg, coords, device=None
+                      ) -> Dict[str, torch.Tensor]:
+    """One rank's slice of ``init_parallel_lm``'s tree (numpy), by
+    ``parallel_lm_specs``: ``coords`` gives the rank's ``"stage"`` and
+    ``"model"`` positions (``ParallelLM.coords``).  Stage leaves lose
+    their stage axis; head and expert axes keep this rank's block.
+    Returns leaf tensors that require grad, on ``device`` (None: the
+    current CUDA device)."""
+    from chainermn_tpu_torch.models.transformer import (
+        _tree_get,
+        _tree_items,
+        _tree_set,
+        parallel_lm_specs,
+    )
+
+    dev = resolve_device(device, "parallel_lm_shard")
+    specs = parallel_lm_specs(cfg)
+    out: Dict = {}
+    for path, spec in _tree_items(specs):
+        arr = np.asarray(_tree_get(params, path))
+        block = arr[_spec_slice(spec, arr.shape, coords, cfg.n_experts)]
+        _tree_set(out, path, _tensor(np.ascontiguousarray(block), dev)
+                  .requires_grad_())
+    return out
+
+
+def parallel_lm_unshard(shards, cfg) -> Dict:
+    """The full numpy tree from ranks' slices: ``shards`` is a sequence of
+    ``(coords, tree)`` (a tree like :func:`parallel_lm_shard`'s, of
+    tensors or arrays: parameters or reduced gradients), which together
+    cover every ``(stage, model)`` block; a replicated leaf is taken from
+    any of them."""
+    from chainermn_tpu_torch.models.transformer import (
+        _tree_get,
+        _tree_items,
+        _tree_set,
+        parallel_lm_specs,
+    )
+
+    specs = parallel_lm_specs(cfg)
+    out: Dict = {}
+    for path, spec in _tree_items(specs):
+        full = None
+        for coords, tree in shards:
+            block = _tree_get(tree, path)
+            block = _np(block) if isinstance(block, torch.Tensor) \
+                else np.asarray(block)
+            if full is None:
+                shape, at = [], 0
+                for ax in spec:
+                    if ax == "stage":
+                        shape.append(cfg.n_stages)
+                        continue
+                    shape.append(block.shape[at] * (
+                        cfg.n_experts if ax == "model" else 1))
+                    at += 1
+                full = np.zeros(shape or block.shape, block.dtype)
+            full[_spec_slice(spec, full.shape, coords, cfg.n_experts)] = \
+                block
+        _tree_set(out, path, full)
+    return out
+
+
 # ---------------------------------------------------------- Flax shapes
 #: a stand-in's row code: parameter ``k``'s row ``r`` holds ``k + r / 2**20``
 #: (exact in float64 for up to 2**20 parameters of up to 2**20 rows).

@@ -264,6 +264,27 @@ beside the four captured ones and the bare step eager in
    ``seq2seq_two_ranks`` (the seq2seq twin data-parallel over 2 ranks:
    its BLEU covers every held-out sentence once).  Each launched job has a
    time limit (``MP_TIMEOUT_S``); a hang fails the run.
+19. Pipelines and the 5-way-parallel LM, every rank sharing this card over
+   gloo: ``pipeline`` (configuration 4's VGG-11 as in ``model_parallel``
+   on ``build_hetero_pipeline`` with 4 GPipe microbatches, and on
+   ``to_pipeline`` of the same ``MultiNodeChainList``: 3 SGD-momentum
+   steps each held against the one-process network at the CPU test's
+   tolerance (``PIPE_TOL``); the per-rank step ms beside
+   ``model_parallel``'s and each rank's parameter bytes, its own stage's
+   only), ``sequence_parallel`` (4 ranks, the LM bench's attention widths
+   (12 heads, Dh 64), bf16, causal, global T 8192: the plain ring, the
+   flash ring, zigzag flash, Ulysses flash, the flash ring with compact
+   GQA K/V (4 kv heads) and the flash ring on packed rows; output and
+   dq/dk/dv against one-process flash attention over the whole sequence
+   (``SP_TOL``), and each rank's K1/K2/K3 launches against the
+   prediction), ``parallel_lm`` (``ParallelLM`` on 8 ranks, a 1x2x2x2
+   ``data x stage x model x seq`` grid, at the LM bench's widths with 2
+   stages of one block and 2 experts, T 2048, batch 4, 2 microbatches,
+   fp32: the step-0 loss and gradients against ``dense_lm_reference`` in
+   one process (``PLM_TOL``), then 3 SGD-momentum steps whose loss falls
+   and is equal on every rank, K1-K3 launches per rank per step against
+   the prediction) and ``dryrun_multichip`` (the twin of the JAX entry
+   through the launcher on 8 ranks).
 
 The launch counters are set to 0 just before each drive of the main path
 (phases 5, 5a, 5b, 6, 7a and the timed steps of 10, 11a and 14) and read
@@ -5411,8 +5432,8 @@ WIRE_METHODS = ("post_send", "recv_tensor", "wait_pending", "broadcast",
                 "reduce", "bcast_obj", "allreduce", "allreduce_grad")
 
 
-def time_wire(comms, dev, box):
-    """Wrap the communicators' wire methods to add their wall seconds
+def time_wire(comms, dev, box, methods=WIRE_METHODS):
+    """Wrap the communicators' wire ``methods`` to add their wall seconds
     (after a card sync, so queued compute is not counted) to
     ``box["s"]``."""
     def wrap(fn):
@@ -5427,7 +5448,7 @@ def time_wire(comms, dev, box):
         return timed
 
     for c in comms:
-        for name in WIRE_METHODS:
+        for name in methods:
             setattr(c, name, wrap(getattr(c, name)))
 
 
@@ -5850,6 +5871,628 @@ def phase_seq2seq_two_ranks(dev, card):
           f"seq2seq twin's BLEU over both ranks: {row}")
 
 
+# ---------------------------------------------------- pipelines, ParallelLM
+#: GPipe microbatches of the ``pipeline`` phase.
+PIPE_M = 4
+#: The pipeline against one process: the CPU test's tolerance
+#: (``tests/test_torch_pipeline.py``: losses rtol 1e-5, parameters atol
+#: 2e-5 + rtol 1e-4 after the steps); microbatching sums each stage's
+#: gradient over 4 microbatches instead of one batch, in another order.
+PIPE_TOL = dict(loss_rtol=1e-5, param_atol=2e-5, param_rtol=1e-4)
+
+
+def pipe_rank(out: str, device: str) -> None:
+    """One rank of the ``pipeline`` phase: VGG-11 on
+    ``build_hetero_pipeline`` (this rank's stage only), 3 agreement
+    steps and timed steps under ``model_parallel_grad_reduce``; then
+    ``to_pipeline`` of the same chain, 3 agreement steps."""
+    import pickle
+
+    from chainermn_tpu_torch.comm import create_communicator, hybrid_mesh
+    from chainermn_tpu_torch.models import (
+        build_chain,
+        build_hetero_pipeline,
+        vgg_loss,
+        vgg_stage_modules,
+    )
+    from chainermn_tpu_torch.optimizers import (
+        create_multi_node_optimizer,
+        model_parallel_grad_reduce,
+        sgd,
+    )
+
+    dev = torch.device(device)
+    _fp32_exact()
+    S = MP["n_stages"]
+    comm = create_communicator("naive", device=dev,
+                               mesh=hybrid_mesh({"data": 1, "model": S}))
+    dcomm, mcomm = comm.sub("data"), comm.sub("model")
+    r = mcomm.rank
+    batches = mp_batches(MP_AGREE_STEPS)
+
+    def loss_fn(model, batch):
+        x = torch.as_tensor(batch[0], device=dev)
+        return vgg_loss(model(x), batch[1])[0]
+
+    res, io = {"rank": r}, None
+    for arm in ("hetero", "to_pipeline"):
+        modules = vgg_stage_modules(**MP, device=dev, seed=0, stages=[r])
+        if arm == "hetero":
+            model = build_hetero_pipeline(modules, mcomm, batches[0][0][:1],
+                                          n_microbatches=PIPE_M)
+            io = model.io_shapes
+        else:
+            model = build_chain(modules, mcomm).to_pipeline(io, PIPE_M)
+        opt = create_multi_node_optimizer(
+            sgd(MP_LR, momentum=0.9), dcomm,
+            grad_reduce=model_parallel_grad_reduce(dcomm, mcomm))
+        state = opt.init(model)
+        step = opt.make_train_step(loss_fn)
+        losses = [float(step(state, b)[1]["loss"]) for b in batches]
+        res[arm] = {
+            "losses": losses,
+            "params": {n: p.detach().cpu().numpy().copy()
+                       for n, p in model.stage.named_parameters()},
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters())}
+        if arm == "hetero":
+            times = []
+            for _ in range(MP_WARMUP + MP_TIMED):
+                _sync(dev)
+                t0 = time.perf_counter()
+                float(step(state, batches[0])[1]["loss"])
+                _sync(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+            res[arm]["step_ms"] = times[MP_WARMUP:]
+            res["io_shapes"] = io
+            box = {"s": 0.0}
+            time_wire((mcomm, dcomm), dev, box)
+            t0 = time.perf_counter()
+            for _ in range(MP_TIMED):
+                float(step(state, batches[0])[1]["loss"])
+            _sync(dev)
+            res[arm]["wire_share"] = box["s"] / (time.perf_counter() - t0)
+    with open(os.path.join(out, f"pipe.rank{comm.rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    comm.barrier()
+
+
+def phase_pipeline(dev, card, mp_row):
+    """Configuration 4's distributed-speedup tier: the VGG-11 of
+    ``model_parallel`` on GPipe over the same 4 ranks sharing the card,
+    against the same network in one process."""
+    import tempfile
+
+    _fp32_exact()
+    out = tempfile.mkdtemp(prefix="cmn_pipe_")
+    S = MP["n_stages"]
+    launch_s = launch_ranks(S, [os.path.abspath(__file__), "--rank-body",
+                                "pipe", out, "--rank-device", str(dev)],
+                            "pipeline")
+    ranks = rank_results(out, "pipe", S)
+    batches = mp_batches(MP_AGREE_STEPS)
+    stages, state, step = mp_one_process(dev, batches, capture=False)
+    ref_losses = [float(step(state, b)[1]["loss"]) for b in batches]
+    ref = [{n: p.detach().cpu().numpy() for n, p in st.named_parameters()}
+           for st in stages]
+    stage_bytes = [sum(p.numel() * p.element_size() for p in st.parameters())
+                   for st in stages]
+    errs = {}
+    for arm in ("hetero", "to_pipeline"):
+        loss_err = max(abs(a - b) / abs(b) for rk in ranks
+                       for a, b in zip(rk[arm]["losses"], ref_losses))
+        excess = {}
+        for rk in ranks:
+            want = ref[rk["rank"]]
+            check(set(want) == set(rk[arm]["params"]),
+                  f"{arm} stage {rk['rank']} names")
+            for n, w in want.items():
+                excess[f"stage{rk['rank']}.{n}"] = float(np.max(
+                    np.abs(rk[arm]["params"][n] - w)
+                    - PIPE_TOL["param_rtol"] * np.abs(w)))
+        worst = max(excess, key=excess.get)
+        errs[arm] = {"loss_max_rel_err": loss_err,
+                     "param_max_excess": excess[worst],
+                     "param_worst": worst,
+                     "losses": ranks[0][arm]["losses"]}
+    rank_ms = [float(np.median(rk["hetero"]["step_ms"])) for rk in ranks]
+    row = {"phase": "pipeline", "card": card, "config":
+           "VGG-11 width_mult 1.0, 32x32x3, 10 classes, batch 64, "
+           f"4 stages x 1 data rank, GPipe {PIPE_M} microbatches, fp32, "
+           "SGD 0.01 momentum 0.9",
+           "ranks": S, "wire": "gloo (naive), host-staged",
+           "losses_one_process": ref_losses, "arms": errs, "tol": PIPE_TOL,
+           "io_shapes": ranks[0]["io_shapes"],
+           "param_bytes_per_rank": [rk["hetero"]["param_bytes"]
+                                    for rk in ranks],
+           "stage_param_bytes": stage_bytes,
+           "step_ms_per_rank": rank_ms, "step_ms": max(rank_ms),
+           "wire_share_per_rank": [rk["hetero"]["wire_share"]
+                                   for rk in ranks],
+           "model_parallel_step_ms_per_rank":
+           mp_row["step_ms_4rank_per_rank"],
+           "model_parallel_step_ms": mp_row["step_ms_4rank"],
+           "launch_s": launch_s, "note": MP_NOTE}
+    emit(row)
+    for arm, e in errs.items():
+        check(all(np.isfinite(e["losses"])), f"{arm} losses finite")
+        check(e["loss_max_rel_err"] <= PIPE_TOL["loss_rtol"],
+              f"{arm}: losses {e['losses']} vs one process {ref_losses}")
+        check(e["param_max_excess"] <= PIPE_TOL["param_atol"],
+              f"{arm}: stage parameters differ by {e['param_max_excess']} "
+              f"({e['param_worst']})")
+    check(row["param_bytes_per_rank"] == stage_bytes,
+          f"each rank holds its own stage only: "
+          f"{row['param_bytes_per_rank']} vs stages {stage_bytes}")
+    return row
+
+
+#: The ``sequence_parallel`` phase: the LM bench's attention widths
+#: (``benchmarks/lm.py:39-46``: 12 heads, Dh 64), bf16, causal, one row
+#: of 8192 positions over 4 ranks (2048 each).
+SP = dict(B=1, T=8192, H=12, KH=4, D=64)
+SP_RANKS = 4
+SP_ITERS = 3
+#: Segments of the packed variant: boundaries off the ranks' blocks, so
+#: that rows of segments 1 and 2 are dead in whole visiting blocks.
+SP_SEGMENTS = [(0, 3000), (1, 2600), (2, 2592)]
+#: name -> (function, keyword arguments, zigzag layout, compact kv,
+#: packed).  The plain ring is held against the plain attention over the
+#: whole sequence (its backward takes delta from the fp32 output, the
+#: flash kernels' from the bf16 one), in the parent process (its (T, T)
+#: scores are ~13 GB with their gradients); every other variant against
+#: flash attention over the whole sequence, on each rank.
+_CAUSAL = {"causal": True}
+SP_VARIANTS = {
+    "ring_plain": ("ring_self_attention", _CAUSAL, False, False, False),
+    "ring_flash": ("ring_flash_self_attention", _CAUSAL, False, False,
+                   False),
+    "zigzag_flash": ("zigzag_ring_self_attention", {"impl": "flash"}, True,
+                     False, False),
+    "ulysses_flash": ("ulysses_attention", _CAUSAL, False, False, False),
+    "ring_flash_gqa": ("ring_flash_self_attention", _CAUSAL, False, True,
+                       False),
+    "ring_flash_packed": ("ring_flash_self_attention", _CAUSAL, False,
+                          False, True),
+}
+#: Output and gradients against one-process attention over the whole
+#: sequence.  The output in ``excess`` (max over elements of (|err| -
+#: rtol |ref|) / rms(ref row)) <= atol, ``FLASH_TOL``'s bf16 bound: both
+#: sides round once to bf16 (the ring's merges are fp32).  The gradients
+#: by their relative Frobenius error |got - want| / |want| <= 2^-6: a
+#: rank's dQ and the dK/dV that come back round the ring are sums of up
+#: to 4 partial blocks, each rounded to bf16 by its kernel and added in
+#: bf16 (the JAX ring's arithmetic), where the one-process kernels sum in
+#: fp32 and round once; a partial's rounding is 2^-9 of the partial, not
+#: of the sum, so where the partials cancel an element can be off by
+#: more than the output's bound (an H100 read row excesses up to 0.12 on
+#: dK) while the whole stays within a few roundings.  The elementwise
+#: excess of each gradient is printed as a reading.
+SP_TOL = {"o": dict(rtol=2 ** -7, atol=3e-2), "grad_fro": 2 ** -6,
+          "grad_rtol": 2 ** -7}
+
+
+def sp_predicted(name, r, S=SP_RANKS):
+    """K1, K2 and K3 launches of one forward and backward on rank ``r``:
+    a causal flash ring runs the diagonal block and the ``r`` past ones
+    (future blocks skipped); zigzag attends ``2S + 1`` chunk quadrants on
+    every rank; Ulysses one call over the whole sequence; the plain ring
+    none."""
+    if name == "ring_plain":
+        return 0
+    if name == "zigzag_flash":
+        return 2 * S + 1
+    if name == "ulysses_flash":
+        return 1
+    return r + 1
+
+
+def sp_inputs(seed):
+    """The global inputs on the CPU (every rank draws the same)."""
+    g = torch.Generator().manual_seed(seed + 14)
+    B, T, H, KH, D = (SP[k] for k in ("B", "T", "H", "KH", "D"))
+    qkv = [torch.randn((B, T, H, D), generator=g) * 0.5 for _ in range(3)]
+    kv = [torch.randn((B, T, KH, D), generator=g) * 0.5 for _ in range(2)]
+    probe = torch.randn((B, T, H, D), generator=g)
+    seg = seg_runs([SP_SEGMENTS], T)
+    return ([t.to(torch.bfloat16) for t in qkv],
+            [t.to(torch.bfloat16) for t in kv], probe, seg)
+
+
+def sp_errors(got, want):
+    """The output's and each gradient's ``excess`` (``SP_TOL``), relative
+    Frobenius error and largest absolute error."""
+    errs = {}
+    for key, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        a, b = a.float(), b.float()
+        errs[key] = excess(a, b, SP_TOL["o"]["rtol"] if key == "o"
+                           else SP_TOL["grad_rtol"])
+        errs[key + "_fro"] = float((a - b).norm() / b.norm())
+        errs[key + "_max_abs"] = float((a - b).abs().max())
+    return errs
+
+
+def sp_plain_errors(dev, ranks, seed):
+    """The plain ring's blocks, joined, against plain attention over the
+    whole sequence in this process."""
+    from chainermn_tpu_torch.ops.flash_attention import reference_attention
+
+    (q, k, v), _, probe, _ = sp_inputs(seed)
+    full = [x.to(dev).clone().requires_grad_() for x in (q, k, v)]
+    ro = reference_attention(*full, causal=True)
+    (ro.float() * probe.to(dev)).sum().backward()
+    want = [ro.detach(), *[t.grad for t in full]]
+    got = [torch.cat([rk["plain_blocks"][i] for rk in ranks], dim=1).to(dev)
+           for i in range(4)]
+    errs = sp_errors(got, want)
+    del full, ro, want, got
+    torch.cuda.empty_cache()
+    return errs
+
+
+def sp_rank(out: str, device: str) -> None:
+    """One rank of ``sequence_parallel``: each variant forward and
+    backward on this rank's block, its K1-K3 launches, the output and
+    gradients against one-process flash attention over the whole
+    sequence (computed here, outside the counted window; the plain ring's
+    blocks go to the parent), and its ms."""
+    import importlib
+    import pickle
+
+    from chainermn_tpu_torch import parallel as par
+    from chainermn_tpu_torch.comm import create_communicator, hybrid_mesh
+
+    fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+    dev = torch.device(device)
+    comm = create_communicator("naive", device=dev,
+                               mesh=hybrid_mesh({"seq": SP_RANKS}))
+    r, S = comm.rank, comm.size
+    (q, k, v), (kc, vc), probe, seg = sp_inputs(int(os.environ.get(
+        "CMN_SMOKE_SEED", "0")))
+    res = {"rank": r, "variants": {}}
+    for name, (fn_name, kw, zig, gqa, packed) in SP_VARIANTS.items():
+        fn = getattr(par, fn_name)
+        kk, vv = (kc, vc) if gqa else (k, v)
+
+        def block(x):
+            x = par.zigzag_shard(x, S) if zig else x
+            t = x.shape[1] // S
+            return x[:, r * t:(r + 1) * t].detach().to(dev).clone(
+                memory_format=torch.contiguous_format)
+
+        # This rank's blocks on the card, made once: the timed calls
+        # start from them.
+        mine = [block(x) for x in (q, kk, vv)]
+        mine_probe = block(probe)
+        args = dict(kw)
+        if packed:
+            args["segment_ids"] = block(seg)
+
+        def fwd_bwd():
+            leaves = [t.clone().requires_grad_() for t in mine]
+            o = fn(*leaves, comm, **args)
+            (o.float() * mine_probe).sum().backward()
+            return o, [t.grad for t in leaves]
+
+        reset_flash(fa)
+        o, grads = fwd_bwd()
+        _sync(dev)
+        counts = flash_launches(fa)
+        got = [o.detach(), *grads]
+        if name == "ring_plain":
+            # Held in the parent: the plain attention over the whole
+            # sequence needs its (T, T) scores, too much for every rank.
+            res["plain_blocks"] = [t.cpu() for t in got]
+            errs = None
+        else:
+            # The one-process reference, uncounted.
+            full = [x.to(dev).clone().requires_grad_() for x in (q, kk, vv)]
+            ro = fa.flash_attention(
+                *full, causal=True,
+                segment_ids=seg.to(dev) if packed else None)
+            (ro.float() * probe.to(dev)).sum().backward()
+            want = [block(ro.detach()), *[block(t.grad) for t in full]]
+            errs = sp_errors(got, want)
+            del full, ro, want
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in got)
+        times = []
+        for _ in range(SP_ITERS + 1):
+            _sync(dev)
+            t0 = time.perf_counter()
+            fwd_bwd()
+            _sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["variants"][name] = {"launches": counts, "errs": errs,
+                                 "finite": finite,
+                                 "predicted": sp_predicted(name, r, S),
+                                 "ms": float(np.median(times[1:]))}
+    with open(os.path.join(out, f"sp.rank{comm.rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    comm.barrier()
+
+
+def phase_sequence_parallel(dev, card, seed):
+    """Ring, zigzag and Ulysses attention on 4 ranks sharing the card, at
+    the LM bench's attention widths over 8192 positions; each rank's
+    output block and gradients against one-process flash attention, and
+    its K1-K3 launches against the prediction."""
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="cmn_sp_")
+    launch_s = launch_ranks(SP_RANKS, [os.path.abspath(__file__),
+                                       "--rank-body", "sp", out,
+                                       "--rank-device", str(dev)],
+                            "sequence_parallel",
+                            env={"CMN_SMOKE_SEED": str(seed)})
+    ranks = rank_results(out, "sp", SP_RANKS)
+    plain = sp_plain_errors(dev, ranks, seed)
+    for rk in ranks:
+        rk["variants"]["ring_plain"]["errs"] = plain
+    variants = {}
+    for name in SP_VARIANTS:
+        per = [rk["variants"][name] for rk in ranks]
+        variants[name] = {
+            "ms_per_rank": [p["ms"] for p in per],
+            "launches_per_rank": {k: [p["launches"][k] for p in per]
+                                  for k in FLASH},
+            "predicted_per_rank": [p["predicted"] for p in per],
+            "excess_per_rank": {key: [p["errs"][key] for p in per]
+                                for key in ("o", "dq", "dk", "dv")},
+            "fro_per_rank": {key: [p["errs"][key + "_fro"] for p in per]
+                             for key in ("o", "dq", "dk", "dv")},
+            "max_abs_err": {key: max(p["errs"][key + "_max_abs"]
+                                     for p in per)
+                            for key in ("o", "dq", "dk", "dv")},
+            "finite": all(p["finite"] for p in per)}
+    row = {"phase": "sequence_parallel", "card": card,
+           "config": "B 1, T 8192 (2048 per rank), 12 heads (GQA: 4 kv "
+           "heads), Dh 64, bf16, causal; packed: segments "
+           f"{SP_SEGMENTS}", "ranks": SP_RANKS,
+           "wire": "gloo (naive), host-staged", "tol": SP_TOL,
+           "variants": variants, "launch_s": launch_s, "note": MP_NOTE}
+    emit(row)
+    for name, v in variants.items():
+        check(v["finite"], f"{name}: non-finite output or gradient")
+        e = max(v["excess_per_rank"]["o"])
+        check(e <= SP_TOL["o"]["atol"], f"{name}: output excess {e} > "
+              f"{SP_TOL['o']['atol']}")
+        for key in ("dq", "dk", "dv"):
+            e = max(v["fro_per_rank"][key])
+            check(e <= SP_TOL["grad_fro"], f"{name}: {key} relative error "
+                  f"{e} > {SP_TOL['grad_fro']}")
+        for k in FLASH:
+            check(v["launches_per_rank"][k] == v["predicted_per_rank"],
+                  f"{name}: {k} launches {v['launches_per_rank'][k]} per "
+                  f"rank, predicted {v['predicted_per_rank']}")
+    return row
+
+
+#: The ``parallel_lm`` phase: the LM bench's widths (``benchmarks/lm.py``:
+#: d_model 768, 12 heads, d_ff 3072, vocab 32768) as a 2-stage, 2-expert
+#: ``ParallelLM`` (one block per stage, top-2, ample capacity).
+PLM_FULL = dict(vocab=32768, n_stages=2, d_model=768, n_heads=12,
+                d_ff=3072, max_len=2048, n_experts=2, moe_k=2)
+PLM_GRID = {"data": 1, "stage": 2, "model": 2, "seq": 2}
+PLM_B, PLM_M = 4, 2
+PLM_STEPS = 3
+PLM_LR = 0.05
+#: Step 0 against ``dense_lm_reference`` in one process, fp32 with TF32
+#: off on both sides: the loss within rtol 1e-5; each gradient leaf
+#: within 1e-4 of its largest magnitude (the sharded program sums the
+#: heads, the experts' outputs, the ring's blocks (the flash kernels'
+#: fp32 online softmax) and the replicated leaves' copies in other
+#: orders than the dense one).
+PLM_TOL = dict(loss_rtol=1e-5, grad_rel=1e-4)
+
+
+def plm_setup(seed):
+    from chainermn_tpu_torch.models import ParallelLMConfig, init_parallel_lm
+
+    cfg = ParallelLMConfig(**PLM_FULL)
+    rng = np.random.RandomState(seed)
+    host = init_parallel_lm(rng, cfg)
+    T = cfg.max_len
+    tokens = rng.randint(0, cfg.vocab, size=(PLM_B, T)).astype(np.int64)
+    targets = np.concatenate(
+        [tokens[:, 1:], np.full((PLM_B, 1), -1, np.int64)], axis=1)
+    return cfg, host, tokens, targets
+
+
+def plm_rank(out: str, device: str) -> None:
+    """One rank of ``parallel_lm``: the step-0 loss and this rank's
+    reduced gradients (the leaves it is the first holder of), then SGD
+    momentum steps with their K1-K3 launches and ms."""
+    import importlib
+    import pickle
+
+    from chainermn_tpu_torch.comm import create_communicator, hybrid_mesh
+    from chainermn_tpu_torch.models import ParallelLM
+    from chainermn_tpu_torch.models.transformer import _tree_items
+    from chainermn_tpu_torch.utils import parallel_lm_shard
+
+    fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+    dev = torch.device(device)
+    _fp32_exact()
+    comm = create_communicator("naive", device=dev,
+                               mesh=hybrid_mesh(PLM_GRID))
+    cfg, host, tokens, targets = plm_setup(int(os.environ.get(
+        "CMN_SMOKE_SEED", "0")))
+    lm = ParallelLM(cfg, comm, n_microbatches=PLM_M)
+    c = lm.coords
+    b = PLM_B // PLM_GRID["data"]
+    t = tokens.shape[1] // PLM_GRID["seq"]
+
+    def local(a):
+        return torch.as_tensor(a[c["data"] * b:(c["data"] + 1) * b,
+                                 c["seq"] * t:(c["seq"] + 1) * t],
+                               device=dev)
+
+    batch = (local(tokens), local(targets))
+    params = parallel_lm_shard(host, cfg, c, device=dev)
+    del host
+    leaves = [p for _, p in _tree_items(params)]
+    opt = torch.optim.SGD(leaves, lr=PLM_LR, momentum=0.9)
+    res = {"coords": c, "losses": [], "step_ms": [], "launches": []}
+    for step in range(PLM_STEPS):
+        _sync(dev)
+        t0 = time.perf_counter()
+        reset_flash(fa)
+        loss = lm.loss(params, batch)
+        loss.backward()
+        grads = lm.grad_reduce(lm.grads_of(params))
+        for p, (_, g) in zip(leaves, _tree_items(grads)):
+            p.grad = g
+        total = float(lm.total_loss(loss))
+        _sync(dev)
+        res["launches"].append(flash_launches(fa))
+        if step == 0:
+            # The first holder of each block keeps it for the check.
+            first = c["data"] == 0 and c["seq"] == 0
+            res["grads"] = {
+                "/".join(k): g.detach().cpu().numpy()
+                for k, g in _tree_items(grads)
+                if (k[0] == "stages" and first) or
+                (k[0] != "stages" and comm.rank == 0)}
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        _sync(dev)
+        res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        res["losses"].append(total)
+    # One more step with every collective and pair timed.
+    box = {"s": 0.0}
+    time_wire([comm, *comm._subs.values()], dev, box,
+              WIRE_METHODS + ("permute", "alltoall", "allgather"))
+    _sync(dev)
+    t0 = time.perf_counter()
+    loss = lm.loss(params, batch)
+    loss.backward()
+    lm.grad_reduce(lm.grads_of(params))
+    float(lm.total_loss(loss))
+    _sync(dev)
+    res["wire_share"] = box["s"] / (time.perf_counter() - t0)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(dev) \
+        if dev.type == "cuda" else None
+    with open(os.path.join(out, f"plm.rank{comm.rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    comm.barrier()
+
+
+def plm_predicted(seq_rank):
+    """K1 (and K2, K3) launches per rank per step: each of the ``PLM_M``
+    microbatches runs this rank's one block, whose causal flash ring runs
+    ``seq_rank + 1`` blocks."""
+    return PLM_M * (seq_rank + 1)
+
+
+def phase_parallel_lm(dev, card, seed):
+    """``ParallelLM`` on 8 ranks sharing the card against
+    ``dense_lm_reference`` in this process; then the dryrun twin."""
+    import tempfile
+
+    from chainermn_tpu_torch.models import dense_lm_reference
+    from chainermn_tpu_torch.models.transformer import _tree_items
+    from chainermn_tpu_torch.utils import parallel_lm_unshard
+
+    _fp32_exact()
+    out = tempfile.mkdtemp(prefix="cmn_plm_")
+    n = int(np.prod(list(PLM_GRID.values())))
+    launch_s = launch_ranks(n, [os.path.abspath(__file__), "--rank-body",
+                                "plm", out, "--rank-device", str(dev)],
+                            "parallel_lm", env={"CMN_SMOKE_SEED": str(seed)})
+    ranks = rank_results(out, "plm", n)
+    cfg, host, tokens, targets = plm_setup(seed)
+    # The dense oracle's step 0, differentiated leaf by leaf.
+    params = {}
+    for path, a in _tree_items(host):
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.as_tensor(a, device=dev).requires_grad_()
+    logits = dense_lm_reference(params, cfg, tokens, device=dev)
+    tg = torch.as_tensor(targets, device=dev)
+    mask = (tg >= 0).float()
+    ce = -torch.log_softmax(logits.float(), -1).gather(
+        -1, tg.clamp_min(0)[..., None])[..., 0]
+    ref_loss = (ce * mask).sum() / mask.sum()
+    ref_loss.backward()
+    del logits, ce
+    ref = {"/".join(p): t.grad.detach().cpu().numpy()
+           for p, t in _tree_items(params)}
+    del params
+    torch.cuda.empty_cache()
+    shards = []
+    for rk in ranks:
+        if "grads" in rk and rk["grads"]:
+            tree = {}
+            for k, g in rk["grads"].items():
+                node = tree
+                *head, leaf = k.split("/")
+                for h in head:
+                    node = node.setdefault(h, {})
+                node[leaf] = g
+            shards.append((rk["coords"], tree))
+    # Replicated leaves come from rank 0, stage leaves from each
+    # (stage, model) block's first holder.
+    stage_shards = [(c, t) for c, t in shards if "stages" in t]
+    got = parallel_lm_unshard(
+        [(c, {**shards[0][1], **t}) for c, t in stage_shards], cfg)
+    rel = {}
+    for path, g in _tree_items(got):
+        key = "/".join(path)
+        w = ref[key]
+        rel[key] = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+    worst = max(rel, key=rel.get)
+    loss0 = [rk["losses"][0] for rk in ranks]
+    loss_err = abs(loss0[0] - float(ref_loss)) / abs(float(ref_loss))
+    per_step = {k: [[lc[k] for lc in rk["launches"]] for rk in ranks]
+                for k in FLASH}
+    predicted = [plm_predicted(rk["coords"]["seq"]) for rk in ranks]
+    step_ms = [float(np.median(rk["step_ms"][1:])) for rk in ranks]
+    row = {"phase": "parallel_lm", "card": card,
+           "config": f"{PLM_FULL}, grid {PLM_GRID}, T {cfg.max_len}, batch "
+           f"{PLM_B}, {PLM_M} microbatches, fp32, learned positions, "
+           f"attention auto (flash ring at T_local "
+           f"{cfg.max_len // PLM_GRID['seq']}), SGD {PLM_LR} momentum 0.9",
+           "ranks": n, "wire": "gloo (naive), host-staged",
+           "loss0_dense": float(ref_loss), "loss0_ranks": loss0,
+           "loss_rel_err": loss_err, "grad_rel_err": rel,
+           "grad_worst": worst, "tol": PLM_TOL,
+           "losses_per_rank": [rk["losses"] for rk in ranks],
+           "launches_per_rank_per_step": per_step,
+           "predicted_per_rank_per_step": predicted,
+           "step_ms_per_rank": step_ms, "step_ms": max(step_ms),
+           "wire_share_per_rank": [rk["wire_share"] for rk in ranks],
+           "peak_bytes_per_rank": [rk["peak_bytes"] for rk in ranks],
+           "launch_s": launch_s, "note": MP_NOTE}
+    emit(row)
+    losses = row["losses_per_rank"]
+    check(all(np.isfinite(losses[0])), f"losses {losses[0]}")
+    check(loss_err <= PLM_TOL["loss_rtol"],
+          f"step-0 loss {loss0[0]} vs dense {float(ref_loss)}")
+    check(rel[worst] <= PLM_TOL["grad_rel"],
+          f"gradient {worst} off by {rel[worst]} of its largest magnitude")
+    check(all(ls == losses[0] for ls in losses),
+          "every rank reads the same global loss")
+    check(losses[0][-1] < losses[0][0], f"the loss falls: {losses[0]}")
+    for k in FLASH:
+        for r, steps in enumerate(per_step[k]):
+            check(all(x == predicted[r] for x in steps),
+                  f"{k} on rank {r}: {steps} per step, predicted "
+                  f"{predicted[r]}")
+    twin_s = launch_ranks(
+        n, ["-m", "chainermn_tpu_torch.examples.dryrun_multichip",
+            "--communicator", "naive", "--device", str(dev)],
+        "dryrun_multichip")
+    emit({"phase": "dryrun_multichip", "card": card,
+          "command": "python -m chainermn_tpu_torch.launch --nproc 8 -m "
+          "chainermn_tpu_torch.examples.dryrun_multichip --communicator "
+          f"naive --device {dev}", "seconds": twin_s})
+    return row
+
+
+RANK_BODIES.update(pipe=pipe_rank, sp=sp_rank, plm=plm_rank)
+
+
 FLASH_SASS = ("flash_fwd_bf16", "flash_bwd_dkv_bf16", "flash_bwd_dq_bf16")
 CONV_SASS = ("matmul_affine_bf16",)
 CONV_TILES = (64, 128)
@@ -6175,8 +6818,12 @@ def main() -> int:
     # The rest of the communicator and the model-parallel surface.
     torch.cuda.empty_cache()
     phase_collectives_nccl(dev, smi)
-    phase_model_parallel(dev, smi)
+    mp_row = phase_model_parallel(dev, smi)
     phase_model_parallel_grid(dev, smi)
+    # Pipelines, sequence parallelism and the 5-way-parallel LM.
+    phase_pipeline(dev, smi, mp_row)
+    sp = phase_sequence_parallel(dev, smi, args.seed)
+    plm = phase_parallel_lm(dev, smi, args.seed)
 
     launches = {"paged_decode_attention":
                 serve["launches"]["paged_decode_attention"],
@@ -6207,6 +6854,12 @@ def main() -> int:
             adafactor_per_step=large["adafactor"]["launches_per_step"][k],
             adamw_warmup_per_step=large["adamw_warmup"]
             ["launches_per_step"][k])
+    for k in FLASH:
+        by_phase[k].update(
+            {f"sequence_parallel_{name}_per_rank": v["launches_per_rank"][k]
+             for name, v in sp["variants"].items()},
+            parallel_lm_per_rank_per_step=plm["launches_per_rank_per_step"]
+            [k])
     by_phase["flash_attention_fwd"].update(
         seq2seq_greedy=s2s["decode"]["greedy"]["launches"]
         ["flash_attention_fwd"],

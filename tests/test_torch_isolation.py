@@ -175,3 +175,67 @@ def test_zoo_entry_points_raise_without_cuda(no_cuda, monkeypatch):
             bridge({})
     with pytest.raises(RuntimeError, match="create_communicator"):
         seq2seq.main([])
+
+
+
+def test_parallel_entry_points_raise_without_cuda(no_cuda, monkeypatch):
+    """``ParallelLM``'s bridge and dense oracle and the dryrun twin run on
+    the card by default and raise without one."""
+    from chainermn_tpu_torch.examples import dryrun_multichip
+    from chainermn_tpu_torch.models import (
+        ParallelLMConfig,
+        dense_lm_reference,
+        init_parallel_lm,
+    )
+    from chainermn_tpu_torch.utils import parallel_lm_shard
+
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    cfg = ParallelLMConfig(vocab=8, n_stages=1, d_model=8, n_heads=2,
+                           d_ff=8, max_len=4, n_experts=1)
+    host = init_parallel_lm(np.random.RandomState(0), cfg)
+    with pytest.raises(RuntimeError, match="dense_lm_reference"):
+        dense_lm_reference(host, cfg, np.zeros((1, 4), np.int32))
+    with pytest.raises(RuntimeError, match="parallel_lm_shard"):
+        parallel_lm_shard(host, cfg, {"stage": 0, "model": 0})
+    with pytest.raises(RuntimeError, match="create_communicator"):
+        dryrun_multichip.main([])
+
+_GROUP_CALLS = {"create_communicator", "init_distributed",
+                "init_process_group"}
+
+
+def _builds_a_group(tree) -> bool:
+    """Whether a test module calls something that can build a process
+    group in the test process: a communicator, the port's or torch's
+    group set-up, or an example's ``main``."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            f = node.func
+            name = getattr(f, "id", getattr(f, "attr", None))
+            if name in _GROUP_CALLS or (isinstance(f, ast.Attribute)
+                                        and f.attr == "main"):
+                return True
+    return False
+
+
+def _imports_restore(tree) -> bool:
+    return any(isinstance(n, ast.ImportFrom) and n.module ==
+               "torch_process_state" and any(
+                   a.name == "restore_process_state" for a in n.names)
+               for n in ast.walk(tree))
+
+
+@pytest.mark.parametrize("path", sorted(
+    (REPO / "tests").glob("test_torch_*.py")), ids=lambda p: p.name)
+def test_group_building_files_restore_process_state(path):
+    """``init_process_group`` replaces ``sys.excepthook`` and a default
+    group outlives its test file: every port test file that can build one
+    imports the fixture that puts both back (``torch_process_state``), or
+    a later file in the same xdist worker (the JAX package's
+    ``test_checkpoint.py::test_except_hook_installed``) sees torch's
+    hook."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    if _builds_a_group(tree):
+        assert _imports_restore(tree), (
+            f"{path.name} builds a process group but does not import "
+            "restore_process_state from torch_process_state")

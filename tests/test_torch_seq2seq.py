@@ -44,7 +44,7 @@ from chainermn_tpu_torch.utils import (
     seq2seq_params_to_flax,
 )
 
-import torch_threads  # noqa: E402,F401  (one torch pool per xdist worker)
+from torch_process_state import restore_process_state  # noqa: E402,F401
 
 pytestmark = pytest.mark.tier1
 

@@ -50,6 +50,8 @@ from chainermn_tpu_torch.optimizers import (
 )
 from chainermn_tpu_torch.training import Trainer
 
+from torch_process_state import restore_process_state  # noqa: E402,F401
+
 pytestmark = pytest.mark.cuda
 
 

@@ -552,11 +552,549 @@ def card_pair():
 
 
 # ----------------------------------------------------------- dispatcher
+# ------------------------------------------------------------ pipelines
+_INPUTS = None
+
+
+def _inputs():
+    with open(_INPUTS, "rb") as f:
+        return pickle.load(f)
+
+
+def _tanh_stage(p, h):
+    return torch.tanh(h @ p)
+
+
+class _Tanh(torch.nn.Module):
+    def __init__(self, w):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.tensor(w))
+
+    def forward(self, h):
+        return torch.tanh(h @ self.w)
+
+
+def _jittered(r, seed):
+    """``tanh(h @ p)`` that sleeps a random 0-20 ms per microbatch in its
+    forward and in its backward (a hook on its input), so the ranks reach
+    each microbatch in scrambled wall-clock order: a backward that paired
+    gradients by arrival instead of by microbatch would mix them up."""
+    jitter = np.random.RandomState(seed + r)
+
+    def stage(p, h):
+        time.sleep(jitter.uniform(0, 0.02))
+        if h.requires_grad:
+            h.register_hook(lambda g: (time.sleep(jitter.uniform(0, 0.02)),
+                                       g)[1])
+        return torch.tanh(h @ p)
+    return stage
+
+
+def pipeline():
+    """``PipelineChain``, ``HeteroPipelineChain`` (module, replicated and
+    sharded tiers), ``to_pipeline`` and the VGG pipeline on 4 ranks, on
+    the JAX tests' seeded inputs."""
+    from chainermn_tpu_torch.comm import create_communicator, hybrid_mesh
+    from chainermn_tpu_torch.links import (
+        HeteroPipelineChain,
+        MultiNodeChainList,
+        PipelineChain,
+    )
+    from chainermn_tpu_torch.models import (
+        build_hetero_pipeline,
+        vgg_loss,
+        vgg_stage_modules,
+    )
+    from chainermn_tpu_torch.optimizers import (
+        create_multi_node_optimizer,
+        model_parallel_grad_reduce,
+        sgd,
+    )
+    from chainermn_tpu_torch.utils import (
+        vgg_stage_params_from_flax,
+        vgg_stage_params_to_flax,
+    )
+
+    comm = create_communicator("naive", device="cpu")
+    r, S = comm.rank, comm.size
+    res = {}
+    # Homogeneous stages (test_chain_list.py's pipeline tests).
+    rng = np.random.RandomState(2)
+    d = 16
+    st = (rng.normal(size=(S, d, d)).astype(np.float32)
+          * (0.5 / np.sqrt(d))).astype(np.float32)
+    x = rng.normal(size=(32, d)).astype(np.float32)
+    with torch.no_grad():
+        res["pipe_fwd"] = _np(PipelineChain(_tanh_stage, comm, 4)(
+            torch.tensor(st[r]), torch.tensor(x)))
+    rng = np.random.RandomState(3)
+    d = 8
+    st = (rng.normal(size=(S, d, d)).astype(np.float32)
+          * (0.5 / np.sqrt(d))).astype(np.float32)
+    x = rng.normal(size=(16, d)).astype(np.float32)
+    for M in (2, 4):
+        w = torch.tensor(st[r], requires_grad=True)
+        xx = torch.tensor(x, requires_grad=True)
+        out = PipelineChain(_jittered(r, 100 * M), comm, M)(w, xx)
+        (out ** 2).sum().backward()
+        res[f"pipe_grad_m{M}"] = _np(w.grad)
+        res[f"pipe_dx_m{M}"] = _np(xx.grad)
+    # Three stages, three microbatches, on a sub-communicator.
+    three = comm.split([0, 0, 0, 1])[0]
+    if three.rank >= 0:
+        w = torch.tensor(st[r], requires_grad=True)
+        out = PipelineChain(_jittered(r, 7), three, 3)(w, torch.tensor(
+            x[:12]))
+        (out ** 2).sum().backward()
+        res["pipe3_out"] = _np(out)
+        res["pipe3_grad"] = _np(w.grad)
+
+    # Heterogeneous stages (test_hetero_pipeline.py, test_hetero_sharded).
+    dims = [16, 16, 32, 8, 24][:S + 1]
+    rng = np.random.RandomState(0)
+    params = [(rng.normal(size=(dims[s], dims[s + 1]))
+               * (0.7 / np.sqrt(dims[s]))).astype(np.float32)
+              for s in range(S)]
+    io = [((dims[s],), (dims[s + 1],)) for s in range(S)]
+    hp = HeteroPipelineChain(comm, [_tanh_stage] * S, io, 4)
+    x1 = np.random.RandomState(1).normal(size=(32, dims[0])).astype(
+        np.float32)
+    x2 = np.random.RandomState(2).normal(size=(32, dims[0])).astype(
+        np.float32)
+    with torch.no_grad():
+        res["hetero_fwd"] = _np(hp([torch.tensor(p) for p in params],
+                                   torch.tensor(x1)))
+    plist = [torch.tensor(p, requires_grad=True) for p in params]
+    (hp(plist, torch.tensor(x2)) ** 2).sum().backward()
+    res["hetero_grads"] = [_np(p.grad) for p in plist]
+    row = hp.shard_params(params)
+    res["row_shape"] = tuple(row.shape)
+    with torch.no_grad():
+        res["sharded_fwd"] = _np(hp.apply_sharded(row, torch.tensor(x1)))
+    row.requires_grad_()
+    (hp.apply_sharded(row, torch.tensor(x2)) ** 2).sum().backward()
+    res["row_grad"] = _np(row.grad)
+    res["unshard"] = hp.unshard_params(row.detach())
+    # A linear MultiNodeChainList lowered onto the pipeline.
+    chain = MultiNodeChainList(comm)
+    for s in range(S):
+        chain.add_link(_Tanh(params[s]) if s == r else None, rank=s,
+                       rank_out=s + 1 if s + 1 < S else None)
+    lowered = chain.to_pipeline(io, n_microbatches=4)
+    res["lowered_params"] = sum(p.numel() for p in lowered.parameters())
+    with torch.no_grad():
+        res["lowered_fwd"] = _np(lowered(torch.tensor(x2)))
+    # VGG-11 (test_hetero_pipeline.py's VGG test, then two SGD steps).
+    inp = _inputs()
+    modules = vgg_stage_modules(**inp["vgg"], device="cpu", stages=[r])
+    modules[r].load_state_dict(vgg_stage_params_from_flax(
+        inp["vgg_params"][r], device="cpu"))
+    xv, yv = inp["vgg_x"], inp["vgg_y"]
+    vp = build_hetero_pipeline(modules, comm, xv[:1], n_microbatches=4)
+    res["vgg_io"] = vp.io_shapes
+    res["vgg_params_held"] = sum(p.numel() for p in vp.parameters())
+    logits = vp(torch.tensor(xv))
+    loss, _ = vgg_loss(logits, yv)
+    loss.backward()
+    res["vgg_logits"] = _np(logits)
+    res["vgg_grads"] = vgg_stage_params_to_flax(
+        {n: p.grad for n, p in modules[r].named_parameters()})
+    for p in vp.parameters():
+        p.grad = None
+    grid = create_communicator("naive", device="cpu",
+                               mesh=hybrid_mesh({"data": 1, "model": S}))
+    dcomm, mcomm = grid.sub("data"), grid.sub("model")
+    opt = create_multi_node_optimizer(
+        sgd(inp["lr"], momentum=0.9), dcomm,
+        grad_reduce=model_parallel_grad_reduce(dcomm, mcomm))
+    state = opt.init(vp)
+
+    def loss_fn(model, batch):
+        return vgg_loss(model(torch.tensor(batch[0])), batch[1])[0]
+
+    step = opt.make_train_step(loss_fn)
+    res["vgg_losses"] = [float(step(state, (xv, yv))[1]["loss"])
+                         for _ in range(2)]
+    res["vgg_after"] = vgg_stage_params_to_flax(
+        dict(modules[r].named_parameters()))
+    comm.barrier()
+    return res
+
+
+# -------------------------------------- sequence and expert parallelism
+def seq_qkv(rng, B=2, T=32, H=8, D=4):
+    """The JAX sequence tests' ``_qkv``."""
+    return tuple((rng.normal(size=(B, T, H, D)) * 0.5).astype(np.float32)
+                 for _ in range(3))
+
+
+def packed_segments(B, T, cuts, shift=None):
+    """Segment ids ``0 | 1 | 2`` at ``cuts``, row 1 shifted from
+    ``shift`` on (the JAX tests' packed rows)."""
+    seg = np.zeros((B, T), np.int32)
+    seg[:, cuts[0]:cuts[1]] = 1
+    if len(cuts) > 2:
+        seg[:, cuts[2]:] = 2
+    if shift is not None:
+        seg[1, shift:] += 1
+    return seg
+
+
+def seqpar():
+    """Ring (plain and flash), zigzag, Ulysses and the expert-parallel
+    MoE on 4 ranks, on the JAX tests' seeded inputs: each rank's output
+    block and its gradients (every rank backprops its share of the
+    global loss)."""
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.parallel import (
+        MoELayer,
+        ring_flash_self_attention,
+        ring_self_attention,
+        ulysses_attention,
+        zigzag_ring_self_attention,
+        zigzag_shard,
+    )
+
+    comm = create_communicator("naive", device="cpu")
+    r, S = comm.rank, comm.size
+    res = {}
+
+    def mine(x, zig=False):
+        x = zigzag_shard(torch.tensor(x), S) if zig else torch.tensor(x)
+        t = x.shape[1] // S
+        return x[:, r * t:(r + 1) * t].contiguous()
+
+    def run(name, fn, arrays, seg=None, zig=False, probe=None, **kw):
+        """``fn`` on this rank's blocks; with ``probe`` (``"cos"``, a
+        global array, or ``"square"``) also the gradients of the rank's
+        share of the probe loss."""
+        leaves = [mine(a, zig).requires_grad_(probe is not None)
+                  for a in arrays]
+        if seg is not None:
+            kw["segment_ids"] = mine(seg, zig)
+        out = fn(*leaves, comm, **kw)
+        res[name] = _np(out)
+        if probe is None:
+            return
+        if isinstance(probe, str) and probe == "square":
+            loss = (out ** 2).sum()
+        else:
+            if isinstance(probe, str):
+                B, T, H, D = arrays[0].shape
+                probe = np.cos(np.arange(B * T * H * D, dtype=np.float32)
+                               ).reshape(B, T, H, D)
+            loss = (out * mine(probe.astype(np.float32), zig)).sum()
+        loss.backward()
+        res[name + "_grads"] = [_np(t.grad) for t in leaves]
+
+    for causal in (False, True):
+        c = int(causal)
+        run(f"ring_c{c}", ring_self_attention,
+            seq_qkv(np.random.RandomState(0)), causal=causal)
+        run(f"ring_grad_c{c}", ring_self_attention,
+            seq_qkv(np.random.RandomState(1), B=1, T=16, H=2, D=4),
+            causal=causal, probe="cos")
+        run(f"ulysses_c{c}", ulysses_attention,
+            seq_qkv(np.random.RandomState(2)), causal=causal)
+        run(f"ulysses_flash_c{c}", ulysses_attention,
+            seq_qkv(np.random.RandomState(2)), causal=causal, impl="flash")
+        rng = np.random.RandomState(7)
+        gqa = ((rng.normal(size=(2, 32, 8, 8)) * 0.5).astype(np.float32),
+               (rng.normal(size=(2, 32, 2, 8)) * 0.5).astype(np.float32),
+               (rng.normal(size=(2, 32, 2, 8)) * 0.5).astype(np.float32))
+        run(f"gqa_xla_c{c}", ring_self_attention, gqa, causal=causal)
+        run(f"gqa_flash_c{c}", ring_flash_self_attention, gqa,
+            causal=causal)
+        run(f"ring_flash_c{c}", ring_flash_self_attention,
+            seq_qkv(np.random.RandomState(3), B=2, T=64, H=2, D=8),
+            causal=causal)
+        qkv = seq_qkv(np.random.RandomState(4), B=1, T=32, H=2, D=4)
+        run(f"ring_flash_grad_c{c}", ring_flash_self_attention, qkv,
+            causal=causal, probe=np.random.RandomState(5).normal(
+                size=qkv[0].shape))
+        seg = packed_segments(2, 64, (20, 45, 45), shift=10)
+        packed = seq_qkv(np.random.RandomState(11), B=2, T=64, H=4, D=8)
+        run(f"ring_packed_c{c}", ring_self_attention, packed, seg=seg,
+            causal=causal)
+        run(f"ring_flash_packed_c{c}", ring_flash_self_attention, packed,
+            seg=seg, causal=causal)
+        run(f"ulysses_packed_c{c}", ulysses_attention,
+            seq_qkv(np.random.RandomState(14), B=2, T=64, H=8, D=4),
+            seg=packed_segments(2, 64, (18, 41, 41), shift=9),
+            causal=causal)
+    rng = np.random.RandomState(13)
+    qkv = seq_qkv(rng, B=1, T=32, H=2, D=4)
+    probe = rng.normal(size=qkv[0].shape)
+    seg = packed_segments(1, 32, (12, 32))
+    run("ring_packed_grad", ring_self_attention, qkv, seg=seg, causal=True,
+        probe=probe)
+    run("ring_flash_packed_grad", ring_flash_self_attention, qkv, seg=seg,
+        causal=True, probe=probe)
+    try:
+        ulysses_attention(*(mine(a) for a in seq_qkv(
+            np.random.RandomState(3), H=6)), comm)
+        res["ulysses_bad"] = "no error"
+    except ValueError as e:
+        res["ulysses_bad"] = str(e)
+
+    for impl in ("einsum", "flash"):
+        rng = np.random.RandomState(0)
+        qkv = tuple(rng.normal(size=(2, 64, 2, 16)).astype(np.float32)
+                    for _ in range(3))
+        run(f"zigzag_{impl}", zigzag_ring_self_attention, qkv, zig=True,
+            impl=impl)
+        rng = np.random.RandomState(4)
+        gqa = (rng.normal(size=(2, 64, 8, 16)).astype(np.float32),
+               rng.normal(size=(2, 64, 2, 16)).astype(np.float32),
+               rng.normal(size=(2, 64, 2, 16)).astype(np.float32))
+        run(f"zigzag_gqa_{impl}", zigzag_ring_self_attention, gqa,
+            zig=True, impl=impl)
+        rng = np.random.RandomState(1)
+        qkv = tuple(rng.normal(size=(1, 32, 2, 8)).astype(np.float32)
+                    for _ in range(3))
+        run(f"zigzag_grad_{impl}", zigzag_ring_self_attention, qkv,
+            zig=True, impl=impl, probe="square")
+        rng = np.random.RandomState(5)
+        qkv = tuple(rng.normal(size=(2, 64, 2, 16)).astype(np.float32)
+                    for _ in range(3))
+        run(f"zigzag_packed_{impl}", zigzag_ring_self_attention, qkv,
+            seg=packed_segments(2, 64, (22, 47, 47), shift=11), zig=True,
+            impl=impl)
+
+    # Expert parallelism (test_moe.py with E = 4 experts, one per rank).
+    E = S
+
+    def expert_apply(params, tokens):
+        w1, w2 = params
+        return torch.relu(tokens @ w1[0]) @ w2[0]
+
+    def moe_setup(rng, n=4, D=6, F_=12):
+        x = (rng.normal(size=(E * n, D)) * 0.7).astype(np.float32)
+        router = (rng.normal(size=(D, E)) * 0.5).astype(np.float32)
+        w1 = (rng.normal(size=(E, D, F_)) * 0.4).astype(np.float32)
+        w2 = (rng.normal(size=(E, F_, D)) * 0.4).astype(np.float32)
+        return x, router, w1, w2
+
+    def moe_run(layer, router, w1, w2, x, grad=False):
+        n = x.shape[0] // E
+        ws = [torch.tensor(w[r:r + 1], requires_grad=grad) for w in (w1, w2)]
+        rt = torch.tensor(router, requires_grad=grad)
+        out, aux = layer(rt, tuple(ws), torch.tensor(x[r * n:(r + 1) * n]))
+        if grad:
+            (out ** 2).sum().backward()
+            grads = [_np(t.grad) for t in (rt, *ws)]
+            return _np(out), float(aux.detach()), grads
+        return _np(out), float(aux.detach())
+
+    for k in (1, 2):
+        x, router, w1, w2 = moe_setup(np.random.RandomState(0))
+        layer = MoELayer(expert_apply, comm, k=k, capacity_factor=float(E))
+        res[f"moe_k{k}"] = moe_run(layer, router, w1, w2, x, grad=True)
+    rng = np.random.RandomState(1)
+    x = np.abs((rng.normal(size=(E * 4, 6)) * 0.5).astype(np.float32))
+    router = np.zeros((6, E), np.float32)
+    router[:, 0] = 1.0
+    eye = np.tile(np.eye(6, dtype=np.float32)[None], (E, 1, 1))
+    layer = MoELayer(expert_apply, comm, k=1, capacity_factor=0.25)
+    res["moe_capacity"] = layer.capacity(4, E)
+    res["moe_drop"] = moe_run(layer, router, eye, eye, x)
+    x, _, w1, w2 = moe_setup(np.random.RandomState(2))
+    layer = MoELayer(expert_apply, comm, k=1, capacity_factor=float(E))
+    res["moe_aux_uniform"] = moe_run(layer, np.zeros((6, E), np.float32),
+                                     w1, w2, x)[1]
+    comm.barrier()
+    return res
+
+
+# ------------------------------------------------------------ ParallelLM
+PLM = dict(vocab=64, n_stages=2, d_model=16, n_heads=4, d_ff=32,
+           max_len=32, n_experts=2, moe_k=2)
+PLM_GRID = {"data": 1, "stage": 2, "model": 2, "seq": 2}
+PLM_CASES = {"learned": {}, "rope": {"pos_enc": "rope"},
+             "learned-gqa": {"n_kv_heads": 2},
+             "rope-gqa": {"pos_enc": "rope", "n_kv_heads": 2},
+             "flash": {"attention": "flash"}}
+PLM_LR = 0.5
+
+
+def plm_batch(cfg):
+    """The JAX test's parameters and batch (``RandomState(0)``)."""
+    from chainermn_tpu_torch.models import init_parallel_lm
+
+    rng = np.random.RandomState(0)
+    params = init_parallel_lm(rng, cfg)
+    B, T = 4, 16
+    tokens = rng.randint(0, cfg.vocab, size=(B, T)).astype(np.int32)
+    targets = np.concatenate(
+        [tokens[:, 1:], np.full((B, 1), -1, np.int32)], axis=1)
+    return params, tokens, targets
+
+
+def plm():
+    """``ParallelLM`` on 8 ranks (data 1 x stage 2 x model 2 x seq 2):
+    per configuration this rank's logits, the global loss and this rank's
+    reduced gradients, then three SGD steps; then the dryrun twin."""
+    from chainermn_tpu_torch.comm import create_communicator, hybrid_mesh
+    from chainermn_tpu_torch.examples import dryrun_multichip
+    from chainermn_tpu_torch.models import ParallelLM, ParallelLMConfig
+    from chainermn_tpu_torch.models.transformer import _tree_items
+    from chainermn_tpu_torch.utils import parallel_lm_shard
+
+    comm = create_communicator("naive", device="cpu",
+                               mesh=hybrid_mesh(PLM_GRID))
+    res = {}
+    for name, kw in PLM_CASES.items():
+        cfg = ParallelLMConfig(**PLM)._replace(**kw)
+        lm = ParallelLM(cfg, comm, n_microbatches=2)
+        host, tokens, targets = plm_batch(cfg)
+        c = lm.coords
+        t = tokens.shape[1] // PLM_GRID["seq"]
+        batch = tuple(torch.tensor(a[:, c["seq"] * t:(c["seq"] + 1) * t])
+                      for a in (tokens, targets))
+        params = parallel_lm_shard(host, cfg, c, device="cpu")
+        out = {"coords": c}
+        with torch.no_grad():
+            out["logits"] = _np(lm.apply(params, batch[0]))
+        res[name] = out
+        if name == "flash":
+            continue
+        leaves = [p for _, p in _tree_items(params)]
+        losses = []
+        for step in range(3):
+            loss = lm.loss(params, batch)
+            loss.backward()
+            grads = lm.grad_reduce(lm.grads_of(params))
+            losses.append(float(lm.total_loss(loss)))
+            if step == 0:
+                out["grads"] = {"/".join(k): _np(g)
+                                for k, g in _tree_items(grads)}
+            with torch.no_grad():
+                for p, (_, g) in zip(leaves, _tree_items(grads)):
+                    p -= PLM_LR * g
+                    p.grad = None
+        out["losses"] = losses
+        out["after"] = {"/".join(k): _np(p) for k, p in _tree_items(params)}
+    res["dryrun"] = dryrun_multichip.main(["--device", "cpu",
+                                           "--communicator", "naive"])
+    comm.barrier()
+    return res
+
+
+# ------------------------------------------- the rings' kernels on a card
+#: ``chip_smoke.py``'s ``sequence_parallel`` shapes: the LM bench's
+#: attention widths over 8192 positions on 4 ranks, bf16.
+SEQ_CUDA = dict(B=1, T=8192, H=12, KH=4, D=64)
+SEQ_CUDA_SEGMENTS = [(0, 3000), (1, 2600), (2, 2592)]
+
+
+def _excess(got, want, rtol):
+    """max over elements of (|got - want| - rtol |want|) over the RMS of
+    the reference's row (``chip_smoke.excess``)."""
+    got, want = got.float(), want.float()
+    slack = (got - want).abs() - rtol * want.abs()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    slack = torch.where(slack > 0, slack / rms, torch.zeros_like(slack))
+    return max(float(slack.max()), 0.0)
+
+
+def seqpar_cuda():
+    """Ring flash, zigzag flash and Ulysses flash on 4 ranks sharing card
+    0, each forward and backward twice: on card tensors (the kernels K1-K3)
+    and on CPU copies of the same bf16 values (their plain versions), over
+    the same gloo communicator; packed rows whose keys leave rows dead in
+    whole visiting blocks included."""
+    import importlib
+
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.parallel import (
+        ring_flash_self_attention,
+        ulysses_attention,
+        zigzag_ring_self_attention,
+        zigzag_shard,
+    )
+
+    fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+    dev = torch.device("cuda", 0)
+    comm = create_communicator("naive", device=dev)
+    r, S = comm.rank, comm.size
+    B, T, H, KH, D = (SEQ_CUDA[k] for k in ("B", "T", "H", "KH", "D"))
+    g = torch.Generator().manual_seed(0)
+    q, k, v = ((torch.randn((B, T, H, D), generator=g) * 0.5).bfloat16()
+               for _ in range(3))
+    kc, vc = ((torch.randn((B, T, KH, D), generator=g) * 0.5).bfloat16()
+              for _ in range(2))
+    probe = torch.randn((B, T, H, D), generator=g)
+    seg = torch.zeros((B, T), dtype=torch.int32)
+    at = 0
+    for sid, n in SEQ_CUDA_SEGMENTS:
+        seg[:, at:at + n] = sid
+        at += n
+    causal = {"causal": True}
+    cases = {
+        "ring_flash": (ring_flash_self_attention, causal, False, False,
+                       False),
+        "ring_flash_packed": (ring_flash_self_attention, causal, False,
+                              False, True),
+        "ring_flash_gqa": (ring_flash_self_attention, causal, False, True,
+                           False),
+        "zigzag_flash": (zigzag_ring_self_attention, {"impl": "flash"},
+                         True, False, False),
+        "zigzag_flash_packed": (zigzag_ring_self_attention,
+                                {"impl": "flash"}, True, False, True),
+        "ulysses_flash": (ulysses_attention, dict(causal, impl="flash"),
+                          False, False, False),
+    }
+    res = {}
+    for name, (fn, kw, zig, gqa, packed) in cases.items():
+        kk, vv = (kc, vc) if gqa else (k, v)
+
+        def block(x, where):
+            x = zigzag_shard(x, S) if zig else x
+            t = x.shape[1] // S
+            return x[:, r * t:(r + 1) * t].to(where).clone(
+                memory_format=torch.contiguous_format)
+
+        outs = {}
+        for where in (dev, torch.device("cpu")):
+            leaves = [block(x, where).requires_grad_() for x in (q, kk, vv)]
+            args = dict(kw)
+            if packed:
+                args["segment_ids"] = block(seg, where)
+            for kname in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                          "flash_attention_bwd_dq"):
+                getattr(fa, kname).launches = 0
+            o = fn(*leaves, comm, **args)
+            (o.float() * block(probe, where)).sum().backward()
+            outs[where.type] = [t.detach().cpu() for t in
+                                (o, *[x.grad for x in leaves])]
+            if where.type == "cuda":
+                torch.cuda.synchronize(dev)
+                launches = {kname: getattr(fa, kname).launches for kname in
+                            ("flash_attention_fwd",
+                             "flash_attention_bwd_dkv",
+                             "flash_attention_bwd_dq")}
+        res[name] = {
+            "launches": launches,
+            "finite": all(bool(torch.isfinite(t.float()).all())
+                          for t in outs["cuda"]),
+            "excess": {key: _excess(a, b, 2 ** -7)
+                       for key, a, b in zip(("o", "dq", "dk", "dv"),
+                                            outs["cuda"], outs["cpu"])},
+            "fro": {key: float((a.float() - b.float()).norm()
+                               / b.float().norm())
+                    for key, a, b in zip(("o", "dq", "dk", "dv"),
+                                         outs["cuda"], outs["cpu"])}}
+    comm.barrier()
+    return res
+
+
 def run(name: str, out: str) -> None:
-    """Run body ``name`` on this rank and save its result."""
-    global _VGG_IN
+    """Run body ``name`` on this rank and save its result; a body reads
+    the test's inputs, when the test wrote any, from ``_INPUTS``."""
+    global _VGG_IN, _INPUTS
     if name == "vgg":
         _VGG_IN = f"{out}/vgg_inputs.pkl"
+    _INPUTS = f"{out}/{name}_inputs.pkl"
     res = globals()[name]()
     rank = int(os.environ["RANK"])
     with open(f"{out}/{name}.rank{rank}.pkl", "wb") as f:
