@@ -53,6 +53,7 @@ import pickle
 import queue as _queue
 import threading
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -389,6 +390,13 @@ class ProcessGroupCommunicator(CommunicatorBase):
         out = torch.stack([parts[g] for g in self._group_rank])
         return self._like(out, x.device)
 
+    @property
+    def _in_group_order(self) -> bool:
+        """Whether communicator rank r is group rank r (members sorted):
+        the rank-ordered collectives need no permutation, and so no
+        host-built index tensor (which a CUDA-graph capture refuses)."""
+        return self._group_rank == tuple(range(self.size))
+
     def alltoall(self, xs: torch.Tensor) -> torch.Tensor:
         """Row ``j`` of ``xs`` (``(size, ...)``) goes to rank ``j``; row
         ``j`` of the result came from rank ``j``."""
@@ -396,6 +404,11 @@ class ProcessGroupCommunicator(CommunicatorBase):
         if xs.shape[0] != self.size:
             raise ValueError(f"alltoall needs a leading axis of {self.size}"
                              f" rows, got {tuple(xs.shape)}")
+        if self._in_group_order:
+            w = self._out(xs)
+            out = torch.empty_like(w)
+            dist.all_to_all_single(out, w, group=self.group)
+            return self._like(out, xs.device)
         order = torch.tensor(np.argsort(self._group_rank), device=xs.device)
         w = self._out(xs.index_select(0, order))
         out = torch.empty_like(w)
@@ -405,9 +418,39 @@ class ProcessGroupCommunicator(CommunicatorBase):
 
     def reduce_scatter(self, xs: torch.Tensor) -> torch.Tensor:
         """Row ``r`` of the sum over the ranks of ``xs`` (``(size,
-        ...)``), on rank ``r``: an all-to-all and a sum (gloo has no
-        reduce-scatter)."""
+        ...)``), on rank ``r``: NCCL's reduce-scatter, or an all-to-all
+        and a sum (gloo has no reduce-scatter)."""
+        self._member("reduce_scatter")
+        if self.backend == "nccl" and self._in_group_order:
+            if xs.shape[0] != self.size:
+                raise ValueError(f"reduce_scatter needs a leading axis of "
+                                 f"{self.size} rows, got {tuple(xs.shape)}")
+            xs = xs.contiguous()
+            out = torch.empty_like(xs[0])
+            dist.reduce_scatter_tensor(out, xs, group=self.group)
+            return out
         return self.alltoall(xs).sum(0)
+
+    def allgather_into(self, out: torch.Tensor, x: torch.Tensor) -> None:
+        """Fill ``out`` (contiguous, ``size * x.numel()`` elements) with
+        every rank's ``x`` in rank order, in place: NCCL (and gloo on
+        host tensors) gathers straight into it; a card tensor over gloo
+        goes through :meth:`allgather` and one copy."""
+        self._member("allgather_into")
+        if out.numel() != self.size * x.numel() or not out.is_contiguous():
+            raise ValueError(f"allgather_into needs a contiguous output of "
+                             f"{self.size} x {x.numel()} elements, got "
+                             f"{tuple(out.shape)}")
+        if self._in_group_order and not (self._staged and x.is_cuda):
+            with warnings.catch_warnings():
+                # Renamed all_gather_single in newer releases.
+                warnings.simplefilter("ignore", FutureWarning)
+                dist.all_gather_into_tensor(out.view(-1),
+                                            x.contiguous().view(-1),
+                                            group=self.group)
+            return
+        out.view(self.size, -1).copy_(
+            self.allgather(x).reshape(self.size, -1))
 
     def gather(self, x: torch.Tensor, root: int = 0):
         """Every rank's ``x`` stacked in rank order on ``root``; None on

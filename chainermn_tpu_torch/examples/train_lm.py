@@ -19,7 +19,11 @@ every rank's share, finalized once: the exact corpus perplexity).
 projections (``--eval``/``--generate`` run on the merged export);
 ``--optimizer adafactor`` and ``--warmup N`` (linear warmup into cosine
 decay) follow the JAX example's optax arithmetic, on the card inside the
-captured step.  ``--zero`` is not ported and raises.
+captured step.  ``--zero`` trains under the ZeRO tier
+(:func:`~chainermn_tpu_torch.optimizers.create_zero_optimizer`: each rank
+keeps ``1/N`` of the parameters and optimizer state; the step gathers the
+parameters, reduce-scatters the gradients); ``--eval``/``--generate`` then
+run on the model holding the gathered parameters.
 """
 
 from __future__ import annotations
@@ -76,9 +80,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                          "corpus prompt (KV-cache decode)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (this rank's card) or 'cpu'")
-    # The JAX example's ZeRO tier is not ported yet: the flag is accepted
-    # so that the command lines match, and refused when set.
-    ap.add_argument("--zero", action="store_true")
+    ap.add_argument("--zero", action="store_true",
+                    help="ZeRO-shard params/grads/optimizer state 1/N")
     ap.add_argument("--lora", type=int, default=0, metavar="RANK",
                     help="LoRA fine-tuning: freeze the base after init and "
                          "train rank-RANK adapters on the attention "
@@ -94,9 +97,12 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                     help="after training, validation perplexity over a "
                          "held-out split via the multi-node evaluator")
     args = ap.parse_args(argv)
-    if args.zero:
-        raise NotImplementedError(
-            "--zero is not ported yet (ROADMAP Queue 1 item 11)")
+    if args.lora and args.zero:
+        # ZeRO shards the optimizer's tree; with LoRA that tree is the
+        # adapter set while the frozen base stays replicated.
+        ap.error("--lora and --zero are mutually exclusive (the adapter "
+                 "tree is too small to shard; the frozen base is "
+                 "replicated either way)")
     if args.generate and 16 + args.generate > args.seq_len and not args.rope:
         ap.error(f"--generate {args.generate} + 16-token prompt exceeds "
                  f"--seq-len {args.seq_len}")
@@ -164,6 +170,7 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
         adafactor,
         adamw,
         create_multi_node_optimizer,
+        create_zero_optimizer,
         warmup_cosine_schedule,
     )
     from chainermn_tpu_torch.utils import flax_shapes, params_to_flax
@@ -223,7 +230,8 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
                                 n_kv_heads=model.n_kv_heads)
     tx = (adafactor(lr, shapes=flax_shapes(model, to_flax))
           if args.optimizer == "adafactor" else adamw(lr, weight_decay=0.01))
-    opt = create_multi_node_optimizer(tx, comm)
+    opt = (create_zero_optimizer(tx, comm) if args.zero
+           else create_multi_node_optimizer(tx, comm))
     loss_fn = lm_loss(model)
     trained = model
     if args.lora:
@@ -243,6 +251,10 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
             if comm.rank == 0:
                 print(f"step {i}: loss {loss:.4f}", flush=True)
     it.close()
+    if args.zero and (args.eval or args.generate):
+        # The model holds the last step's gather (the parameters before
+        # its update): gather the current ones (a collective).
+        opt.materialize_params(state)
     if args.lora and (args.eval or args.generate):
         # The merged export: eval and decoding run as on a fully
         # fine-tuned model.

@@ -6,7 +6,8 @@ Reference anchor: ``chainermn/extensions/checkpoint.py`` —
 local state under rank-tagged filenames, the ranks ``allgather_obj`` the
 iterations they hold and resume from the newest iteration COMMON to all
 of them, and old snapshots are garbage-collected.  The world size is
-fixed.
+fixed, but for the ZeRO tier: :meth:`MultiNodeCheckpointer.
+maybe_load_elastic` re-lays its shards under another rank count.
 
 Format: one file per rank and step, ``<path>/<name>/<step>/rank<R>.pt``
 (``torch.save`` of host copies): the model's ``state_dict`` (parameters
@@ -15,9 +16,11 @@ and buffers, so sync-BN running statistics too), the torch optimizer's
 rank's int8 residuals, the EMA) and the loop state (the trainer's
 iteration, every extension's last firing tick, the iterator's epoch,
 cursor, order and RNG), so a resumed run draws the same batches as an
-uninterrupted one.  A rank's file is written under a temporary name and
-renamed when complete: the rename is that rank's commit of the step, so a
-step is never half-visible.  ``async_save`` takes the host copies at the
+uninterrupted one.  A ZeRO rank's file holds its shards (``"zero"``),
+its shard-sized optimizer state and residuals and the model's buffers,
+not the model's gathered parameters.  A rank's file is written under a
+temporary name and renamed when complete: the rename is that rank's
+commit of the step, so a step is never half-visible.  ``async_save`` takes the host copies at the
 trigger and writes them on a background thread; :meth:`finalize` (and
 the next save or restore) waits for it.  Save and restore I/O retry on a
 deterministic backoff (:class:`~chainermn_tpu_torch.resilience.
@@ -131,6 +134,11 @@ def _to_host(obj):
     return obj
 
 
+def _is_zero(state) -> bool:
+    """A ZeRO-sharded state (the optimizer's flat shards)."""
+    return hasattr(state, "flat_params")
+
+
 class MultiNodeCheckpointer(Extension):
     """Trainer extension that snapshots (TrainState, loop state) every
     trigger, keeps this rank's ``max_to_keep`` newest steps, and restores
@@ -190,17 +198,24 @@ class MultiNodeCheckpointer(Extension):
         step = int(trainer.iteration if trainer is not None else state.step)
         self.wait()
         t0 = time.perf_counter()
+        zero = _is_zero(state)
         payload = {
             "format": FORMAT, "step": step, "rank": self._rank,
             "world_size": int(getattr(self.comm, "size", 1)),
             "state_step": int(state.step),
-            "model": _to_host(state.model.state_dict()),
+            # A ZeRO rank owns its shards, not the model's parameters (the
+            # last step's gathered copy): only the buffers are saved.
+            "model": _to_host(dict(state.model.named_buffers()) if zero
+                              else state.model.state_dict()),
             "optimizer": _to_host(state.optimizer.state_dict()),
-            "pending_grads": _to_host(state.pending_grads),
+            "pending_grads": None if zero else _to_host(state.pending_grads),
             "ef_residual": _to_host(state.ef_residual),
-            "ema_params": _to_host(state.ema_params),
+            "ema_params": None if zero else _to_host(state.ema_params),
             "loop": capture_loop_state(trainer),
         }
+        if zero:
+            payload["zero"] = {"flat_params": _to_host(
+                [p.detach() for p in state.flat_params])}
         host_s = time.perf_counter() - t0
         obs_on = _obs.enabled()
 
@@ -316,6 +331,52 @@ class MultiNodeCheckpointer(Extension):
         if payload.get("format") != FORMAT:
             raise ValueError(f"{self._rank_file(step)} is not a "
                              f"{FORMAT} snapshot")
+        if _is_zero(state):
+            self._restore_zero(state, payload)
+        else:
+            self._restore_replicated(state, payload)
+        p = next(state.model.parameters(), None)
+        if p is not None and p.is_cuda:
+            torch.cuda.synchronize(p.device)
+        self.last_restore = {"step": int(step),
+                             "bytes": os.path.getsize(self._rank_file(step)),
+                             "load_s": load_s,
+                             "seconds": time.perf_counter() - t0}
+        if obs_on:
+            _omet.registry().counter("ckpt.restores").inc()
+        loop = payload["loop"]
+        apply_loop_state(trainer, loop)
+        if trainer is not None:
+            trainer.state = state
+        return state, int(loop["iteration"])
+
+    @staticmethod
+    def _restore_zero(state, payload) -> None:
+        """This rank's shards, shard-sized optimizer state, residuals
+        and the model's buffers, in place (the same world size)."""
+        if payload.get("zero") is None:
+            raise ValueError("the snapshot holds a replicated state, the "
+                             "target is ZeRO-sharded")
+        state.optimizer.load_state_dict(payload["optimizer"])
+        state.step = int(payload["state_step"])
+        with torch.no_grad():
+            for mine, saved in zip(state.flat_params,
+                                   payload["zero"]["flat_params"]):
+                mine.copy_(saved)
+            if state.ef_residual is not None:
+                saved = payload["ef_residual"]
+                for mine, r in zip(state.ef_residual,
+                                   saved or [None] * len(state.ef_residual)):
+                    if r is None:
+                        mine.zero_()
+                    else:
+                        mine.copy_(r)
+            bufs = dict(state.model.named_buffers())
+            for n, t in payload["model"].items():
+                bufs[n].copy_(t)
+
+    @staticmethod
+    def _restore_replicated(state, payload) -> None:
         state.model.load_state_dict(payload["model"])
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["state_step"])
@@ -333,25 +394,74 @@ class MultiNodeCheckpointer(Extension):
                         t.copy_(state.params[n].float())
                     else:
                         t.zero_()
-        p = next(state.model.parameters(), None)
-        if p is not None and p.is_cuda:
-            torch.cuda.synchronize(p.device)
-        self.last_restore = {"step": int(step),
-                             "bytes": os.path.getsize(self._rank_file(step)),
-                             "load_s": load_s,
+
+    def _complete_steps(self) -> List[Tuple[int, int]]:
+        """``(step, world size)`` of every step whose ranks' files are all
+        there (``rank0`` .. ``rank{W-1}``, whatever world wrote them),
+        oldest first."""
+        out = []
+        for d in os.listdir(self._dir):
+            path = os.path.join(self._dir, d)
+            if not d.isdigit() or not os.path.isdir(path):
+                continue
+            ranks = sorted(int(f[4:-3]) for f in os.listdir(path)
+                           if f.startswith("rank") and f.endswith(".pt")
+                           and f[4:-3].isdigit())
+            if ranks and ranks == list(range(len(ranks))):
+                out.append((int(d), len(ranks)))
+        return sorted(out)
+
+    def maybe_load_elastic(self, opt, model, trainer=None
+                           ) -> Tuple[Any, int]:
+        """Elastic restore for the ZeRO tier: resume the newest snapshot
+        even when a different number of ranks saved it.  ZeRO shards are
+        padded per rank count, so :meth:`maybe_load` cannot map them; each
+        rank here reads every saved rank's file and re-lays the state
+        through the logical view
+        (:func:`~chainermn_tpu_torch.optimizers.reshard_zero_state`).
+
+        ``opt`` is the target :class:`~chainermn_tpu_torch.optimizers.
+        ZeroMultiNodeOptimizer`, ``model`` the model to train (its
+        parameters are replaced by the snapshot's).  Returns ``(state,
+        iteration)``: a fresh ``opt.init(model)`` state when no snapshot
+        exists.  Every rank calls it together."""
+        import time
+
+        from chainermn_tpu_torch.optimizers.zero import reshard_zero_state
+
+        self.wait()
+        steps = self._complete_steps()
+        if not steps:
+            return opt.init(model), 0
+        step, world = steps[-1]
+        t0 = time.perf_counter()
+        paths = [os.path.join(self._dir, str(step), f"rank{r}.pt")
+                 for r in range(world)]
+        payloads = [self._restore_retry.call(
+            torch.load, p, map_location="cpu", weights_only=False)
+            for p in paths]
+        for p, payload in zip(paths, payloads):
+            if payload.get("format") != FORMAT or \
+                    payload.get("zero") is None:
+                raise ValueError(f"{p} is not a ZeRO {FORMAT} snapshot")
+        raw = [{"flat_params": p["zero"]["flat_params"],
+                "optimizer": p["optimizer"],
+                "ef_residual": p["ef_residual"],
+                "step": p["state_step"]} for p in payloads]
+        state = reshard_zero_state(raw, opt, model)
+        with torch.no_grad():
+            bufs = dict(state.model.named_buffers())
+            for n, t in payloads[0]["model"].items():
+                bufs[n].copy_(t)
+        self.last_restore = {"step": int(step), "world_size": world,
+                             "bytes": sum(os.path.getsize(p)
+                                          for p in paths),
                              "seconds": time.perf_counter() - t0}
-        if obs_on:
-            _omet.registry().counter("ckpt.restores").inc()
-        loop = payload["loop"]
+        loop = payloads[0]["loop"]
         apply_loop_state(trainer, loop)
         if trainer is not None:
             trainer.state = state
         return state, int(loop["iteration"])
-
-    def maybe_load_elastic(self, *args, **kwargs):
-        raise NotImplementedError(
-            "maybe_load_elastic (a restore under another world size, for "
-            "the ZeRO tier) is not ported yet (ROADMAP Queue 1 item 11)")
 
     # ------------------------------------------------- known-good ring
     def mark_known_good_upto(self, iteration: int) -> List[int]:

@@ -4,8 +4,16 @@ speculative generation, and its training losses; ResNet and its stateful
 loss; the MNIST example's MLP and its classification loss and metrics;
 the seq2seq family (LSTM and Transformer encoder-decoders, their loss and
 decoders); ViT; LoRA adapters over any of them; VGG's stages, their
-model-parallel chain and pipeline; the 5-way-parallel ``ParallelLM``."""
+model-parallel chain and pipeline; the 5-way-parallel ``ParallelLM``;
+the channel-parallel convnet and the data-parallel DCGAN."""
 
+from chainermn_tpu_torch.models.dcgan import (
+    Discriminator,
+    GanState,
+    Generator,
+    gan_init,
+    make_gan_train_step,
+)
 from chainermn_tpu_torch.models.decoding import (
     lm_beam_search,
     lm_speculative_generate,
@@ -22,6 +30,16 @@ from chainermn_tpu_torch.models.mlp import (
     MLP,
     classification_loss,
     classification_metrics,
+)
+from chainermn_tpu_torch.models.parallel_convnet import (
+    channel_parallel_apply,
+    channel_parallel_leaves,
+    channel_parallel_loss,
+    channel_parallel_specs,
+    dense_reference_apply,
+    init_channel_parallel,
+    make_channel_parallel_train_step,
+    shard_channel_parallel,
 )
 from chainermn_tpu_torch.models.resnet import (
     BasicBlock,
@@ -70,7 +88,13 @@ from chainermn_tpu_torch.models.vgg import (
 from chainermn_tpu_torch.models.vit import ViT, vit_loss
 from chainermn_tpu_torch.ops.flash_attention import reference_attention
 
-__all__ = ["MLP", "PARALLEL_LM_AXES", "ParallelLM", "ParallelLMConfig",
+__all__ = ["Discriminator", "GanState", "Generator", "gan_init",
+           "make_gan_train_step", "channel_parallel_apply",
+           "channel_parallel_leaves", "channel_parallel_loss",
+           "channel_parallel_specs", "dense_reference_apply",
+           "init_channel_parallel", "make_channel_parallel_train_step",
+           "shard_channel_parallel",
+           "MLP", "PARALLEL_LM_AXES", "ParallelLM", "ParallelLMConfig",
            "dense_lm_reference", "init_parallel_lm", "parallel_lm_specs",
            "classification_loss", "classification_metrics",
            "BasicBlock", "BottleneckBlock", "DEFAULT_TARGETS", "DecoderBlock",

@@ -81,6 +81,8 @@ from chainermn_tpu_torch.ops.decode_attention import (
     NEG_INF,
     fused_decode_attention,
     paged_decode_attention,
+    sharded_fused_decode_attention,
+    sharded_paged_decode_attention,
 )
 from chainermn_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -104,6 +106,42 @@ def _dense(x, lin: nn.Linear, dtype):
     """Flax ``Dense(dtype=...)``: input and parameters cast to ``dtype``."""
     bias = None if lin.bias is None else lin.bias.to(dtype)
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+class _TensorParallel:
+    """The collectives of one tensor-parallel model rank (inference
+    only): the row-parallel sum and the vocab all-gather over ``comm``,
+    the communicator over the model ranks.  ``local`` (set while the
+    engine counts a step's operations, which it does on one rank alone)
+    skips the wire: the sum keeps this rank's part, the gather repeats
+    it."""
+
+    def __init__(self, comm):
+        self.comm = comm
+        self.size = int(comm.size)
+        self.rank = int(comm.rank)
+        self.local = False
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.local else self.comm.allreduce(x)
+
+    def gather_last(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` joined along the last axis in rank order."""
+        if self.local:
+            return torch.cat([x] * self.size, dim=-1)
+        g = self.comm.allgather(x)  # (M, ..., n)
+        return torch.movedim(g, 0, -2).reshape(*x.shape[:-1], -1)
+
+
+def _row_parallel(x, lin: nn.Linear, dtype, tp: "_TensorParallel"):
+    """A row-parallel ``Dense``: this rank's partial product over its
+    slice of the input features, summed over the model ranks.  The bias
+    joins rank 0's part only, so the sum holds it once (and one rank's
+    sum is the unsharded layer bit for bit)."""
+    bias = lin.bias if tp.rank == 0 else None
+    y = F.linear(x.to(dtype), lin.weight.to(dtype),
+                 None if bias is None else bias.to(dtype))
+    return tp.sum(y)
 
 
 def _layer_norm(x, ln: nn.LayerNorm, dtype):
@@ -180,7 +218,7 @@ class DecoderBlock(nn.Module):
                  window: int = 0, decode_attention: str = "einsum",
                  pos_enc: str = "learned", n_experts: int = 0,
                  moe_k: int = 2, moe_capacity_factor: float = 1.25,
-                 moe_group: int = 512, device=None):
+                 moe_group: int = 512, device=None, tp=None):
         super().__init__()
         kh = n_kv_heads or n_heads
         if not 0 < kh <= n_heads or n_heads % kh:
@@ -189,8 +227,17 @@ class DecoderBlock(nn.Module):
             )
         if window < 0:
             raise ValueError(f"window must be >= 0, got {window}")
-        self.d_model, self.n_heads, self.n_kv_heads = d_model, n_heads, kh
+        # Tensor parallel (``tp``, a :class:`_TensorParallel`): this rank
+        # holds H/M query heads, KH/M KV heads and, when M divides it,
+        # d_ff/M of the FFN's hidden axis (else the FFN stays whole, no
+        # reduction).  One rank runs the same collectives, of one rank.
+        M = 1 if tp is None else tp.size
+        self.tp = tp
+        self.tp_ffn = tp is not None and d_ff % M == 0
         self.head_dim = d_model // n_heads
+        n_heads, kh = n_heads // M, kh // M
+        d_ff = d_ff // M if self.tp_ffn else d_ff
+        self.d_model, self.n_heads, self.n_kv_heads = d_model, n_heads, kh
         self.dtype = dtype
         self.attention = attention
         self.window = window
@@ -259,7 +306,9 @@ class DecoderBlock(nn.Module):
         else:
             a = self._decode(q, k, v, cache, decode_pos, block_tables,
                              slot_mask, rolling)
-        h = h + _dense(a.reshape(B, T, H * Dh), self.proj, dt)
+        a = a.reshape(B, T, H * Dh)
+        h = h + (_dense(a, self.proj, dt) if self.tp is None
+                 else _row_parallel(a, self.proj, dt, self.tp))
         return h + self.ffn(_layer_norm(h, self.ln2, dt))
 
     def ffn(self, x):
@@ -269,6 +318,8 @@ class DecoderBlock(nn.Module):
         if self.n_experts:
             return self.moe_ffn(x)
         y = F.gelu(_dense(x, self.ff1, self.dtype), approximate="tanh")
+        if self.tp_ffn:
+            return _row_parallel(y, self.ff2, self.dtype, self.tp)
         return _dense(y, self.ff2, self.dtype)
 
     def moe_ffn(self, x):
@@ -304,8 +355,16 @@ class DecoderBlock(nn.Module):
             .reshape(E, n_groups * C, D)
         hmid = F.gelu(torch.einsum("exd,edf->exf", send, self.moe_w1.to(dt))
                       + self.moe_b1[:, None, :].to(dt), approximate="tanh")
-        out = (torch.einsum("exf,efd->exd", hmid, self.moe_w2.to(dt))
-               + self.moe_b2[:, None, :].to(dt)).reshape(E, n_groups, C, D)
+        out = torch.einsum("exf,efd->exd", hmid, self.moe_w2.to(dt))
+        if self.tp_ffn:
+            # Row parallel over the expert hidden axis: the bias joins
+            # rank 0's partial sum (see :func:`_row_parallel`).
+            if self.tp.rank == 0:
+                out = out + self.moe_b2[:, None, :].to(dt)
+            out = self.tp.sum(out)
+        else:
+            out = out + self.moe_b2[:, None, :].to(dt)
+        out = out.reshape(E, n_groups, C, D)
         y = torch.einsum("gnec,egcd->gnd", combine, out.float())
         return y.reshape(B, T, D).to(dt)
 
@@ -377,10 +436,13 @@ class DecoderBlock(nn.Module):
                     ks_c[rows, :, q_pos] = k_sc
                     vs_c[rows, :, q_pos] = v_sc
             if T == 1 and not self.window and kc.shape[2] <= MAX_FUSED_LEN:
-                return fused_decode_attention(
-                    q[:, 0].contiguous(), kc, vc,
-                    (q_pos[:, 0] + 1).to(torch.int32), ks_c, vs_c,
-                )[:, None]
+                args = (q[:, 0].contiguous(), kc, vc,
+                        (q_pos[:, 0] + 1).to(torch.int32), ks_c, vs_c)
+                if self.tp is not None:
+                    # This rank's heads (the JAX model's decode_mesh).
+                    return sharded_fused_decode_attention(
+                        *args, mesh=self.tp.comm)[:, None]
+                return fused_decode_attention(*args)[:, None]
             return _attend_kv_major(q, kc, vc, q_pos, self.window, ks_c,
                                     vs_c)
         # Legacy (B, L, KH, Dh) layout, plain grouped attention; a ring
@@ -458,11 +520,12 @@ class DecoderBlock(nn.Module):
         verify = not scalar and 1 < T <= MAX_VERIFY_T
         if self.decode_attention == "fused" and not self.window and \
                 (T == 1 or verify):
-            a = paged_decode_attention(
-                q[:, 0].contiguous() if T == 1 else q.contiguous(),
-                pool_k, pool_v, tbl.contiguous(), valid.to(torch.int32),
-                ks_c, vs_c,
-            )
+            args = (q[:, 0].contiguous() if T == 1 else q.contiguous(),
+                    pool_k, pool_v, tbl.contiguous(), valid.to(torch.int32),
+                    ks_c, vs_c)
+            a = (paged_decode_attention(*args) if self.tp is None
+                 else sharded_paged_decode_attention(*args,
+                                                     mesh=self.tp.comm))
             return a[:, None] if T == 1 else a
         # Gathered plain attention (prefill chunks; einsum engines): each
         # row's logical kv-head-major view of its blocks.
@@ -502,6 +565,20 @@ class TransformerLM(nn.Module):
     ``device`` places the parameters; None means the current CUDA device
     and raises where there is none.  Parameters are initialized from
     ``seed`` (a private generator, the global RNG untouched).
+
+    ``tp`` (the communicator over the model ranks of a tensor-parallel
+    engine, :func:`~chainermn_tpu_torch.serving.sharding.serving_mesh`)
+    builds this rank's part of the model for serving, the JAX model's
+    ``decode_mesh``: ``H/M`` query and ``KH/M`` KV heads per block (the
+    caches and pools hold only those), the FFN (or each expert's) hidden
+    axis and the vocab cut in ``M`` where ``M`` divides them; the
+    row-parallel ``proj`` and ``ff2`` (``moe_w2``) each end in one
+    all-reduce over the model ranks and the fp32 head's logits are
+    all-gathered, so every rank reads the same full row.  The decode
+    kernels run on the rank's own heads.  Load the rank's weights with
+    :func:`~chainermn_tpu_torch.serving.sharding.shard_model`.  Such a
+    model serves and generates; it does not train (``ParallelLM`` is the
+    training tier's tensor parallelism).
     """
 
     def __init__(self, vocab: int, n_layers: int = 4, d_model: int = 256,
@@ -512,8 +589,19 @@ class TransformerLM(nn.Module):
                  decode_attention: str = "einsum", pos_enc: str = "learned",
                  remat: bool = False, n_experts: int = 0, moe_k: int = 2,
                  moe_capacity_factor: float = 1.25, moe_group: int = 512,
-                 moe_aux_weight: float = 0.01, device=None, seed: int = 0):
+                 moe_aux_weight: float = 0.01, device=None, seed: int = 0,
+                 tp=None):
         super().__init__()
+        #: the constructor's model arguments (:meth:`config`).
+        self._config = dict(
+            vocab=vocab, n_layers=n_layers, d_model=d_model,
+            n_heads=n_heads, d_ff=d_ff, max_len=max_len, dtype=dtype,
+            param_dtype=param_dtype, attention=attention,
+            n_kv_heads=n_kv_heads, kv_dtype=kv_dtype, window=window,
+            decode_attention=decode_attention, pos_enc=pos_enc,
+            remat=remat, n_experts=n_experts, moe_k=moe_k,
+            moe_capacity_factor=moe_capacity_factor, moe_group=moe_group,
+            moe_aux_weight=moe_aux_weight)
         device = resolve_device(device, "TransformerLM")
         if pos_enc not in ("learned", "rope"):
             raise ValueError(
@@ -546,6 +634,15 @@ class TransformerLM(nn.Module):
         self.moe_capacity_factor, self.moe_group = moe_capacity_factor, \
             moe_group
         self.moe_aux_weight = moe_aux_weight
+        kh = n_kv_heads or n_heads
+        M = 1 if tp is None else int(tp.size)
+        if M > 1 and kh % M:
+            raise ValueError(
+                f"kv heads ({kh}) are not divisible by the {M} model ranks")
+        self.tp = None if tp is None else _TensorParallel(tp)
+        self.tp_size = M
+        #: the head is vocab-sharded (else every rank holds it whole).
+        self.tp_head = tp is not None and vocab % M == 0
         fk = dict(device=device, dtype=param_dtype)
         self.embed = nn.Embedding(vocab, d_model, **fk)
         if pos_enc == "learned":
@@ -556,12 +653,19 @@ class TransformerLM(nn.Module):
                          window=window, decode_attention=decode_attention,
                          pos_enc=pos_enc, n_experts=n_experts, moe_k=moe_k,
                          moe_capacity_factor=moe_capacity_factor,
-                         moe_group=moe_group, device=device)
+                         moe_group=moe_group, device=device, tp=self.tp)
             for _ in range(n_layers)
         ])
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS, **fk)
-        self.lm_head = nn.Linear(d_model, vocab, **fk)
+        self.lm_head = nn.Linear(d_model, vocab // M if self.tp_head
+                                 else vocab, **fk)
         self.init_weights(seed)
+
+    def config(self) -> dict:
+        """The model arguments this model was built with (``device``,
+        ``seed`` and ``tp`` aside): ``TransformerLM(**m.config())``
+        builds the same architecture."""
+        return dict(self._config)
 
     @property
     def device(self) -> torch.device:
@@ -574,6 +678,16 @@ class TransformerLM(nn.Module):
     @property
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
+
+    @property
+    def local_heads(self) -> int:
+        """Query heads this rank holds (``n_heads`` unsharded)."""
+        return self.n_heads // self.tp_size
+
+    @property
+    def local_kv_heads(self) -> int:
+        """KV heads this rank's caches and pools hold."""
+        return self.kv_heads // self.tp_size
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> None:
@@ -633,6 +747,11 @@ class TransformerLM(nn.Module):
         dropped share (:func:`moe_stats`)."""
         B, T = tokens.shape
         dev = self.device
+        if self.tp is not None and torch.is_grad_enabled():
+            raise RuntimeError(
+                "a tensor-parallel TransformerLM serves and generates only "
+                "(its collectives carry no gradient): run it under "
+                "torch.no_grad(); ParallelLM trains tensor-parallel")
         for blk in self.blocks:
             blk.moe_stats.clear()
         h = F.embedding(tokens, self.embed.weight).to(self.dtype)
@@ -687,9 +806,12 @@ class TransformerLM(nn.Module):
         return out if cache is None else (out, cache)
 
     def head(self, h):
-        """The LM head, in fp32 whatever the compute dtype."""
-        return F.linear(h.float(), self.lm_head.weight.float(),
-                        self.lm_head.bias.float())
+        """The LM head, in fp32 whatever the compute dtype (a
+        vocab-sharded head's logits all-gathered over the model
+        ranks)."""
+        out = F.linear(h.float(), self.lm_head.weight.float(),
+                       self.lm_head.bias.float())
+        return self.tp.gather_last(out) if self.tp_head else out
 
     def init_cache(self, batch: int, max_len: Optional[int] = None
                    ) -> List[dict]:
@@ -698,10 +820,11 @@ class TransformerLM(nn.Module):
         ``decode_attention="fused"``; int8 caches add fp32
         ``{"k_scale", "v_scale"}`` of the shape without ``Dh``."""
         L = max_len or self.max_len
+        KH = self.local_kv_heads
         if self.decode_attention == "fused":
-            shape = (batch, self.kv_heads, L, self.head_dim)
+            shape = (batch, KH, L, self.head_dim)
         else:
-            shape = (batch, L, self.kv_heads, self.head_dim)
+            shape = (batch, L, KH, self.head_dim)
         kvd = self.kv_dtype if self.kv_dtype is not None else self.dtype
         dev = self.device
         caches = []

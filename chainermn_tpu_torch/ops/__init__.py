@@ -30,6 +30,8 @@ from chainermn_tpu_torch.ops.decode_attention import (
     fused_decode_attention_reference,
     paged_decode_attention,
     paged_decode_attention_reference,
+    sharded_fused_decode_attention,
+    sharded_paged_decode_attention,
 )
 from chainermn_tpu_torch.ops.flash_attention import (
     FLASH_MIN_SEQ,
@@ -68,6 +70,8 @@ __all__ = [
     "fused_decode_attention_reference",
     "paged_decode_attention",
     "paged_decode_attention_reference",
+    "sharded_fused_decode_attention",
+    "sharded_paged_decode_attention",
     "FLASH_MIN_SEQ",
     "FLASH_MIN_SEQ_NONCAUSAL",
     "FlashAttentionFunction",

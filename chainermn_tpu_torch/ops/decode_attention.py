@@ -556,3 +556,50 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, valid_len,
 
 paged_decode_attention.launches = 0
 paged_decode_attention.captured = 0
+
+
+# ------------------------------------------------------ tensor parallel
+# The JAX package runs the Pallas kernels per shard under ``shard_map`` on
+# a 1-D ``model`` mesh (``chainermn_tpu/ops/decode_attention.py``
+# ``sharded_*``): queries cut on the head axis, pools and caches on the
+# KV-head axis.  Here each rank of the tensor-parallel engine is a
+# process holding exactly that shard, so the sharded entry points take
+# the rank's own slices and launch the same kernels on them.  Attention
+# never crosses KV heads: no collective is added (the row-parallel
+# ``proj`` all-reduce that follows completes the layer).
+
+
+def _check_local_heads(H: int, KH: int, n: int, what: str) -> None:
+    if KH < 1 or H % KH:
+        raise ValueError(
+            f"{what}: this rank's {H} query heads must be a whole multiple "
+            f"of its {KH} KV heads (the KV-head cut over {n} model ranks "
+            "keeps every query group with its KV head)")
+
+
+def sharded_paged_decode_attention(q, k_pool, v_pool, block_tables,
+                                   valid_len, k_scale=None, v_scale=None,
+                                   *, mesh):
+    """:func:`paged_decode_attention` on one rank of a tensor-parallel
+    engine: ``q`` is this rank's ``H / M`` query heads (``(S, H/M, Dh)``
+    or the verify chunk's ``(S, T, H/M, Dh)``), the pools (and int8
+    scales) its ``KH / M`` KV heads, the block tables and lengths the
+    same on every rank.  The output is this rank's heads of the unsharded
+    call, bit for bit.  ``mesh`` is the communicator over the model
+    ranks (:func:`~chainermn_tpu_torch.serving.sharding.serving_mesh`)."""
+    H = q.shape[-2]
+    _check_local_heads(H, k_pool.shape[0], mesh.size,
+                       "sharded_paged_decode_attention")
+    return paged_decode_attention(q, k_pool, v_pool, block_tables,
+                                  valid_len, k_scale, v_scale)
+
+
+def sharded_fused_decode_attention(q, kc, vc, valid_len, k_scale=None,
+                                   v_scale=None, *, mesh):
+    """:func:`fused_decode_attention` on one rank of a tensor-parallel
+    model: ``q`` ``(B, H/M, Dh)`` and the kv-major cache ``(B, KH/M, L,
+    Dh)`` (int8 scales ``(B, KH/M, L)``) are this rank's heads; lengths
+    the same on every rank."""
+    _check_local_heads(q.shape[1], kc.shape[1], mesh.size,
+                       "sharded_fused_decode_attention")
+    return fused_decode_attention(q, kc, vc, valid_len, k_scale, v_scale)

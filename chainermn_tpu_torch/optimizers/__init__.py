@@ -86,14 +86,18 @@ from chainermn_tpu_torch.optimizers.large_batch import (
 from chainermn_tpu_torch.optimizers.rules import (
     Adafactor,
     LearningRate,
+    RMSProp,
     ScheduledSGD,
 )
 
-__all__ = ["Adafactor", "Lamb", "Lars", "MultiNodeOptimizer", "TrainState",
-           "adafactor", "adamw", "augment_generator",
-           "create_multi_node_optimizer", "ema_model", "int8_ef_codes",
+__all__ = ["Adafactor", "Lamb", "Lars", "MultiNodeOptimizer", "RMSProp",
+           "TrainState",
+           "ZeroMultiNodeOptimizer", "ZeroTrainState", "adafactor", "adamw",
+           "augment_generator", "create_multi_node_optimizer",
+           "create_zero_optimizer", "ema_model", "int8_ef_codes",
            "int8_ef_mean", "kernel_mask", "lamb", "lars", "linear_scaled_lr",
-           "model_parallel_grad_reduce", "sgd", "warmup_cosine_schedule"]
+           "model_parallel_grad_reduce", "reshard_zero_state", "rmsprop",
+           "sgd", "warmup_cosine_schedule", "zero_clip_by_global_norm"]
 
 
 def sgd(learning_rate: LearningRate, momentum: Optional[float] = None,
@@ -111,6 +115,15 @@ def sgd(learning_rate: LearningRate, momentum: Optional[float] = None,
     return functools.partial(torch.optim.SGD, lr=learning_rate,
                              momentum=momentum or 0.0, dampening=0.0,
                              nesterov=nesterov, weight_decay=0.0)
+
+
+def rmsprop(learning_rate: LearningRate, decay: float = 0.9,
+            eps: float = 1e-8):
+    """``optax.rmsprop(learning_rate)`` as a torch optimizer factory
+    (:class:`~chainermn_tpu_torch.optimizers.rules.RMSProp`: ``eps``
+    inside the square root, as optax adds it); capturable."""
+    return functools.partial(RMSProp, learning_rate=learning_rate,
+                             decay=decay, eps=eps)
 
 
 def adafactor(learning_rate: LearningRate,
@@ -313,20 +326,6 @@ def _side_stream(dev) -> "torch.cuda.Stream":
     return _SIDE_STREAMS[key]
 
 
-def _state_tensors(state: "TrainState"):
-    """Every tensor a train step updates in place: parameters, buffers,
-    the optimizer's state and the options' state."""
-    out = [p.data for p in state.model.parameters()]
-    out += list(state.model.buffers())
-    for st in state.optimizer.state.values():
-        out += [v for v in st.values() if isinstance(v, torch.Tensor)]
-    for opt_state in (state.pending_grads, state.ef_residual,
-                      state.ema_params):
-        if opt_state is not None:
-            out += list(opt_state.values())
-    return out
-
-
 def _check_capturable(opt: torch.optim.Optimizer) -> None:
     for g in opt.param_groups:
         if not g.get("capturable", True):
@@ -461,6 +460,48 @@ class MultiNodeOptimizer:
                 state.ef_residual[n].copy_(
                     (c - q * s).to(state.ef_residual[n].dtype))
 
+    # ------------------------------------------------ the step's seams
+    def _begin_step(self, state: TrainState) -> None:
+        """Before the microbatches' backward: no gradient held."""
+        state.optimizer.zero_grad(set_to_none=True)
+
+    def _reduce_grads(self, state: TrainState) -> None:
+        """Between the backward and the update: the cross-rank mean (or
+        the int8 error-feedback mean, or the model-parallel reducer),
+        then double buffering's swap."""
+        model = state.model
+        if self.grad_compression is not None:
+            self._int8_ef_reduce(state)
+        elif self.grad_reduce is not None:
+            self.grad_reduce(model)
+        else:
+            self.comm.allreduce_grad(model)
+        if self.double_buffering:
+            # 1-step-stale: apply the previous reduced gradients (real
+            # zero tensors at the first step, which the update applies
+            # as optax applies its zero carry), carry the fresh ones,
+            # by copies between buffers that keep their addresses.
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    stale = state.pending_grads[n]
+                    fresh = p.grad.to(stale.dtype, copy=True)
+                    p.grad.copy_(stale)
+                    stale.copy_(fresh)
+
+    def _state_tensors(self, state: TrainState):
+        """Every tensor the step updates in place (the capture's warm-ups
+        are undone from a snapshot of them): parameters, buffers, the
+        optimizer's state and the options' state."""
+        out = [p.data for p in state.model.parameters()]
+        out += list(state.model.buffers())
+        for st in state.optimizer.state.values():
+            out += [v for v in st.values() if isinstance(v, torch.Tensor)]
+        for opt_state in (state.pending_grads, state.ef_residual,
+                          state.ema_params):
+            if opt_state is not None:
+                out += list(opt_state.values())
+        return out
+
     # ------------------------------------------------------- train step
     def make_train_step(self, loss_fn: Callable, has_aux: bool = False,
                         stateful: bool = False, accum_steps: int = 1,
@@ -499,8 +540,6 @@ class MultiNodeOptimizer:
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         comm = self.comm
-        dbuf = self.double_buffering
-        compress = self.grad_compression is not None
         capturable = getattr(comm, "capturable", True) and getattr(
             self.grad_reduce, "capturable", True)
         decay = self.ema_decay
@@ -513,7 +552,7 @@ class MultiNodeOptimizer:
             work, the same eagerly and under capture (no host reads; the
             double-buffering carry keeps its addresses)."""
             model, opt = state.model, state.optimizer
-            opt.zero_grad(set_to_none=True)
+            self._begin_step(state)
             loss_sum, aux_sum = None, {}
             for mb in _microbatches(batch, accum_steps):
                 out = loss_fn(model, mb)
@@ -527,23 +566,7 @@ class MultiNodeOptimizer:
                 for k, v in aux.items():
                     v = torch.as_tensor(v).detach()
                     aux_sum[k] = v if k not in aux_sum else aux_sum[k] + v
-            if compress:
-                self._int8_ef_reduce(state)
-            elif self.grad_reduce is not None:
-                self.grad_reduce(model)
-            else:
-                comm.allreduce_grad(model)
-            if dbuf:
-                # 1-step-stale: apply the previous reduced gradients (real
-                # zero tensors at the first step, which the update applies
-                # as optax applies its zero carry), carry the fresh ones,
-                # by copies between buffers that keep their addresses.
-                with torch.no_grad():
-                    for n, p in model.named_parameters():
-                        stale = state.pending_grads[n]
-                        fresh = p.grad.to(stale.dtype, copy=True)
-                        p.grad.copy_(stale)
-                        stale.copy_(fresh)
+            self._reduce_grads(state)
             opt.step()
             if decay is not None:
                 with torch.no_grad():
@@ -589,7 +612,7 @@ class MultiNodeOptimizer:
             # builds the optimizer's state); then warm-ups from a
             # snapshot, undone, and the capture, which runs nothing.
             metrics = body(state, static)
-            live = _state_tensors(state)
+            live = self._state_tensors(state)
             saved = [t.clone() for t in live]
             cur = torch.cuda.current_stream(dev)
             side = _side_stream(dev)
@@ -735,3 +758,13 @@ def model_parallel_grad_reduce(data_comm, model_comm) -> Callable:
 
     reduce.capturable = False
     return reduce
+
+
+# The sharded-state tier builds on the replicated one.
+from chainermn_tpu_torch.optimizers.zero import (  # noqa: E402
+    ZeroMultiNodeOptimizer,
+    ZeroTrainState,
+    create_zero_optimizer,
+    reshard_zero_state,
+    zero_clip_by_global_norm,
+)

@@ -17,7 +17,8 @@ whole, schedule included.  The state is built at the first step.
 schedule of the step count), the kernel mask (a dict ``{parameter:
 bool}``; None: rank >= 2, the JAX package's ``kernel_mask`` on the port's
 shapes) and one ``update`` per parameter.  This module holds
-:class:`Adafactor` and the scheduled form of optax's ``sgd``;
+:class:`Adafactor`, :class:`RMSProp` and the scheduled form of optax's
+``sgd``;
 :mod:`~chainermn_tpu_torch.optimizers.large_batch` holds LARS and LAMB.
 """
 
@@ -126,6 +127,27 @@ class ScheduledSGD(OptaxRule):
             t.copy_(g + mom * t)
             u = g + mom * t if group["nesterov"] else t
         return u * -self.lr(group, state["step"])
+
+
+class RMSProp(OptaxRule):
+    """``optax.rmsprop(learning_rate, decay, eps)`` at its defaults
+    (``initial_scale`` 0, ``eps_in_sqrt``, not centered, no momentum):
+    ``nu = (1 - decay) · g² + decay · nu``, the update ``-lr · g ·
+    rsqrt(nu + eps)``.  ``torch.optim.RMSprop`` adds ``eps`` outside the
+    square root, which moves small moments' updates by up to a third."""
+
+    def __init__(self, params, learning_rate: LearningRate,
+                 decay: float = 0.9, eps: float = 1e-8):
+        super().__init__(params, learning_rate, decay=decay, eps=eps)
+
+    def init_state(self, p, group):
+        return {"nu": torch.zeros_like(p)}
+
+    def update(self, p, g, state, group):
+        nu, decay = state["nu"], group["decay"]
+        nu.copy_((1 - decay) * (g * g) + decay * nu)
+        return g * torch.rsqrt(nu + group["eps"]) \
+            * -self.lr(group, state["step"])
 
 
 def adam_direction(g, state, b1: float, b2: float, eps: float,

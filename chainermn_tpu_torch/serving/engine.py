@@ -59,6 +59,19 @@ reads and writes run eagerly on the same stream between replays.  A
 capture that fails raises: no program quietly runs eagerly on a card.
 On the CPU the same function bodies run eagerly.
 
+**Tensor parallel** (``mesh=``, the communicator over the model ranks
+from :func:`~chainermn_tpu_torch.serving.sharding.serving_mesh`): one
+process per model rank, each running this engine over its own part of
+the model (:func:`~chainermn_tpu_torch.serving.sharding.shard_model`:
+``H/M`` query heads, ``KH/M`` KV heads of every pool block, the FFN's
+hidden axis and the vocab where ``M`` divides them).  The host side
+(allocator, prefix trie, block tables, sampling lanes) is the same on
+every rank; each step's forward runs two all-reduces per block and one
+all-gather of the logits, so every rank picks the same tokens.  The
+programs are captured only where the communicator's collectives can be
+recorded (NCCL on a card, ``mesh.capturable``); over gloo they run
+eagerly on the card, as the train step does.
+
 Every program registers with the process capture watch
 (:mod:`chainermn_tpu_torch.observability.device`) under the JAX engine's
 budgets: ``decode_step`` and ``spec_round`` 1, ``prefill``
@@ -74,6 +87,7 @@ their own runs on the card (``ops.decode_attention.kernel_runs``).
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from typing import Dict, List, Optional, Tuple
@@ -84,6 +98,7 @@ import torch
 from chainermn_tpu_torch.observability import device as _odevice
 from chainermn_tpu_torch.ops import decode_attention as _da
 from chainermn_tpu_torch.ops.decode_attention import MAX_VERIFY_T
+from chainermn_tpu_torch.serving import sharding as _sharding
 from chainermn_tpu_torch.serving.kv_pool import PagedKVPool
 from chainermn_tpu_torch.serving.prefix_cache import PrefixCache
 from chainermn_tpu_torch.utils.device import resolve_device
@@ -221,10 +236,18 @@ class DecodeEngine:
       spec_k: draft proposals per round (0 = speculation off).
       prefix_cache: share identical prompt prefixes through a refcounted
         block trie (on by default).
-      mesh: the tensor-parallel engine is not ported yet and raises.
+      mesh: the communicator over this rank's model ranks
+        (:func:`~chainermn_tpu_torch.serving.sharding.serving_mesh`): the
+        engine becomes this rank's part of a tensor-parallel engine (see
+        the module docstring).  ``model`` and ``draft_model`` are the
+        full models, the same weights on every rank; the engine keeps
+        this rank's shards of them.  The KV heads must divide the model
+        ranks (:func:`~chainermn_tpu_torch.serving.sharding.
+        validate_geometry`).
       device: where the pools live and the steps run; must be the
-        model's device.  None means the current CUDA device and raises
-        where there is none (pass ``device="cpu"`` for the plain path).
+        model's device.  None means the current CUDA device (with
+        ``mesh``, the communicator's device) and raises where there is
+        none (pass ``device="cpu"`` for the plain path).
 
     Sampling keys each token by (the request's seed, the absolute
     position it conditions on) through :func:`lane_seed` and a
@@ -243,10 +266,13 @@ class DecodeEngine:
                  draft_model=None, spec_k: int = 0,
                  prefix_cache: bool = True, mesh=None, device=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "the tensor-parallel (mesh=) engine is not ported yet "
-                "(ROADMAP Queue 1, serving fleet: TP engine)"
-            )
+            mdev = torch.device(mesh.device)
+            if device is not None and torch.device(device) != mdev:
+                raise ValueError(
+                    f"mesh and device are mutually exclusive placements: "
+                    f"a tensor-parallel engine runs on its communicator's "
+                    f"device ({mdev}), not {device}")
+            device = mdev
         dev = resolve_device(device, "DecodeEngine")
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
@@ -295,7 +321,18 @@ class DecodeEngine:
                     f"prefill_chunk ({prefill_chunk}): the scheduler's "
                     "padding bound at submit() assumes it"
                 )
-        self.mesh = None
+        #: whether the programs are captured (else they run eagerly): on
+        #: a card, where the communicator's collectives can be recorded.
+        self.capture = dev.type == "cuda" and (mesh is None
+                                               or mesh.capturable)
+        if mesh is not None:
+            _sharding.validate_geometry(model, mesh)
+            model = _sharding.shard_model(model, mesh)
+            if draft_model is not None:
+                draft_model = _sharding.shard_model(draft_model, mesh)
+        self.mesh = mesh
+        #: model ranks this engine is one of (1: unsharded).
+        self.tp_size = _sharding.mesh_model_size(mesh)
         self.device = dev
         self.model = model
         self.draft_model = draft_model
@@ -336,7 +373,7 @@ class DecodeEngine:
             f"dtype={model.dtype}, kv_dtype={model.kv_dtype}, "
             f"decode_attention={model.decode_attention}, "
             f"window={model.window}, blocks={num_blocks}x{block_len}, "
-            f"draft={draft_model is not None})"
+            f"draft={draft_model is not None}, tp={self.tp_size})"
         )
         w = _odevice.watch()
         self._step = w.register("decode_step", budget=1,
@@ -478,7 +515,7 @@ class DecodeEngine:
         table = np.asarray(table, np.int32)[None]
         C, MB = chunk.shape[0], table.shape[1]
         args = {"chunk": chunk, "p0": int(p0), "table": table}
-        if self.device.type == "cuda":
+        if self.capture:
             g = self._graph(self._prefill, self._prefill_graphs, args,
                             lambda: _Graph(self.device, (
                                 ("chunk", C), ("p0", 1), ("last", 1),
@@ -530,7 +567,7 @@ class DecodeEngine:
         recorded with the capture watch)."""
         tokens, pos, tables, active = host
         args = dict(zip(self._SLOT_ARGS, host))
-        if self.device.type != "cuda":
+        if not self.capture:
             tok, p, tbl, act = (self._up(a) for a in host)
             return self._run(prog, args,
                              lambda: body(tok.long(), p, tbl, act))
@@ -593,7 +630,7 @@ class DecodeEngine:
         m, S, MB = self.model, self.capacity, self.max_blocks
         tables = torch.zeros((S, MB), dtype=torch.int32, device=self.device)
         idle = tables[:, 0]
-        with FlopCounterMode(display=False) as fc:
+        with FlopCounterMode(display=False) as fc, self._local_only():
             self._forward(idle.long(), idle, tables, idle)
         rows = {"embed.weight", "pos"}  # gathered: S rows read
         weights = sum(
@@ -603,7 +640,7 @@ class DecodeEngine:
         layer = self.pools[0]
         kv_pos = sum(t.element_size() * t.shape[-1] if t.dim() == 4
                      else t.element_size()
-                     for t in layer.values()) * m.kv_heads
+                     for t in layer.values()) * m.local_kv_heads
         kernel = (self.device.type == "cuda"
                   and m.decode_attention == "fused" and not m.window)
         return {
@@ -613,7 +650,8 @@ class DecodeEngine:
             "kv_bytes_per_position": float(m.n_layers * kv_pos),
             "attention_flops_per_position": (
                 m.n_layers * _odevice.attention_core_flops(
-                    1, m.n_heads, 1, m.head_dim, kv_len=1, n_backward=0)
+                    1, m.local_heads, 1, m.head_dim, kv_len=1,
+                    n_backward=0)
                 if kernel else 0.0
             ),
         }
@@ -688,7 +726,7 @@ class DecodeEngine:
         k = self.spec_k
         tables = torch.zeros((S, MB), dtype=torch.int32, device=self.device)
         idle = tables[:, 0]
-        with FlopCounterMode(display=False) as fc:
+        with FlopCounterMode(display=False) as fc, self._local_only():
             self._spec_forward(idle.long(), idle, tables, idle)
 
         def weights(model, rows):
@@ -698,7 +736,7 @@ class DecodeEngine:
                        for n, p in model.named_parameters())
 
         def kv_pos(model, pools):
-            return model.n_layers * model.kv_heads * sum(
+            return model.n_layers * model.local_kv_heads * sum(
                 t.element_size() * t.shape[-1] if t.dim() == 4
                 else t.element_size() for t in pools[0].values())
 
@@ -707,7 +745,7 @@ class DecodeEngine:
                       and model.decode_attention == "fused"
                       and not model.window)
             return (model.n_layers * _odevice.attention_core_flops(
-                1, model.n_heads, 1, model.head_dim, kv_len=1,
+                1, model.local_heads, 1, model.head_dim, kv_len=1,
                 n_backward=0) if kernel else 0.0)
 
         return {
@@ -720,6 +758,21 @@ class DecodeEngine:
                 + kv_pos(m, self.pools)),
             "attention_flops_per_position": (k + 1) * (core(d) + core(m)),
         }
+
+    @contextlib.contextmanager
+    def _local_only(self):
+        """The cost models' eager step runs on whichever rank publishes
+        its gauges, alone: its collectives keep to this rank (see
+        ``models.transformer._TensorParallel``)."""
+        tps = [m.tp for m in (self.model, self.draft_model)
+               if m is not None and m.tp is not None]
+        for tp in tps:
+            tp.local = True
+        try:
+            yield
+        finally:
+            for tp in tps:
+                tp.local = False
 
     # ----------------------------------------------------- prefix sharing
     def _all_pools(self):

@@ -137,7 +137,9 @@ class PagedKVPool:
                  device=None):
         if block_len < 1:
             raise ValueError(f"block_len must be >= 1, got {block_len}")
-        kvh = model.n_kv_heads or model.n_heads
+        # A tensor-parallel model's rank holds KH / M heads of every
+        # block (the JAX package's kv-head-major pool placement).
+        kvh = model.local_kv_heads
         dh = model.d_model // model.n_heads
         kvd = model.kv_dtype if model.kv_dtype is not None else model.dtype
         dev = torch.device(device) if device is not None else model.device

@@ -253,9 +253,42 @@ class _Clock:
             self._skew += delta
 
 
+class _AgreedClock:
+    """The clock of model rank 0 on every model rank of a
+    tensor-parallel engine: each rank runs its own scheduler over the
+    same requests, and their decisions (admission, deadlines, eviction,
+    block allocation) must come out the same or the ranks' collectives
+    pair the wrong layers.  ``latch()`` (each tick, every rank) reads rank
+    0's ``inner`` clock once and hands it to all (one object broadcast);
+    ``now()`` returns the latched time."""
+
+    def __init__(self, inner, comm):
+        self.inner, self.comm = inner, comm
+        self._now = 0.0
+        self.latch()
+
+    def latch(self) -> float:
+        t = self.inner.now() if self.comm.rank == 0 else None
+        self._now = float(self.comm.bcast_obj(t, root=0))
+        return self._now
+
+    def now(self) -> float:
+        return self._now
+
+    def skip_to(self, t: float) -> None:
+        self.inner.skip_to(t)
+        self.latch()
+
+
 class Scheduler:
     """Admission queue + iteration-level scheduling over a
-    :class:`~chainermn_tpu_torch.serving.engine.DecodeEngine`."""
+    :class:`~chainermn_tpu_torch.serving.engine.DecodeEngine`.
+
+    Over a tensor-parallel engine of several model ranks (``engine.mesh``)
+    every rank runs a scheduler over the same requests, and every
+    decision reads rank 0's clock (:class:`_AgreedClock`), so the ranks'
+    host books stay equal.  The policy plane, whose prefill budget follows
+    each rank's own measured latencies, is refused there."""
 
     def __init__(self, engine, registry=None, clock: Optional[_Clock] = None,
                  slo=None, timeline=None, memory=None, incidents=None,
@@ -263,6 +296,15 @@ class Scheduler:
                  ledger=None, policy=None):
         self.engine = engine
         self.clock = clock or _Clock()
+        mesh = getattr(engine, "mesh", None)
+        if mesh is not None and mesh.size > 1:
+            if policy is not None:
+                raise ValueError(
+                    "the policy plane budgets prefill from each rank's own "
+                    "measured latencies, so the model ranks of a "
+                    "tensor-parallel engine would decide apart: serve it "
+                    "without policy=")
+            self.clock = _AgreedClock(self.clock, mesh)
         self._queue: List[_QueueEntry] = []
         self._slots: List[Optional[_Slot]] = [None] * engine.capacity
         self._admit_seq = 0
@@ -1383,6 +1425,8 @@ class Scheduler:
         work at all).  :meth:`run` is a tick loop over one scheduler;
         the router interleaves ticks across replicas on a shared clock."""
         progressed = False
+        if isinstance(self.clock, _AgreedClock):
+            self.clock.latch()
         if self._cancel_deadlines():
             progressed = True
         while self._try_admit():

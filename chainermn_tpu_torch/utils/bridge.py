@@ -721,3 +721,151 @@ def flax_shapes(model: torch.nn.Module, to_flax: Callable
                 f"(out, in) weight {tuple(p.shape)} into {leaf.shape} "
                 "without transposing it")
     return out
+
+
+# ------------------------------------------------------ tensor parallel
+def tp_params_from_flax(params: Dict, rank: int, n_model: int,
+                        device=None) -> Dict[str, torch.Tensor]:
+    """Model rank ``rank``'s part (of ``n_model``) of a ``TransformerLM``'s
+    Flax parameters: :func:`params_from_flax` cut as
+    :func:`~chainermn_tpu_torch.serving.sharding.param_spec` says (the
+    JAX ``param_spec`` shard of each leaf, an indivisible one whole).
+    Load it into a model built with ``tp=``."""
+    from chainermn_tpu_torch.serving.sharding import param_spec, shard_leaf
+
+    full = params_from_flax(params, device)
+    return {n: shard_leaf(t, param_spec(n, t), rank, n_model)
+            for n, t in full.items()}
+
+
+# ------------------------------------------------- the ZeRO state, flat
+def flax_leaf_paths(tree: Dict, path=()):
+    """``(path, leaf)`` of a nested dict in JAX's tree order (keys
+    sorted): the order of the JAX ZeRO tier's flat leaves."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from flax_leaf_paths(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _set(tree: Dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def zero_logical_from_jax(params, template: Dict, to_port: Callable,
+                          opt_state: Dict = None, step: int = 0) -> Dict:
+    """The port's logical ZeRO view
+    (:meth:`~chainermn_tpu_torch.optimizers.ZeroMultiNodeOptimizer.
+    load_logical`) from the JAX ``ZeroTrainState``'s arrays: ``params``
+    is its ``flat_params`` (flat leaves in JAX tree order of
+    ``template``, the Flax parameter tree of numpy arrays, padded for any
+    rank count); ``opt_state`` maps the port optimizer's state names to
+    the JAX state's flat leaves (``{"exp_avg": mu, "exp_avg_sq": nu}``
+    for Adam, ``{"momentum_buffer": trace}`` for momentum) or to a scalar
+    (``{"step": count}``); ``step`` is the train step.  ``to_port`` maps
+    a Flax tree to ``{name: tensor}`` (:func:`mlp_params_from_flax`,
+    ...)."""
+    paths = list(flax_leaf_paths(template))
+
+    def logical(leaves):
+        tree: Dict = {}
+        for (path, t), v in zip(paths, leaves):
+            shape = np.shape(t)
+            _set(tree, path, np.asarray(v).reshape(-1)[:int(np.prod(
+                shape))].reshape(shape))
+        return to_port(tree)
+
+    tensors = logical(params)
+    opt = {n: {} for n in tensors}
+    for key, v in (opt_state or {}).items():
+        if isinstance(v, (list, tuple)):
+            for n, t in logical(v).items():
+                opt[n][key] = t
+        else:
+            for n in opt:
+                opt[n][key] = torch.tensor(float(np.asarray(v)))
+    return {"step": int(step), "params": tensors, "opt": opt}
+
+
+def zero_logical_to_jax(logical: Dict, to_flax: Callable, n: int) -> Dict:
+    """The inverse of :func:`zero_logical_from_jax`: ``{"step", "params":
+    [flat leaves padded to a multiple of n], "opt": {name: [...] or a
+    scalar}}`` in JAX tree order (``to_flax``: :func:`mlp_params_to_flax`,
+    ...)."""
+    def flat(tensors):
+        out = []
+        for _, leaf in flax_leaf_paths(to_flax(tensors)):
+            v = np.asarray(leaf).reshape(-1)
+            out.append(np.pad(v, (0, -v.size % n)))
+        return out
+
+    names = list(logical["params"])
+    opt = {}
+    for key in sorted({k for e in logical["opt"].values() for k in e}):
+        vals = {nm: logical["opt"][nm][key] for nm in names}
+        first = vals[names[0]]
+        opt[key] = float(first) if first.dim() == 0 else flat(vals)
+    return {"step": int(logical["step"]),
+            "params": flat(logical["params"]), "opt": opt}
+
+
+# -------------------------------------------------- convnets and DCGAN
+def channel_parallel_params_from_flax(params: Dict, device=None) -> Dict:
+    """The port's channel-parallel convnet tree from the JAX one (numpy
+    leaves, full or one rank's shard): conv kernels HWIO ``(3, 3, Cin,
+    Cout)`` -> OIHW ``(Cout, Cin, 3, 3)``; biases and the head as they
+    are."""
+    dev = resolve_device(device, "channel_parallel_params_from_flax")
+    return {"convs": [(_tensor(np.asarray(k).transpose(3, 2, 0, 1), dev),
+                       _tensor(b, dev)) for k, b in params["convs"]],
+            "head": {"w": _tensor(params["head"]["w"], dev),
+                     "b": _tensor(params["head"]["b"], dev)}}
+
+
+def channel_parallel_params_to_flax(tree: Dict) -> Dict:
+    """The inverse of :func:`channel_parallel_params_from_flax`, for
+    parameters or gradients."""
+    return {"convs": [(_np(k).transpose(2, 3, 1, 0), _np(b))
+                      for k, b in tree["convs"]],
+            "head": {"w": _np(tree["head"]["w"]),
+                     "b": _np(tree["head"]["b"])}}
+
+
+#: Flax module names -> the port's, for the two DCGAN players.
+_GEN_NAMES = {"project": "project", "LayerNorm_0": "ln0", "up0": "up0",
+              "LayerNorm_1": "ln1", "up1": "up1", "LayerNorm_2": "ln2",
+              "to_img": "to_img"}
+_DISC_NAMES = {"down0": "down0", "down1": "down1", "LayerNorm_0": "ln0",
+               "down2": "down2", "LayerNorm_1": "ln1", "head": "head"}
+
+
+def dcgan_params_from_flax(params: Dict, device=None
+                           ) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's DCGAN ``Generator`` (a tree with
+    ``project``) or ``Discriminator`` (with ``down0``) from the JAX one's
+    parameters: ``Dense`` kernels transposed, ``Conv`` kernels HWIO ->
+    OIHW, ``ConvTranspose`` kernels ``(kh, kw, in, out)`` -> torch's
+    ``(in, out, kh, kw)`` flipped in space (Flax's transposed convolution
+    does not flip its kernel, torch's does), LayerNorm ``scale`` ->
+    ``weight``."""
+    dev = resolve_device(device, "dcgan_params_from_flax")
+    names = _GEN_NAMES if "project" in params else _DISC_NAMES
+    out: Dict[str, torch.Tensor] = {}
+    for flax_name, p in params.items():
+        name = names[flax_name]
+        if "scale" in p:
+            _ln(out, name, p, dev)
+            continue
+        k = np.asarray(p["kernel"])
+        if k.ndim == 2:
+            w = k.T
+        elif name.startswith(("up", "to_img")):
+            w = k.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        else:
+            w = k.transpose(3, 2, 0, 1)
+        out[f"{name}.weight"] = _tensor(np.ascontiguousarray(w), dev)
+        out[f"{name}.bias"] = _tensor(p["bias"], dev)
+    return out

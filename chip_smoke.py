@@ -284,14 +284,36 @@ beside the four captured ones and the bare step eager in
    one process (``PLM_TOL``), then 3 SGD-momentum steps whose loss falls
    and is equal on every rank, K1-K3 launches per rank per step against
    the prediction) and ``dryrun_multichip`` (the twin of the JAX entry
-   through the launcher on 8 ranks).
+   through the launcher on 8 ranks, with its ZeRO program: an int8-wire
+   step, a bit-exact checkpoint round trip, one more step).
+20. Tensor-parallel serving, the ZeRO tier, the convnets and DCGAN:
+   ``tp_serving`` (the decode bench's model, ``DECODE``, on 16 requests
+   in 4 shared-prefix families: one model rank over NCCL in bf16, the
+   engine captured once with its all-reduces and all-gather inside the
+   graph, tokens and last-step logits bit-equal to the plain engine's;
+   then 2 ranks (and a speculative arm, a 1-layer draft, ``spec_k`` 4)
+   and 4 ranks with 4 kv heads, one local kv head each, sharing the card
+   over gloo in fp32: greedy tokens equal the one-rank engine's but for a
+   near-tie flip at or past generated position 8, equal on every rank,
+   K4's runs on the card per rank = steps x 12 (rounds x 17), decode-step
+   ms and the wire's share per rank; the parity phase holds K4/K5 at
+   these local-head shapes), ``zero`` (``LM`` in fp32 with flash and
+   remat under ZeRO AdamW on 4 gloo ranks against one process's
+   replicated AdamW on the same global batch: losses, parameters,
+   K1/K2/K3 per rank per step and in a profiled step, each rank's bytes
+   against a quarter of one process's; a one-rank NCCL ZeRO step
+   captured against eager, bitwise; the 4 ranks' checkpoint restored at
+   2 ranks by ``maybe_load_elastic`` for one more step) and
+   ``gan_convnet`` (the channel-parallel convnet and the DCGAN on 2 gloo
+   ranks for 3 SGD-momentum steps each, against one process).
 
 The launch counters are set to 0 just before each drive of the main path
-(phases 5, 5a, 5b, 6, 7a and the timed steps of 10, 11a and 14) and read
-just after it; the ``kernels`` line lists K4's launches in the serving
-drive, the speculative drive and each fleet phase, K5's in each decode
-phase and K1-K3's per step of each training phase
-(``launches_by_phase``).  A captured train step's replays run its kernels
+(phases 5, 5a, 5b, 6, 7a, the timed steps of 10, 11a and 14, and each
+rank's drive in 19-20) and read just after it; the ``kernels`` line
+lists K4's launches in the serving drive, the speculative drive, each
+fleet phase and each ``tp_serving`` arm (per rank), K5's in each decode
+phase and K1-K3's per step of each training phase, per rank in the
+multi-rank ones (``launches_by_phase``).  A captured train step's replays run its kernels
 without their wrappers: its launches are the wrappers' eager ones (the
 signature's first step and the capture's warm-ups) plus replays x what
 the capture recorded, and a profile of one replay must count the same
@@ -484,7 +506,7 @@ def run_fused(ops, a, plain=False):
 
 # ------------------------------------------------------------------ parity
 PAGED_CASES = [
-    # name, T, KH, Dh, q/kv dtype, int8 pools, atol
+    # name, T, KH, Dh, q/kv dtype, int8 pools, atol[, query heads H (12)]
     ("bf16", 1, 12, 64, torch.bfloat16, False, 2e-2),
     ("fp32", 1, 12, 64, torch.float32, False, 1e-4),
     ("bf16_verify4", 4, 12, 64, torch.bfloat16, False, 2e-2),
@@ -495,9 +517,19 @@ PAGED_CASES = [
     ("int8_dh16", 2, 6, 16, torch.float32, True, 1e-4),
     ("fp32_dh32", 3, 4, 32, torch.float32, False, 1e-4),
     ("bf16_dh128", 1, 12, 128, torch.bfloat16, False, 2e-2),
+    # One model rank's heads of a tensor-parallel engine (tp_serving):
+    # 12 heads over 2 ranks (6 local, G = 1), over 4 (3 local), and 4 kv
+    # heads over 4 ranks (one local kv head, G = 3); the speculative
+    # arm's verify chunk of k + 1 = 5.
+    ("tp2_local_bf16", 1, 6, 64, torch.bfloat16, False, 2e-2, 6),
+    ("tp2_local_fp32", 1, 6, 64, torch.float32, False, 1e-4, 6),
+    ("tp2_local_fp32_verify5", 5, 6, 64, torch.float32, False, 1e-4, 6),
+    ("tp4_local_fp32", 1, 3, 64, torch.float32, False, 1e-4, 3),
+    ("tp4_kh1_fp32", 1, 1, 64, torch.float32, False, 1e-4, 3),
+    ("tp4_kh1_bf16_verify5", 5, 1, 64, torch.bfloat16, False, 2e-2, 3),
 ]
 FUSED_CASES = [
-    # name, L, KH, Dh, dtype, int8 cache, atol
+    # name, L, KH, Dh, dtype, int8 cache, atol[, query heads H (12)]
     ("bf16", 192, 12, 64, torch.bfloat16, False, 2e-2),
     ("fp32", 192, 12, 64, torch.float32, False, 1e-4),
     ("int8_gqa", 192, 4, 64, torch.bfloat16, True, 2e-2),
@@ -506,6 +538,8 @@ FUSED_CASES = [
     ("fp32_dh16", 100, 6, 16, torch.float32, False, 1e-4),
     ("int8_dh32", 100, 4, 32, torch.float32, True, 1e-4),
     ("bf16_dh128", 300, 12, 128, torch.bfloat16, False, 2e-2),
+    ("tp2_local_fp32", 192, 6, 64, torch.float32, False, 1e-4, 6),
+    ("tp4_kh1_bf16", 192, 1, 64, torch.bfloat16, False, 2e-2, 3),
 ]
 #: the fused kernel at the shapes the searches give it (12 kv heads, Dh
 #: 64): a beam search's batch 8 x beam 4 = 32 rows at one length, and a
@@ -538,11 +572,12 @@ def phase_parity(ops, dev, seed, mb):
     largest error of each kernel over its main-path (bf16, 12 kv heads)
     case."""
     g = torch.Generator().manual_seed(seed)
-    S, H = ENGINE["capacity"], FULL["n_heads"]
+    S = ENGINE["capacity"]
     BL = ENGINE["block_len"]
     sms = ops._sm_count(dev)
     rows, main_err = [], {}
-    for name, T, KH, Dh, dt, quant, tol in PAGED_CASES:
+    for name, T, KH, Dh, dt, quant, tol, *heads in PAGED_CASES:
+        H = heads[0] if heads else FULL["n_heads"]
         hi = mb * BL - (T - 1)
         elt = 1 if quant else torch.tensor([], dtype=dt).element_size()
         splits, per, _ = ops._plan(mb * BL, S, KH, T * (H // KH), Dh * elt,
@@ -570,7 +605,8 @@ def phase_parity(ops, dev, seed, mb):
             if name == "bf16":
                 main_err["paged_decode_attention"] = max(
                     err, main_err.get("paged_decode_attention", 0.0))
-    for name, L, KH, Dh, dt, quant, tol in FUSED_CASES:
+    for name, L, KH, Dh, dt, quant, tol, *heads in FUSED_CASES:
+        H = heads[0] if heads else FULL["n_heads"]
         elt = 1 if quant else torch.tensor([], dtype=dt).element_size()
         splits, per, _ = ops._plan(L, S, KH, H // KH, Dh * elt, sms)
         for lens, valid in (("", [0, 1, 31, 32, 33, L // 2 + 1, L - 1,
@@ -588,6 +624,7 @@ def phase_parity(ops, dev, seed, mb):
             if name == "bf16":
                 main_err["fused_decode_attention"] = max(
                     err, main_err.get("fused_decode_attention", 0.0))
+    H = FULL["n_heads"]
     for name, rows_, L, valid in SEARCH_CASES:
         for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
             case = f"{name}_{'bf16' if dt == torch.bfloat16 else 'fp32'}"
@@ -6493,6 +6530,777 @@ def phase_parallel_lm(dev, card, seed):
 RANK_BODIES.update(pipe=pipe_rank, sp=sp_rank, plm=plm_rank)
 
 
+# ------------------------------------------- tensor-parallel serving (2b)
+#: ``tp_serving``: 16 requests in 4 families sharing a 32-token prefix (2
+#: full blocks of 16) with 4-12-token tails, 12 new tokens each, ordered
+#: member by member (the second wave of admissions maps the first's
+#: cached prefixes).  Kept short: over gloo every forward pays ~25
+#: staged collectives and the ranks' turns on the shared card.
+TP_FAMILIES, TP_PER_FAMILY, TP_PREFIX, TP_NEW = 4, 4, 32, 12
+#: the speculative arm: a 1-layer draft, 4 proposals per round.
+TP_SPEC_K, TP_DRAFT_LAYERS = 4, 1
+#: a flip between the tensor-parallel and the one-rank engine (fp32) is
+#: a near-tie only at or past this generated position
+#: (``tests/torch_fleet_common.assert_greedy_agreement``'s rule).
+TP_MIN_FIRST_DIVERGENCE = 8
+TP_NOTE = ("model ranks share one card over gloo, each wire message "
+           "staged through pinned host memory: the path and its "
+           "arithmetic, not a scaling figure")
+
+
+def tp_requests(seed):
+    from chainermn_tpu_torch.serving import Request
+
+    rng = np.random.RandomState(seed + 41)
+    prefixes = [rng.randint(1, DECODE["vocab"], size=TP_PREFIX).tolist()
+                for _ in range(TP_FAMILIES)]
+    reqs = []
+    for j in range(TP_PER_FAMILY):
+        for f in range(TP_FAMILIES):
+            tail = rng.randint(1, DECODE["vocab"],
+                               size=int(rng.randint(4, 13))).tolist()
+            reqs.append(Request(id=len(reqs), prompt=prefixes[f] + tail,
+                                max_new_tokens=TP_NEW))
+    return reqs
+
+
+def greedy_agreement(got, want):
+    """``(rows equal, sorted first divergences of the others)`` of two
+    runs' tokens by request id."""
+    firsts = first_divergences(got, want)
+    div = sorted(d for d in firsts.values() if d is not None)
+    return len(firsts) - len(div), div
+
+
+def tp_engine_kw(reqs):
+    num_blocks, max_blocks = engine_geometry(reqs)
+    return dict(num_blocks=num_blocks, max_blocks_per_slot=max_blocks,
+                **ENGINE)
+
+
+def tp_rank(out: str, device: str) -> None:
+    """One model rank of ``tp_serving`` (``CMN_TP_M`` ranks sharing the
+    card over gloo, fp32, ``CMN_TP_KV`` kv heads): the one-rank engine's
+    tokens, then the tensor-parallel engine's on the same requests (a
+    speculative arm too at 2 ranks), the decode kernel's runs on the card
+    for this rank, the decode-step ms and the wire's share."""
+    import pickle
+
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.ops import decode_attention as ops
+    from chainermn_tpu_torch.serving import DecodeEngine, Scheduler
+    from chainermn_tpu_torch.serving.sharding import serving_mesh
+
+    dev = torch.device(device)
+    _fp32_exact()
+    seed = int(os.environ.get("CMN_SMOKE_SEED", "0"))
+    M, kv = int(os.environ["CMN_TP_M"]), int(os.environ["CMN_TP_KV"])
+    comm = create_communicator("naive", device=dev)
+    mesh = serving_mesh(M, comm)
+    reqs = tp_requests(seed)
+    kw = tp_engine_kw(reqs)
+    model = TransformerLM(**DECODE, n_kv_heads=kv, dtype=torch.float32,
+                          device=dev, seed=seed)
+    arms = {"plain": {}}
+    if M == 2:
+        draft = TransformerLM(**{**DECODE, "n_layers": TP_DRAFT_LAYERS},
+                              n_kv_heads=kv, dtype=torch.float32,
+                              device=dev, seed=seed + 1)
+        arms["spec"] = dict(draft_model=draft, spec_k=TP_SPEC_K)
+    res = {"rank": comm.rank, "M": M, "kv_heads": model.kv_heads}
+    for arm, extra in arms.items():
+        one = DecodeEngine(model, **kw, **extra, device=dev)
+        want = {c.id: c.tokens for c in Scheduler(one).run(reqs)}
+        one.release()
+        # The ranks run with the planes off (``CMN_OBS=0``): no cost model
+        # steps beside the drive's, whose K4 runs are counted.
+        eng = DecodeEngine(model, **kw, **extra, mesh=mesh)
+        box = {"s": 0.0}
+        time_wire([mesh], dev, box, ("allreduce", "allgather", "bcast_obj"))
+        sched = Scheduler(eng)
+        _sync(dev)
+        ops.paged_decode_attention.launches = 0
+        ops.zero_kernel_runs(dev)
+        t0 = time.perf_counter()
+        comps = sched.run(reqs)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        got = {c.id: c.tokens for c in comps}
+        res[arm] = dict(
+            tokens=got, want=want, wall_s=wall, wire_share=box["s"] / wall,
+            iterations=sched.decode_iterations,
+            decode_ms=sched.decode_ms_total / max(sched.decode_iterations,
+                                                  1),
+            hits=sched.prefix_hit_tokens,
+            runs=ops.kernel_runs(dev)["paged_decode_attention"],
+            wrapper=ops.paged_decode_attention.launches,
+            captured=bool(eng._graphs or eng._spec_graphs),
+            pool_heads=int(eng.pools[0]["k"].shape[0]),
+            accepted=getattr(sched, "spec_accepted", 0),
+            proposed=getattr(sched, "spec_proposed", 0))
+        eng.release()
+    with open(os.path.join(out, f"tp.rank{comm.rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    comm.barrier()
+
+
+def tp_k4_per_step(arm):
+    """K4 launches per decode step (12 layers) or per speculative round
+    (the draft's ``k + 1`` steps of its layers, then the 12-layer
+    verify)."""
+    n = DECODE["n_layers"]
+    return n + (TP_SPEC_K + 1) * TP_DRAFT_LAYERS if arm == "spec" else n
+
+
+def tp_one_rank_nccl(ops, dev, seed, reqs, kw):
+    """The plain engine and the tensor-parallel one on a one-rank NCCL
+    communicator (bf16), each warmed, on ``reqs``: the row of
+    ``tp_serving``'s ``nccl_one_rank``."""
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.serving import DecodeEngine, Scheduler
+
+    comm = create_communicator("xla", device=dev)
+    check(comm.capturable, "tp_serving: the one-rank communicator is not "
+          "NCCL")
+    model = TransformerLM(**DECODE, device=dev, seed=seed)
+    runs = {}
+    for name, extra in (("plain", dict(device=dev)), ("tp1", dict(
+            mesh=comm))):
+        eng = DecodeEngine(model, **kw, **extra)
+        warm_engine(eng, seed)
+        sched = Scheduler(eng)
+        replays0 = eng.decode_replays
+        _sync(dev)
+        ops.paged_decode_attention.launches = 0
+        ops.zero_kernel_runs(dev)
+        comps = sched.run(reqs)
+        _sync(dev)
+        graph = next(iter(eng._graphs.values()))
+        runs[name] = dict(
+            eng=eng, tokens={c.id: c.tokens for c in comps},
+            iterations=sched.decode_iterations,
+            replays=eng.decode_replays - replays0,
+            k4=ops.kernel_runs(dev)["paged_decode_attention"],
+            wrapper=ops.paged_decode_attention.launches,
+            logits=graph.out[0].clone(), hits=sched.prefix_hit_tokens,
+            decode_ms=sched.decode_ms_total / max(sched.decode_iterations,
+                                                  1))
+    tp1, plain = runs["tp1"], runs["plain"]
+    eng = tp1["eng"]
+    row = dict(
+        ranks=1, backend="nccl", dtype="bfloat16", captured=eng.capture,
+        decode_captures=eng.decode_compiles, graphs=len(eng._graphs),
+        prefill_captures=eng.prefill_compiles,
+        tokens_equal=tp1["tokens"] == plain["tokens"],
+        logits_bit_equal=bool(torch.equal(tp1["logits"], plain["logits"])),
+        decode_steps=tp1["iterations"], replays=tp1["replays"],
+        k4_runs=tp1["k4"], k4_wrapper=tp1["wrapper"],
+        prefix_hit_tokens=tp1["hits"],
+        decode_step_ms=tp1["decode_ms"],
+        plain_decode_step_ms=plain["decode_ms"])
+    for r in runs.values():
+        r.pop("eng").release()
+    del model
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_tp_serving(ops, dev, card, seed):
+    """Item 2b on the card.  One model rank over NCCL in this process
+    (bf16, the decode bench's model): the tensor-parallel engine captures
+    one decode graph with its all-reduces and all-gather inside, and its
+    tokens and last-step logits are bit-equal to the plain engine's.
+    Then 2 ranks (a speculative arm beside) and 4 ranks with 4 kv heads
+    (one local kv head each) sharing the card over gloo in fp32: greedy
+    tokens equal the one-rank engine's up to a late near-tie flip, equal
+    on every rank; K4's runs on the card per rank = steps x 12 (rounds x
+    17 speculative)."""
+    import tempfile
+
+    reqs = tp_requests(seed)
+    row1 = tp_one_rank_nccl(ops, dev, seed, reqs, tp_engine_kw(reqs))
+    ranks = {}
+    out = tempfile.mkdtemp(prefix="cmn_tp_")
+    for M, kv in ((2, 0), (4, 4)):
+        launch_ranks(M, [os.path.abspath(__file__), "--rank-body", "tp",
+                         out, "--rank-device", str(dev)],
+                     f"tp_serving M={M}",
+                     env={"CMN_SMOKE_SEED": str(seed), "CMN_TP_M": str(M),
+                          "CMN_TP_KV": str(kv), "CMN_OBS": "0"})
+        ranks[M] = rank_results(out, "tp", M)
+    rows = {}
+    for M, rs in ranks.items():
+        for arm in rs[0]:
+            if arm not in ("plain", "spec"):
+                continue
+            a = [r[arm] for r in rs]
+            exact, div = greedy_agreement(a[0]["tokens"], a[0]["want"])
+            rows[f"M{M}_{arm}"] = dict(
+                ranks=M, kv_heads=rs[0]["kv_heads"], dtype="float32",
+                local_kv_heads=a[0]["pool_heads"],
+                rows_exact=exact, first_divergences=div,
+                equal_on_every_rank=all(x["tokens"] == a[0]["tokens"]
+                                        for x in a),
+                decode_steps=a[0]["iterations"],
+                k4_runs_per_rank=[x["runs"] for x in a],
+                k4_predicted=a[0]["iterations"] * tp_k4_per_step(arm),
+                k4_wrapper_per_rank=[x["wrapper"] for x in a],
+                decode_step_ms_per_rank=[x["decode_ms"] for x in a],
+                wire_share_per_rank=[x["wire_share"] for x in a],
+                wall_s_per_rank=[x["wall_s"] for x in a],
+                prefix_hit_tokens=a[0]["hits"],
+                accepted=a[0]["accepted"], proposed=a[0]["proposed"],
+                captured=any(x["captured"] for x in a))
+    row = dict(phase="tp_serving", card=card,
+               config=f"{DECODE}, {len(reqs)} requests ({TP_FAMILIES} "
+               f"families sharing a {TP_PREFIX}-token prefix), "
+               f"{TP_NEW} new each, engine {ENGINE}",
+               nccl_one_rank=row1, gloo=rows, note=TP_NOTE)
+    emit(row)
+    check(row1["captured"] and row1["decode_captures"] == 1
+          and row1["graphs"] == 1,
+          f"tp_serving M=1: {row1['decode_captures']} captures")
+    check(row1["tokens_equal"] and row1["logits_bit_equal"],
+          "tp_serving M=1: tokens or last-step logits differ from the "
+          "plain engine's")
+    check(row1["k4_runs"] == row1["k4_wrapper"] + row1["replays"] *
+          DECODE["n_layers"] and row1["replays"] == row1["decode_steps"],
+          f"tp_serving M=1: K4 ran {row1['k4_runs']} times for "
+          f"{row1['replays']} replays")
+    for name, r in rows.items():
+        check(r["prefix_hit_tokens"] > 0, f"tp_serving {name}: no prefix "
+              "hit")
+        check(r["equal_on_every_rank"], f"tp_serving {name}: ranks emitted "
+              "different tokens")
+        check(all(d >= TP_MIN_FIRST_DIVERGENCE
+                  for d in r["first_divergences"]),
+              f"tp_serving {name}: first divergences "
+              f"{r['first_divergences']} against the one-rank engine")
+        check(all(k == r["k4_predicted"] for k in r["k4_runs_per_rank"])
+              and r["k4_runs_per_rank"] == r["k4_wrapper_per_rank"],
+              f"tp_serving {name}: K4 ran {r['k4_runs_per_rank']} times "
+              f"per rank (wrappers {r['k4_wrapper_per_rank']}), predicted "
+              f"{r['k4_predicted']}")
+        check(not r["captured"], f"tp_serving {name}: a gloo engine "
+              "captured")
+    check(rows["M4_plain"]["local_kv_heads"] == 1,
+          "tp_serving M=4: not one kv head per rank")
+    return row
+
+
+# ------------------------------------------------------ ZeRO (item 11)
+#: ``zero``: the LM benchmark's model (``LM``) in fp32 (TF32 off) with
+#: flash attention and remat, AdamW 3e-4 (weight decay 0.01), the global
+#: batch ``LM_BATCH`` x 2048 split over the ranks.
+ZERO_RANKS, ZERO_STEPS, ZERO_ELASTIC_RANKS = 4, 3, 2
+ZERO_LR, ZERO_WD = 3e-4, 0.01
+#: against one process's replicated AdamW on the same global batch: the
+#: losses within rtol 1e-5; the parameters within the JAX ZeRO test's
+#: atol 3e-5 + rtol 3e-5 after 3 steps, and within the JAX elastic
+#: test's 5e-5 after the elastic restore's step, but for the elements
+#: whose gradient the sums' rounding noise drowns, which Adam moves by
+#: up to 2 x lr per step either way: the key biases
+#: (:func:`zero_key_bias`) and at most a millionth of the rest
+#: (``flip_share``; the count and their largest difference reported).
+ZERO_TOL = dict(loss_rtol=1e-5, param=3e-5, elastic=5e-5, flip_share=1e-6)
+
+
+def zero_k13():
+    """K1/K2/K3 launches per step: the forward's and remat's recompute
+    per layer, then one dK/dV and one dQ per layer."""
+    n = LM["n_layers"]
+    return {FLASH[0]: 2 * n, FLASH[1]: n, FLASH[2]: n}
+
+
+def zero_lm(dev, seed):
+    from chainermn_tpu_torch.models import TransformerLM
+
+    return TransformerLM(**LM, dtype=torch.float32, attention="flash",
+                         remat=True, device=dev, seed=seed)
+
+
+def zero_batch(seed):
+    rng = np.random.RandomState(seed + 61)
+    tokens = rng.randint(0, LM["vocab"], size=(LM_BATCH, LM["max_len"]))
+    targets = np.concatenate([tokens[:, 1:], np.full((LM_BATCH, 1), -1)],
+                             axis=1)
+    return tokens.astype(np.int64), targets.astype(np.int64)
+
+
+def zero_bytes(state):
+    """Bytes a rank keeps as its own: the parameters (ZeRO: its shards)
+    and the optimizer's state."""
+    params = state.flat_params if hasattr(state, "flat_params") \
+        else list(state.model.parameters())
+    tensors = [p.detach() for p in params]
+    for st in state.optimizer.state.values():
+        tensors += [v for v in st.values() if isinstance(v, torch.Tensor)]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def zero_key_bias(name):
+    """The slice of a fused ``qkv`` bias that adds to the keys: the same
+    constant on every score of a query, which the softmax cancels, so
+    its gradient is 0 in exact arithmetic and only rounding noise
+    remains, which Adam normalizes to steps of about the learning rate
+    whatever its size."""
+    if not name.endswith("qkv.bias"):
+        return None
+    hd = LM["d_model"]
+    return slice(hd, 2 * hd)
+
+
+def zero_param_check(got, want, tol):
+    """The parameters of two AdamW runs whose gradients were summed in
+    other orders: ``(worst excess, its leaf, elements past tol, their
+    largest |diff|, the key biases' largest |diff|, elements)``, the
+    excess ``|got - want| - tol (1 + |want|)`` over every element but the
+    key biases (:func:`zero_key_bias`).  An element whose true gradient
+    is below the sums' rounding noise takes an Adam step of about the
+    learning rate in either direction, so a few elements of a large
+    model land past any tolerance tighter than ``2 lr`` per step."""
+    worst, where, flips, flip_max, kb, n = -np.inf, None, 0, 0.0, 0.0, 0
+    for k, w in want.items():
+        d = (got[k].float().to(w.device) - w).abs()
+        cut = zero_key_bias(k)
+        if cut is not None:
+            kb = max(kb, float(d[cut].max()))
+            d[cut] = 0
+        ex = d - tol * (1 + w.abs())
+        e = float(ex.max())
+        if e > worst:
+            worst, where = e, k
+        past = ex > 0
+        flips += int(past.sum())
+        if past.any():
+            flip_max = max(flip_max, float(d[past].max()))
+        n += w.numel()
+    return worst, where, flips, flip_max, kb, n
+
+
+def zero_rank(out: str, device: str) -> None:
+    """One rank of ``zero`` (``CMN_ZERO_PHASE`` ``train``: 4 ranks, 3
+    steps, the last one profiled, then a checkpoint; ``elastic``: 2
+    ranks restore it and take one more step)."""
+    import importlib
+    import pickle
+
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+    from chainermn_tpu_torch.models import lm_loss
+    from chainermn_tpu_torch.optimizers import adamw, create_zero_optimizer
+
+    fa = importlib.import_module("chainermn_tpu_torch.ops.flash_attention")
+    dev = torch.device(device)
+    _fp32_exact()
+    seed = int(os.environ.get("CMN_SMOKE_SEED", "0"))
+    phase = os.environ["CMN_ZERO_PHASE"]
+    comm = create_communicator("naive", device=dev)
+    n, r = comm.size, comm.rank
+    tokens, targets = zero_batch(seed)
+    b = LM_BATCH // n
+    batch = (torch.as_tensor(tokens[r * b:(r + 1) * b], device=dev),
+             torch.as_tensor(targets[r * b:(r + 1) * b], device=dev))
+    model = zero_lm(dev, seed if phase == "train" else seed + 7)
+    opt = create_zero_optimizer(adamw(ZERO_LR, weight_decay=ZERO_WD), comm)
+    ckpt = create_multi_node_checkpointer("zero", comm, path=out,
+                                          async_save=False)
+    loss_fn = lm_loss(model)
+    res = {"rank": r, "losses": [], "step_ms": [], "launches": []}
+    if phase == "train":
+        state = opt.init(model)
+        steps = ZERO_STEPS
+    else:
+        state, _ = ckpt.maybe_load_elastic(opt, model)
+        res["restored_step"] = state.step
+        res["restore_s"] = ckpt.last_restore["seconds"]
+        steps = 1
+    step = opt.make_train_step(loss_fn, has_aux=True)
+    for i in range(steps):
+        reset_flash(fa)
+        if phase == "train" and i == steps - 1:
+            trace, counts = traced_step("zero", None, step, state, batch,
+                                        zero_k13())
+            res["losses"].append(trace["loss"])
+            res["profiled"] = counts
+            res["step_ms"].append(trace["wall_ms"])
+            res["busy_share"] = trace["busy_share"]
+        else:
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            res["losses"].append(float(met["loss"]))
+            _sync(dev)
+            res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        res["launches"].append(flash_launches(fa))
+    res["bytes"] = zero_bytes(state)
+    res["padding"] = sum(s.padded - s.size for s in opt.specs)
+    res["leaves"] = len(opt.specs)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(dev) \
+        if dev.type == "cuda" else None
+    if phase == "train":
+        ckpt.save(state)
+    got = opt.materialize_params(state)
+    if r == 0:
+        want = torch.load(os.path.join(out, f"ref_{phase}.pt"),
+                          map_location=dev, weights_only=True)
+        tol = ZERO_TOL["param" if phase == "train" else "elastic"]
+        (res["param_excess"], res["param_worst"], res["flips"],
+         res["flip_max"], res["key_bias"], res["elements"]) = \
+            zero_param_check(got, want, tol)
+        del want
+    with open(os.path.join(out, f"zero_{phase}.rank{r}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    comm.barrier()
+
+
+def zero_reference(dev, seed, out):
+    """One process's replicated AdamW on the whole batch: ``ZERO_STEPS``
+    + 1 steps; the parameters after the last two saved for the ranks.
+    Returns the losses and the bytes one process keeps."""
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.models import lm_loss
+    from chainermn_tpu_torch.optimizers import (
+        adamw,
+        create_multi_node_optimizer,
+    )
+
+    tokens, targets = zero_batch(seed)
+    batch = (torch.as_tensor(tokens, device=dev),
+             torch.as_tensor(targets, device=dev))
+    model = zero_lm(dev, seed)
+    opt = create_multi_node_optimizer(adamw(ZERO_LR, weight_decay=ZERO_WD),
+                                      create_communicator("xla", device=dev))
+    state = opt.init(model)
+    step = opt.make_train_step(lm_loss(model), has_aux=True, capture=False)
+    losses = []
+    for i in range(ZERO_STEPS + 1):
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        if i >= ZERO_STEPS - 1:
+            name = "train" if i == ZERO_STEPS - 1 else "elastic"
+            torch.save({k: p.detach() for k, p in model.named_parameters()},
+                       os.path.join(out, f"ref_{name}.pt"))
+    one_bytes = zero_bytes(state)
+    del state, model, step
+    torch.cuda.empty_cache()
+    return losses, one_bytes
+
+
+def zero_capture_pair(dev, seed):
+    """A one-rank NCCL ZeRO step captured (its all-gather and
+    reduce-scatter inside the graph) against the same step eager, from
+    the same weights, over ``ZERO_STEPS`` steps: losses and parameters
+    bit-equal."""
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.models import lm_loss
+    from chainermn_tpu_torch.optimizers import adamw, create_zero_optimizer
+
+    tokens, targets = zero_batch(seed)
+    batch = (torch.as_tensor(tokens[:2], device=dev),
+             torch.as_tensor(targets[:2], device=dev))
+    comm = create_communicator("xla", device=dev)
+    outs = {}
+    for capture in (True, False):
+        model = zero_lm(dev, seed)
+        opt = create_zero_optimizer(adamw(ZERO_LR, weight_decay=ZERO_WD),
+                                    comm)
+        state = opt.init(model)
+        step = opt.make_train_step(lm_loss(model), has_aux=True,
+                                   capture=capture)
+        losses = [float(step(state, batch)[1]["loss"])
+                  for _ in range(ZERO_STEPS)]
+        outs[capture] = (losses, {k: v.cpu() for k, v in
+                                  opt.materialize_params(state).items()},
+                         len(step.graphs), step.program.replays)
+        step.release()
+        del state, model, opt, step
+        torch.cuda.empty_cache()
+    (lc, pc, graphs, replays), (le, pe, _, _) = outs[True], outs[False]
+    worst = max(float((pc[k] - pe[k]).abs().max()) for k in pc)
+    return dict(losses_captured=lc, losses_eager=le, max_param_diff=worst,
+                graphs=graphs, replays=replays,
+                bit_equal=lc == le and worst == 0.0)
+
+
+def phase_zero(dev, card, seed):
+    """Item 11 on the card: ZeRO over 4 ranks sharing the card (gloo)
+    against one process's replicated AdamW on the same global batch (the
+    LM bench's model in fp32), the ranks' bytes, K1-K3 per rank per step
+    in a profiled step; a one-rank NCCL ZeRO step captured against
+    eager; and the 4-rank checkpoint restored at 2 ranks
+    (``maybe_load_elastic``) for one more step."""
+    import shutil
+    import tempfile
+
+    _fp32_exact()
+    out = tempfile.mkdtemp(prefix="cmn_zero_")
+    ref_losses, one_bytes = zero_reference(dev, seed, out)
+    pair = zero_capture_pair(dev, seed)
+    times = {}
+    rows = {}
+    for phase, n in (("train", ZERO_RANKS), ("elastic", ZERO_ELASTIC_RANKS)):
+        times[phase] = launch_ranks(
+            n, [os.path.abspath(__file__), "--rank-body", "zero", out,
+                "--rank-device", str(dev)], f"zero {phase}",
+            env={"CMN_SMOKE_SEED": str(seed), "CMN_ZERO_PHASE": phase})
+        rows[phase] = rank_results(out, f"zero_{phase}", n)
+    shutil.rmtree(out, ignore_errors=True)
+    train, elastic = rows["train"], rows["elastic"]
+    loss_err = max(abs(a - b) / abs(b) for rk in train
+                   for a, b in zip(rk["losses"], ref_losses))
+    elastic_loss_err = abs(elastic[0]["losses"][0] - ref_losses[-1]) \
+        / abs(ref_losses[-1])
+    quarter = [(rk["bytes"] * ZERO_RANKS - one_bytes) for rk in train]
+    row = dict(
+        phase="zero", card=card,
+        config=f"{LM}, fp32 (TF32 off), flash, remat, batch {LM_BATCH} x "
+        f"{LM['max_len']} over {ZERO_RANKS} ranks, AdamW {ZERO_LR} "
+        f"weight decay {ZERO_WD}",
+        ranks=ZERO_RANKS, wire="gloo (naive), host-staged",
+        losses_replicated=ref_losses,
+        losses_per_rank=[rk["losses"] for rk in train],
+        loss_rel_err=loss_err,
+        param_excess_3_steps=train[0]["param_excess"],
+        param_worst=train[0]["param_worst"],
+        elements_past_tol=train[0]["flips"],
+        elements_past_tol_max_abs_diff=train[0]["flip_max"],
+        elements=train[0]["elements"],
+        key_bias_max_abs_diff=train[0]["key_bias"],
+        launches_per_rank_per_step=[rk["launches"] for rk in train],
+        profiled_step_per_rank=[rk["profiled"] for rk in train],
+        step_ms_per_rank=[rk["step_ms"] for rk in train],
+        busy_share_per_rank=[rk["busy_share"] for rk in train],
+        bytes_per_rank=[rk["bytes"] for rk in train],
+        bytes_one_process=one_bytes,
+        padding_elements=train[0]["padding"], leaves=train[0]["leaves"],
+        quarter_excess_bytes=quarter,
+        peak_bytes_per_rank=[rk["peak_bytes"] for rk in train],
+        capture_one_rank_nccl=pair,
+        elastic=dict(ranks=ZERO_ELASTIC_RANKS,
+                     restored_step=elastic[0]["restored_step"],
+                     restore_s=[rk["restore_s"] for rk in elastic],
+                     loss=elastic[0]["losses"][0],
+                     loss_replicated=ref_losses[-1],
+                     loss_rel_err=elastic_loss_err,
+                     param_excess=elastic[0]["param_excess"],
+                     param_worst=elastic[0]["param_worst"],
+                     elements_past_tol=elastic[0]["flips"],
+                     elements_past_tol_max_abs_diff=elastic[0]["flip_max"],
+                     key_bias_max_abs_diff=elastic[0]["key_bias"],
+                     step_ms=[rk["step_ms"] for rk in elastic]),
+        launch_s=times, tol=ZERO_TOL, note=MP_NOTE.replace("4 ranks",
+                                                           "the ranks"))
+    emit(row)
+    check(loss_err <= ZERO_TOL["loss_rtol"],
+          f"zero: losses {row['losses_per_rank'][0]} vs {ref_losses}")
+    # Adam's steps bound what rounding noise can move an element whose
+    # gradient it drowns: the key biases, and at most a millionth of the
+    # rest.
+    for name, rk, steps in (("zero", train[0], ZERO_STEPS),
+                            ("zero elastic", elastic[0], ZERO_STEPS + 1)):
+        bound = 2 * ZERO_LR * steps
+        check(rk["flips"] <= ZERO_TOL["flip_share"] * rk["elements"]
+              and rk["flip_max"] <= bound and rk["key_bias"] <= bound,
+              f"{name}: {rk['flips']} of {rk['elements']} parameters past "
+              f"the tolerance (worst excess {rk['param_excess']} in "
+              f"{rk['param_worst']}), up to {rk['flip_max']}; key biases "
+              f"{rk['key_bias']} apart; Adam's bound {bound}")
+    for rk in train:
+        check(all(lc == zero_k13() for lc in rk["launches"])
+              and rk["profiled"] == zero_k13(),
+              f"zero: rank {rk['rank']} K1-K3 {rk['launches']}, profiled "
+              f"{rk['profiled']}, predicted {zero_k13()}")
+    # A quarter of one process's bytes, plus the padding (at most N - 1
+    # elements per leaf, in the parameter and both moments) and each
+    # rank's own 4-byte step count per leaf.
+    want_q = 3 * 4 * train[0]["padding"] + (ZERO_RANKS - 1) * 4 \
+        * train[0]["leaves"]
+    check(all(q == want_q for q in quarter),
+          f"zero: {ZERO_RANKS} x rank bytes - one process's = {quarter}, "
+          f"predicted {want_q}")
+    check(pair["bit_equal"] and pair["graphs"] == 1,
+          f"zero: captured vs eager {pair}")
+    check(elastic[0]["restored_step"] == ZERO_STEPS,
+          f"zero: restored step {elastic[0]['restored_step']}")
+    check(elastic_loss_err <= ZERO_TOL["loss_rtol"],
+          f"zero elastic: loss {elastic[0]['losses']} vs "
+          f"{ref_losses[-1]}")
+    return row
+
+
+# ----------------------------------- the convnets and DCGAN (item 8c)
+#: ``gan_convnet``: the examples' widths (convnet ``32,64,128,128`` on
+#: 32x32x3, 10 classes; DCGAN ``ch`` 64, ``nz`` 64, 32x32x1), batch 64,
+#: 3 SGD-momentum steps on 2 ranks, fp32 (TF32 off, cuDNN
+#: deterministic), against one process; the JAX tests' tolerances
+#: (convnet loss 1e-5 and parameters rtol 2e-4 + atol 2e-5, DCGAN atol
+#: 5e-5 + rtol 5e-4).
+GC_WIDTHS, GC_BATCH, GC_STEPS, GC_RANKS = (32, 64, 128, 128), 64, 3, 2
+GC_CH, GC_NZ = 64, 64
+GC_TOL = dict(cnn_loss=1e-5, cnn_rtol=2e-4, cnn_atol=2e-5, gan_atol=5e-5,
+              gan_rtol=5e-4)
+
+
+def gc_excess(got, want, atol, rtol):
+    return max(float(((g.float() - w.float()).abs() - atol - rtol *
+                      w.float().abs()).max()) for g, w in zip(got, want))
+
+
+def gc_rank(out: str, device: str) -> None:
+    """One rank of ``gan_convnet``: the channel-parallel convnet (its
+    filter shard) and the data-parallel DCGAN (its half of the batch),
+    each beside the same model in this process on the whole batch."""
+    import copy
+    import pickle
+
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.examples.train_parallel_convnet import (
+        synthetic_task,
+    )
+    from chainermn_tpu_torch.models import (
+        Discriminator,
+        Generator,
+        channel_parallel_leaves,
+        channel_parallel_loss,
+        gan_init,
+        init_channel_parallel,
+        make_channel_parallel_train_step,
+        make_gan_train_step,
+        shard_channel_parallel,
+    )
+    from chainermn_tpu_torch.models.dcgan import _bce_logits
+    from chainermn_tpu_torch.optimizers import sgd
+
+    dev = torch.device(device)
+    _fp32_exact()
+    seed = int(os.environ.get("CMN_SMOKE_SEED", "0"))
+    comm = create_communicator("naive", device=dev)
+    r, n = comm.rank, comm.size
+    res = {"rank": r}
+    x, y = synthetic_task(GC_BATCH * GC_STEPS, seed=seed + 5)
+    x = torch.as_tensor(x.transpose(0, 3, 1, 2).copy(), device=dev)
+    y = torch.as_tensor(y, device=dev)
+    full = init_channel_parallel(GC_WIDTHS, 10, device=dev, seed=seed)
+    params = shard_channel_parallel(full, r, n)
+    step = make_channel_parallel_train_step(comm)
+    carry = (params, sgd(0.05, momentum=0.9)(channel_parallel_leaves(params)))
+    dense = shard_channel_parallel(full, 0, 1)
+    dopt = sgd(0.05, momentum=0.9)(channel_parallel_leaves(dense))
+    dloss = channel_parallel_loss(None)
+    ms, losses, ref = [], [], []
+    for i in range(GC_STEPS):
+        sl = slice(i * GC_BATCH, (i + 1) * GC_BATCH)
+        _sync(dev)
+        t0 = time.perf_counter()
+        carry, loss = step(carry, (x[sl], y[sl]))
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        dopt.zero_grad()
+        lv = dloss(dense, (x[sl], y[sl]))
+        lv.backward()
+        dopt.step()
+        ref.append(float(lv.detach()))
+    mine = channel_parallel_leaves(carry[0])
+    want = channel_parallel_leaves(shard_channel_parallel(dense, r, n))
+    res["cnn"] = dict(losses=losses, ref=ref, step_ms=ms,
+                      excess=gc_excess(mine, want, GC_TOL["cnn_atol"],
+                                       GC_TOL["cnn_rtol"]))
+    # DCGAN: this rank's half of the batch against the whole batch here.
+    g = Generator(ch=GC_CH, out_ch=1, nz=GC_NZ, device=dev, seed=seed)
+    d = Discriminator(ch=GC_CH, device=dev, seed=seed + 1)
+    g1, d1 = copy.deepcopy(g), copy.deepcopy(d)
+    tx = sgd(1e-3, momentum=0.9)
+    state = gan_init(g, d, tx, tx, comm)
+    gstep = make_gan_train_step(comm)
+    g_opt, d_opt = tx(g1.parameters()), tx(d1.parameters())
+    rng = np.random.RandomState(seed + 13)
+    hist, ref, ms = [], [], []
+    b = GC_BATCH // n
+    for _ in range(GC_STEPS):
+        real = torch.as_tensor(rng.uniform(-1, 1, size=(GC_BATCH, 32, 32, 1))
+                               .astype(np.float32), device=dev)
+        z = torch.as_tensor(rng.normal(size=(GC_BATCH, GC_NZ))
+                            .astype(np.float32), device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, met = gstep(state, (real[r * b:(r + 1) * b],
+                                   z[r * b:(r + 1) * b]))
+        hist.append({k: float(v) for k, v in met.items()})
+        ms.append((time.perf_counter() - t0) * 1e3)
+        fake = g1(z)
+        dl = _bce_logits(d1(real), 1.0) + _bce_logits(d1(fake.detach()), 0.0)
+        gl = _bce_logits(d1(fake), 1.0)
+        dg = torch.autograd.grad(dl, list(d1.parameters()))
+        gg = torch.autograd.grad(gl, list(g1.parameters()))
+        for ps, gs in ((d1.parameters(), dg), (g1.parameters(), gg)):
+            for p, gr in zip(ps, gs):
+                p.grad = gr
+        d_opt.step()
+        g_opt.step()
+        ref.append({"loss_dis": float(dl), "loss_gen": float(gl)})
+    res["gan"] = dict(history=hist, ref=ref, step_ms=ms, excess=max(
+        gc_excess(list(a.parameters()), list(b_.parameters()),
+                  GC_TOL["gan_atol"], GC_TOL["gan_rtol"])
+        for a, b_ in ((g, g1), (d, d1))))
+    with open(os.path.join(out, f"gc.rank{r}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    comm.barrier()
+
+
+def phase_gan_convnet(dev, card, seed):
+    """Item 8c on the card: the channel-parallel convnet and the DCGAN
+    over 2 ranks sharing it (gloo), each against the same model in one
+    process (in the rank) for ``GC_STEPS`` steps."""
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="cmn_gc_")
+    secs = launch_ranks(GC_RANKS, [os.path.abspath(__file__), "--rank-body",
+                                   "gc", out, "--rank-device", str(dev)],
+                        "gan_convnet", env={"CMN_SMOKE_SEED": str(seed)})
+    ranks = rank_results(out, "gc", GC_RANKS)
+    cnn_err = max(abs(a - b) / abs(b) for rk in ranks
+                  for a, b in zip(rk["cnn"]["losses"], rk["cnn"]["ref"]))
+    gan_err = max(abs(h[k] - f[k]) for rk in ranks
+                  for h, f in zip(rk["gan"]["history"], rk["gan"]["ref"])
+                  for k in h)
+    row = dict(phase="gan_convnet", card=card, ranks=GC_RANKS,
+               convnet=f"widths {GC_WIDTHS}, 32x32x3, 10 classes, batch "
+               f"{GC_BATCH}, SGD 0.05 momentum 0.9, filters cut over the "
+               "ranks, batch replicated",
+               dcgan=f"ch {GC_CH}, nz {GC_NZ}, 32x32x1, batch {GC_BATCH} "
+               "split over the ranks, SGD 1e-3 momentum 0.9 for both "
+               "players",
+               dtype="float32", steps=GC_STEPS,
+               cnn_losses=[rk["cnn"]["losses"] for rk in ranks],
+               cnn_losses_one_process=ranks[0]["cnn"]["ref"],
+               cnn_loss_rel_err=cnn_err,
+               cnn_param_excess=[rk["cnn"]["excess"] for rk in ranks],
+               cnn_step_ms=[rk["cnn"]["step_ms"] for rk in ranks],
+               gan_history=ranks[0]["gan"]["history"],
+               gan_one_process=ranks[0]["gan"]["ref"],
+               gan_loss_abs_err=gan_err,
+               gan_param_excess=[rk["gan"]["excess"] for rk in ranks],
+               gan_step_ms=[rk["gan"]["step_ms"] for rk in ranks],
+               tol=GC_TOL, launch_s=secs, note=MP_NOTE.replace(
+                   "4 ranks", f"{GC_RANKS} ranks"))
+    emit(row)
+    check(cnn_err <= GC_TOL["cnn_loss"]
+          and all(e <= 0 for e in row["cnn_param_excess"]),
+          f"gan_convnet: convnet losses off by {cnn_err}, parameter "
+          f"excess {row['cnn_param_excess']}")
+    check(gan_err <= GC_TOL["gan_atol"]
+          and all(e <= 0 for e in row["gan_param_excess"]),
+          f"gan_convnet: DCGAN losses off by {gan_err}, parameter excess "
+          f"{row['gan_param_excess']}")
+    return row
+
+
+RANK_BODIES.update(tp=tp_rank, zero=zero_rank, gc=gc_rank)
+
+
 FLASH_SASS = ("flash_fwd_bf16", "flash_bwd_dkv_bf16", "flash_bwd_dq_bf16")
 CONV_SASS = ("matmul_affine_bf16",)
 CONV_TILES = (64, 128)
@@ -6824,6 +7632,10 @@ def main() -> int:
     phase_pipeline(dev, smi, mp_row)
     sp = phase_sequence_parallel(dev, smi, args.seed)
     plm = phase_parallel_lm(dev, smi, args.seed)
+    # Tensor-parallel serving, the ZeRO tier, the convnets and DCGAN.
+    tp = phase_tp_serving(ops, dev, smi, args.seed)
+    zero = phase_zero(dev, smi, args.seed)
+    phase_gan_convnet(dev, smi, args.seed)
 
     launches = {"paged_decode_attention":
                 serve["launches"]["paged_decode_attention"],
@@ -6860,6 +7672,17 @@ def main() -> int:
              for name, v in sp["variants"].items()},
             parallel_lm_per_rank_per_step=plm["launches_per_rank_per_step"]
             [k])
+    for k in FLASH:
+        by_phase[k]["zero_per_rank_per_step"] = [
+            [lc[k] for lc in steps]
+            for steps in zero["launches_per_rank_per_step"]]
+        by_phase[k]["zero_profiled_step_per_rank"] = [
+            p[k] for p in zero["profiled_step_per_rank"]]
+    by_phase["paged_decode_attention"]["tp_serving_one_rank_nccl"] = \
+        tp["nccl_one_rank"]["k4_runs"]
+    by_phase["paged_decode_attention"].update(
+        {f"tp_serving_{name}_per_rank": r["k4_runs_per_rank"]
+         for name, r in tp["gloo"].items()})
     by_phase["flash_attention_fwd"].update(
         seq2seq_greedy=s2s["decode"]["greedy"]["launches"]
         ["flash_attention_fwd"],

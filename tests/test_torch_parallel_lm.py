@@ -216,9 +216,9 @@ def test_parallel_gqa_param_layout_and_validation(mesh):
 
 
 def test_dryrun_twin_matches_the_jax_entry(ranks):
-    """The twin factors 8 ranks as the JAX entry factors 8 devices, and
-    its step-0 global loss is the dense oracle's for the entry's tiny
-    configuration and batch."""
+    """The twin factors 8 ranks as the JAX entry factors 8 devices, its
+    step-0 global loss is the dense oracle's for the entry's tiny
+    configuration and batch, and its ZeRO program runs as the entry's."""
     from chainermn_tpu_torch.examples.dryrun_multichip import grid_shape
 
     for n, want in ((8, (1, 2, 2, 2)), (16, (2, 2, 2, 2)),
@@ -237,3 +237,28 @@ def test_dryrun_twin_matches_the_jax_entry(ranks):
         assert d["grid"] == {"data": 1, "stage": 2, "model": 2, "seq": 2}
         np.testing.assert_allclose(d["loss"], want, atol=1e-5, rtol=1e-4)
         assert d["rope_logits_shape"] == (2, 8, 32)
+    # The entry's last program, the ZeRO tier: the int8-wire step's loss
+    # is the JAX MLP's on the same parameters (the port's seed-0 MLP,
+    # carried across) and the same batch (the entry's next draws), the
+    # checkpoint round trip is bit-exact and the next step is finite, on
+    # every rank alike.
+    from chainermn_tpu.models import MLP as JaxMLP
+    from chainermn_tpu.models import classification_loss
+    from chainermn_tpu_torch.models import MLP
+    from chainermn_tpu_torch.utils import mlp_params_to_flax
+
+    x = rng.normal(size=(16, 8)).astype(np.float32)
+    y = rng.randint(0, 4, size=(16,)).astype(np.int64)
+    zp = mlp_params_to_flax(dict(MLP(hidden=(16,), n_out=4, in_features=8,
+                                     device="cpu", seed=0)
+                                 .named_parameters()))
+    zwant = float(classification_loss(JaxMLP(hidden=(16,), n_out=4))(
+        zp, (x, y.astype(np.int32)))[0])
+    for r in ranks:
+        d = r["dryrun"]
+        np.testing.assert_allclose(d["zero_loss"], zwant, atol=1e-5,
+                                   rtol=1e-5)
+        assert d["zero_roundtrip_exact"]
+        assert np.isfinite(d["zero_loss_restored"])
+        assert d["zero_loss_restored"] == ranks[0]["dryrun"][
+            "zero_loss_restored"]

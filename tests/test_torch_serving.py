@@ -188,15 +188,22 @@ def test_fault_hook_fires_at_decode_iteration(models, prompts):
 
 
 def test_unported_seams_raise(models):
-    """The tensor-parallel engine is not ported and raises; the policy
-    plane is, and the scheduler hands its quota view to the trie."""
+    """The policy plane is ported, and the scheduler hands its quota view
+    to the trie.  The tensor-parallel engine is ported too
+    (tests/test_torch_tp_serving.py): its placement is its communicator's
+    device, so another ``device`` is refused as the JAX engine refuses
+    ``mesh`` with ``device``."""
+    import types
+
     _, _, tm = models
     eng = _engine(tm)
     plane = PolicyPlane(registry=MetricsRegistry())
     Scheduler(eng, policy=plane, registry=MetricsRegistry())
     assert eng.prefix.quotas is plane.prefix_quotas
-    with pytest.raises(NotImplementedError, match="TP engine"):
-        DecodeEngine(tm, **ENG, device="cpu", mesh=object())
+    mesh = types.SimpleNamespace(device=torch.device("meta"), size=1,
+                                 rank=0, capturable=False)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        DecodeEngine(tm, **ENG, device="cpu", mesh=mesh)
 
 
 def test_kv_block_round_trip(models, prompts):

@@ -288,10 +288,16 @@ def test_train_lm_twin_runs_on_cpu(capsys):
     # --lora (item 9), --optimizer adafactor and --warmup (item 11) are
     # ported and run (tests/test_torch_lora.py and
     # tests/test_torch_large_batch.py hold them against the JAX package);
-    # --zero still raises, naming its item.
+    # so is --zero (tests/test_torch_zero.py holds the tier), which
+    # refuses --lora as the JAX example does.
     assert np.isfinite(train_lm.main([
         "--device", "cpu", "--steps", "2", "--seq-len", "32",
         "--batch-per-chip", "4", "--d-model", "32", "--lora", "2",
         "--optimizer", "adafactor", "--warmup", "5"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        train_lm.main(["--device", "cpu", "--zero"])
+    assert np.isfinite(train_lm.main([
+        "--device", "cpu", "--steps", "2", "--seq-len", "32",
+        "--batch-per-chip", "4", "--d-model", "32", "--zero", "--accum",
+        "2", "--generate", "4"]))
+    with pytest.raises(SystemExit):
+        train_lm.main(["--device", "cpu", "--zero", "--lora", "2"])
+    assert "mutually exclusive" in capsys.readouterr().err

@@ -1099,3 +1099,439 @@ def run(name: str, out: str) -> None:
     rank = int(os.environ["RANK"])
     with open(f"{out}/{name}.rank{rank}.pkl", "wb") as f:
         pickle.dump(res, f)
+
+
+# ------------------------------------------ tensor-parallel serving (2b)
+#: ``tests/serving_tests/conftest.py``'s serving geometry (float32).
+TP_MODEL = dict(vocab=128, n_layers=2, d_model=64, n_heads=4, d_ff=128,
+                max_len=96, n_kv_heads=2, pos_enc="rope")
+TP_ENGINE = dict(capacity=2, num_blocks=20, block_len=8, prefill_chunk=8)
+
+
+def tp_requests():
+    """``test_sharding.py``'s traffic: shared-prefix prompts through a
+    tight pool (``RandomState(3)``), the 4-way case's (``RandomState(5)``)
+    and the sampling prompts (``RandomState(0)``)."""
+    rng = np.random.RandomState(3)
+    tpl = rng.randint(1, 128, size=11).tolist()
+    pset = [tpl + rng.randint(1, 128, size=4).tolist() for _ in range(4)]
+    pset += [[5, 9, 77], rng.randint(1, 128, size=15).tolist()]
+    rng = np.random.RandomState(5)
+    tpl = rng.randint(1, 128, size=9).tolist()
+    pset4 = [tpl + rng.randint(1, 128, size=3).tolist() for _ in range(2)]
+    pset4.append(rng.randint(1, 128, size=6).tolist())
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 128, size=n).tolist() for n in (5, 12, 9)]
+    return pset, pset4, prompts
+
+
+def tp():
+    """The tensor-parallel engine on 4 ranks: two 2-rank engines (ranks
+    {0, 1} and {2, 3}) on the JAX test's geometry and traffic, einsum and
+    fused, speculative and prefix-shared, greedy and sampled, beside the
+    one-rank engine; one 4-rank engine with 4 kv heads; the layout; a MoE
+    model, an odd vocab and ``lm_generate`` on the tensor-parallel model;
+    the refusals."""
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.models import TransformerLM, lm_generate
+    from chainermn_tpu_torch.observability import MetricsRegistry
+    from chainermn_tpu_torch.serving import (
+        DecodeEngine,
+        PolicyPlane,
+        Request,
+        Scheduler,
+    )
+    from chainermn_tpu_torch.serving.sharding import serving_mesh, shard_model
+    from chainermn_tpu_torch.utils import params_from_flax
+
+    inputs = _inputs()
+    comm = create_communicator("naive", device="cpu")
+    mesh2, mesh4 = serving_mesh(2, comm), serving_mesh(4, comm)
+
+    def lm(params, **over):
+        m = TransformerLM(**{**TP_MODEL, **over}, dtype=torch.float32,
+                          device="cpu")
+        m.load_state_dict(params_from_flax(params, device="cpu"))
+        return m
+
+    def serve(eng, reqs):
+        sched = Scheduler(eng)
+        comps = sched.run(reqs)
+        return {c.id: c.tokens for c in comps}, sched
+
+    pset, pset4, prompts = tp_requests()
+
+    def greedy():
+        return [Request(id=i, prompt=p, max_new_tokens=8, seed=100 + i)
+                for i, p in enumerate(pset)]
+
+    def sampled():
+        return [Request(id=10 + i, prompt=prompts[i], max_new_tokens=6,
+                        temperature=0.8, seed=42 + i) for i in range(3)]
+
+    res = {"rank": comm.rank, "m2_rank": mesh2.rank}
+    for attn in ("einsum", "fused"):
+        target = lm(inputs["params"], decode_attention=attn)
+        draft = lm(inputs["draft_params"], n_layers=1, decode_attention=attn)
+        kw = dict(TP_ENGINE, draft_model=draft, spec_k=2)
+        eng = DecodeEngine(target, **kw, mesh=mesh2)
+        toks, sched = serve(eng, greedy())
+        res[f"m2_{attn}"] = toks
+        res[f"m2_{attn}_books"] = {
+            "hits": sched.prefix_hit_tokens,
+            "decode_compiles": eng.decode_compiles,
+            "cow_compiles": eng.cow_compiles,
+            "prefill_compiles": eng.prefill_compiles,
+            "ladder": len(eng.prefill_ladder),
+            "over_budget": "compile_over_budget" in eng.stats(),
+            "free_blocks": eng.free_blocks()}
+        res[f"m2_{attn}_sampled"] = serve(eng, sampled())[0]
+        one = DecodeEngine(target, **kw, device="cpu")
+        res[f"one_{attn}"] = serve(one, greedy())[0]
+        res[f"one_{attn}_sampled"] = serve(one, sampled())[0]
+        if attn == "fused":
+            res["layout"] = {n: _np(t) for n, t in
+                             eng.model.state_dict().items()}
+            res["pool_shape"] = tuple(eng.pools[0]["k"].shape)
+            res["draft_pool_shape"] = tuple(eng.draft_pools[0]["k"].shape)
+            try:
+                Scheduler(eng, policy=PolicyPlane(registry=MetricsRegistry()))
+                res["policy_error"] = "no error"
+            except ValueError as e:
+                res["policy_error"] = str(e)
+            tpm = shard_model(target, mesh2)
+            prompt = torch.tensor([prompts[1]])
+            res["generate"] = (_np(lm_generate(tpm, prompt, 8)),
+                               _np(lm_generate(target, prompt, 8)))
+            try:
+                DecodeEngine(target, **TP_ENGINE, mesh=mesh4)
+                res["geometry_error"] = "no error"
+            except ValueError as e:
+                res["geometry_error"] = str(e)
+    four = [Request(id=i, prompt=p, max_new_tokens=6)
+            for i, p in enumerate(pset4)]
+    for attn in ("einsum", "fused"):
+        m4 = lm(inputs["params4"], n_kv_heads=4, decode_attention=attn)
+        eng = DecodeEngine(m4, **TP_ENGINE, mesh=mesh4)
+        res[f"m4_{attn}"] = serve(eng, four)[0]
+        res[f"m4_{attn}_compiles"] = eng.decode_compiles
+        res["m4_pool_shape"] = tuple(eng.pools[0]["k"].shape)
+        res[f"one4_{attn}"] = serve(DecodeEngine(m4, **TP_ENGINE,
+                                                 device="cpu"), four)[0]
+    for name, over in (("moe", dict(n_experts=4, d_ff=64)),
+                       ("odd_vocab", dict(vocab=127))):
+        m = TransformerLM(**{**TP_MODEL, **over}, dtype=torch.float32,
+                          decode_attention="fused", device="cpu", seed=3)
+        eng = DecodeEngine(m, **TP_ENGINE, mesh=mesh2)
+        res[f"m2_{name}"] = serve(eng, greedy())[0]
+        res[f"one_{name}"] = serve(DecodeEngine(m, **TP_ENGINE,
+                                                device="cpu"), greedy())[0]
+        res[f"{name}_head"] = tuple(eng.model.lm_head.weight.shape)
+    res["all_tokens"] = comm.allgather_obj(
+        {k: v for k, v in res.items() if k.startswith(("m2_", "m4_"))
+         and isinstance(v, dict) and not k.endswith("books")})
+    comm.barrier()
+    return res
+
+
+# --------------------------------------------------------- ZeRO (item 11)
+def _local(batch, c):
+    """Communicator ``c``'s rank's rows of a global batch."""
+    b = len(batch[0]) // c.size
+    return tuple(a[c.rank * b:(c.rank + 1) * b] for a in batch)
+
+
+def zero():
+    """The ZeRO tier on 4 ranks against the JAX tests' oracles: the
+    transform families, the layout, the bf16 wire, the clip, a schedule,
+    a mixed-dtype LM, the checkpoint round trip, elastic restores 4 -> 2
+    and 2 -> 4, the int8 residual reset, a fresh start, and a state
+    carried over from the JAX ZeRO tier and back."""
+    import warnings
+
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+    from chainermn_tpu_torch.models import (
+        MLP,
+        TransformerLM,
+        classification_loss,
+        lm_loss,
+    )
+    from chainermn_tpu_torch.optimizers import (
+        adafactor,
+        adamw,
+        create_multi_node_optimizer,
+        create_zero_optimizer,
+        rmsprop,
+        sgd,
+        zero_clip_by_global_norm,
+    )
+    from chainermn_tpu_torch.utils import (
+        mlp_params_from_flax,
+        mlp_params_to_flax,
+        params_from_flax,
+        params_to_flax,
+        zero_logical_from_jax,
+        zero_logical_to_jax,
+    )
+
+    inputs = _inputs()
+    comm = create_communicator("naive", device="cpu")
+    comm16 = create_communicator("naive", device="cpu",
+                                 allreduce_grad_dtype=torch.bfloat16)
+    pair = comm.split([0, 0, 1, 1])[comm.rank // 2]
+    r = comm.rank
+    ckdir = inputs["dir"]
+
+    def mlp(key):
+        p, (hidden, n_out, n_in) = inputs[key]
+        m = MLP(hidden=hidden, n_out=n_out, in_features=n_in, device="cpu")
+        m.load_state_dict(mlp_params_from_flax(p, device="cpu"))
+        return m
+
+    def fit(opt, state, c, batches):
+        loss_fn = classification_loss(state.model)
+        metrics = {}
+        for b in batches:
+            state, metrics = opt.update(state, _local(b, c), loss_fn,
+                                        has_aux=True)
+        return state, float(metrics["loss"]) if metrics else None
+
+    def flax_of(opt, state):
+        return mlp_params_to_flax(opt.materialize_params(state))
+
+    res = {}
+    txs = {"sgd": lambda: sgd(0.1),
+           "sgd_momentum": lambda: sgd(0.1, momentum=0.9),
+           "momentum_nesterov": lambda: sgd(0.1, momentum=0.9,
+                                            nesterov=True),
+           "adam": lambda: adamw(1e-2, weight_decay=0.0),
+           "adamw": lambda: adamw(1e-2, weight_decay=1e-3),
+           "rmsprop": lambda: rmsprop(1e-2)}
+    # The oracle cases (test_zero_optimizer.py).
+    for name in ("sgd_momentum", "adam"):
+        opt = create_zero_optimizer(txs[name](), comm)
+        state, loss = fit(opt, opt.init(mlp("mlp32")), comm,
+                          inputs["batches5"])
+        res[f"oracle_{name}"] = (flax_of(opt, state), loss)
+    # The layout and the bytes a rank stores, against one replicated
+    # process's.
+    opt = create_zero_optimizer(adamw(1e-3, weight_decay=0.0), comm)
+    state, _ = fit(opt, opt.init(mlp("mlp32")), comm, inputs["batches5"][:1])
+    rep = create_multi_node_optimizer(adamw(1e-3, weight_decay=0.0),
+                                      comm.split([0, 1, 2, 3])[r])
+    rstate, _ = fit(rep, rep.init(mlp("mlp32")), comm,
+                    [_local(inputs["batches5"][0], comm)])
+    osd = state.optimizer.state_dict()["state"]
+    res["layout"] = {
+        "shards": [tuple(p.shape) for p in state.flat_params],
+        "sizes": [s.size for s in opt.specs],
+        "padded": [s.padded for s in opt.specs],
+        "opt_shapes": [{k: tuple(v.shape) for k, v in osd[i].items()}
+                       for i in range(len(opt.specs))],
+        "bytes": sum(t.numel() * t.element_size() for t in
+                     opt._state_tensors(state)),
+        "replicated_bytes": sum(
+            t.numel() * t.element_size() for t in
+            [p.detach() for p in rstate.model.parameters()]
+            + [v for st in rstate.optimizer.state.values()
+               for v in st.values()])}
+    # The bf16 wire against fp32.
+    for name, c in (("wire32", comm), ("wire16", comm16)):
+        opt = create_zero_optimizer(sgd(0.1), c)
+        state, _ = fit(opt, opt.init(mlp("mlp32")), c,
+                       inputs["batches5"][:3])
+        res[name] = flax_of(opt, state)
+    # The global-norm clip and a schedule.
+    opt = create_zero_optimizer(zero_clip_by_global_norm(0.05, comm)(
+        sgd(0.1)), comm)
+    state, _ = fit(opt, opt.init(mlp("mlp32")), comm, inputs["batches5"])
+    res["clip"] = flax_of(opt, state)
+    opt = create_zero_optimizer(adamw(lambda c: 0.05 / (1.0 + 0.1 * c),
+                                      weight_decay=0.0), comm)
+    state, _ = fit(opt, opt.init(mlp("mlp32")), comm,
+                   inputs["batches5"][:3])
+    res["schedule"] = flax_of(opt, state)
+    # Mixed dtypes: bf16 storage beside the fp32 router, Adafactor.
+    lm_params, lm_kw = inputs["lm"]
+    m = TransformerLM(**lm_kw, param_dtype=torch.bfloat16, device="cpu")
+    m.load_state_dict(params_from_flax(lm_params, device="cpu"))
+    opt = create_zero_optimizer(adafactor(1e-2), comm)
+    state = opt.init(m)
+    losses = []
+    for _ in range(3):
+        state, met = opt.update(state, _local(inputs["lm_batch"], comm),
+                                lm_loss(m), has_aux=True)
+        losses.append(float(met["loss"]))
+    got = opt.materialize_params(state)
+    res["mixed"] = {"losses": losses,
+                    "dtypes": {n: str(t.dtype) for n, t in got.items()},
+                    "params": params_to_flax(got, n_heads=lm_kw["n_heads"])}
+    # The checkpoint round trip (test_checkpoint_zero.py).
+    b6 = inputs["batches6"]
+    opt = create_zero_optimizer(txs["adam"](), comm)
+    state, _ = fit(opt, opt.init(mlp("mlp16")), comm, b6[:3])
+    ckpt = create_multi_node_checkpointer("zero", comm, path=ckdir,
+                                          async_save=False)
+    ckpt.save(state)
+    opt2 = create_zero_optimizer(txs["adam"](), comm)
+    template = opt2.init(mlp("mlp16"))
+    restored, _ = create_multi_node_checkpointer(
+        "zero", comm, path=ckdir).maybe_load(template)
+    saved = flax_of(opt, state)
+    back = flax_of(opt2, restored)
+    state, _ = fit(opt, state, comm, b6[3:])
+    cont, _ = fit(opt2, restored, comm, b6[3:])
+    res["roundtrip"] = (saved, back, flax_of(opt, state), flax_of(opt2,
+                                                                cont))
+
+    # Elastic restores: save at n, resume at m (test_checkpoint_elastic).
+    def elastic(name, tx, key, batches, n_save, cut, compression=None):
+        small = pair if r < 2 else None
+        save_comm = comm if n_save == 4 else small
+        out = {}
+        if save_comm is not None:
+            opt = create_zero_optimizer(tx(), save_comm,
+                                        grad_compression=compression)
+            state, _ = fit(opt, opt.init(mlp(key)), save_comm,
+                           batches[:cut])
+            ck = create_multi_node_checkpointer(name, save_comm, path=ckdir,
+                                                async_save=False)
+            ck.save(state)
+            out["saved"] = flax_of(opt, state)
+            if compression is not None:
+                out["saved_resid_max"] = max(
+                    float(t.abs().max()) for t in state.ef_residual)
+        comm.barrier()
+        load_comm = comm if n_save == 2 else small
+        if load_comm is not None:
+            opt = create_zero_optimizer(tx(), load_comm,
+                                        grad_compression=compression)
+            ck = create_multi_node_checkpointer(name, load_comm, path=ckdir,
+                                                async_save=False)
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                state, it = ck.maybe_load_elastic(opt, mlp(key))
+            out.update(step=state.step, iteration=it,
+                       warnings=[str(x.message) for x in w],
+                       restored=flax_of(opt, state))
+            if compression is not None:
+                out["resid_max"] = max(float(t.abs().max())
+                                       for t in state.ef_residual)
+            state, _ = fit(opt, state, load_comm, batches[cut:])
+            out["final"] = flax_of(opt, state)
+        comm.barrier()
+        return out
+
+    for n_save in (4, 2):
+        res[f"elastic_adam_{n_save}"] = elastic(
+            f"zel{n_save}", txs["adam"], "mlp16", b6, n_save, 3)
+        for fam in ("sgd", "momentum_nesterov", "adam", "adamw", "rmsprop"):
+            res[f"family_{fam}_{n_save}"] = elastic(
+                f"fam_{fam}_{n_save}", txs[fam], "mlp18",
+                inputs["batches_fam"], n_save, 2)
+    res["int8_reset"] = elastic("ef", txs["adam"], "mlp16", b6[:2], 4, 2,
+                                compression="int8_ef")
+    opt = create_zero_optimizer(txs["adam"](), comm)
+    state, it = create_multi_node_checkpointer(
+        "none", comm, path=ckdir).maybe_load_elastic(opt, mlp("mlp16"))
+    res["fresh"] = (it, state.step)
+    # A state carried over from the JAX ZeRO tier: one more step here,
+    # then back into its layout.
+    jz = inputs["jax_zero"]
+    opt = create_zero_optimizer(txs["adam"](), comm)
+    state = opt.init(mlp("mlp16"))
+    opt.load_logical(state, zero_logical_from_jax(
+        jz["params"], inputs["mlp16"][0],
+        lambda t: mlp_params_from_flax(t, device="cpu"),
+        {"exp_avg": jz["mu"], "exp_avg_sq": jz["nu"],
+         "step": jz["count"]}, step=jz["step"]))
+    state, _ = fit(opt, state, comm, [jz["batch"]])
+    res["from_jax"] = zero_logical_to_jax(opt.logical_state(state),
+                                          mlp_params_to_flax, 4)
+    comm.barrier()
+    return res
+
+
+# ------------------------------------- the convnets and DCGAN (item 8c)
+def cnngan():
+    """The channel-parallel convnet and the DCGAN on 2 ranks from the JAX
+    tests' parameters and batches, then the three example twins."""
+    import tempfile
+
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.examples import (
+        train_dcgan,
+        train_mnist_model_parallel,
+        train_parallel_convnet,
+    )
+    from chainermn_tpu_torch.models import (
+        Discriminator,
+        Generator,
+        channel_parallel_apply,
+        channel_parallel_leaves,
+        gan_init,
+        make_channel_parallel_train_step,
+        make_gan_train_step,
+        shard_channel_parallel,
+    )
+    from chainermn_tpu_torch.optimizers import adamw, sgd
+    from chainermn_tpu_torch.utils import (
+        channel_parallel_params_from_flax,
+        channel_parallel_params_to_flax,
+        dcgan_params_from_flax,
+    )
+
+    inputs = _inputs()
+    comm = create_communicator("naive", device="cpu")
+    r, n = comm.rank, comm.size
+    res = {}
+    full = channel_parallel_params_from_flax(inputs["cnn"], device="cpu")
+    params = shard_channel_parallel(full, r, n)
+    x0 = torch.tensor(inputs["cnn_batches"][0][0].transpose(0, 3, 1, 2))
+    with torch.no_grad():
+        res["cnn_logits0"] = _np(channel_parallel_apply(params, x0, comm))
+    opt = sgd(0.05, momentum=0.9)(channel_parallel_leaves(params))
+    step = make_channel_parallel_train_step(comm)
+    carry = (params, opt)
+    for x, y in inputs["cnn_batches"]:
+        carry, loss = step(carry, (torch.tensor(x.transpose(0, 3, 1, 2)),
+                                   torch.tensor(y)))
+    res["cnn_loss"] = float(loss)
+    res["cnn_shards"] = channel_parallel_params_to_flax(carry[0])
+
+    def players():
+        g = Generator(ch=8, out_ch=1, nz=16, device="cpu")
+        g.load_state_dict(dcgan_params_from_flax(inputs["gan_g"], "cpu"))
+        d = Discriminator(ch=8, device="cpu")
+        d.load_state_dict(dcgan_params_from_flax(inputs["gan_d"], "cpu"))
+        return g, d
+
+    for name, tx, batches in (
+            ("gan_sgd", sgd(1e-3, momentum=0.9), inputs["gan_batches"]),
+            ("gan_adam", adamw(1e-3, b1=0.5, weight_decay=0.0),
+             inputs["gan_move_batches"])):
+        g, d = players()
+        state = gan_init(g, d, tx, tx, comm)
+        gstep = make_gan_train_step(comm)
+        hist = []
+        for b in batches:
+            state, met = gstep(state, _local(b, comm))
+            hist.append({k: float(v) for k, v in met.items()})
+        res[name] = {"g": {k: _np(v) for k, v in g.state_dict().items()},
+                     "d": {k: _np(v) for k, v in d.state_dict().items()},
+                     "history": hist}
+    tmp = comm.bcast_obj(tempfile.mkdtemp() if r == 0 else None)
+    res["ex_convnet"] = train_parallel_convnet.main([
+        "--device", "cpu", "--communicator", "naive", "--epoch", "2",
+        "--n-train", "128", "--batchsize", "32", "--widths", "8,16"])
+    res["ex_dcgan"] = len(train_dcgan.main([
+        "--device", "cpu", "--communicator", "naive", "--epoch", "1",
+        "--n-train", "64", "--ch", "8", "--batchsize", "16",
+        "--out", f"{tmp}/dcgan_log.json"]))
+    trainer = train_mnist_model_parallel.main([
+        "--device", "cpu", "--communicator", "naive", "--epoch", "2",
+        "--iters-per-epoch", "4"])
+    res["ex_mnist_mp"] = [e["loss"] for e in trainer.extensions[0].log]
+    comm.barrier()
+    return res
