@@ -71,6 +71,12 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
 #: Header of a tensor sent point to point with its shape unknown to the
 #: receiver: ``[ndim, dtype code, wants a gradient back, dim_0, ...]``.
 _HEADER_LEN = 16
+
+#: posted sends of communicators that were dropped before waiting for
+#: them: a gloo send whose work object is freed before its receiver posts
+#: the matching receive is cancelled, and the receiver then waits
+#: forever.  Kept here until they complete (pruned at every post).
+_ORPHANED_SENDS: List[tuple] = []
 _DTYPES = (torch.float32, torch.float16, torch.bfloat16, torch.float64,
            torch.int64, torch.int32, torch.int16, torch.int8, torch.uint8,
            torch.bool)
@@ -535,8 +541,8 @@ class ProcessGroupCommunicator(CommunicatorBase):
         """Post ``x`` (a header with its shape, its dtype and
         ``wants_grad`` first) to rank ``dest`` without waiting; the
         receiver reads it with :meth:`recv_tensor`.  The send completes in
-        the background; :meth:`wait_pending` waits for every send posted
-        so far."""
+        the background (also after this communicator is dropped);
+        :meth:`wait_pending` waits for every send posted so far."""
         self._member("post_send")
         self._check_rank(dest, "dest")
         me = self.rank
@@ -555,6 +561,8 @@ class ProcessGroupCommunicator(CommunicatorBase):
                self._op("send", data, dest, self._tag(me, dest))]
         works = dist.batch_isend_irecv(ops)
         self._pending.append((works, head, data))
+        _ORPHANED_SENDS[:] = [p for p in _ORPHANED_SENDS
+                              if not all(w.is_completed() for w in p[0])]
 
     def recv_tensor(self, source: int, device=None
                     ) -> Tuple[torch.Tensor, bool]:
@@ -586,6 +594,13 @@ class ProcessGroupCommunicator(CommunicatorBase):
         for works, _, _ in pending:
             for w in works:
                 w.wait()
+
+    def __del__(self):
+        # A dropped communicator's sends stay in flight (its receivers may
+        # post their receives later).
+        pending = getattr(self, "_pending", None)
+        if pending:
+            _ORPHANED_SENDS.extend(pending)
 
     # ---------------------------------------------------------- objects
     def bcast_obj(self, obj: Any, root: int = 0) -> Any:

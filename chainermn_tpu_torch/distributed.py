@@ -92,6 +92,10 @@ def _shutdown_gloo_groups() -> None:
             timeout=datetime.timedelta(seconds=SHUTDOWN_TIMEOUT_S))
     except RuntimeError:
         return
+    # Every rank is here, so every posted send was received.
+    from chainermn_tpu_torch.comm import process_group
+
+    process_group._ORPHANED_SENDS.clear()
     dist.destroy_process_group()
 
 

@@ -13,10 +13,10 @@ Format: one file per rank and step, ``<path>/<name>/<step>/rank<R>.pt``
 (``torch.save`` of host copies): the model's ``state_dict`` (parameters
 and buffers, so sync-BN running statistics too), the torch optimizer's
 ``state_dict``, the optimizer options' state (pending gradients, this
-rank's int8 residuals, the EMA) and the loop state (the trainer's
-iteration, every extension's last firing tick, the iterator's epoch,
-cursor, order and RNG), so a resumed run draws the same batches as an
-uninterrupted one.  A ZeRO rank's file holds its shards (``"zero"``),
+rank's int8 residuals, the EMA, the health check's carry) and the
+loop state (the trainer's iteration, every extension's last firing
+tick, the iterator's epoch, cursor, order and RNG), so a resumed run
+draws the same batches as an uninterrupted one.  A ZeRO rank's file holds its shards (``"zero"``),
 its shard-sized optimizer state and residuals and the model's buffers,
 not the model's gathered parameters.  A rank's file is written under a
 temporary name and renamed when complete: the rename is that rank's
@@ -122,6 +122,49 @@ def apply_loop_state(trainer, loop) -> None:
                            else int(loop["iteration"]))
 
 
+def _load_optimizer_in_place(opt: torch.optim.Optimizer,
+                             saved: dict) -> None:
+    """``opt.load_state_dict(saved)``, but into the tensors ``opt``
+    already holds where it holds the same entries of the same shapes (a
+    captured train step replays on their addresses; ``load_state_dict``
+    would put new tensors in their place); a tensor hyperparameter (a
+    scheduled learning rate) is copied into too.  Otherwise, as on a
+    fresh optimizer, ``load_state_dict``."""
+    params = [p for g in opt.param_groups for p in g["params"]]
+    state = saved["state"]
+
+    def fits(i, p):
+        mine = opt.state.get(p, {})
+        theirs = state.get(i, {})
+        if set(mine) != set(theirs):
+            return False
+        return all(not isinstance(v, torch.Tensor)
+                   or (isinstance(theirs[k], torch.Tensor)
+                       and theirs[k].shape == v.shape)
+                   for k, v in mine.items())
+
+    if not opt.state or len(saved["param_groups"]) != len(opt.param_groups) \
+            or not all(fits(i, p) for i, p in enumerate(params)):
+        opt.load_state_dict(saved)
+        return
+    with torch.no_grad():
+        for i, p in enumerate(params):
+            for k, v in state.get(i, {}).items():
+                mine = opt.state[p][k]
+                if isinstance(mine, torch.Tensor):
+                    mine.copy_(v)
+                else:
+                    opt.state[p][k] = v
+        for g, sg in zip(opt.param_groups, saved["param_groups"]):
+            for k, v in sg.items():
+                if k == "params":
+                    continue
+                if isinstance(g.get(k), torch.Tensor):
+                    g[k].copy_(v)
+                else:
+                    g[k] = v
+
+
 def _to_host(obj):
     """Host copies of every tensor in a nested structure (so a save in
     flight never reads a tensor the next step rewrites)."""
@@ -211,6 +254,7 @@ class MultiNodeCheckpointer(Extension):
             "pending_grads": None if zero else _to_host(state.pending_grads),
             "ef_residual": _to_host(state.ef_residual),
             "ema_params": None if zero else _to_host(state.ema_params),
+            "health": _to_host(getattr(state, "health", None)),
             "loop": capture_loop_state(trainer),
         }
         if zero:
@@ -377,9 +421,14 @@ class MultiNodeCheckpointer(Extension):
 
     @staticmethod
     def _restore_replicated(state, payload) -> None:
+        # In place, the optimizer's state included: a captured train step
+        # replays on these tensors' addresses.
         state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
+        _load_optimizer_in_place(state.optimizer, payload["optimizer"])
         state.step = int(payload["state_step"])
+        if state.health is not None and payload.get("health") is not None:
+            with torch.no_grad():
+                state.health.copy_(payload["health"])
         with torch.no_grad():
             for field in ("pending_grads", "ef_residual", "ema_params"):
                 mine, saved = getattr(state, field), payload[field]

@@ -18,7 +18,10 @@ Topology comes from the arguments, from ``CMN_TPU_HOSTS`` (comma-separated
 
 A failed or expired op raises
 :class:`~chainermn_tpu_torch.resilience.detector.PeerFailedError` naming
-the peer and the op.  ``CMN_FAULT`` hooks fire at the ``barrier``,
+the peer and the op; with a heartbeat
+:class:`~chainermn_tpu_torch.resilience.detector.FailureDetector`
+attached (:meth:`HostComm.attach_detector`), a wait on a dead peer raises
+the detector's verdict within about one heartbeat interval.  ``CMN_FAULT`` hooks fire at the ``barrier``,
 ``send`` and ``recv`` sites, and each op records a span in the process
 tracer (``send_obj``/``recv_obj`` with peer and bytes; the composite's
 name in ``detail``, and a span around each composite).
@@ -32,6 +35,7 @@ import os
 import pickle
 import random
 import socket
+import time
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 from chainermn_tpu_torch import native
@@ -107,6 +111,7 @@ class HostComm:
         self.rank = int(rank)
         self.size = len(hosts)
         self.timeout_ms = int(timeout_ms)
+        self._detector = None
         self._faults = _faults.process_injector() if enable_faults else None
         if enable_trace is None:
             enable_trace = enable_faults
@@ -153,11 +158,14 @@ class HostComm:
 
     # ------------------------------------------------------------ resilience
     def attach_detector(self, detector) -> None:
-        """The heartbeat failure detector is not ported yet (ROADMAP Queue
-        1 item 12): blocking waits are bounded by their deadlines only."""
-        raise NotImplementedError(
-            "HostComm.attach_detector: the failure detector is not ported "
-            "yet (ROADMAP Queue 1 item 12)")
+        """Wire a :class:`~chainermn_tpu_torch.resilience.detector.
+        FailureDetector` in: blocking waits are sliced by its heartbeat
+        interval and check it between slices (a wait on a dead peer raises
+        its attributed verdict), and an injected ``hang`` freezes its
+        beats too (a hung process must look dead to its peers)."""
+        self._detector = detector
+        if self._faults is not None:
+            self._faults.add_freeze_callback(detector.freeze)
 
     def _peer_error(self, peer: int, op: str, reason: str,
                     kind: str = "timeout") -> PeerFailedError:
@@ -166,15 +174,33 @@ class HostComm:
 
     def _wait_frame(self, source: int, timeout_ms: int, op: str) -> int:
         """Wait for the next frame from ``source`` (left queued) and return
-        its length; ``timeout_ms < 0`` waits forever."""
-        n = self._lib.hostcomm_recv(self._h, source, None, 0, timeout_ms)
-        if n >= 0:
-            return int(n)
-        if n == -1:
-            raise self._peer_error(source, op,
-                                   f"recv timed out after {timeout_ms}ms")
-        raise self._peer_error(source, op, f"recv failed (rc={n})",
-                               kind="transport")
+        its length; ``timeout_ms < 0`` waits forever.  With a detector
+        attached the wait runs in slices of its heartbeat interval, and
+        the detector's verdict is checked before each."""
+        deadline = None if timeout_ms < 0 else \
+            time.monotonic() + timeout_ms / 1000.0
+        while True:
+            if self._detector is not None:
+                self._detector.check(op=op)
+                slice_ms = max(int(self._detector.interval_s * 1000), 20)
+            else:
+                slice_ms = -1
+            if deadline is None:
+                wait_ms = slice_ms
+            else:
+                remain_ms = int((deadline - time.monotonic()) * 1000)
+                if remain_ms <= 0:
+                    raise self._peer_error(
+                        source, op, f"recv timed out after {timeout_ms}ms")
+                wait_ms = remain_ms if slice_ms < 0 else \
+                    min(remain_ms, slice_ms)
+            n = self._lib.hostcomm_recv(self._h, source, None, 0, wait_ms)
+            if n >= 0:
+                return int(n)
+            if n != -1:
+                raise self._peer_error(source, op, f"recv failed (rc={n})",
+                                       kind="transport")
+            # The slice ran out: check the detector and the deadline again.
 
     # -------------------------------------------------------- point-to-point
     def _span(self, op: str, peer: Optional[int] = None,

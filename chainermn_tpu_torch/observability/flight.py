@@ -282,10 +282,10 @@ def _install_sigusr1() -> None:
 
 
 #: Crash reasons by exception class name, matched along the class's MRO
-#: (the JAX package's vocabulary).  The resilience classes these name
-#: (rank divergence, peer failure, preemption and health-escalation
-#: exits) are not ported yet (ROADMAP Queue 1 item 12); matching by name
-#: classifies them the day they are, without an import here.
+#: (the JAX package's vocabulary): :mod:`~chainermn_tpu_torch.resilience`'s
+#: ``RankDivergedError``, ``PeerFailedError`` and
+#: ``HealthEscalationInterrupt``, and the preemption exit of ROADMAP Queue
+#: 1 item 12b.  Matched by name, so this module imports none of them.
 CRASH_REASONS = {
     "RankDivergedError": "rank_diverged",
     "PeerFailedError": "peer_failed",

@@ -97,7 +97,8 @@ __all__ = ["Adafactor", "Lamb", "Lars", "MultiNodeOptimizer", "RMSProp",
            "create_zero_optimizer", "ema_model", "int8_ef_codes",
            "int8_ef_mean", "kernel_mask", "lamb", "lars", "linear_scaled_lr",
            "model_parallel_grad_reduce", "reshard_zero_state", "rmsprop",
-           "sgd", "warmup_cosine_schedule", "zero_clip_by_global_norm"]
+           "seed_health", "sgd", "warmup_cosine_schedule",
+           "zero_clip_by_global_norm"]
 
 
 def sgd(learning_rate: LearningRate, momentum: Optional[float] = None,
@@ -189,7 +190,12 @@ class TrainState:
     gradients, in the wire dtype when one is set; zeros at init),
     ``ef_residual`` (int8 error feedback: this rank's quantization
     error, device-varying, never broadcast or averaged) and
-    ``ema_params`` (the fp32 moving average of the parameters)."""
+    ``ema_params`` (the fp32 moving average of the parameters), and
+    ``health``, the health check's carry ``[grad_norm_ema,
+    healthy_steps_seen, skipped_total]``, a ``(3,)`` fp32 tensor on the
+    parameters' device (None until
+    :meth:`~chainermn_tpu_torch.resilience.guard.TrainingHealthGuard.bind`
+    or :func:`seed_health` seeds it)."""
 
     step: int
     model: nn.Module
@@ -197,6 +203,7 @@ class TrainState:
     pending_grads: Optional[Dict[str, torch.Tensor]] = None
     ef_residual: Optional[Dict[str, torch.Tensor]] = None
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    health: Optional[torch.Tensor] = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -206,6 +213,16 @@ class TrainState:
     def model_state(self) -> Dict[str, torch.Tensor]:
         """The model's buffers (e.g. sync-BN running statistics)."""
         return dict(self.model.named_buffers())
+
+
+def seed_health(state: TrainState) -> TrainState:
+    """Give ``state`` a zero health carry on its parameters' device
+    (``make_train_step(health_check=True)`` needs one) unless it has
+    one."""
+    if state.health is None:
+        dev = next(state.model.parameters()).device
+        state.health = torch.zeros(3, dtype=torch.float32, device=dev)
+    return state
 
 
 def ema_model(state: TrainState) -> nn.Module:
@@ -467,8 +484,7 @@ class MultiNodeOptimizer:
 
     def _reduce_grads(self, state: TrainState) -> None:
         """Between the backward and the update: the cross-rank mean (or
-        the int8 error-feedback mean, or the model-parallel reducer),
-        then double buffering's swap."""
+        the int8 error-feedback mean, or the model-parallel reducer)."""
         model = state.model
         if self.grad_compression is not None:
             self._int8_ef_reduce(state)
@@ -476,38 +492,98 @@ class MultiNodeOptimizer:
             self.grad_reduce(model)
         else:
             self.comm.allreduce_grad(model)
-        if self.double_buffering:
-            # 1-step-stale: apply the previous reduced gradients (real
-            # zero tensors at the first step, which the update applies
-            # as optax applies its zero carry), carry the fresh ones,
-            # by copies between buffers that keep their addresses.
-            with torch.no_grad():
-                for n, p in model.named_parameters():
-                    stale = state.pending_grads[n]
-                    fresh = p.grad.to(stale.dtype, copy=True)
-                    p.grad.copy_(stale)
-                    stale.copy_(fresh)
+
+    def _swap_pending(self, state: TrainState) -> None:
+        """Double buffering, after the reduction: 1-step-stale, apply the
+        previous reduced gradients (real zero tensors at the first step,
+        which the update applies as optax applies its zero carry) and
+        carry the fresh ones, by copies between buffers that keep their
+        addresses."""
+        if not self.double_buffering:
+            return
+        with torch.no_grad():
+            for n, p in state.model.named_parameters():
+                stale = state.pending_grads[n]
+                fresh = p.grad.to(stale.dtype, copy=True)
+                p.grad.copy_(stale)
+                stale.copy_(fresh)
+
+    def _step_state(self, state: TrainState) -> Dict[tuple, torch.Tensor]:
+        """Every tensor the step rewrites in place, by a key that names it
+        across steps: parameters, buffers, the optimizer's state (by
+        parameter and entry) and the options' state."""
+        model, opt = state.model, state.optimizer
+        params = list(model.parameters())
+        out = {("param", i): p.data for i, p in enumerate(params)}
+        out.update((("buffer", i), b) for i, b in enumerate(model.buffers()))
+        for i, p in enumerate(params):
+            for k, v in opt.state.get(p, {}).items():
+                if isinstance(v, torch.Tensor):
+                    out[("optimizer", i, k)] = v
+        for field in ("pending_grads", "ef_residual", "ema_params"):
+            opt_state = getattr(state, field)
+            if opt_state is not None:
+                out.update(((field, n), t) for n, t in opt_state.items())
+        return out
 
     def _state_tensors(self, state: TrainState):
         """Every tensor the step updates in place (the capture's warm-ups
-        are undone from a snapshot of them): parameters, buffers, the
-        optimizer's state and the options' state."""
-        out = [p.data for p in state.model.parameters()]
-        out += list(state.model.buffers())
-        for st in state.optimizer.state.values():
-            out += [v for v in st.values() if isinstance(v, torch.Tensor)]
-        for opt_state in (state.pending_grads, state.ef_residual,
-                          state.ema_params):
-            if opt_state is not None:
-                out += list(opt_state.values())
+        are undone from a snapshot of them): :meth:`_step_state` and the
+        health carry."""
+        out = list(self._step_state(state).values())
+        if state.health is not None:
+            out.append(state.health)
         return out
+
+    @staticmethod
+    def _grad_norm(state: TrainState) -> torch.Tensor:
+        """The fp32 norm of every reduced gradient."""
+        norms = [torch.linalg.vector_norm(p.grad, dtype=torch.float32)
+                 for p in state.model.parameters() if p.grad is not None]
+        return torch.linalg.vector_norm(torch.stack(norms))
+
+    def _health_gate(self, state: TrainState, saved: dict,
+                     loss: torch.Tensor, gnorm: torch.Tensor,
+                     spike_factor: float, spike_warmup: int,
+                     spike_ema_beta: float) -> dict:
+        """The health check after the update, on the card: the verdict
+        ``ok = isfinite(loss) & isfinite(gnorm) & ~spike`` over the
+        ranks' mean loss and the reduced gradients' norm (so every rank
+        reaches the same one), the carry's update (the norm's moving
+        average learns from healthy steps only), and a poisoned step made
+        a no-op: every tensor of :meth:`_step_state` selects its value
+        from before the step (``saved``; an optimizer entry the step
+        created, zeros: its lazy initial value).  No host read."""
+        h = state.health
+        ema_n, seen, skipped = h[0], h[1], h[2]
+        finite = torch.isfinite(loss) & torch.isfinite(gnorm)
+        spike = ((seen >= spike_warmup) & (ema_n > 0.0)
+                 & (gnorm > spike_factor * ema_n))
+        ok = finite & ~spike
+        okf = ok.float()
+        ema_upd = torch.where(
+            seen > 0.0,
+            ema_n * (1.0 - spike_ema_beta) + gnorm * spike_ema_beta, gnorm)
+        new = torch.stack([torch.where(ok, ema_upd, ema_n), seen + okf,
+                           skipped + (1.0 - okf)])
+        with torch.no_grad():
+            for key, t in self._step_state(state).items():
+                old = saved.get(key)
+                cond = ok if ok.device == t.device else ok.to(t.device)
+                t.copy_(torch.where(cond, t, old if old is not None
+                                    else torch.zeros_like(t)))
+            h.copy_(new)
+        return {"step_ok": okf, "grad_norm": gnorm,
+                "health_skipped": new[2]}
 
     # ------------------------------------------------------- train step
     def make_train_step(self, loss_fn: Callable, has_aux: bool = False,
                         stateful: bool = False, accum_steps: int = 1,
                         augment: Optional[Callable] = None,
                         augment_seed: int = 0,
-                        health_check: bool = False, *,
+                        health_check: bool = False,
+                        spike_factor: float = 10.0, spike_warmup: int = 20,
+                        spike_ema_beta: float = 0.1, *,
                         capture: Optional[bool] = None) -> Callable:
         """``step(state, batch) -> (state, metrics)``.
 
@@ -526,6 +602,16 @@ class MultiNodeOptimizer:
         state.step, rank)``.  ``metrics["loss"]`` and the aux scalars are
         averaged over ranks and stay device tensors, one set per step.
 
+        ``health_check`` (the training-health guard's in-step check, the
+        JAX package's arithmetic) turns a step whose mean loss or reduced
+        gradient norm is not finite, or whose norm exceeds
+        ``spike_factor`` times the norm's moving average (``spike_ema_
+        beta``, armed after ``spike_warmup`` healthy steps), into a no-op
+        for the parameters, the buffers, the optimizer's state and the
+        options' state, inside the step (captured too: no host read);
+        it needs ``state.health`` (:func:`seed_health`) and adds the
+        device metrics ``step_ok``, ``grad_norm`` and ``health_skipped``.
+
         ``capture`` (keyword only; None: on for a model on a CUDA device)
         captures the step as a CUDA graph per batch signature (see the
         module docstring); ``capture=False`` runs it eagerly.  A captured
@@ -534,9 +620,6 @@ class MultiNodeOptimizer:
         returned function carries ``graphs`` (by signature), ``program``
         (the watch's ``train_step`` record) and ``release()``, which
         frees the graphs and their memory."""
-        if health_check:
-            raise NotImplementedError(
-                "health_check is not ported yet (ROADMAP Queue 1 item 12)")
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         comm = self.comm
@@ -552,6 +635,16 @@ class MultiNodeOptimizer:
             work, the same eagerly and under capture (no host reads; the
             double-buffering carry keeps its addresses)."""
             model, opt = state.model, state.optimizer
+            if health_check:
+                if state.health is None:
+                    raise ValueError(
+                        "health_check=True needs a seeded state.health "
+                        "carry: attach the guard with "
+                        "TrainingHealthGuard.bind(trainer), or call "
+                        "optimizers.seed_health(state)")
+                # Before the forward: it rewrites the buffers.
+                saved = {k: t.clone()
+                         for k, t in self._step_state(state).items()}
             self._begin_step(state)
             loss_sum, aux_sum = None, {}
             for mb in _microbatches(batch, accum_steps):
@@ -567,16 +660,22 @@ class MultiNodeOptimizer:
                     v = torch.as_tensor(v).detach()
                     aux_sum[k] = v if k not in aux_sum else aux_sum[k] + v
             self._reduce_grads(state)
+            gnorm = self._grad_norm(state) if health_check else None
+            self._swap_pending(state)
+            metrics = {"loss": comm.allreduce(loss_sum / accum_steps,
+                                              op="mean")}
+            for k, v in aux_sum.items():
+                metrics[k] = comm.allreduce(v / accum_steps, op="mean")
             opt.step()
             if decay is not None:
                 with torch.no_grad():
                     for n, p in model.named_parameters():
                         e = state.ema_params[n]
                         e.mul_(decay).add_(p.float() * (1.0 - decay))
-            metrics = {"loss": comm.allreduce(loss_sum / accum_steps,
-                                              op="mean")}
-            for k, v in aux_sum.items():
-                metrics[k] = comm.allreduce(v / accum_steps, op="mean")
+            if health_check:
+                metrics.update(self._health_gate(
+                    state, saved, metrics["loss"], gnorm, spike_factor,
+                    spike_warmup, spike_ema_beta))
             return metrics
 
         def signature(state: TrainState, batch: Any):
@@ -691,20 +790,27 @@ class MultiNodeOptimizer:
     def update(self, state: TrainState, batch: Any, loss_fn: Callable,
                has_aux: bool = False, stateful: bool = False,
                accum_steps: int = 1, augment: Optional[Callable] = None,
-               augment_seed: int = 0, *, capture: Optional[bool] = None
+               augment_seed: int = 0, health_check: bool = False,
+               spike_factor: float = 10.0, spike_warmup: int = 20,
+               spike_ema_beta: float = 0.1, *,
+               capture: Optional[bool] = None
                ) -> Tuple[TrainState, dict]:
         """Eager-style API mirroring ``_MultiNodeOptimizer.update``: one
         step built per ``(loss_fn, flags)``, keyed by the function object
         itself (holding a reference: an ``id()`` can be recycled), and
         a warning at the 9th variant (a fresh closure per call builds a
         fresh step each time)."""
+        health = (health_check, spike_factor, spike_warmup, spike_ema_beta)
         key = (loss_fn, has_aux, stateful, accum_steps, augment,
-               augment_seed, capture)
+               augment_seed, health, capture)
         step = self._step_cache.get(key)
         if step is None:
             step = self._step_cache[key] = self.make_train_step(
                 loss_fn, has_aux, stateful, accum_steps=accum_steps,
-                augment=augment, augment_seed=augment_seed, capture=capture)
+                augment=augment, augment_seed=augment_seed,
+                health_check=health_check, spike_factor=spike_factor,
+                spike_warmup=spike_warmup, spike_ema_beta=spike_ema_beta,
+                capture=capture)
             if len(self._step_cache) == 9:
                 warnings.warn(
                     "9+ distinct train-step variants built on one "

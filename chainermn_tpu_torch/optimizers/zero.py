@@ -254,18 +254,25 @@ class ZeroMultiNodeOptimizer(MultiNodeOptimizer):
                         stateful: bool = False, accum_steps: int = 1,
                         augment: Optional[Callable] = None,
                         augment_seed: int = 0, health_check: bool = False,
-                        *, capture: Optional[bool] = None) -> Callable:
+                        spike_factor: float = 10.0, spike_warmup: int = 20,
+                        spike_ema_beta: float = 0.1, *,
+                        capture: Optional[bool] = None) -> Callable:
         """``step(state, batch) -> (state, metrics)`` with the replicated
         tier's contract: ``accum_steps`` microbatches over one gather and
         one reduce-scatter, ``augment``, metrics averaged over the ranks,
         captured per batch signature where the collectives can be
-        recorded."""
+        recorded.  There is no health check on this tier, as in the JAX
+        package (its ZeRO step takes none): ``health_check=True``
+        raises."""
+        if health_check:
+            raise TypeError(
+                "the ZeRO tier has no health check (health_check=True "
+                "needs the replicated-state MultiNodeOptimizer tier)")
         if self.specs is None:
             raise RuntimeError("call init() before make_train_step()")
         return super().make_train_step(
             loss_fn, has_aux, stateful, accum_steps=accum_steps,
-            augment=augment, augment_seed=augment_seed,
-            health_check=health_check, capture=capture)
+            augment=augment, augment_seed=augment_seed, capture=capture)
 
     # ---------------------------------------------------- logical view
     def materialize_params(self, state: ZeroTrainState

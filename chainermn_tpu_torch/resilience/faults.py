@@ -146,16 +146,24 @@ class FaultInjector:
     ``hook(site)`` counts hits per site (1-based) and applies matching
     specs; ``count=`` matches against an externally maintained counter
     instead (the scheduler passes its decode iteration).  crash, hang,
-    slow and skew act here; value-shaped kinds are returned (``"drop"``,
-    ``"nan"``, ``"spike"``, ``"flip"``), else ``None``.
+    slow and skew act here (a hang first runs the freeze callbacks);
+    value-shaped kinds are returned (``"drop"``, ``"nan"``, ``"spike"``,
+    ``"flip"``), else ``None``.
     """
 
     def __init__(self, specs: List[FaultSpec],
                  sleep: Callable[[float], None] = time.sleep):
         self.specs = list(specs)
         self._counts: Dict[str, int] = {}
+        self._freeze_cbs: List[Callable[[], None]] = []
         self._mu = threading.Lock()
         self._sleep = sleep
+
+    def add_freeze_callback(self, cb: Callable[[], None]) -> None:
+        """Register a collaborator to freeze when a ``hang`` fires (the
+        failure detector registers the stop of its beats here)."""
+        with self._mu:
+            self._freeze_cbs.append(cb)
 
     def hook(self, site: str, count: Optional[int] = None) -> Optional[str]:
         with self._mu:
@@ -174,6 +182,7 @@ class FaultInjector:
             for s in todo:
                 if s.kind in ONE_SHOT_KINDS:
                     s.fired = True
+            freeze_cbs = list(self._freeze_cbs)
         action = None
         for s in todo:
             if s.kind in ("slow", "skew"):
@@ -183,10 +192,17 @@ class FaultInjector:
             elif s.kind in VALUE_KINDS:
                 action = s.kind
             elif s.kind == "hang":
-                self._hang(s)
+                self._hang(s, freeze_cbs)
         return action
 
-    def _hang(self, spec: FaultSpec) -> None:
+    def _hang(self, spec: FaultSpec, freeze_cbs) -> None:
+        # A hang models a frozen host: the detector's beats stop first,
+        # or the peers would see a live but stuck process forever.
+        for cb in freeze_cbs:
+            try:
+                cb()
+            except Exception:
+                pass
         sys.stderr.write(
             f"[chainermn_tpu_torch.resilience] injected fault: {spec.text} "
             "— freezing this process\n"

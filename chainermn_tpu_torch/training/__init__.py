@@ -352,8 +352,13 @@ class Trainer:
         ``augment``, ``augment_seed``, ``capture``: on a CUDA device the
         step is captured as a CUDA graph per batch signature unless
         ``capture=False``).
-      preemption_guard, health_guard: not ported yet (ROADMAP Queue 1 item
-        12); passing one raises.
+      health_guard: a :class:`~chainermn_tpu_torch.resilience.guard.
+        TrainingHealthGuard`: its in-step check's options merge into
+        ``step_kwargs`` and its health carry is seeded on the state at
+        construction; after each iteration's extensions it reads the
+        verdict, votes, rolls back or exits 76 on its cadences.
+      preemption_guard: not ported yet (ROADMAP Queue 1 item 12b); passing
+        one raises.
 
     The loop is a ``CMN_FAULT`` hook point, at the JAX loop's places:
     ``nan@grad:N``/``spike@loss:N`` poison iteration N's batch,
@@ -368,12 +373,10 @@ class Trainer:
                  has_aux: bool = False, stateful: bool = False,
                  step_kwargs: Optional[dict] = None,
                  preemption_guard=None, health_guard=None):
-        for guard, what in ((preemption_guard, "preemption_guard"),
-                            (health_guard, "health_guard")):
-            if guard is not None:
-                raise NotImplementedError(
-                    f"Trainer({what}=...) is not ported yet (ROADMAP Queue "
-                    "1 item 12)")
+        if preemption_guard is not None:
+            raise NotImplementedError(
+                "Trainer(preemption_guard=...) is not ported yet (ROADMAP "
+                "Queue 1 item 12b)")
         self.optimizer = optimizer
         self.state = state
         self.loss_fn = loss_fn
@@ -398,6 +401,11 @@ class Trainer:
         # Arm the flight recorder (the SIGUSR1 snapshot handler), governed
         # by its own knobs as in the JAX package.
         _oflight.recorder()
+        # Bound last: the guard merges its step options and seeds the
+        # health carry of the state set above.
+        self.health_guard = health_guard
+        if health_guard is not None:
+            health_guard.bind(self)
 
     @property
     def epoch(self) -> int:
@@ -442,6 +450,13 @@ class Trainer:
                     ext(self)
             if inj is not None:
                 inj.hook("iter", count=self.iteration)
+            # After the extensions: a snapshot saved this iteration exists
+            # before the vote that may bless it (or roll back over it).
+            if self.health_guard is not None:
+                self.health_guard.post_step(self, metrics,
+                                            time.perf_counter() - t0)
         for ext in self.extensions:
             ext.finalize(self)
+        if self.health_guard is not None:
+            self.health_guard.finalize(self)
         return self.state

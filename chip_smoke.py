@@ -296,8 +296,11 @@ beside the four captured ones and the bare step eager in
    over gloo in fp32: greedy tokens equal the one-rank engine's but for a
    near-tie flip at or past generated position 8, equal on every rank,
    K4's runs on the card per rank = steps x 12 (rounds x 17), decode-step
-   ms and the wire's share per rank; the parity phase holds K4/K5 at
-   these local-head shapes), ``zero`` (``LM`` in fp32 with flash and
+   ms and the wire's share per rank; then ``lm_generate`` of each rank's
+   tensor-parallel part: tokens equal to the one-rank model's, K5's runs
+   on the card per rank on its ``KH/M`` heads = steps x 12; the parity
+   phase holds K4/K5 at these local-head shapes), ``zero`` (``LM`` in
+   fp32 with flash and
    remat under ZeRO AdamW on 4 gloo ranks against one process's
    replicated AdamW on the same global batch: losses, parameters,
    K1/K2/K3 per rank per step and in a profiled step, each rank's bytes
@@ -306,13 +309,30 @@ beside the four captured ones and the bare step eager in
    2 ranks by ``maybe_load_elastic`` for one more step) and
    ``gan_convnet`` (the channel-parallel convnet and the DCGAN on 2 gloo
    ranks for 3 SGD-momentum steps each, against one process).
+21. ``health_guard``: the training-health guard on the LM benchmark's
+   step (``LM``, batch 8, flash, remat, AdamW 3e-4, bf16 wire,
+   captured): step ms (median of 5 after 2 warm-ups) and peak bytes with
+   the health check on and off, K1/K2/K3 24/12/12 in a profiled replay
+   with it on; ``nan@grad:3`` and ``spike@loss:5`` (carried by the
+   batch's loss weight) skipped with ``step_ok`` 0 and the digest of the
+   parameters and the optimizer's state unchanged, the later steps and
+   the final state bitwise those of a run that never saw batches 3 and
+   5; a checkpoint restored into the captured step's own tensors and the
+   replay after it bitwise the one before.  Then 3 gloo ranks sharing the
+   card (2 layers): ``flip@param:5`` on rank 1 named by the vote at 8,
+   every rank rolled back to known-good step 4 and ending bitwise equal
+   to the unfaulted run; a heartbeat detector on each rank's
+   ``HostComm``, 3 clean barriers, then ``hang@barrier:4`` on rank 2: the
+   others raise ``PeerFailedError`` naming rank 2 and ``barrier``, the
+   detection latency in heartbeat intervals.
 
 The launch counters are set to 0 just before each drive of the main path
-(phases 5, 5a, 5b, 6, 7a, the timed steps of 10, 11a and 14, and each
-rank's drive in 19-20) and read just after it; the ``kernels`` line
+(phases 5, 5a, 5b, 6, 7a, the timed steps of 10, 11a, 14 and 21, and
+each rank's drive in 19-20) and read just after it; the ``kernels`` line
 lists K4's launches in the serving drive, the speculative drive, each
 fleet phase and each ``tp_serving`` arm (per rank), K5's in each decode
-phase and K1-K3's per step of each training phase, per rank in the
+phase and ``tp_serving``'s generation (per rank), and K1-K3's per step
+of each training phase, per rank in the
 multi-rank ones (``launches_by_phase``).  A captured train step's replays run its kernels
 without their wrappers: its launches are the wrappers' eager ones (the
 signature's first step and the capture's warm-ups) plus replays x what
@@ -3405,11 +3425,13 @@ def lm_group(name):
 
 
 #: Kernels (``torch.cuda._sleep``'s ``spin_kernel``) that ``trace_step``
-#: launches and waits for inside each profile, before the step: a
-#: profile can miss its first few kernel records (every trace of one call
-#: read 3-7 kernels short, a K1 among the LM step's first ones), and
-#: these take that loss instead of the step.  ``device_kernels`` leaves
-#: them out of every count and time.
+#: launches and waits for inside each profile, before the step, between
+#: a captured step's uncounted and counted replays, and after the step:
+#: a profile can miss its first few kernel records (every trace of one
+#: call read 3-7 kernels short, a K1 among the LM step's first ones),
+#: and these take that loss instead of the step.  Device time orders a
+#: profile's kernels, so the spin kernels also mark where each step
+#: begins and ends.  Every count and time leaves them out.
 PROFILE_LEAD_KERNELS = 16
 PROFILE_LEAD_NAME = "spin_kernel"
 
@@ -3431,36 +3453,99 @@ def device_kernels(prof):
     return sorted(kernels, key=lambda k: -k[1])
 
 
+def device_segments(prof):
+    """The profile's kernels in device-time order, cut at the spin
+    kernels: one list of ``(name, device ms)`` per stretch between
+    them."""
+    events = sorted((e for e in prof.events()
+                     if getattr(e, "device_type", None)
+                     == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    segments, cur = [], []
+    for e in events:
+        if PROFILE_LEAD_NAME in e.name:
+            if cur:
+                segments.append(cur)
+            cur = []
+        else:
+            cur.append((e.name, e.time_range.elapsed_us() / 1e3))
+    if cur:
+        segments.append(cur)
+    return segments
+
+
+def segment_kernels(segment):
+    """``(name, device ms, launches)`` of each kernel of one segment,
+    longest first."""
+    by = {}
+    for name, ms in segment:
+        t, c = by.get(name, (0.0, 0))
+        by[name] = (t + ms, c + 1)
+    return sorted(((n, t, c) for n, (t, c) in by.items()),
+                  key=lambda k: -k[1])
+
+
+def segment_counts(segment):
+    """The port's kernels' runs in one segment, by kernel."""
+    return {k: sum(sym in n for n, _ in segment)
+            for k, sym in KERNEL_SYMBOLS.items()}
+
+
+def spin(n=PROFILE_LEAD_KERNELS):
+    """``n`` spin kernels, waited for."""
+    torch.cuda.synchronize()
+    for _ in range(n):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
 def trace_step(step, state, batch, group=lm_group, top=15):
     """One more training step under ``torch.profiler``: its loss, device
     time by kernel (self time, summed over launches), summed by ``group``
     of the kernel's name, and the device's busy share of the step's wall
     time (one stream, so kernel times do not overlap).  The profiler's own
-    host cost stretches the wall time a little."""
+    host cost stretches the wall time a little.
+
+    A captured step is replayed twice under the profiler and only the
+    second replay is counted: the first replay of a profile can lose
+    kernel records (``warm_kernel_counts`` keeps what the profile saw of
+    it).  ``kernel_counts`` is None when the spin kernels around the
+    counted step did not show as expected (their records were lost)."""
     from torch.profiler import ProfilerActivity, profile
 
+    warm = step_graph(step) is not None
+    warm_loss = None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_LEAD_KERNELS):
-            torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
+        spin()
+        if warm:
+            state, metrics = step(state, batch)
+            warm_loss = float(metrics["loss"])
+            spin()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         loss = float(metrics["loss"])
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = device_kernels(prof)
+        spin()
+    segments = device_segments(prof)
+    want = 2 if warm else 1
+    counted = segments[-1] if len(segments) == want else []
+    kernels = segment_kernels(counted)
     device_ms = sum(k[1] for k in kernels)
     groups = {}
     for name, ms, _ in kernels:
         groups[group(name)] = groups.get(group(name), 0.0) + ms
-    # The port's kernels counted from the profile (the card's record of
-    # what ran, a replay included), by kernel.
-    counts = {k: sum(c for n, _, c in kernels if sym in n)
-              for k, sym in KERNEL_SYMBOLS.items()}
-    return dict(loss=loss, wall_ms=wall_ms, device_ms=device_ms,
+    return dict(loss=loss, warm_loss=warm_loss, wall_ms=wall_ms,
+                device_ms=device_ms,
                 busy_share=device_ms / wall_ms if wall_ms else None,
                 groups_ms=groups, kernel_launches=sum(k[2] for k in kernels),
-                kernel_counts=counts,
+                # The port's kernels counted from the profile (the card's
+                # record of what ran, a replay included), by kernel.
+                kernel_counts=segment_counts(counted)
+                if len(segments) == want else None,
+                warm_kernel_counts=segment_counts(segments[0])
+                if warm and len(segments) == want else None,
+                segments=len(segments),
                 top=[dict(name=n[:100], ms=ms, launches=c, group=group(n))
                      for n, ms, c in kernels[:top]])
 
@@ -3468,7 +3553,9 @@ def trace_step(step, state, batch, group=lm_group, top=15):
 #: profiles of one step that ``traced_step`` may take.  The profiler can
 #: lose kernel records of a graph replay, and never adds one: in one call
 #: it counted ~3790 of the ~4450 kernels of a ResNet-50 replay and ~2145
-#: of the ~2235 of an LM replay, 20 of its 24 K1 runs among them.
+#: of the ~2235 of an LM replay, 20 of its 24 K1 runs among them; in
+#: another, three profiles in a row each counted 23 of the LM replay's 24
+#: K1 runs, when the replay was the profile's first.
 TRACE_ATTEMPTS = 3
 
 
@@ -3478,20 +3565,23 @@ def traced_step(label, row, step, state, batch, kernels, group=lm_group,
     (None: not emitted), then checked: the kernels the profile saw equal
     what the step's graph recorded at its capture (one replay), or, for an
     eager step, what its wrappers launched (``kernels``: expected counts
-    by name).  A profile that counts fewer runs than that lost records
-    and is taken again, up to ``TRACE_ATTEMPTS`` profiles (the trace's
-    ``short_profiles`` keeps their counts); one that counts more fails.
-    Returns ``(trace, counts)``."""
+    by name).  A profile that counts fewer runs than that, or whose spin
+    kernels did not show, lost records and is taken again, up to
+    ``TRACE_ATTEMPTS`` profiles (the trace's ``short_profiles`` keeps
+    their counts); one that counts more fails.  Returns
+    ``(trace, counts)``."""
     graph = step_graph(step)
     want = {k: (graph.captured[k] if graph is not None else n)
             for k, n in kernels.items()}
     short = []
     for _ in range(TRACE_ATTEMPTS):
         trace = trace_step(step, state, batch, group=group, top=top)
-        got = {k: trace["kernel_counts"][k] for k in kernels}
-        if got == want or any(got[k] > want[k] for k in want):
-            break
-        short.append(got)
+        got = None
+        if trace["kernel_counts"] is not None:
+            got = {k: trace["kernel_counts"][k] for k in kernels}
+            if got == want or any(got[k] > want[k] for k in want):
+                break
+        short.append(dict(counts=got, segments=trace["segments"]))
     trace["short_profiles"] = short
     if row is not None:
         emit({**row, **trace})
@@ -6543,6 +6633,9 @@ TP_SPEC_K, TP_DRAFT_LAYERS = 4, 1
 #: a near-tie only at or past this generated position
 #: (``tests/torch_fleet_common.assert_greedy_agreement``'s rule).
 TP_MIN_FIRST_DIVERGENCE = 8
+#: ``lm_generate`` on the tensor-parallel model (K5 on each rank's
+#: ``KH/M`` heads): 4 prompts of 32 tokens, 12 new.
+TP_GEN_BATCH, TP_GEN_PROMPT, TP_GEN_NEW = 4, 32, 12
 TP_NOTE = ("model ranks share one card over gloo, each wire message "
            "staged through pinned host memory: the path and its "
            "arithmetic, not a scaling figure")
@@ -6640,9 +6733,34 @@ def tp_rank(out: str, device: str) -> None:
             accepted=getattr(sched, "spec_accepted", 0),
             proposed=getattr(sched, "spec_proposed", 0))
         eng.release()
+    res["generate"] = tp_generate(ops, dev, seed, model, mesh)
     with open(os.path.join(out, f"tp.rank{comm.rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
     comm.barrier()
+
+
+def tp_generate(ops, dev, seed, model, mesh):
+    """``lm_generate`` of the one-rank model, then of this rank's
+    tensor-parallel part (``shard_model``): the tokens of both and K5's
+    runs on the card in the second (each rank's ``KH/M`` heads through
+    ``sharded_fused_decode_attention``), with its wrapper's launches."""
+    from chainermn_tpu_torch.models import lm_generate
+    from chainermn_tpu_torch.serving.sharding import shard_model
+
+    prompt = torch.from_numpy(np.random.RandomState(seed + 43).randint(
+        1, DECODE["vocab"], size=(TP_GEN_BATCH, TP_GEN_PROMPT))).to(dev)
+    want = lm_generate(model, prompt, TP_GEN_NEW).cpu().tolist()
+    local = shard_model(model, mesh)
+    _sync(dev)
+    ops.fused_decode_attention.launches = 0
+    ops.zero_kernel_runs(dev)
+    t0 = time.perf_counter()
+    got = lm_generate(local, prompt, TP_GEN_NEW).cpu().tolist()
+    wall = time.perf_counter() - t0
+    return dict(tokens=got, want=want, wall_s=wall,
+                k5_runs=ops.kernel_runs(dev)["fused_decode_attention"],
+                k5_wrapper=ops.fused_decode_attention.launches,
+                local_kv_heads=local.local_kv_heads)
 
 
 def tp_k4_per_step(arm):
@@ -6708,7 +6826,8 @@ def tp_one_rank_nccl(ops, dev, seed, reqs, kw):
 
 
 def phase_tp_serving(ops, dev, card, seed):
-    """Item 2b on the card.  One model rank over NCCL in this process
+    """Item 2b on the card, and K5 on local heads through ``lm_generate``
+    (:func:`tp_generate`).  One model rank over NCCL in this process
     (bf16, the decode bench's model): the tensor-parallel engine captures
     one decode graph with its all-reduces and all-gather inside, and its
     tokens and last-step logits are bit-equal to the plain engine's.
@@ -6753,12 +6872,36 @@ def phase_tp_serving(ops, dev, card, seed):
                 prefix_hit_tokens=a[0]["hits"],
                 accepted=a[0]["accepted"], proposed=a[0]["proposed"],
                 captured=any(x["captured"] for x in a))
+    gen = {}
+    for M, rs in ranks.items():
+        g = [r["generate"] for r in rs]
+        gen[f"M{M}"] = dict(
+            ranks=M, local_kv_heads=g[0]["local_kv_heads"],
+            tokens_equal_one_rank=all(x["tokens"] == x["want"] for x in g),
+            equal_on_every_rank=all(x["tokens"] == g[0]["tokens"]
+                                    for x in g),
+            k5_runs_per_rank=[x["k5_runs"] for x in g],
+            k5_wrapper_per_rank=[x["k5_wrapper"] for x in g],
+            k5_predicted=(TP_GEN_NEW - 1) * DECODE["n_layers"],
+            wall_s_per_rank=[x["wall_s"] for x in g])
     row = dict(phase="tp_serving", card=card,
                config=f"{DECODE}, {len(reqs)} requests ({TP_FAMILIES} "
                f"families sharing a {TP_PREFIX}-token prefix), "
-               f"{TP_NEW} new each, engine {ENGINE}",
-               nccl_one_rank=row1, gloo=rows, note=TP_NOTE)
+               f"{TP_NEW} new each, engine {ENGINE}; lm_generate batch "
+               f"{TP_GEN_BATCH}, prompt {TP_GEN_PROMPT}, {TP_GEN_NEW} new",
+               nccl_one_rank=row1, gloo=rows, generate=gen, note=TP_NOTE)
     emit(row)
+    for name, g in gen.items():
+        check(g["tokens_equal_one_rank"] and g["equal_on_every_rank"],
+              f"tp_serving lm_generate {name}: tokens differ from the "
+              "one-rank model's or across ranks")
+        check(all(k == g["k5_predicted"] for k in g["k5_runs_per_rank"])
+              and g["k5_runs_per_rank"] == g["k5_wrapper_per_rank"],
+              f"tp_serving lm_generate {name}: K5 ran "
+              f"{g['k5_runs_per_rank']} times per rank (wrappers "
+              f"{g['k5_wrapper_per_rank']}), predicted {g['k5_predicted']}")
+    check(gen["M4"]["local_kv_heads"] == 1,
+          "tp_serving lm_generate M=4: not one kv head per rank")
     check(row1["captured"] and row1["decode_captures"] == 1
           and row1["graphs"] == 1,
           f"tp_serving M=1: {row1['decode_captures']} captures")
@@ -7301,6 +7444,444 @@ def phase_gan_convnet(dev, card, seed):
 RANK_BODIES.update(tp=tp_rank, zero=zero_rank, gc=gc_rank)
 
 
+# --------------------------------------- training health (item 12a)
+#: ``health_guard``: the LM bench's configuration (``LM``, batch
+#: ``LM_BATCH``, flash attention, remat, AdamW 3e-4, bf16 wire),
+#: captured; the check's spike test armed after 2 healthy steps.
+HG_SPIKE_WARMUP = 2
+#: the guarded run's faults (1-based steps of 7): a NaN at 3, a 1000x
+#: spike at 5, each carried by the batch's one-element loss weight.
+HG_FAULTS, HG_FAULT_STEPS, HG_STEPS = "nan@grad:3;spike@loss:5", (3, 5), 7
+#: the ranks' part: 3 gloo ranks sharing the card, the LM cut to 2
+#: layers (full widths), 2 rows of 2048 a rank, AdamW 3e-4; a vote and a
+#: checkpoint every 4 iterations over 8; ``flip@param:5`` on rank 1.
+HG_RANKS, HG_LAYERS, HG_ROWS, HG_EVERY, HG_STOP = 3, 2, 2, 4, 8
+HG_FLIP = "flip@param:5"
+#: the ranks' heartbeats: every 0.1 s, dead after 10 silent intervals.
+HG_HB = dict(interval_s=0.1, suspect_after=2.0, dead_after=10.0)
+
+
+def hg_loss(model):
+    """``lm_loss`` times the batch's one-element fp32 weight (1 unless a
+    fault scaled it): an LM batch has no float leaf of its own, and
+    ``nan@grad`` / ``spike@loss`` poison the float leaves."""
+    from chainermn_tpu_torch.models import lm_loss
+
+    inner = lm_loss(model)
+
+    def loss_fn(m, batch):
+        tokens, targets, w = batch
+        loss, aux = inner(m, (tokens, targets))
+        return loss * w.sum(), aux
+
+    return loss_fn
+
+
+def hg_batches(seed, dev, n):
+    rng = np.random.RandomState(seed + 71)
+    out = []
+    for _ in range(n):
+        toks = torch.from_numpy(rng.randint(
+            0, LM["vocab"], size=(LM_BATCH, LM["max_len"]))).to(dev)
+        out.append((toks, toks, torch.ones(1, device=dev)))
+    return out
+
+
+def hg_setup(dev, seed, comm, health):
+    """The LM step of the main path, with or without the health check."""
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.optimizers import (
+        adamw,
+        create_multi_node_optimizer,
+        seed_health,
+    )
+
+    model = TransformerLM(**LM, attention="flash", remat=True, device=dev,
+                          seed=seed)
+    opt = create_multi_node_optimizer(adamw(3e-4), comm)
+    state = opt.init(model)
+    if health:
+        seed_health(state)
+    step = opt.make_train_step(hg_loss(model), has_aux=True,
+                               health_check=health,
+                               spike_warmup=HG_SPIKE_WARMUP)
+    return model, opt, state, step
+
+
+def hg_state(state):
+    """The parameters and the optimizer's state, by name."""
+    out = dict(state.model.named_parameters())
+    for i, p in enumerate(state.model.parameters()):
+        for k, v in state.optimizer.state.get(p, {}).items():
+            if torch.is_tensor(v):
+                out[f"optimizer.{i}.{k}"] = v
+    return out
+
+
+def hg_equal(a, b):
+    """Two ``hg_state`` dicts bit for bit (on the card)."""
+    return a.keys() == b.keys() and all(torch.equal(a[n], b[n]) for n in a)
+
+
+def hg_arm(fa, dev, card, seed, comm, batch, health, warmup=2, timed=5):
+    """Step ms (median of ``timed`` after ``warmup``) and peak bytes of
+    the captured LM step, check on or off, then one profiled replay."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, state, step = hg_setup(dev, seed, comm, health)
+    for _ in range(warmup):
+        state, m = step(state, batch)
+        float(m["loss"])
+    reset_flash(fa)
+    replays0 = replays_of(step)
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = step_launches(step, flash_launches(fa),
+                             replays_of(step) - replays0)
+    trace, traced = traced_step(
+        f"health_guard check {'on' if health else 'off'}", None, step,
+        state, batch, {k: v // timed for k, v in launches.items()})
+    row = dict(check=health, captured=step_graph(step) is not None,
+               captures=len(step.graphs),
+               step_ms_median=sorted(times)[timed // 2] * 1e3,
+               step_ms_runs=[t * 1e3 for t in times], peak_bytes=peak,
+               launches_per_step={k: v / timed for k, v in launches.items()},
+               launches_per_replay_profiled=traced,
+               first_replay_profiled={k: trace["warm_kernel_counts"][k]
+                                      for k in traced},
+               short_profiles=trace["short_profiles"])
+    step.release()
+    del model, opt, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def hg_faults(dev, seed, comm):
+    """The guarded run over ``HG_STEPS`` batches with ``HG_FAULTS``
+    injected (each poisoned step: ``step_ok`` and the digest of the
+    parameters and the optimizer's state before and after it), and the
+    unguarded run over the same batches less the poisoned ones; then a
+    rollback under the captured step: save after the last step, step,
+    restore into the state, step again."""
+    import shutil
+    import tempfile
+
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+    from chainermn_tpu_torch.resilience import (
+        FaultInjector,
+        parse_fault_spec,
+        poison_batch,
+        tree_digest,
+    )
+
+    batches = hg_batches(seed, dev, HG_STEPS + 1)
+    runs = {}
+    for guarded in (True, False):
+        model, opt, state, step = hg_setup(dev, seed, comm, guarded)
+        inj = FaultInjector(parse_fault_spec(HG_FAULTS)) if guarded \
+            else None
+        rows = []
+        for k, b in enumerate(batches[:HG_STEPS], 1):
+            if not guarded and k in HG_FAULT_STEPS:
+                continue
+            row = {"k": k}
+            if guarded:
+                b = poison_batch(inj, b, k)
+                if k in HG_FAULT_STEPS:
+                    row["before"] = tree_digest(hg_state(state))
+            state, m = step(state, b)
+            row.update(loss=float(m["loss"]),
+                       step_ok=float(m.get("step_ok", 1.0)),
+                       grad_norm=float(m.get("grad_norm", float("nan"))))
+            if "before" in row:
+                row["after"] = tree_digest(hg_state(state))
+            rows.append(row)
+        final = {n: t.clone() for n, t in hg_state(state).items()}
+        extra = {}
+        if guarded:
+            path = tempfile.mkdtemp(prefix="cmn_hg_")
+            ckpt = create_multi_node_checkpointer(
+                "hg", comm, path=path, async_save=False)
+            ckpt.save(state)
+            held = {n: t.data_ptr() for n, t in hg_state(state).items()}
+            loss1 = float(step(state, batches[-1])[1]["loss"])
+            after1 = {n: t.clone() for n, t in hg_state(state).items()}
+            ckpt.restore_step(HG_STEPS, state)
+            restored = hg_equal(hg_state(state), final)
+            loss2 = float(step(state, batches[-1])[1]["loss"])
+            extra = dict(
+                rollback_restored_bitwise=restored,
+                rollback_in_place=held == {
+                    n: t.data_ptr() for n, t in hg_state(state).items()},
+                rollback_replay_equal=(loss2 == loss1 and hg_equal(
+                    hg_state(state), after1)),
+                rollback_file_bytes=ckpt.last_save["bytes"],
+                rollback_restore_s=ckpt.last_restore["seconds"])
+            shutil.rmtree(path, ignore_errors=True)
+        runs[guarded] = dict(rows=rows, final=final,
+                             captures=len(step.graphs),
+                             health=state.health.tolist()
+                             if state.health is not None else None,
+                             **extra)
+        step.release()
+        del model, opt, state, step
+        torch.cuda.empty_cache()
+    g, o = runs[True], runs[False]
+    later = [r for r in g["rows"] if r["k"] > HG_FAULT_STEPS[0]
+             and r["k"] not in HG_FAULT_STEPS]
+    oracle_later = o["rows"][HG_FAULT_STEPS[0] - 1:]
+    return dict(
+        faults=HG_FAULTS,
+        poisoned=[dict(k=r["k"], step_ok=r["step_ok"],
+                       grad_norm=r["grad_norm"], loss=r["loss"],
+                       state_digest_equal=r["before"] == r["after"])
+                  for r in g["rows"] if r["k"] in HG_FAULT_STEPS],
+        guarded_losses=[r["loss"] for r in g["rows"]],
+        oracle_losses=[r["loss"] for r in o["rows"]],
+        later_losses_bit_equal=[r["loss"] for r in later]
+        == [r["loss"] for r in oracle_later],
+        final_state_bit_equal=hg_equal(g["final"], o["final"]),
+        health_carry=g["health"], captures=[g["captures"], o["captures"]],
+        **{k: v for k, v in g.items() if k.startswith("rollback")})
+
+
+def _hg_run(comm, dev, seed, out, label, fault=None, ckpt=True):
+    """One guarded ``Trainer`` run of the 2-layer LM over the ranks: a
+    vote every ``HG_EVERY`` iterations, and a checkpoint as often."""
+    from chainermn_tpu_torch.datasets import ArrayDataset, scatter_dataset
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+    from chainermn_tpu_torch.iterators import SerialIterator
+    from chainermn_tpu_torch.models import TransformerLM, lm_loss
+    from chainermn_tpu_torch.optimizers import (
+        adamw,
+        create_multi_node_optimizer,
+    )
+    from chainermn_tpu_torch.resilience import (
+        FaultInjector,
+        TrainingHealthGuard,
+        parse_fault_spec,
+        tree_digest,
+    )
+    from chainermn_tpu_torch.training import Trainer
+
+    rows = HG_RANKS * HG_ROWS * (HG_STOP + 2)
+    toks = np.random.RandomState(seed + 73).randint(
+        0, LM["vocab"], size=(rows, LM["max_len"]))
+    ds = scatter_dataset(ArrayDataset(toks, toks), comm, shuffle=True,
+                         seed=0)
+    model = TransformerLM(**{**LM, "n_layers": HG_LAYERS},
+                          attention="flash", remat=True, device=dev,
+                          seed=seed)
+    opt = create_multi_node_optimizer(adamw(3e-4), comm)
+    exts = []
+    if ckpt:
+        ckpt = create_multi_node_checkpointer(
+            "hg", comm, path=os.path.join(out, f"ckpt_{label}"),
+            trigger=(HG_EVERY, "iteration"), async_save=False,
+            max_to_keep=2)
+        exts.append(ckpt)
+    guard = TrainingHealthGuard(comm=comm, checkpointer=ckpt or None,
+                                vote_every=HG_EVERY)
+    tr = Trainer(opt, opt.init(model), lm_loss(model),
+                 SerialIterator(ds, HG_ROWS, shuffle=True, seed=1),
+                 stop=(HG_STOP, "iteration"), has_aux=True,
+                 health_guard=guard, extensions=exts)
+    tr._fault_injector = FaultInjector(parse_fault_spec(fault)) \
+        if fault else None
+    t0 = time.perf_counter()
+    tr.run()
+    wall = time.perf_counter() - t0
+    res = dict(digest=tree_digest(tr.state.params), report=
+               guard.guard_report(), iteration=tr.iteration, wall_s=wall,
+               known_good=ckpt.known_good_steps() if ckpt else [],
+               restore_s=ckpt.last_restore.get("seconds") if ckpt else None,
+               file_bytes=ckpt.last_save.get("bytes") if ckpt else None)
+    del tr, opt, model
+    torch.cuda.empty_cache()
+    return res
+
+
+class HgUnfreeze(Exception):
+    """Ends the injected hang of ``hg_rank`` after a bounded time."""
+
+
+def hg_rank(out: str, device: str) -> None:
+    """One rank of ``health_guard``'s ranks part: the unfaulted run, the
+    ``HG_FLIP`` run (on rank 1), then a heartbeat detector from the
+    launcher's ``CMN_TPU_HB_HOSTS`` on a ``HostComm``: 3 clean barriers,
+    and ``hang@barrier:4`` on rank 2 (its beats frozen, asleep 3 s): the
+    others' barrier raises the detector's verdict.  A healthy rank keeps
+    beating 1.5 s after its verdict, so its gossip reaches the ring."""
+    import pickle
+
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.hostcomm import HostComm
+    from chainermn_tpu_torch.resilience import PeerFailedError, faults
+    from chainermn_tpu_torch.resilience import detector as det_mod
+
+    dev = torch.device(device)
+    seed = int(os.environ.get("CMN_SMOKE_SEED", "0"))
+    comm = create_communicator("naive", device=dev,
+                               allreduce_grad_dtype=torch.bfloat16)
+    r = comm.rank
+    res = {"plain": _hg_run(comm, dev, seed, out, "plain", ckpt=False),
+           "flip": _hg_run(comm, dev, seed, out, "flip",
+                           HG_FLIP if r == 1 else None)}
+    if r == 2:
+        def bounded(s):
+            time.sleep(3.0)
+            raise HgUnfreeze()
+
+        inj = faults.FaultInjector(faults.parse_fault_spec("hang@barrier:4"),
+                                   sleep=bounded)
+        inj.add_freeze_callback(
+            lambda: res.__setitem__("frozen_at", time.time()))
+        faults._process_injector.update(built=True, inj=inj)
+    hc = HostComm(timeout_ms=30000)
+    det = det_mod.from_env(**HG_HB)
+    det.attach(hc)
+    det.start()
+    for _ in range(3):
+        hc.barrier()
+    res["control_dead"] = sorted(det.dead_ranks())
+    try:
+        hc.barrier()
+        res["hang"] = "no error"
+    except PeerFailedError as e:
+        res["hang"] = dict(peer=e.peer, op=e.op, kind=e.kind,
+                           message=str(e), at=time.time())
+        time.sleep(1.5)
+    except HgUnfreeze:
+        res["hang"] = "frozen"
+    det.stop()
+    hc.close()
+    with open(os.path.join(out, f"hg.rank{r}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    comm.barrier()
+
+
+def phase_health_guard(fa, dev, card, seed):
+    """Item 12a on the card.  The captured LM step at the bench's widths
+    with the health check on and off (step ms, peak bytes, K1-K3 in a
+    profiled replay); a NaN and a spike skipped with the state bitwise
+    unchanged and the later steps bitwise those of a run that never saw
+    the poisoned batches; a rollback restored into the captured step's
+    own tensors.  Then ``HG_RANKS`` gloo ranks sharing the card: a
+    flipped parameter named by the vote, rolled back and resumed bitwise
+    equal to the unfaulted run, and a hung rank named by the failure
+    detector with the op."""
+    import tempfile
+
+    from chainermn_tpu_torch.comm import create_communicator
+
+    comm = create_communicator("xla", device=dev,
+                               allreduce_grad_dtype=torch.bfloat16)
+    batch = hg_batches(seed, dev, 1)[0]
+    arms = {h: hg_arm(fa, dev, card, seed, comm, batch, h)
+            for h in (False, True)}
+    on, off = arms[True], arms[False]
+    faults_row = hg_faults(dev, seed, comm)
+    out = tempfile.mkdtemp(prefix="cmn_hg_")
+    secs = launch_ranks(HG_RANKS, [os.path.abspath(__file__), "--rank-body",
+                                   "hg", out, "--rank-device", str(dev)],
+                        "health_guard", env={"CMN_SMOKE_SEED": str(seed)})
+    ranks = rank_results(out, "hg", HG_RANKS)
+    frozen = ranks[2]["frozen_at"]
+    hangs = [rk["hang"] for rk in ranks[:2]]
+    L = LM["n_layers"]
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L,
+            "flash_attention_bwd_dq": L}
+    row = dict(
+        phase="health_guard", card=card,
+        config=f"{LM}, batch {LM_BATCH}, flash, remat, AdamW 3e-4, bf16 "
+        f"wire, captured; spike_warmup {HG_SPIKE_WARMUP}; ranks: "
+        f"{HG_RANKS} gloo ranks sharing the card, {HG_LAYERS} layers, "
+        f"{HG_ROWS} rows a rank, vote and checkpoint every {HG_EVERY} of "
+        f"{HG_STOP}, {HG_FLIP} on rank 1, heartbeats {HG_HB}",
+        step_ms_check_off=off["step_ms_median"],
+        step_ms_check_on=on["step_ms_median"],
+        step_ms_ratio=on["step_ms_median"] / off["step_ms_median"],
+        peak_bytes_check_off=off["peak_bytes"],
+        peak_bytes_check_on=on["peak_bytes"],
+        arms={"off": off, "on": on}, faults=faults_row,
+        ranks=dict(
+            flip_votes=[[v for v in rk["flip"]["report"]["votes"]
+                         if not v["clean"]] for rk in ranks],
+            flip_rollbacks=[rk["flip"]["report"]["rollbacks"]["events"]
+                            for rk in ranks],
+            flip_iteration=[rk["flip"]["iteration"] for rk in ranks],
+            flip_equals_plain=[rk["flip"]["digest"] == rk["plain"]["digest"]
+                               for rk in ranks],
+            plain_digests_equal=len({rk["plain"]["digest"]
+                                     for rk in ranks}) == 1,
+            plain_rollbacks=[rk["plain"]["report"]["rollbacks"]["count"]
+                             for rk in ranks],
+            run_s=[[rk["plain"]["wall_s"], rk["flip"]["wall_s"]]
+                   for rk in ranks],
+            checkpoint_bytes_per_rank=ranks[0]["flip"]["file_bytes"],
+            restore_s=[rk["flip"]["restore_s"] for rk in ranks],
+            control_dead=[rk["control_dead"] for rk in ranks],
+            hang=hangs,
+            detection_intervals=[(h["at"] - frozen) / HG_HB["interval_s"]
+                                 for h in hangs if isinstance(h, dict)]),
+        launch_s=secs, note=MP_NOTE.replace("4 ranks", f"{HG_RANKS} ranks"))
+    emit(row)
+    for a in (off, on):
+        check(a["captured"] and a["captures"] == 1,
+              f"health_guard: the step with the check "
+              f"{'on' if a['check'] else 'off'} was not captured once")
+    check(on["launches_per_replay_profiled"] == want
+          and on["launches_per_step"] == want,
+          f"health_guard: K1-K3 ran {on['launches_per_replay_profiled']} "
+          f"in the profiled replay ({on['launches_per_step']} per step), "
+          f"expected {want}")
+    for p in faults_row["poisoned"]:
+        check(p["step_ok"] == 0.0 and p["state_digest_equal"],
+              f"health_guard: the poisoned step {p['k']} was not a no-op: "
+              f"{p}")
+    check(faults_row["later_losses_bit_equal"]
+          and faults_row["final_state_bit_equal"],
+          "health_guard: the guarded run after its skipped steps is not "
+          "bitwise the run that never saw their batches")
+    check(faults_row["captures"] == [1, 1], f"health_guard: captures "
+          f"{faults_row['captures']}")
+    check(faults_row["rollback_restored_bitwise"]
+          and faults_row["rollback_in_place"]
+          and faults_row["rollback_replay_equal"],
+          "health_guard: the restore under the captured step was not in "
+          "place, or the replay after it differs")
+    rk = row["ranks"]
+    check(all(v == [{"step": HG_STOP, "clean": False, "divergent": [1],
+                     "no_majority": False}] for v in rk["flip_votes"]),
+          f"health_guard: the flip votes read {rk['flip_votes']}")
+    check(all([(e["step"], e["at_iteration"]) for e in ev] ==
+              [(HG_EVERY, HG_STOP)] for ev in rk["flip_rollbacks"])
+          and all(i == HG_STOP for i in rk["flip_iteration"])
+          and all(rk["flip_equals_plain"]) and rk["plain_digests_equal"],
+          "health_guard: the flipped run did not roll back and resume "
+          "bitwise equal to the unfaulted one")
+    check(rk["plain_rollbacks"] == [0] * HG_RANKS
+          and rk["control_dead"] == [[]] * HG_RANKS,
+          "health_guard: the unfaulted runs were not clean")
+    check(ranks[2]["hang"] == "frozen" and all(
+        isinstance(h, dict) and (h["peer"], h["op"], h["kind"]) ==
+        (2, "barrier", "dead") for h in hangs),
+        f"health_guard: the hung rank was not named with the op: {hangs}")
+    return row
+
+
+RANK_BODIES.update(hg=hg_rank)
+
+
 FLASH_SASS = ("flash_fwd_bf16", "flash_bwd_dkv_bf16", "flash_bwd_dq_bf16")
 CONV_SASS = ("matmul_affine_bf16",)
 CONV_TILES = (64, 128)
@@ -7636,6 +8217,8 @@ def main() -> int:
     tp = phase_tp_serving(ops, dev, smi, args.seed)
     zero = phase_zero(dev, smi, args.seed)
     phase_gan_convnet(dev, smi, args.seed)
+    # The failure detector, the consistency vote and the health guard.
+    hg = phase_health_guard(fa, dev, smi, args.seed)
 
     launches = {"paged_decode_attention":
                 serve["launches"]["paged_decode_attention"],
@@ -7678,11 +8261,18 @@ def main() -> int:
             for steps in zero["launches_per_rank_per_step"]]
         by_phase[k]["zero_profiled_step_per_rank"] = [
             p[k] for p in zero["profiled_step_per_rank"]]
+        by_phase[k]["health_guard_per_step"] = \
+            hg["arms"]["on"]["launches_per_step"][k]
+        by_phase[k]["health_guard_profiled_replay"] = \
+            hg["arms"]["on"]["launches_per_replay_profiled"][k]
     by_phase["paged_decode_attention"]["tp_serving_one_rank_nccl"] = \
         tp["nccl_one_rank"]["k4_runs"]
     by_phase["paged_decode_attention"].update(
         {f"tp_serving_{name}_per_rank": r["k4_runs_per_rank"]
          for name, r in tp["gloo"].items()})
+    by_phase["fused_decode_attention"].update(
+        {f"tp_generate_{name}_per_rank": g["k5_runs_per_rank"]
+         for name, g in tp["generate"].items()})
     by_phase["flash_attention_fwd"].update(
         seq2seq_greedy=s2s["decode"]["greedy"]["launches"]
         ["flash_attention_fwd"],

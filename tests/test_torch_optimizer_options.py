@@ -241,8 +241,12 @@ def test_update_caches_one_step_per_variant(setup):
                        augment_seed=k)
     assert len(opt._step_cache) == 9
     assert sum("9+ distinct" in str(w.message) for w in caught) == 1
-    with pytest.raises(NotImplementedError, match="item 12"):
-        opt.make_train_step(loss, health_check=True)
+    # Item 12a's health check is ported (tests/test_torch_guard.py holds
+    # it against the JAX package); a step without the seeded carry
+    # refuses, as the JAX one does.
+    step = opt.make_train_step(loss, health_check=True)
+    with pytest.raises(ValueError, match="seeded state.health"):
+        step(st, batches[0])
     # Item 8's seam is ported: it takes a function of the model and
     # refuses anything else.
     assert create_multi_node_optimizer(

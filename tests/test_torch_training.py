@@ -234,7 +234,8 @@ def test_unported_optimizer_options_raise():
     optax-arithmetic rules are capturable on any device, and torch's
     AdamW, capturable on a CUDA device only, keeps a schedule's learning
     rate as a tensor; item 8's ``grad_reduce`` takes a function of the
-    model; item 12's health check still raises, naming its item."""
+    model; item 12a's health check builds, and its step refuses a state
+    whose health carry was not seeded."""
     comm = create_communicator("xla", device="cpu")
     for kw in (dict(double_buffering=True), dict(grad_compression="int8_ef"),
                dict(ema_decay=0.99)):
@@ -264,8 +265,10 @@ def test_unported_optimizer_options_raise():
         create_multi_node_optimizer(adamw(1e-3), comm, grad_compression="fp8")
     opt = create_multi_node_optimizer(adamw(1e-3), comm)
     opt.make_train_step(lambda m, b: 0.0, augment=lambda g, b: b)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        opt.make_train_step(lambda m, b: 0.0, health_check=True)
+    step = opt.make_train_step(lambda m, b: m.embed.weight.sum(),
+                               health_check=True)
+    with pytest.raises(ValueError, match="seed_health"):
+        step(opt.init(model), np.zeros((2, 4), np.int32))
 
 
 def test_train_lm_twin_runs_on_cpu(capsys):

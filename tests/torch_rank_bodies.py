@@ -420,8 +420,15 @@ _VGG_IN = None
 
 
 # ------------------------------------------------------------- host comm
+class _NoPeers:
+    """A one-rank transport: a detector over it never sees a death."""
+
+    rank, size = 0, 1
+
+
 def hostcomm():
     from chainermn_tpu_torch.hostcomm import HostComm
+    from chainermn_tpu_torch.resilience import FailureDetector
 
     hc = HostComm(timeout_ms=20000)
     r, n = hc.rank, hc.size
@@ -454,10 +461,20 @@ def hostcomm():
         hc.send_obj("done", 1)
     elif r == 1:
         res["late"] = hc.recv_obj(0)
-    try:
-        hc.attach_detector(object())
-    except NotImplementedError as e:
-        res["detector"] = str(e)
+    # A detector that watches no peer: the waits are now sliced by its
+    # interval and keep their deadline.
+    FailureDetector(_NoPeers(), interval_s=0.05).attach(hc)
+    if r == 0:
+        t0 = time.monotonic()
+        try:
+            hc.recv_obj(1, timeout_ms=200)
+            res["detector"] = "no error"
+        except TimeoutError as e:
+            res["detector"] = (type(e).__name__, e.peer, e.op, e.kind,
+                               time.monotonic() - t0)
+        hc.send_obj("done", 1)
+    elif r == 1:
+        res["detector"] = hc.recv_obj(0)
     res["migration"] = _migrate(hc)
     hc.barrier()
     hc.close()
@@ -1088,17 +1105,28 @@ def seqpar_cuda():
     return res
 
 
+def save(name: str, res) -> None:
+    """Save this rank's result of body ``name`` (a body that goes on to
+    exit another way saves its result itself and returns None)."""
+    rank = int(os.environ["RANK"])
+    with open(f"{_OUT}/{name}.rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+_OUT = None
+
+
 def run(name: str, out: str) -> None:
     """Run body ``name`` on this rank and save its result; a body reads
     the test's inputs, when the test wrote any, from ``_INPUTS``."""
-    global _VGG_IN, _INPUTS
+    global _VGG_IN, _INPUTS, _OUT
     if name == "vgg":
         _VGG_IN = f"{out}/vgg_inputs.pkl"
     _INPUTS = f"{out}/{name}_inputs.pkl"
+    _OUT = out
     res = globals()[name]()
-    rank = int(os.environ["RANK"])
-    with open(f"{out}/{name}.rank{rank}.pkl", "wb") as f:
-        pickle.dump(res, f)
+    if res is not None:
+        save(name, res)
 
 
 # ------------------------------------------ tensor-parallel serving (2b)
@@ -1535,3 +1563,228 @@ def cnngan():
     res["ex_mnist_mp"] = [e["loss"] for e in trainer.extensions[0].log]
     comm.barrier()
     return res
+
+
+# ------------------------------------------- failure detection (12a)
+#: the detector test's heartbeat: 0.1 s beats, dead after 10 silent ones.
+HB = dict(interval_s=0.1, suspect_after=2.0, dead_after=10.0)
+
+
+class _Unfreeze(Exception):
+    """Ends an injected hang after a bounded time (the injector's
+    ``sleep`` raises it), so that the frozen rank can report."""
+
+
+def detector():
+    """3 ranks, each a data-plane ``HostComm`` with a heartbeat detector
+    from the launcher's ``CMN_TPU_HB_HOSTS`` attached: 3 clean barriers
+    (the control), then ``hang@barrier:4`` on rank 2 (its beats frozen
+    by the injector's freeze callback, the process asleep for 3 s): the
+    others' 4th barrier raises the detector's verdict naming rank 2 and
+    the op.  A healthy rank keeps beating for 1.5 s after its verdict, so
+    that its gossip reaches the ring before it leaves."""
+    from chainermn_tpu_torch.hostcomm import HostComm
+    from chainermn_tpu_torch.resilience import PeerFailedError, faults
+    from chainermn_tpu_torch.resilience import detector as det_mod
+
+    r = int(os.environ["CMN_TPU_RANK"])
+    res = {"interval_s": HB["interval_s"]}
+    if r == 2:
+        def bounded(s):
+            time.sleep(3.0)
+            raise _Unfreeze()
+
+        inj = faults.FaultInjector(faults.parse_fault_spec("hang@barrier:4"),
+                                   sleep=bounded)
+        inj.add_freeze_callback(
+            lambda: res.__setitem__("frozen_at", time.time()))
+        faults._process_injector.update(built=True, inj=inj)
+    hc = HostComm(timeout_ms=30000)
+    det = det_mod.from_env(**HB)
+    det.attach(hc)
+    det.start()
+    for _ in range(3):
+        hc.barrier()
+        time.sleep(0.05)
+    res["control_dead"] = sorted(det.dead_ranks())
+    try:
+        hc.barrier()
+        res["hang"] = "no error"
+    except PeerFailedError as e:
+        res["hang"] = dict(peer=e.peer, op=e.op, kind=e.kind, rank=e.rank,
+                           message=str(e), at=time.time())
+        try:
+            det.check(op="allgather_obj")
+        except PeerFailedError as e2:
+            res["check"] = (e2.peer, e2.op, e2.kind)
+        time.sleep(1.5)
+    except _Unfreeze:
+        res["hang"] = "frozen"
+    res["dead"] = sorted(det.dead_ranks())
+    res["liveness"] = det.liveness_report()
+    det.stop()
+    hc.close()
+    return res
+
+
+def consistency():
+    """3 ranks: the digest of equal state, a clean vote over the process
+    group, one flipped bit on rank 2 found by a vote over the launcher's
+    ``HostComm``, and a vote at different steps, which raises."""
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.hostcomm import HostComm
+    from chainermn_tpu_torch.models import MLP
+    from chainermn_tpu_torch.resilience.consistency import (
+        exchange_and_vote,
+        tree_digest,
+    )
+
+    comm = create_communicator("naive", device="cpu")
+    hc = HostComm(timeout_ms=30000)
+    r = comm.rank
+    model = MLP(hidden=(8,), n_out=4, in_features=8, device="cpu", seed=3)
+    res = {"digest": tree_digest(model)}
+
+    def vote(c, step):
+        v = exchange_and_vote(c, model, step)
+        return dict(clean=v.clean, divergent=v.divergent,
+                    no_majority=v.no_majority, groups=v.groups,
+                    describe=v.describe())
+
+    res["clean"] = vote(comm, 1)
+    if r == 2:
+        with torch.no_grad():
+            w = model.layers[0].weight.view(-1)
+            w.view(torch.int32)[5] ^= 1
+    res["flipped_digest"] = tree_digest(model)
+    res["flip"] = vote(hc, 2)
+    try:
+        vote(comm, 3 if r != 1 else 4)
+        res["desync"] = "no error"
+    except RuntimeError as e:
+        res["desync"] = str(e)
+    hc.close()
+    comm.barrier()
+    return res
+
+
+# ------------------------------------------ the training-health guard
+class _DropNth:
+    """An iterator that consumes its N-th batch unseen: the oracle of a
+    skipped step (the data advanced, no update)."""
+
+    def __init__(self, it, n):
+        self._it, self._n, self._calls = it, int(n), 0
+
+    def __next__(self):
+        self._calls += 1
+        batch = next(self._it)
+        if self._calls == self._n:
+            batch = next(self._it)
+        return batch
+
+    def __getattr__(self, name):
+        return getattr(self._it, name)
+
+
+def _guard_run(comm, label, fault=None, drop=None, stop=12, ckpt=True,
+               skip_budget=3):
+    """``tests/multiprocess_tests/worker_health_guard.py``'s run on the
+    port: the MLP on the synthetic task over the ranks, SGD 0.1 momentum
+    0.9, a guard voting every 2 iterations and a checkpoint every 2, up
+    to ``stop``; ``fault`` on this rank, ``drop``: the oracle."""
+    from chainermn_tpu_torch.datasets import (
+        make_synthetic_classification,
+        scatter_dataset,
+    )
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+    from chainermn_tpu_torch.iterators import SerialIterator
+    from chainermn_tpu_torch.models import MLP, classification_loss
+    from chainermn_tpu_torch.optimizers import (
+        create_multi_node_optimizer,
+        sgd,
+    )
+    from chainermn_tpu_torch.resilience import (
+        FaultInjector,
+        TrainingHealthGuard,
+        parse_fault_spec,
+        tree_digest,
+    )
+    from chainermn_tpu_torch.training import Extension, Trainer
+
+    ds = scatter_dataset(make_synthetic_classification(384, 8, 4, seed=9),
+                         comm, shuffle=True, seed=4)
+    model = MLP(hidden=(8,), n_out=4, in_features=8, device="cpu")
+    opt = create_multi_node_optimizer(sgd(0.1, momentum=0.9), comm)
+    it = SerialIterator(ds, 32, shuffle=True, seed=2)
+    if drop:
+        it = _DropNth(it, drop)
+    exts = []
+    if ckpt:
+        ckpt = create_multi_node_checkpointer(
+            "guard", comm, path=f"{_OUT}/ckpt_{label}",
+            trigger=(2, "iteration"), async_save=False, max_to_keep=8)
+        exts.append(ckpt)
+    guard = TrainingHealthGuard(comm=comm, checkpointer=ckpt or None,
+                                vote_every=2 if ckpt else 0,
+                                skip_budget=skip_budget)
+    losses, oks, addrs = {}, {}, {}
+
+    def capture(tr):
+        m = tr.last_metrics
+        losses[tr.iteration] = float(m["loss"])
+        oks[tr.iteration] = float(m["step_ok"])
+        if tr.iteration == 1:
+            addrs["first"] = {k: t.data_ptr() for k, t in
+                              opt._step_state(tr.state).items()}
+
+    trainer = Trainer(opt, opt.init(model), classification_loss(model), it,
+                      stop=(stop, "iteration"), has_aux=True,
+                      health_guard=guard,
+                      extensions=exts + [Extension(capture,
+                                                   (1, "iteration"))])
+    trainer._fault_injector = (FaultInjector(parse_fault_spec(fault))
+                               if fault else None)
+    trainer.run()
+    return dict(losses=losses, step_ok=oks,
+                final_iteration=trainer.iteration,
+                final_digest=tree_digest(trainer.state.params),
+                known_good=ckpt.known_good_steps() if ckpt else [],
+                report=guard.guard_report(),
+                addresses_kept=addrs["first"] == {
+                    k: t.data_ptr() for k, t in
+                    opt._step_state(trainer.state).items()})
+
+
+def guard():
+    """3 ranks under ``launch.supervise``.  Attempt 0: ``nan@grad:5`` on
+    rank 1 and its oracle (batch 5 consumed unseen), ``flip@param:7`` on
+    rank 1 and its unfaulted oracle; then, the results saved, a guard
+    with no checkpointer meets ``nan@grad:2`` on rank 0 with a skip budget
+    of 0: every rank escalates and exits 76.  The relaunch (attempt 1)
+    only records that it ran."""
+    attempt = int(os.environ.get("CMN_LAUNCH_ATTEMPT", "0"))
+    rank = int(os.environ["RANK"])
+    if attempt:
+        with open(f"{_OUT}/guard.attempt{attempt}.rank{rank}", "w") as f:
+            f.write("relaunched")
+        return None
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.resilience import HealthEscalationInterrupt
+
+    comm = create_communicator("naive", device="cpu")
+    r = comm.rank
+    res = {"nan": _guard_run(comm, "nan", "nan@grad:5" if r == 1 else None),
+           "nan_oracle": _guard_run(comm, "oracle", drop=5, stop=11),
+           "plain": _guard_run(comm, "plain"),
+           "flip": _guard_run(comm, "flip",
+                              "flip@param:7" if r == 1 else None)}
+    save("guard", res)
+    try:
+        _guard_run(comm, "escalate", "nan@grad:2" if r == 0 else None,
+                   stop=4, ckpt=False, skip_budget=0)
+    except HealthEscalationInterrupt as e:
+        with open(f"{_OUT}/guard.escalation.rank{rank}", "w") as f:
+            f.write(f"{e.code} {e.iteration} {e.reason}")
+        raise
+    return None

@@ -11,7 +11,7 @@ path.
 import pathlib
 import pickle
 
-from chainermn_tpu_torch.launch import launch
+from chainermn_tpu_torch.launch import launch, supervise
 
 TESTS = pathlib.Path(__file__).resolve().parent
 REPO = TESTS.parent
@@ -24,10 +24,13 @@ torch_rank_bodies.run({name!r}, {out!r})
 
 
 def run_ranks(name: str, out_dir, nproc: int = 4, timeout_s: float = 150.0,
-              env=None):
+              env=None, supervised=None):
     """Run ``torch_rank_bodies.<name>`` on ``nproc`` ranks; returns the
     list of the ranks' saved results (rank order).  Fails if the job
-    exits non-zero or outlives ``timeout_s``."""
+    exits non-zero or outlives ``timeout_s``.  ``supervised``: run it
+    through ``launch.supervise`` with these allowances (``restarts``,
+    ``health_restarts``, ...), each attempt with ``timeout_s``; fails if
+    the supervisor's final code is non-zero."""
     out_dir = pathlib.Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     script = out_dir / f"{name}_rank.py"
@@ -36,8 +39,12 @@ def run_ranks(name: str, out_dir, nproc: int = 4, timeout_s: float = 150.0,
     extra = {"PYTHONPATH": str(REPO), "CUDA_VISIBLE_DEVICES": "",
              "OMP_NUM_THREADS": "1", "CMN_OBS_FLIGHT_DIR":
              str(out_dir / "flight"), **(env or {})}
-    rc = launch(nproc, [str(script)], grace_s=2.0, env_extra=extra,
-                timeout_s=timeout_s)
+    if supervised is not None:
+        rc = supervise(nproc, [str(script)], backoff_s=0.0, grace_s=2.0,
+                       env_extra=extra, timeout_s=timeout_s, **supervised)
+    else:
+        rc = launch(nproc, [str(script)], grace_s=2.0, env_extra=extra,
+                    timeout_s=timeout_s)
     if rc != 0:
         raise AssertionError(f"{name} on {nproc} ranks exited {rc} (the "
                              "ranks' output is in the captured stderr)")
