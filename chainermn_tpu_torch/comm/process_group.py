@@ -49,6 +49,7 @@ eagerly and cannot be captured (:attr:`capturable`).
 
 from __future__ import annotations
 
+import contextlib
 import pickle
 import queue as _queue
 import threading
@@ -187,6 +188,13 @@ class ProcessGroupCommunicator(CommunicatorBase):
         self.hosts = tuple(hosts)
         self._topo = mesh_lib.topology(max(self._rank, 0), hosts)
         self._objects = objects or _ObjectPlane()
+        # Object-plane collectives record spans (with their per-op
+        # ``seq``: the fleet trace pairs them across ranks), latched on
+        # ``CMN_OBS`` here as every publisher is.
+        from chainermn_tpu_torch import observability as _obs
+        from chainermn_tpu_torch.observability import tracing as _tracing
+
+        self._tracer = _tracing.tracer() if _obs.enabled() else None
         self._subs: Dict[tuple, "ProcessGroupCommunicator"] = {}
         self._pending: List[tuple] = []
         self._tags: Dict[Tuple[int, int], int] = {}
@@ -603,26 +611,46 @@ class ProcessGroupCommunicator(CommunicatorBase):
             _ORPHANED_SENDS.extend(pending)
 
     # ---------------------------------------------------------- objects
+    def _span(self, op: str):
+        tr = getattr(self, "_tracer", None)
+        return tr.span(op) if tr is not None else contextlib.nullcontext()
+
     def bcast_obj(self, obj: Any, root: int = 0) -> Any:
         self._member("bcast_obj")
         box = [obj]
-        dist.broadcast_object_list(box, src=self._src(root),
-                                   group=self.group,
-                                   device=self.device
-                                   if self.backend == "nccl" else None)
+        with self._span("bcast_obj"):
+            dist.broadcast_object_list(box, src=self._src(root),
+                                       group=self.group,
+                                       device=self.device
+                                       if self.backend == "nccl" else None)
         return box[0]
 
     def allgather_obj(self, obj: Any) -> List[Any]:
         self._member("allgather_obj")
         out: List[Any] = [None] * self.size
-        dist.all_gather_object(out, obj, group=self.group)
+        with self._span("allgather_obj"):
+            dist.all_gather_object(out, obj, group=self.group)
         return [out[g] for g in self._group_rank]
 
     def gather_obj(self, obj: Any, root: int = 0) -> Optional[List[Any]]:
         # Over all_gather_object, as the JAX package's XlaCommunicator
         # does: NCCL has no object gather to a root.
-        objs = self.allgather_obj(obj)
+        with self._span("gather_obj"):
+            objs = self.allgather_obj(obj)
         return objs if self.rank == root else None
+
+    def allreduce_obj(self, obj, op: str = "sum"):
+        with self._span("allreduce_obj"):
+            return super().allreduce_obj(obj, op)
+
+    def connect_object_plane(self) -> None:
+        """Join the cross-process object plane now.  Its transport builds
+        one mesh of every world rank at first use, so a rank that sends or
+        receives objects waits for every other rank to join: a collective
+        phase in which only some ranks exchange objects calls this on
+        every rank first."""
+        if len(self.members) > 1:
+            self._objects.hostcomm()
 
     def _key(self, source: int, dest: int) -> tuple:
         return (self.members, int(source), int(dest))
@@ -668,7 +696,8 @@ class ProcessGroupCommunicator(CommunicatorBase):
 
     def barrier(self) -> None:
         self._member("barrier")
-        dist.barrier(group=self.group)
+        with self._span("barrier"):
+            dist.barrier(group=self.group)
 
     # -------------------------------------------------------- structuring
     def _family(self, lines: Sequence[Sequence[int]], axes, mesh,

@@ -16,6 +16,7 @@ from __future__ import annotations
 import atexit
 import datetime
 import os
+import time
 from typing import Optional
 
 import torch.distributed as dist
@@ -69,34 +70,65 @@ def init_distributed(backend: str = "gloo",
                             world_size=world_size)
     _pending = None
     if not _exit_hook:
-        atexit.register(_shutdown_gloo_groups)
+        atexit.register(shutdown_distributed)
         _exit_hook = True
     return True
 
 
-def _shutdown_gloo_groups() -> None:
-    """At exit, as ``MPI_Finalize`` or the JAX package's shutdown
-    barrier: wait for every rank of a gloo default group, then destroy it
-    (and so its subgroups) while the interpreter still runs.  Without the
-    barrier a rank that is done would close its connections while a peer
-    still waits for a message it posted; without the destroy a gloo
-    worker thread that drops a finished collective's tensors once
-    finalization has begun takes the GIL and aborts the process
-    ("terminate called without an active exception").  A rank that does
-    not come within :data:`SHUTDOWN_TIMEOUT_S` (it died) leaves the group
-    as it is.  NCCL groups are left alone."""
-    if not (dist.is_initialized() and dist.get_backend() == "gloo"):
-        return
+def _store_barrier(timeout_s: float) -> bool:
+    """Every rank of the default group at this point, over the group's
+    store (NCCL's barrier cannot time out): each rank counts itself in,
+    waits for the world, then counts itself out, and rank 0 (whose
+    process may serve the store) leaves last.  False when a rank did not
+    come in time or the store is gone (a peer died)."""
+    store, rank, world = default_store(), dist.get_rank(), \
+        dist.get_world_size()
+    deadline = time.monotonic() + timeout_s
     try:
-        dist.monitored_barrier(
-            timeout=datetime.timedelta(seconds=SHUTDOWN_TIMEOUT_S))
-    except RuntimeError:
+        for key in ("cmn_torch/shutdown/in", "cmn_torch/shutdown/out"):
+            store.add(key, 1)
+            if key.endswith("out") and rank != 0:
+                return True
+            while int(store.add(key, 0)) < world:
+                if time.monotonic() > deadline:
+                    return False
+                time.sleep(0.005)
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
+def shutdown_distributed() -> None:
+    """End the default group (the ``MPI_Finalize`` analog; the JAX
+    package's ``shutdown_distributed``), for NCCL as for gloo; run at
+    exit by the hook :func:`init_distributed` registers, and a no-op
+    once the group is gone.  Every rank waits for the others first:
+    without that a rank that is done would close its connections while a
+    peer still waits for a message it posted, and a gloo worker thread
+    that drops a finished collective's tensors once finalization has
+    begun takes the GIL and aborts the process ("terminate called without
+    an active exception").  A rank that does not come within
+    :data:`SHUTDOWN_TIMEOUT_S` (it died) leaves the group as it is."""
+    if not dist.is_initialized():
+        return
+    if dist.get_backend() == "gloo":
+        try:
+            dist.monitored_barrier(
+                timeout=datetime.timedelta(seconds=SHUTDOWN_TIMEOUT_S))
+        except RuntimeError:
+            return
+    elif not _store_barrier(SHUTDOWN_TIMEOUT_S):
         return
     # Every rank is here, so every posted send was received.
     from chainermn_tpu_torch.comm import process_group
 
     process_group._ORPHANED_SENDS.clear()
     dist.destroy_process_group()
+
+
+def is_initialized() -> bool:
+    """Whether the default process group exists."""
+    return dist.is_initialized()
 
 
 def default_store() -> "dist.Store":

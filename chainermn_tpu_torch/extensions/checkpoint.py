@@ -47,7 +47,8 @@ from chainermn_tpu_torch.resilience.policy import RetryPolicy
 from chainermn_tpu_torch.training import Extension
 
 __all__ = ["MultiNodeCheckpointer", "apply_loop_state", "capture_loop_state",
-           "create_multi_node_checkpointer"]
+           "create_multi_node_checkpointer", "restore_payload",
+           "state_payload", "sync_state"]
 
 FORMAT = "cmn-torch-ckpt-1"
 
@@ -182,6 +183,53 @@ def _is_zero(state) -> bool:
     return hasattr(state, "flat_params")
 
 
+def state_payload(state, host=_to_host) -> dict:
+    """Host copies of everything a rank owns of a TrainState: the model's
+    ``state_dict`` (parameters and buffers), the torch optimizer's
+    ``state_dict``, the options' state (pending gradients, int8
+    residuals, the EMA, the health check's carry) and ``state.step``; of
+    a ZeRO state, its shards (``"zero"``), its shard-sized optimizer
+    state and residuals and the model's buffers, not the gathered
+    parameters.  What a snapshot file and a replicated shard hold;
+    ``host`` maps each tensor structure (default: host copies)."""
+    zero = _is_zero(state)
+    out = {
+        "state_step": int(state.step),
+        "model": host(dict(state.model.named_buffers()) if zero
+                      else state.model.state_dict()),
+        "optimizer": host(state.optimizer.state_dict()),
+        "pending_grads": None if zero else host(state.pending_grads),
+        "ef_residual": host(state.ef_residual),
+        "ema_params": None if zero else host(state.ema_params),
+        "health": host(getattr(state, "health", None)),
+    }
+    if zero:
+        out["zero"] = {"flat_params": host(
+            [p.detach() for p in state.flat_params])}
+    return out
+
+
+def restore_payload(state, payload: dict) -> None:
+    """Copy a :func:`state_payload` into ``state``'s own tensors (a
+    captured train step replays on their addresses), then wait for the
+    card."""
+    if _is_zero(state):
+        MultiNodeCheckpointer._restore_zero(state, payload)
+    else:
+        MultiNodeCheckpointer._restore_replicated(state, payload)
+    sync_state(state)
+
+
+def sync_state(state) -> None:
+    """Wait for the card that holds ``state``'s model (a no-op on the
+    CPU, or for a state without a model): the step's device work is done
+    before the state is read or after it is written."""
+    model = getattr(state, "model", None)
+    p = next(model.parameters(), None) if model is not None else None
+    if p is not None and p.is_cuda:
+        torch.cuda.synchronize(p.device)
+
+
 class MultiNodeCheckpointer(Extension):
     """Trainer extension that snapshots (TrainState, loop state) every
     trigger, keeps this rank's ``max_to_keep`` newest steps, and restores
@@ -241,25 +289,12 @@ class MultiNodeCheckpointer(Extension):
         step = int(trainer.iteration if trainer is not None else state.step)
         self.wait()
         t0 = time.perf_counter()
-        zero = _is_zero(state)
         payload = {
             "format": FORMAT, "step": step, "rank": self._rank,
             "world_size": int(getattr(self.comm, "size", 1)),
-            "state_step": int(state.step),
-            # A ZeRO rank owns its shards, not the model's parameters (the
-            # last step's gathered copy): only the buffers are saved.
-            "model": _to_host(dict(state.model.named_buffers()) if zero
-                              else state.model.state_dict()),
-            "optimizer": _to_host(state.optimizer.state_dict()),
-            "pending_grads": None if zero else _to_host(state.pending_grads),
-            "ef_residual": _to_host(state.ef_residual),
-            "ema_params": None if zero else _to_host(state.ema_params),
-            "health": _to_host(getattr(state, "health", None)),
+            **state_payload(state),
             "loop": capture_loop_state(trainer),
         }
-        if zero:
-            payload["zero"] = {"flat_params": _to_host(
-                [p.detach() for p in state.flat_params])}
         host_s = time.perf_counter() - t0
         obs_on = _obs.enabled()
 
@@ -375,13 +410,7 @@ class MultiNodeCheckpointer(Extension):
         if payload.get("format") != FORMAT:
             raise ValueError(f"{self._rank_file(step)} is not a "
                              f"{FORMAT} snapshot")
-        if _is_zero(state):
-            self._restore_zero(state, payload)
-        else:
-            self._restore_replicated(state, payload)
-        p = next(state.model.parameters(), None)
-        if p is not None and p.is_cuda:
-            torch.cuda.synchronize(p.device)
+        restore_payload(state, payload)
         self.last_restore = {"step": int(step),
                              "bytes": os.path.getsize(self._rank_file(step)),
                              "load_s": load_s,

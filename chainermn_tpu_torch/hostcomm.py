@@ -222,7 +222,9 @@ class HostComm:
             payload = pickle.dumps(obj)
             if sp is not None:
                 sp.nbytes = len(payload)
-            buf = (ctypes.c_uint8 * len(payload)).from_buffer_copy(payload)
+            # The pickle's own bytes, not a copy of them.
+            buf = ctypes.cast(ctypes.c_char_p(payload),
+                              ctypes.POINTER(ctypes.c_uint8))
             rc = self._lib.hostcomm_send(self._h, dest, buf, len(payload),
                                          timeout_ms)
             if rc == -3:
@@ -245,7 +247,7 @@ class HostComm:
             return pickle.loads(frame)
 
     def _pop_frame(self, source: int, timeout_ms: Optional[int],
-                   op: str) -> bytes:
+                   op: str) -> memoryview:
         timeout_ms = self.timeout_ms if timeout_ms is None else timeout_ms
         n = self._wait_frame(source, timeout_ms, op)
         buf = (ctypes.c_uint8 * max(n, 1))()
@@ -254,7 +256,9 @@ class HostComm:
             raise self._peer_error(source, op,
                                    f"frame length changed {n}->{got}",
                                    kind="transport")
-        return bytes(buf[:n])
+        # A view of the received buffer (slicing a c_uint8 array would
+        # build a list of ints; unpickling copies what it keeps).
+        return memoryview(buf)[:n]
 
     # ----------------------------------------------------------- composites
     def _composite_span(self, op: str, peer: Optional[int] = None):

@@ -27,13 +27,20 @@
   the communicator's ``gather_obj``), strict-JSON sanitizing and
   Prometheus rendering.
 
+* :mod:`~chainermn_tpu_torch.observability.fleet` — the fleet plane:
+  NTP-style clock offsets between ranks over the object plane
+  (``FleetClock``), the collective ``export_fleet_trace`` of every
+  rank's span ring into one merged Perfetto trace, cross-rank collective
+  skew and gated straggler attribution (``fleet.*``);
+  :mod:`~chainermn_tpu_torch.observability.analyze` is its offline
+  critical-path analyzer.
+* :mod:`~chainermn_tpu_torch.observability.perf` — the offline
+  perf-regression sentinel over ``result/*.json`` histories, series
+  grouped by platform and device kind.
+
 ``CMN_OBS=0`` is the master off-switch: publishers that find it off at
 construction hold no-op instruments and the serving scheduler builds no
-plane.  Of the fleet plane only the trace merge is ported
-(:mod:`~chainermn_tpu_torch.observability.fleet`, which the serving
-router's fleet trace uses); the cross-process clock and gather, the
-offline trace analyzer and the perf sentinel are not (ROADMAP Queue 1
-items 4b and 13).
+plane.
 """
 
 from __future__ import annotations
@@ -112,6 +119,14 @@ from chainermn_tpu_torch.observability.device import (  # noqa: E402
     signature_diff,
     watch,
 )
+from chainermn_tpu_torch.observability.fleet import (  # noqa: E402
+    ClockOffset,
+    FleetClock,
+    attribute_straggler,
+    collective_occurrences,
+    export_fleet_trace,
+    merge_fleet_trace,
+)
 from chainermn_tpu_torch.observability.ledger import (  # noqa: E402
     USAGE_SCHEMA,
     CostLedger,
@@ -161,6 +176,12 @@ __all__ = [
     "roofline",
     "signature_diff",
     "watch",
+    "ClockOffset",
+    "FleetClock",
+    "attribute_straggler",
+    "collective_occurrences",
+    "export_fleet_trace",
+    "merge_fleet_trace",
     "USAGE_SCHEMA",
     "CostLedger",
     "UsageRecord",

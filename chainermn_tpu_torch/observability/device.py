@@ -57,6 +57,7 @@ steady-state cost is one dict lookup of the call's signature key.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -105,6 +106,31 @@ def attention_core_flops(batch: int, heads: int, q_len: int,
         area *= 0.5
     fwd = 4.0 * batch * heads * area * head_dim
     return n_forward * fwd + n_backward * 2.5 * fwd
+
+
+#: open :func:`kernel_flops` tallies (innermost last).
+_KERNEL_TALLY: List[List[float]] = []
+
+
+@contextlib.contextmanager
+def kernel_flops():
+    """Tally, over the calls inside, the analytic FLOPs the hand-written
+    kernels report as they launch (:func:`tally_kernel_flops`), the work
+    ``FlopCounterMode`` cannot see; yields a one-element list holding the
+    sum."""
+    box = [0.0]
+    _KERNEL_TALLY.append(box)
+    try:
+        yield box
+    finally:
+        _KERNEL_TALLY.remove(box)
+
+
+def tally_kernel_flops(flops: Callable[[], float]) -> None:
+    """Add ``flops()`` to the innermost open :func:`kernel_flops` tally
+    (a no-op, and ``flops`` is not called, when none is open)."""
+    if _KERNEL_TALLY:
+        _KERNEL_TALLY[-1][0] += float(flops())
 
 
 def current_device_kind() -> str:

@@ -283,9 +283,10 @@ def _install_sigusr1() -> None:
 
 #: Crash reasons by exception class name, matched along the class's MRO
 #: (the JAX package's vocabulary): :mod:`~chainermn_tpu_torch.resilience`'s
-#: ``RankDivergedError``, ``PeerFailedError`` and
-#: ``HealthEscalationInterrupt``, and the preemption exit of ROADMAP Queue
-#: 1 item 12b.  Matched by name, so this module imports none of them.
+#: ``RankDivergedError``, ``PeerFailedError``, ``HealthEscalationInterrupt``
+#: and :class:`~chainermn_tpu_torch.resilience.preemption.
+#: PreemptionInterrupt` (the exit-75 record).  Matched by name, so this
+#: module imports none of them.
 CRASH_REASONS = {
     "RankDivergedError": "rank_diverged",
     "PeerFailedError": "peer_failed",

@@ -49,12 +49,12 @@ The serving fleet's rules (``router_backlog``, ``replica_dead``,
 ``rollout_stalled``) watch instruments the router, the failure plane,
 the migration transport and the elastic controllers build;
 :meth:`IncidentManager.file_incident` takes the rule-less
-``rollout_interrupted`` capture.  The rules for planes not ported yet
-(the cross-process fleet clock, replication) stay in
-:func:`default_rules`: a rule over an instrument this process never
-built never fires.  The bundle's fleet clock section
-(cross-rank offsets) waits for the fleet plane (ROADMAP Queue 1
-item 13); ``manifest["clock"]`` is None until then.
+``rollout_interrupted`` capture.  A rule over an instrument this process never
+built never fires.  The bundle's ``clock`` section carries the fleet
+clock's cross-rank offsets once a :class:`~chainermn_tpu_torch.
+observability.fleet.FleetClock` is noted (:meth:`IncidentManager.
+note_fleet_clock`; ``MetricsReport(fleet_trace=)`` and
+``export_fleet_trace`` note theirs), and is None before.
 """
 
 from __future__ import annotations
@@ -438,6 +438,7 @@ class IncidentManager:
         #: via weakref so a dropped scheduler reads ``{"released":
         #: true}``, the flight provider pattern).
         self._sources: Dict[str, Callable[[], dict]] = {}
+        self._fleet_clock: Optional[weakref.ref] = None
         if self._enabled:
             self._install_builtin_sources()
             global _latest_manager
@@ -456,6 +457,27 @@ class IncidentManager:
         report) exactly like its flight provider."""
         with self._lock:
             self._sources[name] = fn
+
+    def note_fleet_clock(self, clock) -> None:
+        """Record the run's :class:`~chainermn_tpu_torch.observability.
+        fleet.FleetClock` (weakly), so manifests carry the clock offsets
+        their timelines are judged against."""
+        self._fleet_clock = weakref.ref(clock)
+
+    def _clock_meta(self) -> Optional[dict]:
+        clock = self._fleet_clock() if self._fleet_clock is not None \
+            else None
+        if clock is None:
+            return None
+        try:
+            worst = max((o.rtt_s for o in (clock.offsets or {}).values()),
+                        default=0.0)
+            return {"synced": clock.synced_at is not None,
+                    "offsets_s": {str(k): round(v, 9)
+                                  for k, v in clock.offsets_s().items()},
+                    "worst_rtt_ms": round(worst * 1e3, 3)}
+        except Exception:
+            return None
 
     def _install_builtin_sources(self) -> None:
         """The newest KV-memory sample and the capture watch's records
@@ -655,7 +677,7 @@ class IncidentManager:
                     plane,
                 ),
                 "suspect_rank": suspect_rank,
-                "clock": None,
+                "clock": self._clock_meta(),
                 "dup_count": 0,
             }
             if detail:
@@ -854,6 +876,16 @@ def manager() -> IncidentManager:
             if _manager is None:
                 _manager = IncidentManager()
     return _manager
+
+
+def run_stats() -> dict:
+    """The run's incident accounting, compact: bundles filed and dropped,
+    and the newest bundle's path (None while there is none)."""
+    m = _manager
+    if m is None:
+        return {"count": 0, "dropped": 0, "newest": None}
+    return {"count": m.count, "dropped": m.dropped,
+            "newest": m.newest_path}
 
 
 def evaluate_if_built() -> None:

@@ -52,6 +52,20 @@ _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
 
 
+def refuse_export(name: str) -> None:
+    """Raise when a ``torch.export`` trace reaches kernel ``name``'s
+    wrapper: the kernels are ``ctypes`` launches an exported program
+    cannot record, and tracing the plain version in their place would
+    export a different program (``utils/export.py``)."""
+    import torch
+
+    is_exporting = getattr(torch.compiler, "is_exporting", None)
+    if is_exporting is not None and is_exporting():
+        raise RuntimeError(
+            f"{name}: a hand-written kernel cannot be exported with "
+            "torch.export; export a forward that does not reach it")
+
+
 def nvcc_flags() -> tuple:
     """:data:`NVCC_FLAGS`, with the watchdog's macro when
     :data:`WATCHDOG_ENV` is set to ``1``."""

@@ -31,6 +31,8 @@ import ctypes
 
 import torch
 
+from chainermn_tpu_torch.ops import _kernels
+
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib_cache = {}
 
@@ -38,8 +40,6 @@ _lib_cache = {}
 def _lib():
     lib = _lib_cache.get("lib")
     if lib is None:
-        from chainermn_tpu_torch.ops import _kernels
-
         lib = _kernels.load("conv_fused")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.cmn_matmul_affine.argtypes = (
@@ -123,6 +123,7 @@ def matmul_affine_fwd(x2d, w, scale, bias, relu: bool = True):
     (Cin, Cout) in one dtype (bf16 or fp32), ``scale``/``bias`` (Cout,)
     fp32; returns (N, Cout) in the inputs' dtype.  CPU tensors run the
     plain version; CUDA tensors launch the kernel."""
+    _kernels.refuse_export("matmul_affine_fwd")
     _check_shapes(x2d, w, scale, bias)
     if x2d.device.type == "cpu":
         for name, t in (("w", w), ("scale", scale), ("bias", bias)):

@@ -59,6 +59,8 @@ from typing import Optional
 
 import torch
 
+from chainermn_tpu_torch.ops import _kernels
+
 #: longest fused-kernel cache the model dispatches to the kernel (the JAX
 #: package's VMEM budget; the CUDA kernel streams tiles and has no such
 #: limit, but the model keeps the same dispatch so both packages take the
@@ -95,8 +97,6 @@ _lib_cache = {}
 def _lib():
     lib = _lib_cache.get("lib")
     if lib is None:
-        from chainermn_tpu_torch.ops import _kernels
-
         lib = _kernels.load("decode_attention")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.cmn_paged_decode_attention.argtypes = (
@@ -409,6 +409,7 @@ def fused_decode_attention(q, kc, vc, valid_len, k_scale=None,
     Returns ``(B, H, Dh)`` in ``q``'s dtype.  CPU tensors run the plain
     version; CUDA tensors launch the kernel.
     """
+    _kernels.refuse_export("fused_decode_attention")
     if q.dim() != 3 or kc.dim() != 4:
         raise ValueError(
             f"q must be (B, H, Dh) and the cache (B, KH, L, Dh), got "
@@ -483,6 +484,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, valid_len,
     Returns ``q``'s shape and dtype.  CPU tensors run the plain version;
     CUDA tensors launch the kernel.
     """
+    _kernels.refuse_export("paged_decode_attention")
     if q.dim() == 4:
         S, T, H, Dh = q.shape
     elif q.dim() == 3:

@@ -48,6 +48,9 @@ from typing import Optional
 
 import torch
 
+from chainermn_tpu_torch.observability import device as _odevice
+from chainermn_tpu_torch.ops import _kernels
+
 #: finite stand-in for -inf, as in the Pallas kernels.
 NEG_INF = -1e30
 
@@ -72,8 +75,6 @@ def _count(wrapper) -> None:
 def _lib():
     lib = _lib_cache.get("lib")
     if lib is None:
-        from chainermn_tpu_torch.ops import _kernels
-
         lib = _kernels.load("flash_attention")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.cmn_flash_attention.argtypes = (
@@ -260,6 +261,17 @@ def _launch(which, q, k, v, do, lse, delta, seg_q, seg_kv, out, out2,
                    "flash attention dQ")[which])
 
 
+def _tally(q, k, causal, share):
+    """Report a launch's attention-core work to an open
+    :func:`~chainermn_tpu_torch.observability.device.kernel_flops` tally
+    (the train step's cost model): ``share`` times the forward's two
+    products, the convention of ``attention_core_flops`` (the backward is
+    2.5 forwards: 1.5 in K2, 1 in K3)."""
+    B, T, H, D = q.shape
+    _odevice.tally_kernel_flops(lambda: share * _odevice.attention_core_flops(
+        B, H, T, D, kv_len=k.shape[1], causal=causal, n_backward=0))
+
+
 # ------------------------------------------------------------ wrappers
 def flash_attention_fwd(q, k, v, seg_q=None, seg_kv=None, causal=False,
                         window=None):
@@ -267,6 +279,7 @@ def flash_attention_fwd(q, k, v, seg_q=None, seg_kv=None, causal=False,
     ``(B, S, KH, D)`` with optional int32 segment ids ``(B, T)``/``(B,
     S)`` (both or neither).  CPU tensors run the plain version; CUDA
     tensors launch the kernel."""
+    _kernels.refuse_export("flash_attention_fwd")
     if q.device.type == "cpu":
         _check_cpu({"k": k, "v": v, "seg_q": seg_q, "seg_kv": seg_kv})
         return flash_attention_fwd_reference(q, k, v, seg_q, seg_kv, causal,
@@ -281,6 +294,7 @@ def flash_attention_fwd(q, k, v, seg_q=None, seg_kv=None, causal=False,
     _launch(_FWD, q, k, v, None, None, None, seg_q, seg_kv, o, None, lse,
             causal, window)
     _count(flash_attention_fwd)
+    _tally(q, k, causal, 1.0)
     return o, lse
 
 
@@ -314,6 +328,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, seg_q=None,
     """K2: ``(dk, dv)`` in ``k``'s shape and dtype, given the forward's
     ``lse`` and ``delta = rowsum(dO * O) - dlse``, both fp32 ``(B, H,
     T)``."""
+    _kernels.refuse_export("flash_attention_bwd_dkv")
     _check_bwd(q, do, lse, delta)
     if q.device.type == "cpu":
         _check_cpu({"k": k, "v": v, "do": do, "lse": lse, "delta": delta,
@@ -330,6 +345,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, seg_q=None,
     _launch(_DKV, q, k, v, do, lse, delta, seg_q, seg_kv, dk, dv, None,
             causal, window)
     _count(flash_attention_bwd_dkv)
+    _tally(q, k, causal, 1.5)
     return dk, dv
 
 
@@ -341,6 +357,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, seg_q=None, seg_kv=None,
                            causal=False, window=None):
     """K3: ``dq`` in ``q``'s shape and dtype (inputs as for
     :func:`flash_attention_bwd_dkv`)."""
+    _kernels.refuse_export("flash_attention_bwd_dq")
     _check_bwd(q, do, lse, delta)
     if q.device.type == "cpu":
         _check_cpu({"k": k, "v": v, "do": do, "lse": lse, "delta": delta,
@@ -356,6 +373,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, seg_q=None, seg_kv=None,
     _launch(_DQ, q, k, v, do, lse, delta, seg_q, seg_kv, dq, None, None,
             causal, window)
     _count(flash_attention_bwd_dq)
+    _tally(q, k, causal, 1.0)
     return dq
 
 

@@ -626,7 +626,14 @@ class MultiNodeOptimizer:
         capturable = getattr(comm, "capturable", True) and getattr(
             self.grad_reduce, "capturable", True)
         decay = self.ema_decay
-        prog = _odevice.watch().register("train_step")
+        #: the newest signature's (state, device batch): the cost model's
+        #: inputs.
+        newest: Dict[str, tuple] = {}
+        prog = _odevice.watch().register(
+            "train_step",
+            cost_fn=lambda: train_step_cost(
+                *newest["args"], loss_fn, has_aux=has_aux or stateful,
+                accum_steps=accum_steps) if newest else None)
         graphs: Dict[tuple, _TrainGraph] = {}
         held: Dict[str, nn.Module] = {}
 
@@ -736,6 +743,7 @@ class MultiNodeOptimizer:
                  for w, b in zip(wrappers, before)})
             held["model"] = state.model
             torch.cuda.synchronize(dev)
+            newest["args"] = (state, static)
             _odevice.watch().record(prog, key, args,
                                     time.perf_counter() - t0, "capture")
             return metrics
@@ -768,6 +776,7 @@ class MultiNodeOptimizer:
                 t0 = time.perf_counter()
                 metrics = body(state, batch)
                 if not prog.known(key):
+                    newest["args"] = (state, batch)
                     _odevice.watch().record(
                         prog, key, args, time.perf_counter() - t0, "eager")
             state.step += 1
@@ -819,6 +828,49 @@ class MultiNodeOptimizer:
                     "random_crop_flip() once, outside the loop)",
                     stacklevel=2)
         return step(state, batch)
+
+
+def train_step_cost(state: TrainState, batch: Any, loss_fn: Callable,
+                    has_aux: bool = False, accum_steps: int = 1
+                    ) -> Optional[dict]:
+    """The train step's cost model (the watch's ``train_step``
+    ``cost_analysis``, the JAX package's compiled cost analysis): FLOPs =
+    what ``FlopCounterMode`` counts over one forward and backward of the
+    batch (``torch.autograd.grad``: no gradient is stored, the parameters
+    and the optimizer are untouched, the buffers are put back), plus the
+    analytic attention-core work the hand-written kernels report
+    (:func:`~chainermn_tpu_torch.observability.device.kernel_flops`).
+    A rematerialized block's forward runs again in the backward and is
+    counted again: these are the FLOPs the step executes, not the model's
+    6·N·T.  Bytes = the parameters read by the forward and the backward and
+    written by the update, their gradients written, and the optimizer's
+    state read and written, each once (activations are not counted: a
+    lower bound)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    model = state.model
+    params = [p for p in model.parameters() if p.requires_grad]
+    if not params:
+        return None
+    dev = params[0].device
+    bufs = {n: b.clone() for n, b in model.named_buffers()}
+    with FlopCounterMode(display=False) as counter, \
+            _odevice.kernel_flops() as extra:
+        for mb in _microbatches(_to_device(batch, dev), accum_steps):
+            out = loss_fn(model, mb)
+            loss = out[0] if has_aux else out
+            torch.autograd.grad(loss / accum_steps, params,
+                                allow_unused=True)
+    with torch.no_grad():
+        for n, b in model.named_buffers():
+            b.copy_(bufs[n])
+    param_bytes = sum(p.numel() * p.element_size() for p in params)
+    opt_bytes = sum(v.numel() * v.element_size()
+                    for st in state.optimizer.state.values()
+                    for v in st.values() if isinstance(v, torch.Tensor))
+    return {"flops": float(counter.get_total_flops()) + extra[0],
+            "bytes accessed": float(4 * param_bytes + 2 * opt_bytes),
+            "kernel_flops": extra[0]}
 
 
 def create_multi_node_optimizer(actual_optimizer,

@@ -18,9 +18,18 @@
   (:class:`RankDivergedError`), rollback to a known-good snapshot, and
   stragglers surfaced over the heartbeats.
 
+* :mod:`~chainermn_tpu_torch.resilience.preemption`: SIGTERM as a
+  flag, a vote across the ranks, then the emergency checkpoint (or the
+  serving drain) and exit 75 (:class:`PreemptionGuard`).
+* :mod:`~chainermn_tpu_torch.resilience.replicate`: peer-replicated host
+  snapshots of each rank's state (:class:`ShardReplicator`), the restore
+  quorum (:func:`negotiate_restore`), and the seeded chaos harness
+  (:class:`TrainingChaosHarness`).
+
 The exit codes tell :func:`chainermn_tpu_torch.launch.supervise` why a
-rank stopped.  Preemption (``PreemptionGuard``, the emergency checkpoint)
-and peer replication are ROADMAP Queue 1 item 12b.
+rank stopped.  :mod:`~chainermn_tpu_torch.resilience.replicate` builds on
+the trainer's ``Extension``, and the trainer imports this package, so its
+names load on first use.
 """
 
 from chainermn_tpu_torch.resilience.detector import (
@@ -56,18 +65,34 @@ from chainermn_tpu_torch.resilience.guard import (
     HealthEscalationInterrupt,
     TrainingHealthGuard,
 )
+from chainermn_tpu_torch.resilience.preemption import (
+    PREEMPTION_EXIT_CODE,
+    PreemptionGuard,
+    PreemptionInterrupt,
+)
 from chainermn_tpu_torch.resilience import (
     consistency,
     detector,
     faults,
     guard,
     policy,
+    preemption,
 )
 
-#: A rank that stopped after a cooperative preemption exits with this
-#: code (``chainermn_tpu/resilience/preemption.py``): always restartable,
-#: on its own allowance.
-PREEMPTION_EXIT_CODE = 75
+_REPLICATE = ("REPLICATE_SCHEMA", "ReplicationError", "ShardReplicator",
+              "TrainingChaosHarness", "chaos_schedule", "negotiate_restore",
+              "pick_quorum", "shard_digest", "should_negotiate")
+
+
+def __getattr__(name):
+    if name == "replicate" or name in _REPLICATE:
+        import importlib
+
+        mod = importlib.import_module(
+            "chainermn_tpu_torch.resilience.replicate")
+        return mod if name == "replicate" else getattr(mod, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "ALIVE",
@@ -87,6 +112,8 @@ __all__ = [
     "RetryExhaustedError",
     "RetryPolicy",
     "PREEMPTION_EXIT_CODE",
+    "PreemptionGuard",
+    "PreemptionInterrupt",
     "HEALTH_EXIT_CODE",
     "HealthEscalationInterrupt",
     "TrainingHealthGuard",
@@ -94,9 +121,12 @@ __all__ = [
     "VoteResult",
     "majority_vote",
     "tree_digest",
+    *_REPLICATE,
     "consistency",
     "detector",
     "faults",
     "guard",
     "policy",
+    "preemption",
+    "replicate",
 ]

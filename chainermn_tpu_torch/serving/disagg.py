@@ -33,16 +33,20 @@ into the destination's prefix trie, so hot-prefix sharing survives too.
 :func:`drain_all` moves everything a scheduler holds to a peer
 (decode-ready slots with their KV; still-prefilling slots and queued
 entries as recompute entries), so a serving process told to stop loses
-no request.  The port calls it directly; the JAX package's
-``PreemptionGuard`` wiring (SIGTERM → drain) is not ported, so the
-roles' ``guard`` argument takes any object with ``poll_serving(tick)``.
+no request.  A role built with ``guard=`` (a
+:class:`~chainermn_tpu_torch.resilience.PreemptionGuard`) polls it every
+tick; bind the role's drain to its peer with
+``guard.attach_drain(lambda: role.drain(peer))``, so a SIGTERM migrates
+every live slot and queued entry over the transport and the rank exits
+75.
 
-The transport takes any ``send_obj``/``recv_obj`` endpoint; the port
-ships the in-process :class:`LocalComm` (the cross-process host plane
-is not ported).  Failure accounting rides the ``CMN_FAULT`` grammar:
-the transport is a ``migrate`` hook site (``drop@migrate:N`` loses the
-Nth migration frame on the wire), and a dropped or torn frame is caught
-by the receiver's sequence/checksum validation — :class:`MigrationError`,
+The transport takes any ``send_obj``/``recv_obj`` endpoint: the
+in-process :class:`LocalComm`, a :class:`~chainermn_tpu_torch.hostcomm.
+HostComm` or a communicator's object plane across processes.  Failure
+accounting rides the ``CMN_FAULT`` grammar: the transport is a
+``migrate`` hook site (``drop@migrate:N`` loses the Nth migration frame
+on the wire), and a dropped or torn frame is caught by the receiver's
+sequence/checksum validation — :class:`MigrationError`,
 counted by ``serve.migration.failed``, watched by the critical
 ``migration_failed`` default incident rule.
 

@@ -167,19 +167,34 @@ class MetricsReport(Extension):
     every rank.  ``CMN_OBS=0`` makes it a no-op (set it for the job,
     never for a subset of ranks).
 
-    The JAX package's fleet trace (``fleet_trace=``) and train-step
-    roofline gauges (``device=True``) are not ported (ROADMAP Queue 1
-    item 13); asking for them raises."""
+    ``device=True`` publishes the train step's ``device.train_step.*``
+    gauges each tick (achieved TFLOP/s, arithmetic intensity, and MFU and
+    the roofline gap where the card has a peak in
+    :data:`~chainermn_tpu_torch.observability.device.PEAK_BF16_FLOPS`;
+    none on the CPU) from the watch's cost model of the step (one eager
+    forward and backward under ``FlopCounterMode`` the first time, plus
+    the analytic work of the hand-written attention kernels) and the
+    step's wall time.  The cost model counts what the step executes, a
+    rematerialized block's recomputed forward included, as the JAX
+    package's compiled cost analysis does: with remat on, ``mfu_pct`` is
+    a hardware-FLOPs utilization, above the model-FLOPs one (6·N·T plus
+    the attention core).  The wall time: the card synchronized at each
+    tick, the time since
+    the previous tick over the iterations between them (the first tick
+    sets the mark; ``train.step_ms`` times only the host's dispatch of a
+    captured replay).  ``fleet_trace=<path>`` syncs a
+    :class:`~chainermn_tpu_torch.observability.fleet.FleetClock` on the
+    first tick and every ``fleet_resync`` ticks (``fleet_probes`` probes
+    a peer), notes it on the incident manager (the bundles' ``clock``),
+    and at :meth:`finalize` gathers every rank's span ring into one
+    offset-corrected merged trace at that path.  Both are collectives on
+    the extension's own cadence."""
 
     def __init__(self, comm=None, trigger=(10, "iteration"),
                  out_dir: str = "obs", prometheus: bool = False,
                  aggregate: bool = True, memory: bool = True,
                  device: bool = False, fleet_trace: Optional[str] = None,
                  fleet_probes: int = 8, fleet_resync: int = 64):
-        if device or fleet_trace is not None:
-            raise NotImplementedError(
-                "MetricsReport(device=True) and fleet_trace= are not "
-                "ported yet (ROADMAP Queue 1 item 13)")
         super().__init__(self._fire, trigger=trigger, name="MetricsReport")
         self.comm = comm
         self.out_dir = out_dir
@@ -191,6 +206,18 @@ class MetricsReport(Extension):
         self._last_step: Optional[int] = None
         self._memory = bool(memory)
         self._mem_monitor = None
+        self._device = bool(device)
+        #: (wall clock, iteration) at the previous tick, card synchronized.
+        self._dev_mark: Optional[Tuple[float, int]] = None
+        #: the newest roofline published (``device=True``).
+        self.last_roofline: Optional[dict] = None
+        self.fleet_trace = fleet_trace
+        self._fleet_probes = int(fleet_probes)
+        self._fleet_resync = max(int(fleet_resync), 1)
+        self._fleet_clock = None
+        self._fires = 0
+        #: the merged trace's summary (rank 0, after finalize).
+        self.fleet_summary: Optional[dict] = None
 
     @property
     def rank_path(self) -> str:
@@ -203,12 +230,24 @@ class MetricsReport(Extension):
         if it == self._last_step:  # finalize after an on-trigger last step
             return
         self._last_step = it
+        self._fires += 1
+        if self.fleet_trace is not None and (
+                self._fleet_clock is None
+                or self._fires % self._fleet_resync == 0):
+            from chainermn_tpu_torch.observability import fleet as _ofleet
+
+            if self._fleet_clock is None:
+                self._fleet_clock = _ofleet.FleetClock(
+                    self.comm, probes=self._fleet_probes)
+            self._fleet_clock.sync()
         if self._memory:
             if self._mem_monitor is None:
                 from chainermn_tpu_torch.observability import memory as _omem
 
                 self._mem_monitor = _omem.MemoryMonitor()
             self._mem_monitor.sample()
+        if self._device:
+            self._publish_device_gauges(trainer)
         means = {}
         if trainer.last_metrics is not None:
             for k, v in trainer.last_metrics.items():
@@ -229,12 +268,54 @@ class MetricsReport(Extension):
             self._agg.collect(it, entry)
         from chainermn_tpu_torch.observability import incident as _oincident
 
-        _oincident.manager().evaluate()
+        mgr = _oincident.manager()
+        if self._fleet_clock is not None:
+            mgr.note_fleet_clock(self._fleet_clock)
+        mgr.evaluate()
+
+    def _publish_device_gauges(self, trainer: "Trainer") -> None:
+        """``device.train_step.*`` from the newest captured (or eager)
+        ``train_step`` program's cost model and the synchronized wall
+        time per iteration since the previous tick."""
+        from chainermn_tpu_torch.extensions.checkpoint import sync_state
+        from chainermn_tpu_torch.observability import device as _odevice
+
+        def now():
+            sync_state(trainer.state)
+            return time.perf_counter()
+
+        t, it = now(), int(trainer.iteration)
+        progs = [wp for wp in _odevice.watch().functions()
+                 if wp.program == "train_step" and wp.compiles]
+        if self._dev_mark is not None and it > self._dev_mark[1] and progs:
+            self.last_roofline = _odevice.watch().publish_roofline(
+                progs[-1], (t - self._dev_mark[0]) * 1e3
+                / (it - self._dev_mark[1]))
+        # Marked after the publish: the cost model's one-time build is in
+        # no step's time.
+        self._dev_mark = (now(), it)
 
     def finalize(self, trainer: "Trainer"):
         """Flush a final tick so a stop between triggers still lands the
-        closing window (skipped when the last iteration already fired)."""
+        closing window (skipped when the last iteration already fired);
+        then, with ``fleet_trace``, export the merged fleet trace (a
+        collective: every rank reaches finalize at the same loop exit)."""
         self._fire(trainer)
+        if self.fleet_trace is not None and _obs.enabled():
+            from chainermn_tpu_torch.observability import fleet as _ofleet
+
+            summary = _ofleet.export_fleet_trace(
+                self.comm, path=self.fleet_trace, clock=self._fleet_clock,
+                probes=self._fleet_probes)
+            if summary is not None:
+                self.fleet_summary = summary
+                _close_progress_line()
+                who = summary.get("straggler_rank")
+                print(f"[chainermn_tpu_torch.fleet] merged trace -> "
+                      f"{summary['path']} ({summary['nranks']} ranks, max "
+                      f"skew {summary['max_skew_ms']} ms, straggler "
+                      f"{'none' if who is None else f'rank {who}'})",
+                      flush=True)
 
 
 class PrintReport(Extension):
@@ -357,8 +438,11 @@ class Trainer:
         ``step_kwargs`` and its health carry is seeded on the state at
         construction; after each iteration's extensions it reads the
         verdict, votes, rolls back or exits 76 on its cadences.
-      preemption_guard: not ported yet (ROADMAP Queue 1 item 12b); passing
-        one raises.
+      preemption_guard: a :class:`~chainermn_tpu_torch.resilience.
+        PreemptionGuard`, polled once per iteration, last (after the
+        extensions and the health guard, so a checkpoint this iteration
+        makes the emergency save a no-op): SIGTERM becomes a vote, an
+        emergency checkpoint and exit 75.
 
     The loop is a ``CMN_FAULT`` hook point, at the JAX loop's places:
     ``nan@grad:N``/``spike@loss:N`` poison iteration N's batch,
@@ -373,10 +457,6 @@ class Trainer:
                  has_aux: bool = False, stateful: bool = False,
                  step_kwargs: Optional[dict] = None,
                  preemption_guard=None, health_guard=None):
-        if preemption_guard is not None:
-            raise NotImplementedError(
-                "Trainer(preemption_guard=...) is not ported yet (ROADMAP "
-                "Queue 1 item 12b)")
         self.optimizer = optimizer
         self.state = state
         self.loss_fn = loss_fn
@@ -387,6 +467,7 @@ class Trainer:
         self.has_aux = has_aux
         self.stateful = stateful
         self.step_kwargs = dict(step_kwargs or {})
+        self.preemption_guard = preemption_guard
         self._fault_injector = _faults.process_injector()
         self.iteration = 0
         self._observations: List[dict] = []
@@ -455,6 +536,10 @@ class Trainer:
             if self.health_guard is not None:
                 self.health_guard.post_step(self, metrics,
                                             time.perf_counter() - t0)
+            # Last: a checkpoint saved this iteration makes the emergency
+            # save a no-op.
+            if self.preemption_guard is not None:
+                self.preemption_guard.poll(self)
         for ext in self.extensions:
             ext.finalize(self)
         if self.health_guard is not None:

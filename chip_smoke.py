@@ -319,16 +319,50 @@ beside the four captured ones and the bare step eager in
    the final state bitwise those of a run that never saw batches 3 and
    5; a checkpoint restored into the captured step's own tensors and the
    replay after it bitwise the one before.  Then 3 gloo ranks sharing the
-   card (2 layers): ``flip@param:5`` on rank 1 named by the vote at 8,
-   every rank rolled back to known-good step 4 and ending bitwise equal
+   card (2 layers): ``flip@param:3`` on rank 1 named by the vote at 4,
+   every rank rolled back to known-good step 2 and ending bitwise equal
    to the unfaulted run; a heartbeat detector on each rank's
    ``HostComm``, 3 clean barriers, then ``hang@barrier:4`` on rank 2: the
    others raise ``PeerFailedError`` naming rank 2 and ``barrier``, the
    detection latency in heartbeat intervals.
+22. ``preemption``: the same captured LM step under
+   ``Trainer(preemption_guard=)`` with a ``MultiNodeCheckpointer``, one
+   NCCL rank under ``launch.supervise``: a SIGTERM from a timer thread at
+   iteration 3 of 6; the guard votes, the rank saves and exits 75; the
+   relaunch resumes and runs to 6; exit codes, the emergency save's bytes
+   and seconds, the resume's seconds, K1/K2/K3 24/12/12 in a profiled
+   replay after the resume, the final parameters and AdamW state bit for
+   bit against this process's unpreempted run, which carries
+   ``MetricsReport(device=True)``: the ``device.train_step.*`` gauges
+   (MFU against the card's bf16 peak, counting the remat recompute, and
+   the roofline gap) beside the model-FLOPs MFU (6·N·T plus the
+   attention core); then a ``ShardReplicator`` of that full-size state
+   in one process, its snapshot and local spill timed over 2 cadences.
+23. ``replication``: 3 gloo ranks sharing the card (the LM cut to 2
+   layers, ZeRO AdamW, a ``ShardReplicator`` every 2 iterations, factor
+   1) through a ``TrainingChaosHarness`` schedule drawn by
+   ``chaos_schedule``: a crash (the crashed rank's spill wiped, its shard
+   restored from its successor's replica), a SIGTERM preemption and a
+   torn frame, one relaunch each; the final digest against the unfaulted
+   run's on every rank, lost steps per failure, the torn frame
+   discarded, the replicator's ms per cadence against the step; a
+   relaunch at 2 ranks falling back to ``maybe_load_elastic`` with its
+   ``replication_fallback`` incident; then ``FleetClock.sync`` and
+   ``export_fleet_trace``: offsets and RTTs per rank, the merged trace's
+   spans and ``analyze``'s critical path.
+24. ``serving_drain``: the disaggregated roles at the serving bench's
+   widths (a prefill role, a guarded decode role whose drain
+   ``guard.attach_drain`` binds to a peer decode role); a SIGTERM once every request reached the decode
+   role: every live slot and queued entry migrates, none is lost, tokens
+   equal an undrained run's, exit 75, K4's runs on the card before and
+   after the drain.
+25. ``perf_sentinel``: ``observability.perf`` over ``result/`` and this
+   run's records of this platform (judged apart from the TPU history);
+   then ``phase_seconds``, every phase's seconds.
 
 The launch counters are set to 0 just before each drive of the main path
-(phases 5, 5a, 5b, 6, 7a, the timed steps of 10, 11a, 14 and 21, and
-each rank's drive in 19-20) and read just after it; the ``kernels`` line
+(phases 5, 5a, 5b, 6, 7a, the timed steps of 10, 11a, 14 and 21, each
+rank's drive in 19-20, 22's profiled replay and 24's roles) and read just after it; the ``kernels`` line
 lists K4's launches in the serving drive, the speculative drive, each
 fleet phase and each ``tp_serving`` arm (per rank), K5's in each decode
 phase and ``tp_serving``'s generation (per rank), and K1-K3's per step
@@ -428,13 +462,21 @@ K6_RAGGED = [(1000, 24, 40), (37, 8, 16), (77, 20, 13)]
 
 
 _T0 = time.perf_counter()
+#: seconds by phase name: each phase line's ``t_s`` less the previous one's.
+PHASE_SECONDS = {}
+_LAST_T = [0.0]
 
 
 def emit(obj) -> None:
     """One JSON line; a phase's line carries the script's seconds so far
-    (``t_s``), so that phase durations read off consecutive lines."""
+    (``t_s``), so that phase durations read off consecutive lines (and
+    add up in :data:`PHASE_SECONDS`)."""
     if "phase" in obj:
-        obj = {**obj, "t_s": time.perf_counter() - _T0}
+        t = time.perf_counter() - _T0
+        obj = {**obj, "t_s": t}
+        PHASE_SECONDS[obj["phase"]] = PHASE_SECONDS.get(obj["phase"], 0.0) \
+            + t - _LAST_T[0]
+        _LAST_T[0] = t
     print(json.dumps(obj), flush=True)
 
 
@@ -6159,7 +6201,8 @@ def phase_pipeline(dev, card, mp_row):
 #: of 8192 positions over 4 ranks (2048 each).
 SP = dict(B=1, T=8192, H=12, KH=4, D=64)
 SP_RANKS = 4
-SP_ITERS = 3
+#: (3 before PR 17: cut for time.)
+SP_ITERS = 2
 #: Segments of the packed variant: boundaries off the ranks' blocks, so
 #: that rows of segments 1 and 2 are dead in whole visiting blocks.
 SP_SEGMENTS = [(0, 3000), (1, 2600), (2, 2592)]
@@ -6401,7 +6444,8 @@ PLM_FULL = dict(vocab=32768, n_stages=2, d_model=768, n_heads=12,
                 d_ff=3072, max_len=2048, n_experts=2, moe_k=2)
 PLM_GRID = {"data": 1, "stage": 2, "model": 2, "seq": 2}
 PLM_B, PLM_M = 4, 2
-PLM_STEPS = 3
+#: (3 before PR 17: cut for time.)
+PLM_STEPS = 2
 PLM_LR = 0.05
 #: Step 0 against ``dense_lm_reference`` in one process, fp32 with TF32
 #: off on both sides: the loss within rtol 1e-5; each gradient leaf
@@ -6937,11 +6981,12 @@ def phase_tp_serving(ops, dev, card, seed):
 #: ``zero``: the LM benchmark's model (``LM``) in fp32 (TF32 off) with
 #: flash attention and remat, AdamW 3e-4 (weight decay 0.01), the global
 #: batch ``LM_BATCH`` x 2048 split over the ranks.
-ZERO_RANKS, ZERO_STEPS, ZERO_ELASTIC_RANKS = 4, 3, 2
+ZERO_RANKS, ZERO_STEPS, ZERO_ELASTIC_RANKS = 4, 2, 2
 ZERO_LR, ZERO_WD = 3e-4, 0.01
 #: against one process's replicated AdamW on the same global batch: the
 #: losses within rtol 1e-5; the parameters within the JAX ZeRO test's
-#: atol 3e-5 + rtol 3e-5 after 3 steps, and within the JAX elastic
+#: atol 3e-5 + rtol 3e-5 after ``ZERO_STEPS`` steps (2 since PR 17, 3
+#: before: cut for time), and within the JAX elastic
 #: test's 5e-5 after the elastic restore's step, but for the elements
 #: whose gradient the sums' rounding noise drowns, which Adam moves by
 #: up to 2 x lr per step either way: the key biases
@@ -7454,9 +7499,10 @@ HG_SPIKE_WARMUP = 2
 HG_FAULTS, HG_FAULT_STEPS, HG_STEPS = "nan@grad:3;spike@loss:5", (3, 5), 7
 #: the ranks' part: 3 gloo ranks sharing the card, the LM cut to 2
 #: layers (full widths), 2 rows of 2048 a rank, AdamW 3e-4; a vote and a
-#: checkpoint every 4 iterations over 8; ``flip@param:5`` on rank 1.
-HG_RANKS, HG_LAYERS, HG_ROWS, HG_EVERY, HG_STOP = 3, 2, 2, 4, 8
-HG_FLIP = "flip@param:5"
+#: checkpoint every 2 iterations over 4; ``flip@param:3`` on rank 1
+#: (PR 17 cut it from every 4 over 8, ``flip@param:5``, for time).
+HG_RANKS, HG_LAYERS, HG_ROWS, HG_EVERY, HG_STOP = 3, 2, 2, 2, 4
+HG_FLIP = "flip@param:3"
 #: the ranks' heartbeats: every 0.1 s, dead after 10 silent intervals.
 HG_HB = dict(interval_s=0.1, suspect_after=2.0, dead_after=10.0)
 
@@ -7882,6 +7928,745 @@ def phase_health_guard(fa, dev, card, seed):
 RANK_BODIES.update(hg=hg_rank)
 
 
+# ------------------------- preemption, replication, chaos (item 12b)
+#: ``preemption``: the LM bench's configuration (``LM``, batch
+#: ``LM_BATCH``, flash, remat, AdamW 3e-4, bf16 wire), captured, one rank
+#: under ``launch.supervise``; a SIGTERM from a timer thread at iteration
+#: ``PRE_AT`` of ``PRE_STOP``.
+PRE_AT, PRE_STOP = 3, 6
+#: replicator cadences timed on the full-size LM state in one process.
+PRE_REP_CADENCES = 2
+#: ``replication``: 3 gloo ranks sharing the card, the LM cut to 2 layers
+#: (full widths), 2 rows of 2048 a rank, ZeRO AdamW 3e-4, a replicator
+#: every ``REP_EVERY`` iterations (factor 1), a checkpoint at the target
+#: ``REP_STOP``; the chaos schedule's failures, one per attempt.
+REP_RANKS, REP_LAYERS, REP_ROWS, REP_EVERY, REP_STOP = 3, 2, 2, 2, 8
+REP_KINDS = ("crash", "preempt", "torn")
+#: the rank a ``crash`` kills (its spill is wiped: its host died) and the
+#: rank a ``preempt`` signals and a ``torn`` event tears frames from.
+REP_CRASH_RANK, REP_SIGNAL_RANK = 1, 0
+
+
+def lm_rows(seed, rows):
+    """``rows`` seeded LM rows of ``LM["max_len"]`` tokens."""
+    return np.random.RandomState(seed + 79).randint(
+        0, LM["vocab"], size=(rows, LM["max_len"]))
+
+
+def lm_trainer(dev, seed, comm, rows, batch, stop, layers=None, zero=False,
+               exts=(), guard=None):
+    """A ``Trainer`` of the LM (flash, remat, AdamW 3e-4) over ``rows``
+    (scattered over ``comm``), ``batch`` rows a step, to ``stop``."""
+    from chainermn_tpu_torch.datasets import ArrayDataset, scatter_dataset
+    from chainermn_tpu_torch.iterators import SerialIterator
+    from chainermn_tpu_torch.models import TransformerLM, lm_loss
+    from chainermn_tpu_torch.optimizers import (
+        adamw,
+        create_multi_node_optimizer,
+        create_zero_optimizer,
+    )
+    from chainermn_tpu_torch.training import Trainer
+
+    ds = scatter_dataset(ArrayDataset(rows, rows), comm, shuffle=True,
+                         seed=0)
+    model = TransformerLM(**{**LM, "n_layers": layers or LM["n_layers"]},
+                          attention="flash", remat=True, device=dev,
+                          seed=seed)
+    opt = (create_zero_optimizer(adamw(3e-4), comm) if zero
+           else create_multi_node_optimizer(adamw(3e-4), comm))
+    return Trainer(opt, opt.init(model), lm_loss(model),
+                   SerialIterator(ds, batch, shuffle=True, seed=1),
+                   stop=(stop, "iteration"), has_aux=True,
+                   extensions=list(exts), preemption_guard=guard), model
+
+
+def signal_at(guard, at):
+    """An extension that, at iteration ``at``, sends this process SIGTERM
+    from a timer thread and waits until the guard's handler ran, so the
+    vote closing that iteration sees it."""
+    import signal
+    import threading
+
+    from chainermn_tpu_torch.training import Extension
+
+    def fire(tr):
+        if tr.iteration == at:
+            threading.Timer(0.0, os.kill,
+                            (os.getpid(), signal.SIGTERM)).start()
+            deadline = time.monotonic() + 30
+            while not guard.preempted and time.monotonic() < deadline:
+                time.sleep(0.001)
+
+    return Extension(fire, (1, "iteration"), name="signal")
+
+
+def state_digest(opt, state, zero=False):
+    """Digest of the parameters (gathered, under ZeRO) and the optimizer's
+    state (this rank's shards, under ZeRO)."""
+    from chainermn_tpu_torch.resilience import tree_digest
+
+    params = opt.materialize_params(state) if zero else dict(
+        state.model.named_parameters())
+    moments = {f"optimizer.{i}.{k}": v for i, st in enumerate(
+        state.optimizer.state.values()) for k, v in st.items()
+        if torch.is_tensor(v)}
+    return tree_digest({**params, **moments}), tree_digest(params)
+
+
+def pre_rank(out: str, device: str) -> None:
+    """One attempt of ``preemption``'s supervised job (one NCCL rank).
+    Attempt 0: a SIGTERM at ``PRE_AT``; the guard votes, the checkpointer
+    saves, the rank exits 75.  Attempt 1: ``maybe_load`` resumes, the run
+    ends at ``PRE_STOP``, then one profiled replay of the captured step."""
+    import pickle
+
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+    from chainermn_tpu_torch.resilience import (
+        PreemptionGuard,
+        PreemptionInterrupt,
+    )
+
+    attempt = int(os.environ["CMN_LAUNCH_ATTEMPT"])
+    seed = int(os.environ.get("CMN_SMOKE_SEED", "0"))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm = create_communicator("xla", device=dev,
+                               allreduce_grad_dtype=torch.bfloat16)
+    ckpt = create_multi_node_checkpointer(
+        "pre", comm, path=os.path.join(out, "ckpt"),
+        trigger=(PRE_STOP + 1, "iteration"), async_save=False)
+    guard = PreemptionGuard(comm=comm).install()
+    exts = [ckpt] + ([signal_at(guard, PRE_AT)] if attempt == 0 else [])
+    tr, model = lm_trainer(dev, seed, comm,
+                           lm_rows(seed, LM_BATCH * (PRE_STOP + 1)),
+                           LM_BATCH, PRE_STOP, exts=exts, guard=guard)
+    res = {"attempt": attempt}
+    path = os.path.join(out, f"pre.attempt{attempt}.pkl")
+    if attempt > 0:
+        t0 = time.perf_counter()
+        _, res["resumed"] = ckpt.maybe_load(tr.state, tr)
+        res["resume_s"] = time.perf_counter() - t0
+        res["restore"] = dict(ckpt.last_restore)
+    try:
+        tr.run()
+    except PreemptionInterrupt as e:
+        res.update(exit=e.code, iteration=e.iteration,
+                   save=dict(ckpt.last_save))
+        with open(path, "wb") as f:
+            pickle.dump(res, f)
+        raise
+    res["iteration"] = tr.iteration
+    res["state_digest"], res["params_digest"] = state_digest(tr.optimizer,
+                                                             tr.state)
+    step = next(iter(tr.optimizer._step_cache.values()))
+    batch = next(tr.train_iter)
+    batch = tuple(torch.as_tensor(x, device=dev) for x in batch)
+    _, res["profiled_replay"] = traced_step(
+        "preemption: after the resume", None, step, tr.state, batch,
+        {k: 0 for k in FLASH})
+    res["captures"] = len(step.graphs)
+    with open(path, "wb") as f:
+        pickle.dump(res, f)
+
+
+def phase_preemption(fa, dev, card, seed):
+    """Item 12b on the card: the captured LM step under
+    ``Trainer(preemption_guard=)`` with a ``MultiNodeCheckpointer``, one
+    rank under ``launch.supervise``: a SIGTERM from a timer thread at
+    ``PRE_AT``, the emergency save and exit 75; the relaunch resumes and
+    runs to ``PRE_STOP``; K1/K2/K3 in a profiled replay after the resume;
+    the final parameters and AdamW state against this process's
+    unpreempted run of the same steps, bit for bit.  That run carries
+    ``MetricsReport(device=True)``: the ``device.train_step.*`` gauges."""
+    import pickle
+    import tempfile
+
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.launch import supervise
+    from chainermn_tpu_torch.observability.device import (
+        PEAK_BF16_FLOPS,
+        attention_core_flops,
+    )
+    from chainermn_tpu_torch.resilience import ShardReplicator
+    from chainermn_tpu_torch.training import MetricsReport
+
+    out = tempfile.mkdtemp(prefix="cmn_pre_")
+    t0 = time.perf_counter()
+    rc = supervise(1, [os.path.abspath(__file__), "--rank-body", "pre", out,
+                       "--rank-device", str(dev)], restarts=0,
+                   preempt_restarts=1, backoff_s=0.0, grace_s=10.0,
+                   env_extra={"PYTHONPATH": rank_pythonpath(),
+                              "CMN_SMOKE_SEED": str(seed),
+                              "CMN_OBS_FLIGHT_DIR":
+                              os.path.join(out, "flight")},
+                   timeout_s=MP_TIMEOUT_S)
+    job_s = time.perf_counter() - t0
+    attempts = []
+    for a in range(2):
+        p = os.path.join(out, f"pre.attempt{a}.pkl")
+        if os.path.exists(p):
+            with open(p, "rb") as f:
+                attempts.append(pickle.load(f))
+    check(rc == 0 and len(attempts) == 2,
+          f"preemption: the supervised job ended {rc} with "
+          f"{len(attempts)} attempts recorded")
+    first, second = attempts
+    # The unpreempted run, with the device gauges.
+    comm = create_communicator("xla", device=dev,
+                               allreduce_grad_dtype=torch.bfloat16)
+    report = MetricsReport(comm, trigger=(2, "iteration"),
+                           out_dir=os.path.join(out, "obs"), device=True,
+                           aggregate=False, memory=False)
+    tr, _ = lm_trainer(dev, seed, comm,
+                       lm_rows(seed, LM_BATCH * (PRE_STOP + 1)), LM_BATCH,
+                       PRE_STOP, exts=[report])
+    tr.run()
+    want, want_params = state_digest(tr.optimizer, tr.state)
+    roof = report.last_roofline or {}
+    step = next(iter(tr.optimizer._step_cache.values()))
+    cost = step.program.cost_analysis(capture=False)
+    step.release()
+    # The replicator's cadence at this model's full size in one process:
+    # the host snapshot and the local spill, no peer to ship to.  The
+    # first cadence allocates the pinned buffers; the later ones reuse
+    # them.
+    rep = ShardReplicator(None, every=1, spill_dir=os.path.join(out, "rep"),
+                          keep=1, _use_process_injector=False)
+    rep_cadences = []
+    for _ in range(PRE_REP_CADENCES):
+        rep(tr)
+        rep_cadences.append(dict(rep.last_cadence))
+    del tr, rep
+    torch.cuda.empty_cache()
+    L = LM["n_layers"]
+    kernels = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L,
+               "flash_attention_bwd_dq": L}
+    # The gauges count the remat recompute (hardware FLOPs); the model's
+    # FLOPs are 6·N·T over the matmul weights plus the causal attention
+    # core, each forward once.
+    d, T = LM["d_model"], LM["max_len"]
+    n_matmul = L * (4 * d * d + 2 * d * LM["d_ff"]) + d * LM["vocab"]
+    model_flops = 6.0 * n_matmul * LM_BATCH * T + L * attention_core_flops(
+        LM_BATCH, LM["n_heads"], T, d // LM["n_heads"], causal=True)
+    peak = PEAK_BF16_FLOPS.get(torch.cuda.get_device_name(0))
+    model_mfu = (100.0 * model_flops / (roof["step_time_ms"] / 1e3 * peak)
+                 if peak and roof.get("step_time_ms") else None)
+    row = dict(
+        phase="preemption", card=card,
+        config=f"{LM}, batch {LM_BATCH}, flash, remat, AdamW 3e-4, bf16 "
+        f"wire, captured; SIGTERM at {PRE_AT} of {PRE_STOP}; one rank "
+        "under launch.supervise",
+        exit_codes=[first.get("exit"), 0], preempted_at=first["iteration"],
+        emergency_save_bytes=first["save"].get("bytes"),
+        emergency_save_s=first["save"].get("host_copy_s", 0.0)
+        + first["save"].get("write_s", 0.0),
+        emergency_save=first["save"], resumed_at=second["resumed"],
+        resume_s=second["resume_s"], restore=second["restore"],
+        final_iteration=second["iteration"],
+        profiled_replay_after_resume=second["profiled_replay"],
+        captures_after_resume=second["captures"],
+        final_state_bit_equal=second["state_digest"] == want,
+        final_params_bit_equal=second["params_digest"] == want_params,
+        job_s=job_s, device_gauges=roof, train_step_cost=cost,
+        model_flops_6nt=model_flops, model_flops_mfu_pct=model_mfu,
+        replicator_one_process=rep_cadences,
+        replicator_cadence_for_1pct=(
+            100 * rep_cadences[-1]["total_s"] * 1e3 / roof["step_time_ms"]
+            if roof.get("step_time_ms") else None),
+        device_peak_bf16_flops=PEAK_BF16_FLOPS.get(
+            torch.cuda.get_device_name(0)))
+    emit(row)
+    check(first.get("exit") == 75 and first["iteration"] == PRE_AT,
+          f"preemption: attempt 0 exited {first.get('exit')} at "
+          f"{first['iteration']}")
+    check(second["resumed"] == PRE_AT and second["iteration"] == PRE_STOP,
+          f"preemption: resumed at {second['resumed']}, ended at "
+          f"{second['iteration']}")
+    check(second["profiled_replay"] == kernels,
+          f"preemption: K1-K3 ran {second['profiled_replay']} in the "
+          f"profiled replay after the resume, expected {kernels}")
+    check(row["final_state_bit_equal"] and row["final_params_bit_equal"],
+          "preemption: the resumed run's parameters and AdamW state are "
+          "not bitwise the unpreempted run's")
+    check(roof.get("mfu_pct") is not None and roof.get("tflops_per_device"),
+          f"preemption: MetricsReport(device=True) published {roof}")
+    check(all(c["bytes"] > 0 for c in rep_cadences),
+          f"preemption: the one-process replicator cadences {rep_cadences}")
+    return row
+
+
+def rep_schedule(seed):
+    """The chaos schedule: the first seed from ``seed * 1000`` whose
+    ``chaos_schedule`` (3 failures, ``REP_KINDS``, cadence ``REP_EVERY``,
+    target ``REP_STOP``) draws a crash, then a preemption at a later
+    iteration, then a torn frame."""
+    from chainermn_tpu_torch.resilience import chaos_schedule
+
+    for s in range(seed * 1000, seed * 1000 + 1000):
+        sch = chaos_schedule(s, failures=3, target_step=REP_STOP,
+                             cadence=REP_EVERY, kinds=REP_KINDS)
+        ev = sch["events"]
+        if [e["kind"] for e in ev] == list(REP_KINDS) \
+                and ev[0]["iter"] < ev[1]["iter"]:
+            return sch
+    raise AssertionError("no chaos schedule of the wanted shape")
+
+
+def rep_rank(out: str, device: str) -> None:
+    """One attempt of ``replication`` on each of the ranks (gloo, sharing
+    the card): ZeRO AdamW on the 2-layer LM with a ``ShardReplicator``
+    and a preemption guard; ``CMN_REP_EVENT`` is this attempt's failure
+    and ``CMN_REP_PREV`` the last one (a crash wipes the crashed rank's
+    spill before the restore: its host died).  Attempt 0 first runs the
+    unfaulted oracle.  Every attempt after the first negotiates its
+    restore; ``CMN_REP_ELASTIC`` (a relaunch at another world size)
+    passes ``maybe_load_elastic`` as the fallback and files the
+    incident.  The attempt that reaches the target syncs a
+    ``FleetClock`` and exports the merged fleet trace."""
+    import pickle
+    import shutil
+
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+    from chainermn_tpu_torch.observability import fleet, incident
+    from chainermn_tpu_torch.observability import metrics as omet
+    from chainermn_tpu_torch.resilience import (
+        FaultInjector,
+        PreemptionGuard,
+        PreemptionInterrupt,
+        ShardReplicator,
+        negotiate_restore,
+        parse_fault_spec,
+    )
+
+    stamps = {"start": time.time()}
+    attempt = int(os.environ["CMN_LAUNCH_ATTEMPT"])
+    seed = int(os.environ.get("CMN_SMOKE_SEED", "0"))
+    event = json.loads(os.environ.get("CMN_REP_EVENT", "null"))
+    prev = json.loads(os.environ.get("CMN_REP_PREV", "null"))
+    elastic = os.environ.get("CMN_REP_ELASTIC") == "1"
+    dev = torch.device(device)
+    comm = create_communicator("naive", device=dev,
+                               allreduce_grad_dtype=torch.bfloat16)
+    r = comm.rank
+    rows = lm_rows(seed, REP_RANKS * REP_ROWS * (REP_STOP + 1))
+    res = {"attempt": attempt, "rank": r, "event": event, "t": stamps}
+    path = os.path.join(out, f"rep.attempt{attempt}.rank{r}.pkl")
+
+    def save():
+        with open(path, "wb") as f:
+            pickle.dump(res, f)
+
+    def trainer(exts=(), guard=None):
+        return lm_trainer(dev, seed, comm, rows, REP_ROWS, REP_STOP,
+                          layers=REP_LAYERS, zero=True, exts=exts,
+                          guard=guard)
+
+    if attempt == 0 and not elastic:
+        tr, _ = trainer()
+        tr.run()
+        res["oracle_state"], res["oracle_params"] = state_digest(
+            tr.optimizer, tr.state, zero=True)
+        del tr
+        torch.cuda.empty_cache()
+        stamps["oracle"] = time.time()
+    if prev and prev["kind"] == "crash" and r == REP_CRASH_RANK:
+        spill = os.path.join(out, "rep", f"rank{r}")
+        shutil.rmtree(spill, ignore_errors=True)
+        os.makedirs(spill)
+    kind = event["kind"] if event else None
+    inj = (FaultInjector(parse_fault_spec("flip@replicate:1"))
+           if kind == "torn" and r == REP_SIGNAL_RANK else None)
+    rep = ShardReplicator(comm, every=REP_EVERY, factor=1,
+                          spill_dir=os.path.join(out, "rep"), keep=2,
+                          injector=inj, _use_process_injector=False)
+    ckpt = create_multi_node_checkpointer(
+        "rep", comm, path=os.path.join(out, "ckpt"),
+        trigger=(REP_STOP, "iteration"), async_save=False, max_to_keep=2)
+    guard = PreemptionGuard(comm=comm).install()
+    exts = [rep, ckpt]
+    if kind == "preempt" and r == REP_SIGNAL_RANK:
+        exts.append(signal_at(guard, event["iter"]))
+    tr, model = trainer(exts, guard)
+    stamps["built"] = time.time()
+    if kind == "crash" and r == REP_CRASH_RANK:
+        tr._fault_injector = FaultInjector(parse_fault_spec(
+            f"crash@iter:{event['iter']}"))
+    res["restored_step"] = 0
+    if attempt > 0:
+        el = ((lambda: ckpt.maybe_load_elastic(tr.optimizer, model, tr))
+              if elastic else None)
+        _, it, report = negotiate_restore(rep, tr.state, tr,
+                                          checkpointer=ckpt, elastic=el)
+        res.update(restored_step=int(it), report=report)
+        stamps["restored"] = time.time()
+        if elastic:
+            mgr = incident.manager()
+            mgr.evaluate()
+            res["incidents"] = [m["rule"]["name"] for m in mgr.incidents]
+            res["final_step"] = tr.iteration
+            res["state_digest"], res["params_digest"] = state_digest(
+                tr.optimizer, tr.state, zero=True)
+            save()
+            comm.barrier()
+            return
+    save()  # what a crashed rank's peers leave behind
+    t0 = time.perf_counter()
+    try:
+        tr.run()
+    except PreemptionInterrupt as e:
+        res.update(exit=e.code, final_step=e.iteration,
+                   run_s=time.perf_counter() - t0)
+        save()
+        raise
+    res["run_s"] = time.perf_counter() - t0
+    stamps["ran"] = time.time()
+    res["final_step"] = tr.iteration
+    res["state_digest"], res["params_digest"] = state_digest(
+        tr.optimizer, tr.state, zero=True)
+    snap = omet.registry().snapshot()
+    res.update(
+        torn=snap.get("train.rep.torn", {}).get("value", 0),
+        rep_ms=snap.get("train.rep.ms"), step_ms=snap.get("train.step_ms"),
+        last_cadence=rep.last_cadence)
+    clock = fleet.FleetClock(comm, probes=8)
+    offsets = clock.sync()
+    trace_path = os.path.join(out, "trace.merged.json")
+    summary = fleet.export_fleet_trace(comm, path=trace_path, clock=clock)
+    if r == 0:
+        from chainermn_tpu_torch.observability import analyze
+
+        with open(trace_path) as f:
+            report = analyze.analyze(json.load(f))
+        res.update(offsets={k: o.to_dict() for k, o in offsets.items()},
+                   trace=summary,
+                   critical_path=dict(
+                       steps=len(report["steps"]),
+                       bounded_steps_by_rank=report["bounded_steps_by_rank"],
+                       straggler_rank=report["straggler_rank"],
+                       stall_ms_by_rank=report["stall_ms_by_rank"],
+                       head=report["steps"][:6]))
+    stamps["end"] = time.time()
+    save()
+    comm.barrier()
+
+
+def phase_replication(dev, card, seed):
+    """Item 12b across ranks: ``REP_RANKS`` gloo ranks sharing the card
+    (ZeRO AdamW on the 2-layer LM) through a ``TrainingChaosHarness``
+    schedule: a crash (the crashed rank's spill wiped: it restores from
+    its successor's replica), a SIGTERM preemption (every rank flushes,
+    saves and exits 75; the relaunch restores its own flush) and a torn
+    frame (discarded by the receiver's crc), each attempt a fresh
+    ``launch``; the final digest against the unfaulted run's on every
+    rank, lost steps per failure <= the cadence, the replicator's ms per
+    cadence against the step; then a relaunch at 2 ranks falls back to
+    ``maybe_load_elastic`` and files ``replication_fallback``; the fleet
+    clock's offsets and the merged trace's critical path."""
+    import pickle
+    import tempfile
+
+    from chainermn_tpu_torch.launch import launch
+    from chainermn_tpu_torch.resilience import TrainingChaosHarness
+
+    out = tempfile.mkdtemp(prefix="cmn_rep_")
+    schedule = rep_schedule(seed)
+    env = {"PYTHONPATH": rank_pythonpath(), "CMN_SMOKE_SEED": str(seed),
+           "CMN_OBS_FLIGHT_DIR": os.path.join(out, "flight"),
+           "CMN_OBS_INCIDENT_DIR": os.path.join(out, "incidents")}
+    argv = [os.path.abspath(__file__), "--rank-body", "rep", out,
+            "--rank-device", str(dev)]
+    codes, records = [], []
+
+    def load(attempt, n):
+        got = []
+        for rk in range(n):
+            p = os.path.join(out, f"rep.attempt{attempt}.rank{rk}.pkl")
+            if os.path.exists(p):
+                with open(p, "rb") as f:
+                    got.append(pickle.load(f))
+        return got
+
+    prev = [None]
+
+    def run_attempt(attempt, event):
+        t0, wall0 = time.perf_counter(), time.time()
+        rc = launch(REP_RANKS, argv, grace_s=10.0, env_extra={
+            **env, "CMN_LAUNCH_ATTEMPT": str(attempt),
+            "CMN_REP_EVENT": json.dumps(event),
+            "CMN_REP_PREV": json.dumps(prev[0])}, timeout_s=MP_TIMEOUT_S)
+        prev[0] = event
+        ranks = load(attempt, REP_RANKS)
+        codes.append(rc)
+        records.append(dict(attempt=attempt, rc=rc, event=event,
+                            seconds=time.perf_counter() - t0, ranks=ranks,
+                            rank0_stamps_s={k: v - wall0 for k, v in next(
+                                (x["t"] for x in ranks if x["rank"] == 0),
+                                {}).items()}))
+        r0 = next((x for x in ranks if x["rank"] == 0), {})
+        report = r0.get("report") or {}
+        final = (event["iter"] if event and event["kind"] == "crash"
+                 else r0.get("final_step", 0))
+        return {"rc": rc, "final_step": final,
+                "restored_step": r0.get("restored_step", 0),
+                "restore_source": report.get("source"),
+                "recovery_ms": report.get("recovery_ms"),
+                "digest": r0.get("state_digest") if rc == 0 else None}
+
+    t0 = time.perf_counter()
+    result = TrainingChaosHarness(run_attempt, schedule).run()
+    oracle = {x["rank"]: x for x in records[0]["ranks"]}
+    verdict = TrainingChaosHarness.verify(result, oracle[0]["oracle_state"])
+    last = {x["rank"]: x for x in records[-1]["ranks"]}
+    chaos_s = time.perf_counter() - t0
+    # The relaunch at another world size.
+    t1 = time.perf_counter()
+    rc2 = launch(2, argv, grace_s=10.0, env_extra={
+        **env, "CMN_LAUNCH_ATTEMPT": str(len(records)),
+        "CMN_REP_ELASTIC": "1"}, timeout_s=MP_TIMEOUT_S)
+    elastic = load(len(records), 2)
+    elastic_s = time.perf_counter() - t1
+    sources = [[(x["rank"], (x.get("report") or {}).get("source"),
+                 x.get("restored_step")) for x in rec["ranks"]]
+               for rec in records[1:]]
+    rep_ms = {rk: x.get("rep_ms") for rk, x in last.items()}
+    step_ms = {rk: x.get("step_ms") for rk, x in last.items()}
+
+    def mean(h):
+        return h["sum"] / h["count"] if h and h.get("count") else None
+
+    per_rank = {rk: dict(rep_ms_per_cadence=mean(rep_ms[rk]),
+                         step_ms=mean(step_ms[rk]),
+                         cadence_split_s=last[rk].get("last_cadence"))
+                for rk in last}
+    row = dict(
+        phase="replication", card=card,
+        config=f"{REP_RANKS} gloo ranks sharing the card, LM {REP_LAYERS} "
+        f"layers at full widths, {REP_ROWS} rows of {LM['max_len']} a "
+        f"rank, ZeRO AdamW 3e-4, flash, remat, bf16 wire; "
+        f"ShardReplicator every {REP_EVERY}, factor 1; target {REP_STOP}",
+        schedule=schedule, exit_codes=codes,
+        attempt_seconds=[rec["seconds"] for rec in records],
+        attempt_rank0_stamps_s=[rec["rank0_stamps_s"] for rec in records],
+        restores=sources, lost_steps_per_failure=result[
+            "lost_steps_per_failure"],
+        recovery_ms=result["recovery_ms"], verdict=verdict,
+        final_digest_equals_oracle={
+            rk: x.get("state_digest") == oracle[rk]["oracle_state"]
+            for rk, x in last.items()},
+        torn_discarded={rk: x.get("torn") for rk, x in last.items()},
+        replicator=per_rank,
+        cadence_for_1pct={rk: (100 * v["rep_ms_per_cadence"]
+                               / v["step_ms"] if v["step_ms"] else None)
+                          for rk, v in per_rank.items()
+                          if v["rep_ms_per_cadence"] is not None},
+        elastic=dict(rc=rc2, seconds=elastic_s, ranks=[
+            dict(rank=x["rank"], report=x.get("report"),
+                 incidents=x.get("incidents"),
+                 params_equal_oracle=x.get("params_digest")
+                 == oracle[0]["oracle_params"]) for x in elastic]),
+        fleet=dict(offsets=last[0].get("offsets"),
+                   trace_spans=(last[0].get("trace") or {}).get("spans"),
+                   trace=last[0].get("trace"),
+                   critical_path=last[0].get("critical_path")),
+        chaos_s=chaos_s, goodput_steps_per_s=result["goodput_steps_per_s"],
+        note=MP_NOTE.replace("4 ranks", f"{REP_RANKS} ranks"))
+    emit(row)
+    want_codes = [1, 75, 0]
+    check(result["completed"] and codes[:1] != [0]
+          and codes[1:] == want_codes[1:],
+          f"replication: attempts exited {codes}, expected a failure, 75, "
+          "then 0")
+    check(verdict["holds"], f"replication: {verdict['failures']}")
+    check(all(row["final_digest_equals_oracle"].values())
+          and len(last) == REP_RANKS,
+          f"replication: final digests against the oracle "
+          f"{row['final_digest_equals_oracle']}")
+    crash_restore = sources[0]
+    check(sorted(crash_restore) == [
+        (0, "local", crash_restore[0][2]),
+        (1, "peer", crash_restore[0][2]),
+        (2, "local", crash_restore[0][2])],
+        f"replication: the restore after the crash read {crash_restore}")
+    check(row["torn_discarded"].get((REP_SIGNAL_RANK + 1) % REP_RANKS, 0)
+          >= 1, f"replication: torn frames {row['torn_discarded']}")
+    check(rc2 == 0 and len(elastic) == 2 and all(
+        e["report"]["reason"] == "world-size-changed"
+        and e["report"]["source"] == "orbax"
+        and "replication_fallback" in (e["incidents"] or [])
+        and e["params_equal_oracle"] for e in row["elastic"]["ranks"]),
+        f"replication: the 2-rank relaunch read {row['elastic']}")
+    check(row["fleet"]["trace_spans"] and row["fleet"]["critical_path"]
+          and row["fleet"]["critical_path"]["steps"] > 0,
+          f"replication: the merged fleet trace {row['fleet']}")
+    return row
+
+
+def phase_serving_drain(ops, dev, card, seed):
+    """The disaggregated roles of ``disagg`` at the serving bench's
+    widths, three of them over the in-process ``LocalComm``: a prefill
+    role feeding decode role 1, which a ``PreemptionGuard`` watches, its
+    drain bound to role 2 (``guard.attach_drain``).  Once every request reached role 1, this process gets
+    a SIGTERM (the roles share it, as ``disagg``'s do; the guard's handler
+    only sets its flag): role 1's next tick migrates every live slot and
+    queued entry to role 2 and raises exit 75.  Checks: every request
+    completes once, the tokens equal an undrained run's, the exit code,
+    and K4's runs on the card before and after the drain."""
+    import signal
+
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.observability import MetricsRegistry
+    from chainermn_tpu_torch.resilience import (
+        PreemptionGuard,
+        PreemptionInterrupt,
+    )
+    from chainermn_tpu_torch.serving import (
+        DecodeRole,
+        LocalComm,
+        MigrationTransport,
+        PrefillRole,
+        Scheduler,
+    )
+    from chainermn_tpu_torch.serving.scheduler import _Clock
+
+    rng = np.random.RandomState(seed + 23)
+    reqs = draw_requests(rng, 12, FULL["vocab"])
+    model = TransformerLM(**FULL, device=dev, seed=seed)
+    fleet = Fleet(model, dev, seed, reqs)
+
+    def run(drain):
+        clock, comm = _Clock(), LocalComm(3)
+        regs = [MetricsRegistry() for _ in range(3)]
+        trs = [MigrationTransport(comm.endpoint(i), registry=regs[i])
+               for i in range(3)]
+        guard = PreemptionGuard()
+        pre = PrefillRole(Scheduler(fleet(), registry=regs[0], clock=clock),
+                          trs[0], decode_ranks=[1])
+        d1 = DecodeRole(Scheduler(fleet(), registry=regs[1], clock=clock),
+                        trs[1], prefill_ranks=[0], guard=guard)
+        if drain:
+            guard.attach_drain(lambda: d1.drain(2))
+        d2 = DecodeRole(Scheduler(fleet(), registry=regs[2], clock=clock),
+                        trs[2], prefill_ranks=[], peer_ranks=[1])
+        for r in reqs:
+            pre.submit(r)
+        zero_decode_counts(ops, dev)
+        while pre.pending:
+            d1.tick()
+            pre.tick()
+        pre.finish()
+        out = {}
+        done = list(pre.sched.completions)
+        if drain:
+            for _ in range(4):
+                d1.tick()
+            live = sum(s is not None for s in d1.sched._slots)
+            queued = len(d1.sched._queue) + len(d1._deferred)
+            torch.cuda.synchronize()
+            out["k4_before"] = ops.kernel_runs(dev)["paged_decode_attention"]
+            with guard:
+                os.kill(os.getpid(), signal.SIGTERM)
+                deadline = time.monotonic() + 30
+                while not guard.preempted and time.monotonic() < deadline:
+                    time.sleep(0.001)
+                try:
+                    for _ in range(8):
+                        d1.tick()
+                    code = None
+                except PreemptionInterrupt as e:
+                    code = e.code
+            comps = list(d2.run_loop(poll_ms=0))
+            done += list(d1.sched.completions) + comps
+            torch.cuda.synchronize()
+            out.update(exit=code, live_at_signal=live,
+                       queued_at_signal=queued,
+                       migrated=regs[1].peek(
+                           "serve.migration.slots_migrated").value,
+                       k4_after=ops.kernel_runs(dev)[
+                           "paged_decode_attention"] - out["k4_before"],
+                       drained_to_completions=len(comps))
+        else:
+            done += d1.run_loop(poll_ms=0)
+        out["byid"] = check_complete(f"serving_drain drain={drain}", reqs,
+                                     done)
+        for role in (pre, d1, d2):
+            role.sched.engine.release()
+        return out
+
+    plain = run(False)
+    drained = run(True)
+    same = {i: drained["byid"][i].tokens == plain["byid"][i].tokens
+            for i in plain["byid"]}
+    row = dict(phase="serving_drain", card=card, requests=len(reqs),
+               exit=drained["exit"], live_at_signal=drained["live_at_signal"],
+               queued_at_signal=drained["queued_at_signal"],
+               slots_migrated=drained["migrated"],
+               completed_after_drain=drained["drained_to_completions"],
+               lost=len(reqs) - len(drained["byid"]),
+               tokens_equal_undrained=sum(same.values()),
+               k4_runs_before_drain=drained["k4_before"],
+               k4_runs_after_drain=drained["k4_after"])
+    emit(row)
+    check(drained["exit"] == 75, f"serving_drain: exit {drained['exit']}")
+    check(drained["live_at_signal"] > 0 and drained["migrated"] > 0,
+          f"serving_drain: nothing to drain ({row})")
+    check(all(same.values()), f"serving_drain: tokens differ from the "
+          f"undrained run for {[i for i, v in same.items() if not v]}")
+    check(drained["k4_before"] > 0 and drained["k4_after"] > 0,
+          f"serving_drain: K4 ran {drained['k4_before']} / "
+          f"{drained['k4_after']} on the card")
+    return row
+
+
+def perf_records(card, name, rows):
+    """This run's headline numbers as ``result/``-style records of this
+    platform (``gpu``) and card."""
+    stamp = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+    return [{"metric": m, "value": float(v), "unit": u, "platform": "gpu",
+             "device_kind": name, "power_limit": card.rsplit(",", 1)[-1]
+             .strip(), "measured_at": stamp, "source": "chip_smoke.py"}
+            for m, v, u in rows if v]
+
+
+def phase_perf_sentinel(card, name, rows):
+    """``observability.perf`` over the repo's ``result/`` history plus
+    this run's records: the card's series are judged apart from the TPU
+    history (each a single capture here: insufficient, so green)."""
+    import shutil
+    import tempfile
+
+    from chainermn_tpu_torch.observability import perf
+    from chainermn_tpu_torch.utils import atomic_json_dump
+
+    d = tempfile.mkdtemp(prefix="cmn_perf_")
+    src = perf.default_result_dir()
+    for f in os.listdir(src):
+        if f.endswith(".json"):
+            shutil.copy(os.path.join(src, f), d)
+    recs = perf_records(card, name, rows)
+    for i, rec in enumerate(recs):
+        atomic_json_dump(rec, os.path.join(d, f"port_gpu_{i}.json"))
+    gpu = perf.analyze(d, platform="gpu")
+    row = dict(phase="perf_sentinel", card=card, records=recs,
+               gpu=perf.sentinel(d, platform="gpu"),
+               tpu=perf.sentinel(d, platform="tpu"),
+               all=perf.sentinel(d),
+               gpu_series=[(r["metric"], r["status"], r["n_samples"])
+                           for r in gpu["series"]])
+    emit(row)
+    check(row["gpu"]["verdict"] != "error"
+          and len(gpu["series"]) == len(recs),
+          f"perf_sentinel: {row['gpu']}, {len(gpu['series'])} series for "
+          f"{len(recs)} records")
+    return row
+
+
+RANK_BODIES.update(pre=pre_rank, rep=rep_rank)
+
+
 FLASH_SASS = ("flash_fwd_bf16", "flash_bwd_dkv_bf16", "flash_bwd_dq_bf16")
 CONV_SASS = ("matmul_affine_bf16",)
 CONV_TILES = (64, 128)
@@ -8219,6 +9004,19 @@ def main() -> int:
     phase_gan_convnet(dev, smi, args.seed)
     # The failure detector, the consistency vote and the health guard.
     hg = phase_health_guard(fa, dev, smi, args.seed)
+    # Preemption, peer replication and the chaos harness, the serving
+    # drain; the fleet clock, the device gauges and the perf sentinel.
+    pre = phase_preemption(fa, dev, smi, args.seed)
+    rep = phase_replication(dev, smi, args.seed)
+    drain = phase_serving_drain(ops, dev, smi, args.seed)
+    phase_perf_sentinel(smi, name, [
+        ("lm_train_step_ms", train["step_ms_median"], "ms"),
+        ("serving_tokens_per_s", serve["tokens_per_s"], "tok/s"),
+        ("resnet50_sync_step_ms",
+         resnet_arms["sync/none"]["step_ms_median"], "ms"),
+        ("preemption_resume_ms", pre["resume_s"] * 1e3, "ms"),
+        ("replication_ms_per_cadence",
+         rep["replicator"][0]["rep_ms_per_cadence"], "ms")])
 
     launches = {"paged_decode_attention":
                 serve["launches"]["paged_decode_attention"],
@@ -8265,8 +9063,13 @@ def main() -> int:
             hg["arms"]["on"]["launches_per_step"][k]
         by_phase[k]["health_guard_profiled_replay"] = \
             hg["arms"]["on"]["launches_per_replay_profiled"][k]
+        by_phase[k]["preemption_profiled_replay_after_resume"] = \
+            pre["profiled_replay_after_resume"][k]
     by_phase["paged_decode_attention"]["tp_serving_one_rank_nccl"] = \
         tp["nccl_one_rank"]["k4_runs"]
+    by_phase["paged_decode_attention"].update(
+        serving_drain_before_drain=drain["k4_runs_before_drain"],
+        serving_drain_after_drain=drain["k4_runs_after_drain"])
     by_phase["paged_decode_attention"].update(
         {f"tp_serving_{name}_per_rank": r["k4_runs_per_rank"]
          for name, r in tp["gloo"].items()})
@@ -8298,6 +9101,7 @@ def main() -> int:
          "library_ms": timing[k]["library_ms"],
          **({"launches_by_phase": by_phase[k]} if k in by_phase else {})}
         for k in KERNELS]})
+    emit({"phase": "phase_seconds", "seconds": dict(PHASE_SECONDS)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -204,17 +204,124 @@ def test_fail_silent_faults_hit_the_same_iteration(flax_params, spec, site):
         assert pl[:5] == clean[:5] and pl[5] != clean[5]
 
 
-def test_trainer_refuses_unported_guards(flax_params):
+class _OrderHealthGuard:
+    """A duck-typed health guard that records where the loop calls it."""
+
+    def __init__(self, events):
+        self.events = events
+
+    def bind(self, trainer):
+        pass
+
+    def post_step(self, trainer, metrics, dt):
+        self.events.append(("health", trainer.iteration))
+
+    def finalize(self, trainer):
+        pass
+
+
+def _order_run(trainer_run, pkg_training, guard_cls, interrupt):
+    """The loop's order of calls within an iteration: the extensions,
+    then the health guard, then the preemption guard's poll, which exits
+    75 at the iteration the flag went up (2)."""
+    events = []
+
+    class Guard(guard_cls):
+        def poll(self, trainer):
+            events.append(("preempt", trainer.iteration))
+            if trainer.iteration == 2:
+                self.request()
+            return super().poll(trainer)
+
+    def ext(tr):
+        events.append(("ext", tr.iteration))
+
+    with pytest.raises(interrupt) as ei:
+        trainer_run(stop=(5, "iteration"), extra=[pkg_training.Extension(
+            ext, (1, "iteration"))], guards=(Guard(),
+                                             _OrderHealthGuard(events)))
+    return events, ei.value.code, ei.value.iteration
+
+
+def test_trainer_polls_the_preemption_guard_last(flax_params):
+    """``Trainer(preemption_guard=)`` (once refused, item 12b): polled
+    once per iteration after the extensions and the health guard, as the
+    JAX trainer polls it, and the preempted run exits 75 at the agreed
+    iteration."""
+    from chainermn_tpu.resilience import PreemptionGuard as JaxGuard
+    from chainermn_tpu.resilience import PreemptionInterrupt as JaxInt
+    from chainermn_tpu_torch.resilience import (
+        PreemptionGuard,
+        PreemptionInterrupt,
+    )
+
+    def port(stop, extra, guards):
+        _, params = flax_params
+        comm = create_communicator("xla", device="cpu")
+        model = MLP(hidden=(4,), in_features=784, device="cpu")
+        opt = create_multi_node_optimizer(sgd(0.1), comm)
+        ds = make_synthetic_classification(256, 784, 10, seed=1)
+        tr = training.Trainer(opt, opt.init(model),
+                              classification_loss(model),
+                              SerialIterator(ds, 32, shuffle=False),
+                              stop=stop, has_aux=True, extensions=extra,
+                              preemption_guard=guards[0],
+                              health_guard=guards[1])
+        tr.run()
+
+    def jax_(stop, extra, guards):
+        model, params = flax_params
+        comm = cmn.create_communicator("xla")
+        opt = cmn.create_multi_node_optimizer(optax.sgd(0.1), comm)
+        tr = jax_training.Trainer(
+            opt, opt.init(params), jax_cls_loss(model),
+            JaxSerial(jax_data(256, 784, 10, seed=1), 32, shuffle=False),
+            stop=stop, has_aux=True, extensions=extra,
+            preemption_guard=guards[0], health_guard=guards[1])
+        tr.run()
+
+    got = _order_run(port, training, PreemptionGuard, PreemptionInterrupt)
+    want = _order_run(jax_, jax_training, JaxGuard, JaxInt)
+    assert got == want
+    events, code, it = got
+    assert (code, it) == (75, 2)
+    assert events == [("ext", 1), ("health", 1), ("preempt", 1),
+                      ("ext", 2), ("health", 2), ("preempt", 2)]
+
+
+def test_metrics_report_device_gauges_on_cpu(tmp_path):
+    """``MetricsReport(device=True)`` (once refused, item 13) publishes
+    the train step's ``device.train_step.*`` roofline gauges from the
+    watch's cost model; the CPU has no peak, so no MFU gauge."""
+    from chainermn_tpu_torch.observability import device as odevice
+    from chainermn_tpu_torch.observability import metrics as omet
+
     comm = create_communicator("xla", device="cpu")
-    model = MLP(hidden=(4,), in_features=8, device="cpu")
+    model = MLP(hidden=(16,), in_features=32, device="cpu")
     opt = create_multi_node_optimizer(sgd(0.1), comm)
-    # The health guard is ported (tests/test_torch_guard.py holds it
-    # against the JAX package); preemption is item 12b.
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        training.Trainer(opt, opt.init(model), classification_loss(model),
-                         iter([]), preemption_guard=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        training.MetricsReport(device=True)
+    rep = training.MetricsReport(comm, trigger=(2, "iteration"),
+                                 out_dir=str(tmp_path), device=True)
+    tr = training.Trainer(opt, opt.init(model), classification_loss(model),
+                          SerialIterator(make_synthetic_classification(
+                              256, 32, 10, seed=3), 32, shuffle=False),
+                          stop=(6, "iteration"), has_aux=True,
+                          extensions=[rep])
+    tr.run()
+    r = rep.last_roofline
+    assert r is not None and r["mfu_pct"] is None
+    assert r["roofline_gap_x"] is None
+    # 2·B·(32·16 + 16·10) forward; backward, the weight gradients of both
+    # layers and the input gradient of the second (the batch needs none).
+    fwd = 2 * 32 * (32 * 16 + 16 * 10)
+    assert r["flops_per_exec"] == 2 * fwd + 2 * 32 * 16 * 10
+    assert r["tflops_per_device"] > 0 and r["arithmetic_intensity"] > 0
+    reg = omet.registry()
+    assert reg.peek("device.train_step.tflops").value == \
+        pytest.approx(r["tflops_per_device"])
+    assert reg.peek("device.train_step.ai").value == \
+        pytest.approx(r["arithmetic_intensity"])
+    assert reg.peek("device.train_step.mfu_pct") is None
+    assert odevice.mfu_pct(r["flops_per_exec"], 0.01) is None
 
 
 WORKER = textwrap.dedent("""

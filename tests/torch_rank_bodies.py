@@ -1788,3 +1788,223 @@ def guard():
             f.write(f"{e.code} {e.iteration} {e.reason}")
         raise
     return None
+
+
+# ------------------------------- preemption and peer replication (12b)
+class _Signal:
+    """An extension that preempts this rank at ``at``: SIGTERM to itself,
+    then a wait for the guard's flag (the handler runs between
+    bytecodes), so the vote after the iteration sees it."""
+
+    def __init__(self, guard, at):
+        from chainermn_tpu_torch.training import Extension
+
+        self.guard, self.at = guard, int(at)
+        self.extension = Extension(self, (1, "iteration"), name="signal")
+
+    def __call__(self, tr):
+        import signal
+
+        if tr.iteration == self.at:
+            os.kill(os.getpid(), signal.SIGTERM)
+            while not self.guard.preempted:
+                time.sleep(0.001)
+
+
+def _rep_run(comm, label, stop=12, zero=True, rep=None, ckpt=None,
+             guard=None, fault=None, preempt_at=None, negotiate=False,
+             elastic=False, stash=None):
+    """The MLP on the synthetic task over the ranks (AdamW 1e-2; ZeRO by
+    default), stopping at ``stop``: optionally under a replicator
+    (cadence 2), a checkpointer, a preemption guard (``preempt_at``:
+    this rank signals itself), a ``CMN_FAULT`` spec, and with a restore
+    negotiated first (``elastic``: through ``maybe_load_elastic``; its
+    report stashed under ``stash`` before the run)."""
+    from chainermn_tpu_torch.datasets import (
+        make_synthetic_classification,
+        scatter_dataset,
+    )
+    from chainermn_tpu_torch.iterators import SerialIterator
+    from chainermn_tpu_torch.models import MLP, classification_loss
+    from chainermn_tpu_torch.optimizers import (
+        adamw,
+        create_multi_node_optimizer,
+        create_zero_optimizer,
+    )
+    from chainermn_tpu_torch.resilience import (
+        FaultInjector,
+        negotiate_restore,
+        parse_fault_spec,
+        tree_digest,
+    )
+    from chainermn_tpu_torch.training import Trainer
+
+    ds = scatter_dataset(make_synthetic_classification(384, 8, 4, seed=9),
+                         comm, shuffle=True, seed=4)
+    model = MLP(hidden=(8,), n_out=4, in_features=8, device="cpu")
+    opt = (create_zero_optimizer(adamw(1e-2), comm) if zero
+           else create_multi_node_optimizer(adamw(1e-2), comm))
+    exts = [e for e in (rep, ckpt) if e is not None]
+    if preempt_at is not None:
+        exts.append(_Signal(guard, preempt_at).extension)
+    trainer = Trainer(opt, opt.init(model), classification_loss(model),
+                      SerialIterator(ds, 32, shuffle=True, seed=2),
+                      stop=(stop, "iteration"), has_aux=True,
+                      extensions=exts, preemption_guard=guard)
+    trainer._fault_injector = (FaultInjector(parse_fault_spec(fault))
+                               if fault else None)
+    out = {"label": label}
+    if negotiate:
+        el = (lambda: ckpt.maybe_load_elastic(opt, model, trainer)) \
+            if elastic else None
+        _, it, report = negotiate_restore(rep, trainer.state, trainer,
+                                          checkpointer=ckpt, elastic=el)
+        out.update(resumed=it, report=report)
+        if stash:
+            _stash(stash, dict(out))
+    trainer.run()
+    params = (opt.materialize_params(trainer.state) if zero
+              else trainer.state.params)
+    opt_state = {f"{i}.{k}": v for i, st in enumerate(
+        trainer.state.optimizer.state.values()) for k, v in st.items()
+        if torch.is_tensor(v)}
+    out.update(iteration=trainer.iteration,
+               params_digest=tree_digest(params),
+               state_digest=tree_digest({**params, **opt_state}))
+    return out
+
+
+def _stash(name, res):
+    rank = int(os.environ["RANK"])
+    attempt = os.environ.get("CMN_LAUNCH_ATTEMPT", "0")
+    with open(f"{_OUT}/{name}.attempt{attempt}.rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def preempt():
+    """2 ranks under ``launch.supervise``.  Attempt 0: the unfaulted run
+    to 12, then a guarded run (a checkpoint every 4) that rank 1
+    preempts at 6: every rank flushes, saves at 6 and exits 75.  Attempt
+    1: ``maybe_load`` resumes at 6 and runs to 12."""
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+    from chainermn_tpu_torch.resilience import PreemptionGuard
+
+    attempt = int(os.environ["CMN_LAUNCH_ATTEMPT"])
+    comm = create_communicator("naive", device="cpu")
+    ckpt = create_multi_node_checkpointer(
+        "pre", comm, path=f"{_OUT}/ckpt", trigger=(4, "iteration"),
+        async_save=False)
+    if attempt == 0:
+        _stash("preempt", {"oracle": _rep_run(comm, "oracle", zero=False)})
+        guard = PreemptionGuard(comm=comm).install()
+        _rep_run(comm, "preempted", zero=False, ckpt=ckpt, guard=guard,
+                 preempt_at=6 if comm.rank == 1 else None)
+        raise AssertionError("the preempted run did not exit")
+    res = _resume(comm, ckpt)
+    res["steps_saved"] = ckpt.all_steps()
+    return res
+
+
+def _resume(comm, ckpt):
+    from chainermn_tpu_torch.datasets import (
+        make_synthetic_classification,
+        scatter_dataset,
+    )
+    from chainermn_tpu_torch.iterators import SerialIterator
+    from chainermn_tpu_torch.models import MLP, classification_loss
+    from chainermn_tpu_torch.optimizers import (
+        adamw,
+        create_multi_node_optimizer,
+    )
+    from chainermn_tpu_torch.resilience import tree_digest
+    from chainermn_tpu_torch.training import Trainer
+
+    ds = scatter_dataset(make_synthetic_classification(384, 8, 4, seed=9),
+                         comm, shuffle=True, seed=4)
+    model = MLP(hidden=(8,), n_out=4, in_features=8, device="cpu")
+    opt = create_multi_node_optimizer(adamw(1e-2), comm)
+    trainer = Trainer(opt, opt.init(model), classification_loss(model),
+                      SerialIterator(ds, 32, shuffle=True, seed=2),
+                      stop=(12, "iteration"), has_aux=True, extensions=[ckpt])
+    _, resumed = ckpt.maybe_load(trainer.state, trainer)
+    trainer.run()
+    st = trainer.state
+    opt_state = {f"{i}.{k}": v for i, s in enumerate(
+        st.optimizer.state.values()) for k, v in s.items()
+        if torch.is_tensor(v)}
+    return {"resumed": resumed, "iteration": trainer.iteration,
+            "params_digest": tree_digest(st.params),
+            "state_digest": tree_digest({**st.params, **opt_state})}
+
+
+def replicate():
+    """3 ranks under ``launch.supervise`` (ZeRO, a replicator every 2,
+    factor 1, a checkpoint every 4).  Attempt 0: the unfaulted run to 12,
+    then ``crash@iter:5`` on rank 1.  Attempt 1: rank 1's spill is wiped
+    (its host died); the quorum restores it from rank 2's replica at 4;
+    rank 0 preempts at 7 (flush, save, exit 75).  Attempt 2: every rank
+    restores its own flush at 7; ``flip@replicate:1`` on rank 0 tears its
+    first frame (rank 1 discards it); the run ends at 12."""
+    import shutil
+
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+    from chainermn_tpu_torch.observability import metrics as _omet
+    from chainermn_tpu_torch.resilience import (
+        FaultInjector,
+        PreemptionGuard,
+        ShardReplicator,
+        parse_fault_spec,
+    )
+
+    attempt = int(os.environ["CMN_LAUNCH_ATTEMPT"])
+    comm = create_communicator("naive", device="cpu")
+    r = comm.rank
+    ckpt = create_multi_node_checkpointer(
+        "rep", comm, path=f"{_OUT}/ckpt", trigger=(4, "iteration"),
+        async_save=False)
+    inj = (FaultInjector(parse_fault_spec("flip@replicate:1"))
+           if attempt == 2 and r == 0 else None)
+    rep = ShardReplicator(comm, every=2, factor=1, spill_dir=f"{_OUT}/rep",
+                          keep=4, injector=inj, _use_process_injector=False)
+    if attempt == 0:
+        _stash("replicate", {"oracle": _rep_run(comm, "oracle")})
+        _rep_run(comm, "crash", rep=rep, ckpt=ckpt,
+                 fault="crash@iter:5" if r == 1 else None)
+        raise AssertionError("the crashed run did not stop")
+    if attempt == 1 and r == 1:
+        shutil.rmtree(rep.spill_dir)
+        os.makedirs(rep.spill_dir)
+    guard = PreemptionGuard(comm=comm).install() if attempt == 1 else None
+    res = _rep_run(comm, f"attempt{attempt}", rep=rep, ckpt=ckpt,
+                   guard=guard, negotiate=True, stash="replicate",
+                   preempt_at=7 if attempt == 1 and r == 0 else None)
+    snap = _omet.registry().snapshot()
+    res.update(torn=snap.get("train.rep.torn", {}).get("value"),
+               held=rep.report()["held"])
+    return res
+
+
+def replicate_elastic():
+    """2 ranks relaunched over the 3-rank job's spill and checkpoints:
+    the inventories name another world size, so the negotiation falls
+    back to ``maybe_load_elastic`` and files ``replication_fallback``."""
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+    from chainermn_tpu_torch.observability import incident
+    from chainermn_tpu_torch.resilience import ShardReplicator
+
+    comm = create_communicator("naive", device="cpu")
+    ckpt = create_multi_node_checkpointer(
+        "rep", comm, path=f"{_OUT}/ckpt", trigger=(4, "iteration"),
+        async_save=False)
+    rep = ShardReplicator(comm, every=2, factor=1, spill_dir=f"{_OUT}/rep",
+                          keep=4, _use_process_injector=False)
+    res = _rep_run(comm, "elastic", rep=rep, ckpt=ckpt, negotiate=True,
+                   elastic=True)
+    mgr = incident.manager()
+    mgr.evaluate()
+    res["incidents"] = [m["rule"]["name"] if isinstance(m.get("rule"), dict)
+                        else m.get("rule") for m in mgr.incidents]
+    return res
