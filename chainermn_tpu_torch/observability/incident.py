@@ -449,6 +449,13 @@ class IncidentManager:
     def _reg(self):
         return self._registry_fn()
 
+    def add_rule(self, rule: Watch) -> None:
+        """Watch one more rule from the next evaluation on, with a fresh
+        state (no streak, no cooldown)."""
+        with self._lock:
+            self.rules.append(rule)
+            self._state[rule.name] = _RuleState()
+
     def register_source(self, name: str, fn: Callable[[], dict]) -> None:
         """Contribute a section to every future bundle's ``signals.json``
         (keyed; latest registration wins).  Callers holding live objects

@@ -242,6 +242,13 @@ class MetricsRegistry:
         with self._lock:
             return list(self._samples)
 
+    def reset(self) -> None:
+        """Drop every instrument and sample (between a benchmark's arms;
+        tests)."""
+        with self._lock:
+            self._instruments.clear()
+            self._samples.clear()
+
 
 def merge_snapshots(snaps: Sequence[Dict[str, dict]]) -> Dict[str, dict]:
     """Exact fleet merge of per-rank :meth:`MetricsRegistry.snapshot` s.

@@ -39,8 +39,12 @@ weights on one card):
 * :mod:`~chainermn_tpu_torch.serving.elastic` — the closed-loop
   :class:`Autoscaler` and the health-gated :class:`RollingDeploy`.
 
-The JAX package's tensor-parallel engine (``serving_mesh``,
-``DecodeEngine(mesh=)``) is not ported.
+The tensor-parallel engine (:mod:`~chainermn_tpu_torch.serving.sharding`:
+``serving_mesh``, ``DecodeEngine(mesh=)``) runs one process per model
+rank; its scheduler takes a policy plane, whose drift latch follows model
+rank 0's SLO verdict, and ``Router(engine, comm=world)`` serves N such
+replicas of M model ranks with the same dispatch, steal and idle-skip
+decisions on every rank (the router's module docstring).
 """
 
 from chainermn_tpu_torch.serving.disagg import (

@@ -30,9 +30,11 @@ the incident plane's watch-rule grammar.
   replica that dies mid-rollout pauses the rollout and files a critical
   incident (``rollout_interrupted``); a step stuck past
   ``CMN_SERVE_ROLLOUT_TIMEOUT_TICKS`` counts ``serve.rollout.stalled``
-  (the critical ``rollout_stalled`` default rule).  The JAX package
-  loads the new weights through its checkpointer, which the port has
-  not ported; the caller passes them as ``params``.
+  (the critical ``rollout_stalled`` default rule).  As in the JAX
+  package, the caller passes the new weights as ``params``, for example
+  loaded through the port's checkpointer
+  (:class:`~chainermn_tpu_torch.extensions.checkpoint.
+  MultiNodeCheckpointer`).
 
 Both controllers are host-side supervisors over PUBLIC router seams
 (``add_replica`` / ``drain_replica`` / ``retire_replica`` /

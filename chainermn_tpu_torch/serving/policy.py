@@ -64,12 +64,20 @@ every replica (revivals and scale-ups included), so the service clocks
 and rate limits are fleet-coherent, like the shared ledger; the router
 picks its holdback dispatch and its rebalance steals on the same plane
 and publishes the fleet-wide queue census.
+
+Over tensor-parallel replicas, one process per model rank, each rank
+holds its own copy of the plane and steps only its own replica: the
+replica's scheduler ticks against a :meth:`PolicyPlane.fork` of the
+plane as the fleet tick found it, through a :class:`PlaneTape` that
+records every call; the tapes travel in the router's per-tick gather and
+:meth:`PolicyPlane.replay` applies them in replica order on every rank,
+so every rank's plane is the same after every tick.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 from chainermn_tpu_torch.observability.metrics import (
     NoopInstrument as _NoopInstrument,
@@ -420,7 +428,11 @@ class PolicyPlane:
         eligible again — the idle-skip bound for ``run()`` loops (a
         fully-throttled queue must advance the clock, not spin)."""
         out = None
-        for tenant in {r.tenant for r in reqs if r.arrival <= now}:
+        # Queue order, not a set's: a tenant first seen here takes the
+        # next index, and the ranks of a tensor-parallel fleet (each its
+        # own string hash seed) must number tenants alike.
+        for tenant in dict.fromkeys(r.tenant for r in reqs
+                                    if r.arrival <= now):
             t = self.policy_for(tenant)
             if t.rate_limit is None or not self.throttled(tenant, now):
                 continue
@@ -617,6 +629,31 @@ class PolicyPlane:
                 self._t_depth, t, "queue_depth", "gauge"
             ).set(float(n))
 
+    # --------------------------------------------- tensor-parallel fleets
+    def fork(self) -> "PolicyPlane":
+        """A copy of this plane's decision state that publishes nothing
+        and starts an empty admission log: what one replica of a
+        tensor-parallel fleet ticks against (:class:`PlaneTape`)."""
+        f = PolicyPlane.__new__(PolicyPlane)
+        f.__dict__.update(self.__dict__)
+        for name in ("tenants", "charged", "virtual", "_t0", "_blocks",
+                     "_tenant_index"):
+            setattr(f, name, dict(getattr(self, name)))
+        f._was_queued = set(self._was_queued)
+        f._wait_win = {t: list(w) for t, w in self._wait_win.items()}
+        f.admission_log = []
+        f._reg = None
+        noop = _NoopInstrument()
+        f._m_preempt = f._m_throttled = f._m_cap_active = noop
+        f._m_capped = f._m_starved = noop
+        f._t_depth, f._t_preempted, f._t_throttled = {}, {}, {}
+        return f
+
+    def replay(self, ops: Sequence[tuple]) -> None:
+        """Apply a :class:`PlaneTape`'s recorded calls, in order."""
+        for name, args in ops:
+            getattr(self, name)(*args)
+
     # ---------------------------------------------------------- inspection
     def state(self) -> dict:
         """Host-side snapshot (flight records, tests, ``chip_smoke.py``)."""
@@ -628,3 +665,84 @@ class PolicyPlane:
             "throttle_deferrals": self.throttle_deferrals,
             "tenants": sorted(self.tenants),
         }
+
+
+# ------------------------------------------------------------- PlaneTape
+class _Req(NamedTuple):
+    """What the plane reads of a request (a recorded call's argument)."""
+
+    id: int
+    tenant: str
+    arrival: float
+    priority: int
+
+
+class _Entry(NamedTuple):
+    req: _Req
+
+
+class _SlotRef(NamedTuple):
+    """What :meth:`PolicyPlane.preempt_pick` reads of a slot."""
+
+    entry: _Entry
+    admit_seq: int
+
+
+def _req(r) -> _Req:
+    return _Req(r.id, r.tenant, float(r.arrival),
+                int(getattr(r, "priority", 0)))
+
+
+#: the calls a scheduler makes on its plane that change it (state or
+#: instruments), each with the converter of its arguments into what the
+#: plane reads of them (picklable).
+_TAPED = {
+    "charge": None, "set_blocks": None, "deadline_ms": None,
+    "note_queue_wait": None, "note_preemption": None,
+    "note_prefill_capped": None, "on_slo_check": None,
+    "pick_index": lambda reqs, now: ([_req(r) for r in reqs], now),
+    "steal_index": lambda reqs, now: ([_req(r) for r in reqs], now),
+    "next_release": lambda reqs, now: ([_req(r) for r in reqs], now),
+    "note_admission": lambda req: (_req(req),),
+    "effective_priority": lambda req: (_req(req),),
+    "preempt_pick": lambda slots, cls: (
+        [_SlotRef(_Entry(_req(s.entry.req)), s.admit_seq) for s in slots],
+        cls),
+}
+
+
+class PlaneTape:
+    """The plane a replica's scheduler holds in a tensor-parallel fleet.
+
+    Between :meth:`begin` and :meth:`end` (one replica tick) every call
+    goes to a :meth:`PolicyPlane.fork` of ``plane``, and each that
+    changes the plane is recorded, its arguments reduced to what the
+    plane reads of them; :meth:`end`
+    returns the record for :meth:`PolicyPlane.replay`.  Outside a tick
+    (the router's steals and idle skips, which every rank makes alike)
+    calls go to ``plane`` itself, unrecorded."""
+
+    def __init__(self, plane: PolicyPlane):
+        self.plane = plane
+        self._target = plane
+        self._ops: Optional[list] = None
+
+    def begin(self) -> None:
+        self._target = self.plane.fork()
+        self._ops = []
+
+    def end(self) -> list:
+        ops, self._ops, self._target = self._ops or [], None, self.plane
+        return ops
+
+    def __getattr__(self, name):
+        attr = getattr(self._target, name)
+        if self._ops is None or name not in _TAPED:
+            return attr
+        light = _TAPED[name]
+
+        def call(*args):
+            self._ops.append((name, light(*args) if light else args))
+            return attr(*args)
+
+        return call

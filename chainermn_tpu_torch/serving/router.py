@@ -35,6 +35,34 @@ Clock: all replicas share ONE scheduler clock, so cross-replica
 timestamps (and the merged trace) are coherent and idle gaps skip once
 for the whole fleet.  Replicas tick one after another on the host, so on
 one card an added replica buys slots, not parallel compute.
+
+**Tensor-parallel replicas** (``Router(engine, comm=world)``): N
+replicas of M model ranks each, one process per rank, N × M ranks in
+all.  Replica ``i`` is the group of ranks ``[i·M, (i+1)·M)`` that
+:func:`~chainermn_tpu_torch.serving.sharding.serving_mesh` cuts, and each
+rank passes its own engine (``DecodeEngine(model, mesh=serving_mesh(M,
+world))``) and the world communicator.  Every rank runs the same router
+and comes to the same dispatch, holdback, steal and idle-skip decisions;
+a rank steps only its own replica's scheduler, and sees every other one
+through a :class:`_ReplicaView`:
+
+* after the replicas tick, one object all-gather carries each replica's
+  summary from model rank 0 of its group: its gauges, live slots, queue
+  (whole entries, so a steal moves the entry itself; no device buffer
+  moves), the tick's completions and, under a policy plane, the tape of
+  the tick's plane calls (:class:`~chainermn_tpu_torch.serving.policy.
+  PlaneTape`), replayed in replica order on every rank;
+* the router's clock is world rank 0's: its reading rides the same
+  gather, and every rank's rebalance and next tick read it (an idle
+  skip latches it anew with one object broadcast);
+* :meth:`Router.run` returns the same completions on every rank.
+
+A replica's tick sees the fleet plane as the tick found it plus its own
+calls (the one-process router ticks replicas one after another, each
+seeing the calls of those before it).  Not over tensor-parallel
+replicas: the failure plane (a replica's error propagates), the elastic
+seams, roles other than ``"mixed"``, the fleet ledger and the merged
+fleet trace.
 """
 
 from __future__ import annotations
@@ -54,10 +82,16 @@ from chainermn_tpu_torch.serving.scheduler import (
     Completion,
     Request,
     Scheduler,
+    _AgreedClock,
     _Clock,
     _QueueEntry,
+    next_arrival,
+    steal_index,
     terminal_completion,
 )
+
+#: the replica gauges the router's decisions read.
+_GAUGES = ("serve.slot_occupancy", "serve.queue_depth", "mem.kv.occupancy")
 
 
 def device_fault(exc: BaseException) -> bool:
@@ -70,6 +104,75 @@ def device_fault(exc: BaseException) -> bool:
         return True
     return isinstance(exc, RuntimeError) and \
         str(exc).startswith("CUDA error")
+
+
+class _ReplicaCapacity:
+    """The part of a replica's engine the router reads from a view."""
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+
+    def stats(self) -> None:
+        return None
+
+
+class _ReplicaView:
+    """A replica of a tensor-parallel fleet held by other ranks, as this
+    rank sees it: the host books its group's model rank 0 sent in the
+    last gather (:meth:`apply`), kept current through this tick's
+    dispatches and steals, which every rank makes alike.  It answers the
+    :class:`Scheduler` calls the router makes, and picks a steal and the
+    next arrival through the scheduler's own functions."""
+
+    def __init__(self, capacity: int, fit, clock, policy):
+        self.engine = _ReplicaCapacity(capacity)
+        self.check_fit = fit
+        self.clock, self.policy = clock, policy
+        self.registry = MetricsRegistry()
+        self.completions: List[Completion] = []
+        self._queue: List[_QueueEntry] = []
+        self._live = 0
+
+    def apply(self, summary: dict) -> None:
+        self._queue = summary["queue"]
+        self._live = summary["live"]
+        self.completions.extend(summary["done"])
+        for name, v in summary["gauges"].items():
+            if v is not None:
+                self.registry.gauge(name).set(v)
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self._queue)
+
+    @property
+    def slot_occupancy(self) -> float:
+        return self._live / self.engine.capacity
+
+    @property
+    def has_free_slot(self) -> bool:
+        return self._live < self.engine.capacity
+
+    @property
+    def pending(self) -> bool:
+        return bool(self._queue) or self._live > 0
+
+    def submit(self, req: Request) -> None:
+        self.check_fit(req)
+        self._queue.append(_QueueEntry(req))
+
+    def submit_entry(self, entry: _QueueEntry) -> None:
+        self._queue.append(entry)
+
+    def steal_queued(self) -> Optional[_QueueEntry]:
+        idx = steal_index(self._queue, self.policy, self.clock.now())
+        return None if idx is None else self._queue.pop(idx)
+
+    def next_arrival(self) -> Optional[float]:
+        return next_arrival(self._queue, self.policy, self.clock.now())
+
+    def finish(self) -> None:
+        pass
 
 
 class Router:
@@ -111,9 +214,15 @@ class Router:
         queue.  Resolve a launch-wide spec with
         :func:`~chainermn_tpu_torch.serving.disagg.roles_from_env`
         (``CMN_DISAGG_ROLES``).
+      comm: the world communicator of a fleet of tensor-parallel
+        replicas (module docstring): ``engines`` is then this rank's own
+        engine (or a one-element list), whose ``mesh`` is its replica's
+        group of ``M`` consecutive ranks, and the fleet has
+        ``comm.size / M`` replicas.  Every rank constructs the router
+        and calls the same methods in the same order.
     """
 
-    def __init__(self, engines: Sequence, registry=None,
+    def __init__(self, engines, registry=None,
                  clock: Optional[_Clock] = None,
                  max_queue: Optional[int] = None,
                  rebalance: Optional[bool] = None,
@@ -123,7 +232,7 @@ class Router:
                  retry_budget: Optional[int] = None,
                  probation_ticks: Optional[int] = None,
                  shed_depth: Optional[int] = None,
-                 ledger=None, policy=None):
+                 ledger=None, policy=None, comm=None):
         import chainermn_tpu_torch.observability as _obs
         from chainermn_tpu_torch.observability.metrics import (
             DEFAULT_MS_EDGES,
@@ -139,6 +248,11 @@ class Router:
             shed_depth_from_env,
         )
 
+        self.comm = comm
+        if comm is not None:
+            engines = self._tensor_parallel_fleet(
+                engines, roles, faults, ledger
+            )
         engines = list(engines)
         if not engines:
             raise ValueError("router needs at least one engine")
@@ -165,6 +279,8 @@ class Router:
             i for i, r in enumerate(roles) if r != "decode"
         ]
         self.clock = clock or _Clock()
+        if comm is not None:
+            self.clock = _AgreedClock(self.clock, comm)
         #: per-replica span rings: each replica is one "rank" in the
         #: merged fleet trace (the timeline mirrors every lifecycle
         #: event as a ``serve.<kind>`` span carrying ``req=<id>``).
@@ -190,7 +306,9 @@ class Router:
         #: books would then miss.
         from chainermn_tpu_torch.observability import ledger as _oledger
 
-        if ledger is not None:
+        if comm is not None:
+            self.ledger = None
+        elif ledger is not None:
             self.ledger = ledger
         elif (registry is not None or _obs.enabled()) \
                 and _oledger.ledger_enabled():
@@ -207,6 +325,13 @@ class Router:
         self.policy = policy
         if policy is not None:
             policy.fleet = True
+        #: over tensor-parallel replicas, the plane this rank's replica
+        #: ticks against (recorded, then replayed fleet-wide).
+        self._tape = None
+        if comm is not None and policy is not None:
+            from chainermn_tpu_torch.serving.policy import PlaneTape
+
+            self._tape = PlaneTape(policy)
         self.schedulers: List[Scheduler] = [
             Scheduler(
                 eng, registry=reg, clock=self.clock,
@@ -214,17 +339,19 @@ class Router:
                 ledger=(
                     self.ledger if self.ledger is not None else False
                 ),
-                policy=policy,
-            )
+                policy=self._tape or policy,
+            ) if eng is not None else None
             for eng, reg, ring, fi in zip(
                 engines, self.replica_registries, self.rings, faults
             )
         ]
+        if comm is not None:
+            self._attach_views()
         if max_queue is None:
             env = os.environ.get("CMN_ROUTER_MAX_QUEUE", "")
             max_queue = (
                 int(env) if env.isdigit() and int(env) > 0
-                else 2 * max(e.capacity for e in engines)
+                else 2 * max(e.capacity for e in engines if e is not None)
             )
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
@@ -306,6 +433,105 @@ class Router:
         else:
             self.incidents = None
         self._inc_every = 16
+
+    # ------------------------------------------- tensor-parallel replicas
+    def _tensor_parallel_fleet(self, engines, roles, faults, ledger):
+        """Check this rank's engine against the world communicator and
+        return the fleet's engine list: this rank's engine at its
+        replica's index, None at the others'.  Every replica's geometry
+        must be this one's (one all-gather)."""
+        from chainermn_tpu_torch.serving.sharding import mesh_model_size
+
+        if isinstance(engines, (list, tuple)):
+            if len(engines) != 1:
+                raise ValueError(
+                    "over tensor-parallel replicas each rank passes its "
+                    f"own engine, got {len(engines)}")
+            engines = engines[0]
+        eng, comm = engines, self.comm
+        M = mesh_model_size(eng.mesh)
+        if comm.size % M or (M > 1 and eng.mesh.rank != comm.rank % M):
+            raise ValueError(
+                f"the engine's mesh ({M} ranks, model rank "
+                f"{getattr(eng.mesh, 'rank', 0)}) is not the group "
+                f"serving_mesh({M}, comm) cuts for rank {comm.rank} of "
+                f"{comm.size}")
+        for what, given in (("roles", roles and set(roles) != {"mixed"}),
+                            ("faults", faults), ("a ledger", ledger)):
+            if given:
+                raise ValueError(
+                    f"{what} over tensor-parallel replicas is not ported: "
+                    "the failure plane, the roles and the fleet ledger "
+                    "are the one-process fleet's")
+        geometry = (M, eng.capacity, eng.max_blocks, eng.block_len,
+                    eng.pool.num_blocks, tuple(eng.prefill_ladder),
+                    eng.spec_k)
+        if len(set(comm.allgather_obj(geometry))) != 1:
+            raise ValueError(
+                "tensor-parallel replicas must share one geometry (model "
+                "ranks, capacity, blocks, ladder, spec_k): any replica's "
+                "check_fit speaks for all")
+        #: this rank's replica, its model rank, and ranks per replica.
+        self._local, self._model_rank, self._M = (
+            comm.rank // M, comm.rank % M, M
+        )
+        #: the router's per-tick gathers: count and summed ms (waits for
+        #: the slowest replica's tick included).
+        self.exchanges, self.exchange_ms_total = 0, 0.0
+        self._sent = 0
+        out = [None] * (comm.size // M)
+        out[self._local] = eng
+        return out
+
+    def _attach_views(self) -> None:
+        local = self.schedulers[self._local]
+        for j, s in enumerate(self.schedulers):
+            if s is None:
+                view = _ReplicaView(local.engine.capacity, local.check_fit,
+                                    self.clock, self.policy)
+                self.schedulers[j] = view
+                self.replica_registries[j] = view.registry
+                self.rings[j] = None
+
+    def _tick_tensor_parallel(self) -> bool:
+        """Tick this rank's replica, then exchange every replica's
+        summary (one all-gather over the world) and bring the views, the
+        fleet plane and the health rows up to date alike on every rank.
+        Returns whether any replica progressed."""
+        s = self.schedulers[self._local]
+        if self._tape is not None:
+            self._tape.begin()
+        ticked = s.tick()
+        ops = self._tape.end() if self._tape is not None else None
+        mine = None
+        if self._model_rank == 0:
+            mine = dict(
+                progressed=ticked, queue=list(s._queue), ops=ops,
+                live=sum(x is not None for x in s._slots),
+                done=s.completions[self._sent:],
+                gauges={n: self._gauge(self._local, n) for n in _GAUGES},
+                now=self.clock.inner.now() if self.comm.rank == 0 else None,
+            )
+            self._sent = len(s.completions)
+        t0 = time.perf_counter()
+        summaries = self.comm.allgather_obj(mine)[::self._M]
+        self.exchange_ms_total += (time.perf_counter() - t0) * 1e3
+        self.exchanges += 1
+        self.clock.adopt(summaries[0]["now"])
+        progressed = False
+        for j, summary in enumerate(summaries):
+            progressed = progressed or summary["progressed"]
+            if j != self._local:
+                self.schedulers[j].apply(summary)
+            if summary["ops"]:
+                self.policy.replay(summary["ops"])
+            self.health.clean_tick(j)
+        return progressed
+
+    def _one_process(self, what: str) -> None:
+        if self.comm is not None:
+            raise NotImplementedError(
+                f"{what} over tensor-parallel replicas is not ported")
 
     # ---------------------------------------------------------- dispatch
     @property
@@ -728,6 +954,7 @@ class Router:
         The revived replica receives only fresh admissions at reduced
         dispatch weight until ``CMN_SERVE_PROBATION_TICKS`` clean ticks
         pass, so a flapping replica cannot thrash the fleet."""
+        self._one_process("revive_replica")
         from chainermn_tpu_torch.observability.metrics import MetricsRegistry
         from chainermn_tpu_torch.observability.tracing import (
             RequestTimeline,
@@ -762,6 +989,7 @@ class Router:
         revival replacement (a cold newcomer must not immediately soak
         up recovered work or rebalance steals).  Returns the new
         replica index."""
+        self._one_process("add_replica")
         from chainermn_tpu_torch.observability.metrics import MetricsRegistry
         from chainermn_tpu_torch.observability.tracing import (
             RequestTimeline,
@@ -811,6 +1039,7 @@ class Router:
         downgrades to the fault boundary (:meth:`_on_replica_death`):
         marked dead, work harvested — the terminal invariant holds
         either way."""
+        self._one_process("drain_replica")
         from chainermn_tpu_torch.serving import disagg as _disagg
 
         if not self.health.is_draining(i):
@@ -868,6 +1097,7 @@ class Router:
         router's books first — ``revive_replica`` replaces the
         Scheduler wholesale, and the old incarnation's terminals must
         survive that."""
+        self._one_process("retire_replica")
         s = self.schedulers[i]
         if s is not None and s.pending:
             raise ValueError(
@@ -888,6 +1118,7 @@ class Router:
         stay stable).  Its finished completions move to the router's
         books first, so :attr:`completions` and the fleet ledger's
         conservation hold across the removal."""
+        self._one_process("deregister_replica")
         st = self.health.state(i)
         if st not in ("draining", "dead"):
             raise ValueError(
@@ -932,9 +1163,15 @@ class Router:
         THAT replica dead and recovers its work onto survivors
         (:meth:`_on_replica_death`) instead of aborting the fleet; a
         CUDA error (:func:`device_fault`) propagates.  A clean tick
-        feeds the probation counter of a revived replica."""
+        feeds the probation counter of a revived replica.
+
+        Over tensor-parallel replicas (``comm=``) each rank ticks its own
+        replica, with no fault boundary (an error propagates), then the
+        replicas' summaries are exchanged (:meth:`_tick_tensor_parallel`)."""
         progressed = self._dispatch()
-        for i, s in enumerate(self.schedulers):
+        if self.comm is not None:
+            progressed = self._tick_tensor_parallel() or progressed
+        for i, s in enumerate(self.schedulers if self.comm is None else ()):
             if s is None or not self.health.is_up(i):
                 continue
             try:
@@ -1105,6 +1342,7 @@ class Router:
         replica that touched it.  Replicas share one process and one
         monotonic clock, so no offset correction is needed (offsets
         default to zero).  Returns the merge summary (with ``path``)."""
+        self._one_process("export_fleet_trace")
         from chainermn_tpu_torch.observability import fleet as _fleet
         from chainermn_tpu_torch.observability import tracing as _tracing
 

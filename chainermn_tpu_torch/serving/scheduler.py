@@ -275,9 +275,48 @@ class _AgreedClock:
     def now(self) -> float:
         return self._now
 
+    def adopt(self, t: float) -> None:
+        """Take ``t``, rank 0's reading carried by another collective
+        every rank makes (the router's per-tick gather)."""
+        self._now = float(t)
+
     def skip_to(self, t: float) -> None:
         self.inner.skip_to(t)
         self.latch()
+
+
+def steal_index(queue: Sequence[_QueueEntry], policy, now: float
+                ) -> Optional[int]:
+    """The entry a rebalance takes from ``queue``: the youngest arrived
+    one (FIFO), or under a policy plane its weighted-fair head; None when
+    there is none.  :meth:`Scheduler.steal_queued` and the router's view
+    of a replica held by other ranks both pick through here."""
+    if not queue:
+        return None
+    if policy is not None:
+        return policy.steal_index([e.req for e in queue], now)
+    idx = len(queue) - 1
+    return None if queue[idx].req.arrival > now else idx
+
+
+def next_arrival(queue: Sequence[_QueueEntry], policy, now: float
+                 ) -> Optional[float]:
+    """The next time an admission from ``queue`` can unblock, or None on
+    an empty queue (:meth:`Scheduler.next_arrival`)."""
+    if not queue:
+        return None
+    if policy is None:
+        return queue[0].req.arrival
+    cands = [e.req.arrival for e in queue if e.req.arrival > now]
+    rel = policy.next_release([e.req for e in queue], now)
+    if rel is not None:
+        cands.append(rel)
+    if not cands:
+        # Everything has arrived and nobody is throttled — the old
+        # contract (an already-past time: no skip, admission is gated on
+        # slots, not the clock).
+        return min(e.req.arrival for e in queue)
+    return min(cands)
 
 
 class Scheduler:
@@ -286,9 +325,11 @@ class Scheduler:
 
     Over a tensor-parallel engine of several model ranks (``engine.mesh``)
     every rank runs a scheduler over the same requests, and every
-    decision reads rank 0's clock (:class:`_AgreedClock`), so the ranks'
-    host books stay equal.  The policy plane, whose prefill budget follows
-    each rank's own measured latencies, is refused there."""
+    decision must come out the same on every rank, or the ranks'
+    collectives pair the wrong layers.  Each decision reads rank 0's
+    clock (:class:`_AgreedClock`), and under a policy plane the drift
+    latch follows rank 0's SLO verdict, broadcast on the check cadence
+    (:meth:`_agreed_report`); each rank's own monitors only observe."""
 
     def __init__(self, engine, registry=None, clock: Optional[_Clock] = None,
                  slo=None, timeline=None, memory=None, incidents=None,
@@ -297,14 +338,21 @@ class Scheduler:
         self.engine = engine
         self.clock = clock or _Clock()
         mesh = getattr(engine, "mesh", None)
-        if mesh is not None and mesh.size > 1:
-            if policy is not None:
-                raise ValueError(
-                    "the policy plane budgets prefill from each rank's own "
-                    "measured latencies, so the model ranks of a "
-                    "tensor-parallel engine would decide apart: serve it "
-                    "without policy=")
+        #: the engine's model ranks when there are several: the group
+        #: whose decisions must agree.
+        self._mesh = mesh if mesh is not None and mesh.size > 1 else None
+        #: whether :meth:`tick` latches the clock: a router over
+        #: tensor-parallel replicas hands in its own agreed clock, which
+        #: it moves once per fleet tick.
+        self._latches = False
+        if self._mesh is not None and not isinstance(self.clock,
+                                                     _AgreedClock):
             self.clock = _AgreedClock(self.clock, mesh)
+            self._latches = True
+        #: SLO verdicts broadcast from model rank 0 to the drift latch,
+        #: and their summed wall time (ms).
+        self.verdict_broadcasts = 0
+        self.verdict_ms_total = 0.0
         self._queue: List[_QueueEntry] = []
         self._slots: List[Optional[_Slot]] = [None] * engine.capacity
         self._admit_seq = 0
@@ -579,18 +627,9 @@ class Scheduler:
         Under a policy plane the victim is the weighted-fair head
         instead — the entry this scheduler would serve next — so a
         backlogged tenant cannot ride a rebalance past an SLO tenant."""
-        if not self._queue:
+        idx = steal_index(self._queue, self.policy, self.clock.now())
+        if idx is None:
             return None
-        if self.policy is not None:
-            idx = self.policy.steal_index(
-                [e.req for e in self._queue], self.clock.now()
-            )
-            if idx is None:
-                return None
-        else:
-            idx = len(self._queue) - 1
-            if self._queue[idx].req.arrival > self.clock.now():
-                return None
         entry = self._queue.pop(idx)
         if self.timeline is not None:
             self.timeline.record(
@@ -748,25 +787,7 @@ class Scheduler:
         rate-throttled, the earliest throttle release (otherwise an
         idle-skip loop would jump to an already-past arrival and
         spin)."""
-        if not self._queue:
-            return None
-        if self.policy is None:
-            return self._queue[0].req.arrival
-        now = self.clock.now()
-        cands = [
-            e.req.arrival for e in self._queue if e.req.arrival > now
-        ]
-        rel = self.policy.next_release(
-            [e.req for e in self._queue], now
-        )
-        if rel is not None:
-            cands.append(rel)
-        if not cands:
-            # Everything has arrived and nobody is throttled — the old
-            # contract (an already-past time: no skip, admission is
-            # gated on slots, not the clock).
-            return min(e.req.arrival for e in self._queue)
-        return min(cands)
+        return next_arrival(self._queue, self.policy, self.clock.now())
 
     def _worst_prefill_end(self, lo: int, hi: int) -> int:
         """Max padded prefill end over admission text lengths in
@@ -1283,7 +1304,7 @@ class Scheduler:
                 # Feed the fresh verdict into the drift latch on the
                 # check cadence — hysteresis counts CHECKS, not
                 # iterations.
-                self.policy.on_slo_check(self.slo.last_report)
+                self.policy.on_slo_check(self._agreed_report())
         if self.incidents is not None and \
                 self._iterations % self._mem_every == 0:
             # Watch-rule evaluation on the SLO-check cadence, AFTER the
@@ -1355,6 +1376,24 @@ class Scheduler:
                 self._emit(s, int(out[s.idx]))
         return True
 
+    def _agreed_report(self) -> dict:
+        """The SLO verdict the drift latch follows: this scheduler's own,
+        or over a tensor-parallel engine model rank 0's, broadcast over
+        the model ranks (one object broadcast per check; every rank
+        checks at the same agreed iteration).  Each rank measures its own
+        step times, and a rank whose latch followed them would budget
+        prefill apart from the others."""
+        report = self.slo.last_report
+        if self._mesh is None:
+            return report
+        t0 = time.perf_counter()
+        report = self._mesh.bcast_obj(
+            report if self._mesh.rank == 0 else None, root=0
+        )
+        self.verdict_ms_total += (time.perf_counter() - t0) * 1e3
+        self.verdict_broadcasts += 1
+        return report
+
     def _emit(self, slot: _Slot, tok: int) -> None:
         """Account one generated token; retire the slot when done."""
         self._m_tokens.inc()
@@ -1425,7 +1464,7 @@ class Scheduler:
         work at all).  :meth:`run` is a tick loop over one scheduler;
         the router interleaves ticks across replicas on a shared clock."""
         progressed = False
-        if isinstance(self.clock, _AgreedClock):
+        if self._latches:
             self.clock.latch()
         if self._cancel_deadlines():
             progressed = True

@@ -255,15 +255,19 @@ beside the four captured ones and the bare step eager in
    message staged through pinned host memory; 3 SGD-momentum steps held
    against the same network in one process through ``apply_sequential``
    (``MP_TOL``), then each side's step ms and the wire's share of the
-   4-rank step), ``model_parallel_example`` (the twin through ``python
-   -m chainermn_tpu_torch.launch --nproc 4 -m ...``),
+   4-rank step), ``model_parallel_example`` (the twin's ``main`` on the
+   same 4 ranks after their body),
    ``model_parallel_grid`` (2 ranks as a ``data x model`` = 2 x 1 grid:
    NCCL refuses two ranks on one card, naming ``naive``; ``sub``,
    ``split`` and the collectives on card tensors; the differentiable
    broadcast and point-to-point gradients, a ragged all-reduce) and
-   ``seq2seq_two_ranks`` (the seq2seq twin data-parallel over 2 ranks:
-   its BLEU covers every held-out sentence once).  Each launched job has a
-   time limit (``MP_TIMEOUT_S``); a hang fails the run.
+   ``seq2seq_two_ranks`` (the seq2seq twin data-parallel over the grid's
+   2 ranks after their body: its BLEU covers every held-out sentence
+   once).  A twin shares its host phase's launch (``CMN_SMOKE_TWIN``,
+   :func:`run_twin`), its prints going to stderr; the ``pipeline`` and ``sequence_parallel``
+   bodies also run in ``model_parallel``'s launch, and ``gan_convnet``'s
+   in ``model_parallel_grid``'s (:func:`body_results`).  Each launched
+   job has a time limit (``MP_TIMEOUT_S``); a hang fails the run.
 19. Pipelines and the 5-way-parallel LM, every rank sharing this card over
    gloo: ``pipeline`` (configuration 4's VGG-11 as in ``model_parallel``
    on ``build_hetero_pipeline`` with 4 GPipe microbatches, and on
@@ -284,8 +288,8 @@ beside the four captured ones and the bare step eager in
    one process (``PLM_TOL``), then 3 SGD-momentum steps whose loss falls
    and is equal on every rank, K1-K3 launches per rank per step against
    the prediction) and ``dryrun_multichip`` (the twin of the JAX entry
-   through the launcher on 8 ranks, with its ZeRO program: an int8-wire
-   step, a bit-exact checkpoint round trip, one more step).
+   on the same 8 ranks after their body, with its ZeRO program: an
+   int8-wire step, a bit-exact checkpoint round trip, one more step).
 20. Tensor-parallel serving, the ZeRO tier, the convnets and DCGAN:
    ``tp_serving`` (the decode bench's model, ``DECODE``, on 16 requests
    in 4 shared-prefix families: one model rank over NCCL in bf16, the
@@ -299,14 +303,26 @@ beside the four captured ones and the bare step eager in
    ms and the wire's share per rank; then ``lm_generate`` of each rank's
    tensor-parallel part: tokens equal to the one-rank model's, K5's runs
    on the card per rank on its ``KH/M`` heads = steps x 12; the parity
-   phase holds K4/K5 at these local-head shapes), ``zero`` (``LM`` in
-   fp32 with flash and
-   remat under ZeRO AdamW on 4 gloo ranks against one process's
+   phase holds K4/K5 at these local-head shapes; in the 2-rank launch the
+   policy plane on the engine (two tenants 1 : 3, each rank's own SLO
+   target breaching or not, rank 0 breaching then rank 1): admission
+   logs and tokens equal on every rank and in greedy agreement with the
+   one-rank engine under the plane, the drift latch and the capped
+   prefill following rank 0's verdict, K4 = steps x 12, decode-step ms
+   with and without the plane and the verdict broadcast's ms per check;
+   at the end of the 4-rank launch the router over 2 replicas of 2 model
+   ranks, without and with a fleet policy plane: every request
+   dispatched alike on every rank, completions equal on every rank and
+   in greedy agreement with the one-rank engine, the plane's state equal
+   on every rank after every tick, K4 per rank = its replica's steps x
+   12, dispatched and migrated counts, occupancy per replica, decode-step
+   ms and the wire's share per rank), ``zero`` (``LM`` in fp32 with flash
+   and remat under ZeRO AdamW on 2 gloo ranks against one process's
    replicated AdamW on the same global batch: losses, parameters,
    K1/K2/K3 per rank per step and in a profiled step, each rank's bytes
-   against a quarter of one process's; a one-rank NCCL ZeRO step
-   captured against eager, bitwise; the 4 ranks' checkpoint restored at
-   2 ranks by ``maybe_load_elastic`` for one more step) and
+   against a half of one process's; a one-rank NCCL ZeRO step captured
+   against eager, bitwise; the 2 ranks' checkpoint restored at 1 rank by
+   ``maybe_load_elastic`` for one more step) and
    ``gan_convnet`` (the channel-parallel convnet and the DCGAN on 2 gloo
    ranks for 3 SGD-momentum steps each, against one process).
 21. ``health_guard``: the training-health guard on the LM benchmark's
@@ -5774,6 +5790,73 @@ def launch_ranks(n: int, argv, label: str, env=None):
     return time.perf_counter() - t0
 
 
+def twin_env(module: str, argv) -> dict:
+    """The environment that has each rank of a launch run the example
+    twin ``module``'s ``main(argv)`` after its rank body
+    (:func:`run_twin`): the twin shares the body's processes and
+    process group instead of a launch of its own."""
+    return {"CMN_SMOKE_TWIN": json.dumps([module, list(argv)])}
+
+
+def run_twin(out: str) -> None:
+    """Run the twin ``CMN_SMOKE_TWIN`` names, if any, on this rank (its
+    prints to stderr); save its seconds and what its ``main`` returned
+    (when a dict) as ``twin.rank<r>.pkl`` under ``out``."""
+    import contextlib
+    import importlib
+    import pickle
+
+    spec = os.environ.get("CMN_SMOKE_TWIN")
+    if not spec:
+        return
+    module, argv = json.loads(spec)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        ret = importlib.import_module(module).main(argv)
+    res = {"seconds": time.perf_counter() - t0,
+           "ret": ret if isinstance(ret, dict) else None}
+    with open(os.path.join(out, f"twin.rank{os.environ['RANK']}.pkl"),
+              "wb") as f:
+        pickle.dump(res, f)
+
+
+def twin_row(out: str, n: int, phase: str, card, module: str, argv,
+             host: str) -> dict:
+    """The twin's line: its command, its seconds on each rank, what rank
+    0's ``main`` returned; fails unless every rank finished it."""
+    ranks = rank_results(out, "twin", n)
+    row = {"phase": phase, "card": card,
+           "command": f"{module}.main({list(argv)}) on each rank of the "
+           f"{host} launch (python -m chainermn_tpu_torch.launch --nproc "
+           f"{n}), after its rank body",
+           "seconds": max(r["seconds"] for r in ranks),
+           "seconds_per_rank": [r["seconds"] for r in ranks],
+           "returned": ranks[0]["ret"]}
+    emit(row)
+    return row
+
+
+#: rank bodies that already ran after an earlier phase's body in that
+#: phase's launch (name -> its output directory): their own phase reads
+#: the results instead of launching again (:func:`body_results`).
+_RAN = {}
+
+
+def body_results(name: str, n: int, dev, label: str, env=None):
+    """The ``n`` ranks' results of rank body ``name`` and the seconds of
+    its own launch: None when an earlier phase's launch ran it
+    (``_RAN``), else a launch of its own now."""
+    import tempfile
+
+    out, secs = _RAN.pop(name, None), None
+    if out is None:
+        out = tempfile.mkdtemp(prefix=f"cmn_{name}_")
+        secs = launch_ranks(n, [os.path.abspath(__file__), "--rank-body",
+                                name, out, "--rank-device", str(dev)],
+                            label, env=env)
+    return rank_results(out, name, n), secs
+
+
 def rank_results(out: str, name: str, n: int):
     import pickle
 
@@ -5859,22 +5942,31 @@ def mp_one_process(dev, batches, capture):
     return stages, state, step
 
 
-def phase_model_parallel(dev, card):
+def phase_model_parallel(dev, card, seed):
     """BASELINE.json configuration 4 on the card: 4 ranks sharing it
     through the port's launcher (gloo, host-staged wire, compute on the
     card) train the model-parallel VGG-11 and must agree with the
     one-process network at each of 3 steps; then each side's step ms and
     the wire's share of the 4-rank step; then the twin
-    ``examples/train_vgg_model_parallel.py`` through ``python -m
-    chainermn_tpu_torch.launch --nproc 4 -m ...`` for 2 steps."""
+    ``examples/train_vgg_model_parallel.py``'s ``main`` for 2 steps on
+    the same ranks."""
     import tempfile
 
     _fp32_exact()
     out = tempfile.mkdtemp(prefix="cmn_mp_")
     S = MP["n_stages"]
+    twin = ("chainermn_tpu_torch.examples.train_vgg_model_parallel",
+            ["--communicator", "naive", "--device", "cuda:0",
+             "--width-mult", "1.0", "--iters-per-epoch", "2", "--epoch",
+             "1"])
+    # The ranks then run the pipeline's and the sequence-parallel phase's
+    # bodies (4 ranks each) and the twin: three launches fewer.
     launch_s = launch_ranks(S, [os.path.abspath(__file__), "--rank-body",
-                                "vgg", out, "--rank-device", str(dev)],
-                            "model_parallel")
+                                "vgg,pipe,sp", out, "--rank-device",
+                                str(dev)], "model_parallel",
+                            env={"CMN_SMOKE_SEED": str(seed),
+                                 **twin_env(*twin)})
+    _RAN.update(pipe=out, sp=out)
     ranks = rank_results(out, "vgg", S)
     batches = mp_batches(MP_AGREE_STEPS)
     stages, state, step = mp_one_process(dev, batches, capture=False)
@@ -5938,30 +6030,29 @@ def phase_model_parallel(dev, card):
     check(sum(row["params_held_per_rank"]) == sum(
         p.numel() for p in stages.parameters()),
           "the ranks hold the network's parameters once between them")
-    twin_s = launch_ranks(
-        S, ["-m", "chainermn_tpu_torch.examples.train_vgg_model_parallel",
-            "--communicator", "naive", "--device", "cuda:0",
-            "--width-mult", "1.0", "--iters-per-epoch", "2", "--epoch", "1"],
-        "train_vgg_model_parallel")
-    emit({"phase": "model_parallel_example", "card": card,
-          "command": "python -m chainermn_tpu_torch.launch --nproc 4 -m "
-          "chainermn_tpu_torch.examples.train_vgg_model_parallel "
-          "--communicator naive --device cuda:0 --width-mult 1.0 "
-          "--iters-per-epoch 2 --epoch 1", "seconds": twin_s})
+    twin_row(out, S, "model_parallel_example", card, *twin,
+             "model_parallel")
     return row
 
 
-def phase_model_parallel_grid(dev, card):
+def phase_model_parallel_grid(dev, card, seed):
     """2 ranks on the card as a ``data x model`` = 2 x 1 grid: NCCL
     refuses them (one card), the gloo communicator's sub-grids, ``split``
     and collectives on card tensors, the differentiable broadcast and
     point-to-point with gradients, a ragged all-reduce; then the seq2seq
-    twin data-parallel over 2 ranks (1 epoch, LSTM, its defaults)."""
+    twin data-parallel over the same 2 ranks (1 epoch, LSTM, its
+    defaults)."""
     import tempfile
 
     out = tempfile.mkdtemp(prefix="cmn_grid_")
-    launch_ranks(2, [os.path.abspath(__file__), "--rank-body", "grid", out,
-                     "--rank-device", str(dev)], "model_parallel_grid")
+    twin = ("chainermn_tpu_torch.examples.seq2seq",
+            ["--communicator", "naive", "--device", str(dev), "--epoch",
+             "1"])
+    # The ranks then run ``gan_convnet``'s body (2 ranks) and the twin.
+    launch_ranks(2, [os.path.abspath(__file__), "--rank-body", "grid,gc",
+                     out, "--rank-device", str(dev)], "model_parallel_grid",
+                 env={"CMN_SMOKE_SEED": str(seed), **twin_env(*twin)})
+    _RAN.update(gc=out)
     g = rank_results(out, "grid", 2)
     x = [np.array([r + 1.0, -r], np.float32) for r in range(2)]
     want = {0: {"allgather": np.stack(x), "alltoall": np.stack(
@@ -6000,43 +6091,19 @@ def phase_model_parallel_grid(dev, card):
     check(g[0]["devices"] == ["cuda"], "collective results on the card")
     check(np.array_equal(g[0]["ragged"], ragged) and np.array_equal(
         g[1]["ragged"], ragged), f"ragged all-reduce {row['ragged_allreduce']}")
-    phase_seq2seq_two_ranks(dev, card)
+    phase_seq2seq_two_ranks(card, out, twin)
 
 
-def phase_seq2seq_two_ranks(dev, card):
-    """The seq2seq twin data-parallel over 2 ranks sharing the card
-    (gloo): both ranks train an epoch of their shards of the buckets, and
-    the multi-node evaluator's corpus BLEU covers every held-out
-    sentence once."""
-    import re
-    import tempfile
-
-    from chainermn_tpu_torch.launch import launch
-
-    log = os.path.join(tempfile.mkdtemp(prefix="cmn_s2s_"), "ranks.log")
-    t0 = time.perf_counter()
-    with open(log, "w") as f:
-        saved = os.dup(1)
-        os.dup2(f.fileno(), 1)
-        try:
-            rc = launch(2, ["-m", "chainermn_tpu_torch.examples.seq2seq",
-                            "--communicator", "naive", "--device",
-                            str(dev), "--epoch", "1"], grace_s=5.0,
-                        env_extra={"PYTHONPATH": rank_pythonpath()},
-                        timeout_s=MP_TIMEOUT_S)
-        finally:
-            os.dup2(saved, 1)
-            os.close(saved)
-    text = open(log).read()
-    m = re.search(r"corpus BLEU ([0-9.]+) +\((\d+) sentences\)", text)
-    row = {"phase": "seq2seq_two_ranks", "card": card, "ranks": 2,
-           "rc": rc, "seconds": time.perf_counter() - t0,
-           "bleu": float(m.group(1)) if m else None,
-           "sentences": int(m.group(2)) if m else None}
-    emit(row)
-    check(rc == 0, f"seq2seq twin on 2 ranks exited {rc}: {text[-2000:]}")
-    check(m is not None and np.isfinite(row["bleu"])
-          and row["sentences"] == S2S_HELD_OUT,
+def phase_seq2seq_two_ranks(card, out, twin):
+    """The seq2seq twin data-parallel over the grid launch's 2 ranks
+    sharing the card (gloo): both ranks train an epoch of their shards of
+    the buckets, and the multi-node evaluator's corpus BLEU covers every
+    held-out sentence once."""
+    row = twin_row(out, 2, "seq2seq_two_ranks", card, *twin,
+                   "model_parallel_grid")
+    scores = row["returned"] or {}
+    check(np.isfinite(float(scores.get("bleu", np.nan)))
+          and int(scores.get("n_sentences", -1)) == S2S_HELD_OUT,
           f"seq2seq twin's BLEU over both ranks: {row}")
 
 
@@ -6130,15 +6197,9 @@ def phase_pipeline(dev, card, mp_row):
     """Configuration 4's distributed-speedup tier: the VGG-11 of
     ``model_parallel`` on GPipe over the same 4 ranks sharing the card,
     against the same network in one process."""
-    import tempfile
-
     _fp32_exact()
-    out = tempfile.mkdtemp(prefix="cmn_pipe_")
     S = MP["n_stages"]
-    launch_s = launch_ranks(S, [os.path.abspath(__file__), "--rank-body",
-                                "pipe", out, "--rank-device", str(dev)],
-                            "pipeline")
-    ranks = rank_results(out, "pipe", S)
+    ranks, launch_s = body_results("pipe", S, dev, "pipeline")
     batches = mp_batches(MP_AGREE_STEPS)
     stages, state, step = mp_one_process(dev, batches, capture=False)
     ref_losses = [float(step(state, b)[1]["loss"]) for b in batches]
@@ -6386,15 +6447,8 @@ def phase_sequence_parallel(dev, card, seed):
     the LM bench's attention widths over 8192 positions; each rank's
     output block and gradients against one-process flash attention, and
     its K1-K3 launches against the prediction."""
-    import tempfile
-
-    out = tempfile.mkdtemp(prefix="cmn_sp_")
-    launch_s = launch_ranks(SP_RANKS, [os.path.abspath(__file__),
-                                       "--rank-body", "sp", out,
-                                       "--rank-device", str(dev)],
-                            "sequence_parallel",
-                            env={"CMN_SMOKE_SEED": str(seed)})
-    ranks = rank_results(out, "sp", SP_RANKS)
+    ranks, launch_s = body_results("sp", SP_RANKS, dev, "sequence_parallel",
+                                   env={"CMN_SMOKE_SEED": str(seed)})
     plain = sp_plain_errors(dev, ranks, seed)
     for rk in ranks:
         rk["variants"]["ring_plain"]["errs"] = plain
@@ -6557,7 +6611,8 @@ def plm_predicted(seq_rank):
 
 def phase_parallel_lm(dev, card, seed):
     """``ParallelLM`` on 8 ranks sharing the card against
-    ``dense_lm_reference`` in this process; then the dryrun twin."""
+    ``dense_lm_reference`` in this process; then the dryrun twin's
+    ``main`` on the same ranks."""
     import tempfile
 
     from chainermn_tpu_torch.models import dense_lm_reference
@@ -6567,9 +6622,12 @@ def phase_parallel_lm(dev, card, seed):
     _fp32_exact()
     out = tempfile.mkdtemp(prefix="cmn_plm_")
     n = int(np.prod(list(PLM_GRID.values())))
+    twin = ("chainermn_tpu_torch.examples.dryrun_multichip",
+            ["--communicator", "naive", "--device", str(dev)])
     launch_s = launch_ranks(n, [os.path.abspath(__file__), "--rank-body",
                                 "plm", out, "--rank-device", str(dev)],
-                            "parallel_lm", env={"CMN_SMOKE_SEED": str(seed)})
+                            "parallel_lm", env={"CMN_SMOKE_SEED": str(seed),
+                                                **twin_env(*twin)})
     ranks = rank_results(out, "plm", n)
     cfg, host, tokens, targets = plm_setup(seed)
     # The dense oracle's step 0, differentiated leaf by leaf.
@@ -6650,14 +6708,11 @@ def phase_parallel_lm(dev, card, seed):
             check(all(x == predicted[r] for x in steps),
                   f"{k} on rank {r}: {steps} per step, predicted "
                   f"{predicted[r]}")
-    twin_s = launch_ranks(
-        n, ["-m", "chainermn_tpu_torch.examples.dryrun_multichip",
-            "--communicator", "naive", "--device", str(dev)],
-        "dryrun_multichip")
-    emit({"phase": "dryrun_multichip", "card": card,
-          "command": "python -m chainermn_tpu_torch.launch --nproc 8 -m "
-          "chainermn_tpu_torch.examples.dryrun_multichip --communicator "
-          f"naive --device {dev}", "seconds": twin_s})
+    dry = twin_row(out, n, "dryrun_multichip", card, *twin, "parallel_lm")
+    check(dry["returned"]["grid"] == {"data": 1, "stage": 2, "model": 2,
+                                      "seq": 2}
+          and dry["returned"]["zero_roundtrip_exact"],
+          f"dryrun_multichip returned {dry['returned']}")
     return row
 
 
@@ -6680,6 +6735,21 @@ TP_MIN_FIRST_DIVERGENCE = 8
 #: ``lm_generate`` on the tensor-parallel model (K5 on each rank's
 #: ``KH/M`` heads): 4 prompts of 32 tokens, 12 new.
 TP_GEN_BATCH, TP_GEN_PROMPT, TP_GEN_NEW = 4, 32, 12
+#: the policy arm (item 2c, on the 2-rank engine) and the router arm's
+#: fleet plane: two tenants, weights 1 : 3, requests alternating between
+#: them; an SLO check every ``TP_SLO_EVERY`` decode iterations and a
+#: drift latch that engages at the first breaching check.  Each rank's
+#: own token target always breaches (``TP_SLO_TINY`` ms) or never does
+#: (``TP_SLO_HUGE``): rank 0 breaching and rank 1 not (``r0``), then the
+#: reverse (``r1``).
+TP_TENANTS, TP_SLO_EVERY = {"a": 1.0, "b": 3.0}, 2
+TP_SLO_TINY, TP_SLO_HUGE = 1e-6, 1e9
+#: the router arm (in the 4-rank launch): 2 replicas of ``TP_ROUTER_M``
+#: model ranks (ranks {0, 1} and {2, 3}), the first
+#: ``TP_ROUTER_REQUESTS`` requests of the ``router`` phase's draw, their
+#: new tokens cut to at most ``TP_ROUTER_NEW`` (16-64 drawn; cut for
+#: time).
+TP_ROUTER_M, TP_ROUTER_REQUESTS, TP_ROUTER_NEW = 2, 16, 32
 TP_NOTE = ("model ranks share one card over gloo, each wire message "
            "staged through pinned host memory: the path and its "
            "arithmetic, not a scaling figure")
@@ -6747,9 +6817,11 @@ def tp_rank(out: str, device: str) -> None:
         arms["spec"] = dict(draft_model=draft, spec_k=TP_SPEC_K)
     res = {"rank": comm.rank, "M": M, "kv_heads": model.kv_heads}
     for arm, extra in arms.items():
-        one = DecodeEngine(model, **kw, **extra, device=dev)
-        want = {c.id: c.tokens for c in Scheduler(one).run(reqs)}
-        one.release()
+        want = None
+        if comm.rank == 0:  # the reference the phase reads
+            one = DecodeEngine(model, **kw, **extra, device=dev)
+            want = {c.id: c.tokens for c in Scheduler(one).run(reqs)}
+            one.release()
         # The ranks run with the planes off (``CMN_OBS=0``): no cost model
         # steps beside the drive's, whose K4 runs are counted.
         eng = DecodeEngine(model, **kw, **extra, mesh=mesh)
@@ -6777,10 +6849,182 @@ def tp_rank(out: str, device: str) -> None:
             accepted=getattr(sched, "spec_accepted", 0),
             proposed=getattr(sched, "spec_proposed", 0))
         eng.release()
+    if M == 2:
+        res["policy"] = tp_policy_arm(ops, dev, model, mesh, reqs, kw)
     res["generate"] = tp_generate(ops, dev, seed, model, mesh)
+    if M == 4:
+        res["router"] = tp_router_arm(ops, dev, seed, model, comm)
     with open(os.path.join(out, f"tp.rank{comm.rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
     comm.barrier()
+
+
+def tp_plane():
+    """The two-tenant policy plane and the registry it publishes to."""
+    from chainermn_tpu_torch.observability import MetricsRegistry
+    from chainermn_tpu_torch.serving import PolicyPlane, TenantPolicy
+
+    reg = MetricsRegistry()
+    return PolicyPlane(tenants={t: TenantPolicy(t, weight=w)
+                                for t, w in TP_TENANTS.items()},
+                       registry=reg, drift_hysteresis=1), reg
+
+
+def tp_tenanted(reqs):
+    """``reqs`` with tenants ``a`` and ``b`` alternating."""
+    import dataclasses
+
+    return [dataclasses.replace(r, tenant="ab"[r.id % 2]) for r in reqs]
+
+
+def tp_counts(ops, dev):
+    """K4's runs on the card since the last zeroing, and its wrapper's."""
+    return dict(runs=ops.kernel_runs(dev)["paged_decode_attention"],
+                wrapper=ops.paged_decode_attention.launches)
+
+
+def tp_policy_run(ops, dev, eng, reqs, breach):
+    """``Scheduler(eng, policy=)`` over ``reqs`` with this rank's SLO
+    token target breaching or not (``breach`` None: no plane, the same
+    monitor): tokens, the admission log, the latch, the capped prefill
+    count, this rank's own breaches, decode-step ms, the verdict
+    broadcast's ms per check and K4's runs."""
+    from chainermn_tpu_torch.observability import MetricsRegistry, SLOMonitor
+    from chainermn_tpu_torch.serving import Scheduler
+
+    plane, reg = tp_plane()
+    slo = SLOMonitor(registry=MetricsRegistry(), min_samples=1,
+                     check_every=TP_SLO_EVERY,
+                     targets={"ttft": TP_SLO_HUGE, "queue_wait": TP_SLO_HUGE,
+                              "token": TP_SLO_TINY if breach
+                              else TP_SLO_HUGE})
+    if breach is None:
+        plane = None
+    sched = Scheduler(eng, slo=slo, policy=plane)
+    _sync(dev)
+    ops.paged_decode_attention.launches = 0
+    ops.zero_kernel_runs(dev)
+    t0 = time.perf_counter()
+    comps = sched.run(reqs)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    if plane is None:
+        return dict(decode_ms=sched.decode_ms_total
+                    / max(sched.decode_iterations, 1))
+    return dict(
+        tokens={c.id: c.tokens for c in comps}, wall_s=wall,
+        log=[(i, t) for i, t, _ in plane.admission_log],
+        virtual=[v for _, _, v in plane.admission_log],
+        latched=plane.prefill_cap_active,
+        capped=reg.peek("serve.policy.prefill_capped").value,
+        own_breaches=slo._c_breach["token"].value,
+        iterations=sched.decode_iterations,
+        decode_ms=sched.decode_ms_total / max(sched.decode_iterations, 1),
+        verdicts=sched.verdict_broadcasts,
+        verdict_ms=sched.verdict_ms_total / max(sched.verdict_broadcasts, 1),
+        **tp_counts(ops, dev))
+
+
+def tp_policy_arm(ops, dev, model, mesh, reqs, kw):
+    """Item 2c on the 2-rank engine: the one-rank engine under the plane
+    (its own target breaching); then the tensor-parallel engine without a
+    plane (the decode step's reference), with rank 0 breaching and rank
+    1 not, and the reverse."""
+    from chainermn_tpu_torch.serving import DecodeEngine
+
+    reqs = tp_tenanted(reqs)
+    out = {"want": None}
+    if mesh.rank == 0:  # the reference the phase reads
+        one = DecodeEngine(model, **kw, device=dev)
+        out["want"] = tp_policy_run(ops, dev, one, reqs, True)["tokens"]
+        one.release()
+    for case in ("off", "r0", "r1"):
+        eng = DecodeEngine(model, **kw, mesh=mesh)
+        out[case] = tp_policy_run(
+            ops, dev, eng, reqs,
+            None if case == "off" else (mesh.rank == 0) == (case == "r0"))
+        eng.release()
+    return out
+
+
+def tp_plane_digest(plane) -> str:
+    import hashlib
+
+    return hashlib.sha256(repr((plane.state(), plane.admission_log))
+                          .encode()).hexdigest()
+
+
+def tp_router_arm(ops, dev, seed, model, comm):
+    """The router over 2 tensor-parallel replicas of ``TP_ROUTER_M``
+    model ranks in the 4-rank job (``Router(engine, comm=world)``), on the
+    ``router`` phase's draw: ``Router.run`` without a plane, then the
+    same with a fleet plane, ticked one tick at a time with the plane's
+    digest after every tick.  Rank 0 first serves the draw on the
+    one-rank engine (the tokens' reference)."""
+    from chainermn_tpu_torch.observability import MetricsRegistry
+    from chainermn_tpu_torch.serving import DecodeEngine, Router, Scheduler
+    from chainermn_tpu_torch.serving.sharding import serving_mesh
+
+    import dataclasses
+
+    reqs = [dataclasses.replace(r, max_new_tokens=min(r.max_new_tokens,
+                                                      TP_ROUTER_NEW))
+            for r in draw_requests(np.random.RandomState(seed + 20),
+                                   FLEET_REQUESTS, FULL["vocab"])
+            [:TP_ROUTER_REQUESTS]]
+    kw = tp_engine_kw(reqs)
+    mesh2 = serving_mesh(TP_ROUTER_M, comm)
+    out = {"want": None, "replica": comm.rank // TP_ROUTER_M}
+    if comm.rank == 0:
+        one = DecodeEngine(model, **kw, device=dev)
+        out["want"] = {c.id: c.tokens for c in Scheduler(one).run(reqs)}
+        one.release()
+    box = {"s": 0.0}
+    time_wire([mesh2], dev, box, ("allreduce", "allgather", "bcast_obj"))
+    time_wire([comm], dev, box, ("allgather_obj", "bcast_obj"))
+    for arm in ("fifo", "plane"):
+        eng = DecodeEngine(model, **kw, mesh=mesh2)
+        plane = tp_plane()[0] if arm == "plane" else None
+        reg = MetricsRegistry()
+        router = Router(eng, comm=comm, registry=reg, policy=plane)
+        digests = []
+        _sync(dev)
+        box["s"] = 0.0
+        ops.paged_decode_attention.launches = 0
+        ops.zero_kernel_runs(dev)
+        t0 = time.perf_counter()
+        if plane is None:
+            comps = router.run(reqs)
+        else:
+            for r in tp_tenanted(reqs):
+                router.submit(r)
+            while router.pending:
+                check(router.tick(), "tp_serving router: a tick made no "
+                      "progress with every request arrived")
+                digests.append(tp_plane_digest(plane))
+            router.finish()
+            comps = router.completions
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        local = router.schedulers[router._local]
+        out[arm] = dict(
+            tokens={c.id: c.tokens for c in comps},
+            statuses=sorted({c.status for c in comps}),
+            assignments=dict(router.assignments),
+            dispatched=reg.peek("serve.router.dispatched").value,
+            migrated=reg.peek("serve.router.migrated").value,
+            occupancy=[st["occupancy_mean"]
+                       for st in router.replica_stats()],
+            ticks=router._ticks, iterations=local.decode_iterations,
+            decode_ms=local.decode_ms_total
+            / max(local.decode_iterations, 1),
+            exchange_ms=router.exchange_ms_total / max(router.exchanges, 1),
+            wall_s=wall, wire_share=box["s"] / wall, digests=digests,
+            log=([(i, t) for i, t, _ in plane.admission_log]
+                 if plane is not None else None),
+            **tp_counts(ops, dev))
+        eng.release()
+    return out
 
 
 def tp_generate(ops, dev, seed, model, mesh):
@@ -6869,6 +7113,137 @@ def tp_one_rank_nccl(ops, dev, seed, reqs, kw):
     return row
 
 
+def tp_policy_rows(ranks):
+    """``tp_serving``'s ``policy`` entry from the 2-rank launch: per case,
+    agreement across ranks and with the one-rank engine under the plane,
+    the latch and the capped count per rank, K4's runs, decode-step ms
+    with the plane beside the same engine's without it (run just
+    before), the verdict's ms per check."""
+    pol = [r["policy"] for r in ranks]
+    out = {}
+    for case in ("r0", "r1"):
+        a = [p[case] for p in pol]
+        exact, div = greedy_agreement(a[0]["tokens"], pol[0]["want"])
+        out[case] = dict(
+            rank0_breaches=case == "r0",
+            equal_on_every_rank=all(x["tokens"] == a[0]["tokens"]
+                                    for x in a),
+            log_equal_on_every_rank=all(
+                (x["log"], x["virtual"]) == (a[0]["log"], a[0]["virtual"])
+                for x in a),
+            admissions=a[0]["log"],
+            latched_per_rank=[x["latched"] for x in a],
+            prefill_capped_per_rank=[x["capped"] for x in a],
+            own_breaches_per_rank=[x["own_breaches"] for x in a],
+            rows_exact=exact, first_divergences=div,
+            decode_steps=a[0]["iterations"],
+            k4_runs_per_rank=[x["runs"] for x in a],
+            k4_wrapper_per_rank=[x["wrapper"] for x in a],
+            k4_predicted=a[0]["iterations"] * DECODE["n_layers"],
+            decode_step_ms_per_rank=[x["decode_ms"] for x in a],
+            decode_step_ms_without_plane_per_rank=[p["off"]["decode_ms"]
+                                                   for p in pol],
+            verdict_broadcasts=a[0]["verdicts"],
+            verdict_ms_per_check_per_rank=[x["verdict_ms"] for x in a],
+            wall_s_per_rank=[x["wall_s"] for x in a])
+    return out
+
+
+def tp_policy_checks(policy):
+    for case, r in policy.items():
+        name = f"tp_serving policy {case}"
+        check(r["equal_on_every_rank"] and r["log_equal_on_every_rank"],
+              f"{name}: tokens or admission logs differ across ranks")
+        check(all(d >= TP_MIN_FIRST_DIVERGENCE
+                  for d in r["first_divergences"]),
+              f"{name}: first divergences {r['first_divergences']} against "
+              "the one-rank engine under the plane")
+        breach = r["rank0_breaches"]
+        check(r["latched_per_rank"] == [breach] * 2
+              and all((c > 0) == breach
+                      for c in r["prefill_capped_per_rank"]),
+              f"{name}: the latch {r['latched_per_rank']} and the capped "
+              f"prefill {r['prefill_capped_per_rank']} do not follow rank "
+              "0's verdict")
+        check([b > 0 for b in r["own_breaches_per_rank"]]
+              == [breach, not breach],
+              f"{name}: the ranks' own monitors read "
+              f"{r['own_breaches_per_rank']}")
+        check(r["verdict_broadcasts"] > 0, f"{name}: no verdict broadcast")
+        check(all(k == r["k4_predicted"] for k in r["k4_runs_per_rank"])
+              and r["k4_runs_per_rank"] == r["k4_wrapper_per_rank"],
+              f"{name}: K4 ran {r['k4_runs_per_rank']} times per rank "
+              f"(wrappers {r['k4_wrapper_per_rank']}), predicted "
+              f"{r['k4_predicted']}")
+
+
+def tp_router_rows(ranks):
+    """``tp_serving``'s ``router`` entry from the 4-rank launch."""
+    rt = [r["router"] for r in ranks]
+    out = {}
+    for arm in ("fifo", "plane"):
+        a = [x[arm] for x in rt]
+        exact, div = greedy_agreement(a[0]["tokens"], rt[0]["want"])
+        out[arm] = dict(
+            replicas=2, model_ranks_per_replica=TP_ROUTER_M,
+            requests=TP_ROUTER_REQUESTS, completed=len(a[0]["tokens"]),
+            statuses=a[0]["statuses"],
+            assignments_equal_on_every_rank=all(
+                x["assignments"] == a[0]["assignments"] for x in a),
+            completions_equal_on_every_rank=all(
+                x["tokens"] == a[0]["tokens"] for x in a),
+            replica_per_rank=[x["replica"] for x in rt],
+            rows_exact=exact, first_divergences=div,
+            dispatched=a[0]["dispatched"], migrated=a[0]["migrated"],
+            occupancy_per_replica=a[0]["occupancy"], ticks=a[0]["ticks"],
+            decode_steps_per_rank=[x["iterations"] for x in a],
+            k4_runs_per_rank=[x["runs"] for x in a],
+            k4_wrapper_per_rank=[x["wrapper"] for x in a],
+            k4_predicted_per_rank=[x["iterations"] * DECODE["n_layers"]
+                                   for x in a],
+            decode_step_ms_per_rank=[x["decode_ms"] for x in a],
+            wire_share_per_rank=[x["wire_share"] for x in a],
+            router_exchange_ms_per_rank=[x["exchange_ms"] for x in a],
+            wall_s_per_rank=[x["wall_s"] for x in a])
+        if arm == "plane":
+            out[arm].update(
+                plane_ticks=len(a[0]["digests"]),
+                plane_equal_every_tick=all(
+                    x["digests"] == a[0]["digests"] for x in a),
+                log_equal_on_every_rank=all(x["log"] == a[0]["log"]
+                                            for x in a),
+                admissions_by_tenant={t: sum(1 for _, u in a[0]["log"]
+                                             if u == t)
+                                      for t in TP_TENANTS})
+    return out
+
+
+def tp_router_checks(router):
+    for arm, r in router.items():
+        name = f"tp_serving router {arm}"
+        check(r["completed"] == r["requests"] and r["statuses"] == ["ok"]
+              and r["dispatched"] == r["requests"],
+              f"{name}: {r['completed']} of {r['requests']} completed "
+              f"({r['statuses']}), {r['dispatched']} dispatched")
+        check(r["assignments_equal_on_every_rank"]
+              and r["completions_equal_on_every_rank"],
+              f"{name}: dispatch or completions differ across ranks")
+        check(all(d >= TP_MIN_FIRST_DIVERGENCE
+                  for d in r["first_divergences"]),
+              f"{name}: first divergences {r['first_divergences']} against "
+              "the one-rank engine")
+        check(r["k4_runs_per_rank"] == r["k4_predicted_per_rank"]
+              and r["k4_runs_per_rank"] == r["k4_wrapper_per_rank"]
+              and all(k > 0 for k in r["k4_runs_per_rank"]),
+              f"{name}: K4 ran {r['k4_runs_per_rank']} times per rank "
+              f"(wrappers {r['k4_wrapper_per_rank']}), predicted "
+              f"{r['k4_predicted_per_rank']}")
+        if arm == "plane":
+            check(r["plane_ticks"] > 0 and r["plane_equal_every_tick"]
+                  and r["log_equal_on_every_rank"],
+                  f"{name}: the plane's state differs across ranks")
+
+
 def phase_tp_serving(ops, dev, card, seed):
     """Item 2b on the card, and K5 on local heads through ``lm_generate``
     (:func:`tp_generate`).  One model rank over NCCL in this process
@@ -6879,7 +7254,10 @@ def phase_tp_serving(ops, dev, card, seed):
     (one local kv head each) sharing the card over gloo in fp32: greedy
     tokens equal the one-rank engine's up to a late near-tie flip, equal
     on every rank; K4's runs on the card per rank = steps x 12 (rounds x
-    17 speculative)."""
+    17 speculative).  The 2-rank launch also serves under a policy plane
+    with each rank's own SLO target breaching or not
+    (:func:`tp_policy_arm`), and the 4-rank launch ends with the router
+    over 2 replicas of 2 model ranks (:func:`tp_router_arm`)."""
     import tempfile
 
     reqs = tp_requests(seed)
@@ -6891,7 +7269,8 @@ def phase_tp_serving(ops, dev, card, seed):
                          out, "--rank-device", str(dev)],
                      f"tp_serving M={M}",
                      env={"CMN_SMOKE_SEED": str(seed), "CMN_TP_M": str(M),
-                          "CMN_TP_KV": str(kv), "CMN_OBS": "0"})
+                          "CMN_TP_KV": str(kv), "CMN_OBS": "0",
+                          "CMN_OBS_DEVICE": "0"})
         ranks[M] = rank_results(out, "tp", M)
     rows = {}
     for M, rs in ranks.items():
@@ -6928,13 +7307,23 @@ def phase_tp_serving(ops, dev, card, seed):
             k5_wrapper_per_rank=[x["k5_wrapper"] for x in g],
             k5_predicted=(TP_GEN_NEW - 1) * DECODE["n_layers"],
             wall_s_per_rank=[x["wall_s"] for x in g])
+    policy = tp_policy_rows(ranks[2])
+    router = tp_router_rows(ranks[4])
     row = dict(phase="tp_serving", card=card,
                config=f"{DECODE}, {len(reqs)} requests ({TP_FAMILIES} "
                f"families sharing a {TP_PREFIX}-token prefix), "
                f"{TP_NEW} new each, engine {ENGINE}; lm_generate batch "
-               f"{TP_GEN_BATCH}, prompt {TP_GEN_PROMPT}, {TP_GEN_NEW} new",
-               nccl_one_rank=row1, gloo=rows, generate=gen, note=TP_NOTE)
+               f"{TP_GEN_BATCH}, prompt {TP_GEN_PROMPT}, {TP_GEN_NEW} new; "
+               f"policy: tenants {TP_TENANTS}, SLO check every "
+               f"{TP_SLO_EVERY}, latch at the first breach; router: 2 "
+               f"replicas x {TP_ROUTER_M} model ranks of the 4-kv-head "
+               f"model, the router phase's first {TP_ROUTER_REQUESTS} "
+               f"requests, at most {TP_ROUTER_NEW} new each",
+               nccl_one_rank=row1, gloo=rows, generate=gen, policy=policy,
+               router=router, note=TP_NOTE)
     emit(row)
+    tp_policy_checks(policy)
+    tp_router_checks(router)
     for name, g in gen.items():
         check(g["tokens_equal_one_rank"] and g["equal_on_every_rank"],
               f"tp_serving lm_generate {name}: tokens differ from the "
@@ -6980,8 +7369,9 @@ def phase_tp_serving(ops, dev, card, seed):
 # ------------------------------------------------------ ZeRO (item 11)
 #: ``zero``: the LM benchmark's model (``LM``) in fp32 (TF32 off) with
 #: flash attention and remat, AdamW 3e-4 (weight decay 0.01), the global
-#: batch ``LM_BATCH`` x 2048 split over the ranks.
-ZERO_RANKS, ZERO_STEPS, ZERO_ELASTIC_RANKS = 4, 2, 2
+#: batch ``LM_BATCH`` x 2048 split over the ranks: 2 ranks, restored
+#: at 1 (cut for time from 4 and 2).
+ZERO_RANKS, ZERO_STEPS, ZERO_ELASTIC_RANKS = 2, 2, 1
 ZERO_LR, ZERO_WD = 3e-4, 0.01
 #: against one process's replicated AdamW on the same global batch: the
 #: losses within rtol 1e-5; the parameters within the JAX ZeRO test's
@@ -7069,9 +7459,10 @@ def zero_param_check(got, want, tol):
 
 
 def zero_rank(out: str, device: str) -> None:
-    """One rank of ``zero`` (``CMN_ZERO_PHASE`` ``train``: 4 ranks, 3
-    steps, the last one profiled, then a checkpoint; ``elastic``: 2
-    ranks restore it and take one more step)."""
+    """One rank of ``zero`` (``CMN_ZERO_PHASE`` ``train``:
+    ``ZERO_RANKS`` ranks, ``ZERO_STEPS`` steps, the last one profiled,
+    then a checkpoint; ``elastic``: ``ZERO_ELASTIC_RANKS`` ranks restore
+    it and take one more step)."""
     import importlib
     import pickle
 
@@ -7214,12 +7605,13 @@ def zero_capture_pair(dev, seed):
 
 
 def phase_zero(dev, card, seed):
-    """Item 11 on the card: ZeRO over 4 ranks sharing the card (gloo)
-    against one process's replicated AdamW on the same global batch (the
-    LM bench's model in fp32), the ranks' bytes, K1-K3 per rank per step
-    in a profiled step; a one-rank NCCL ZeRO step captured against
-    eager; and the 4-rank checkpoint restored at 2 ranks
-    (``maybe_load_elastic``) for one more step."""
+    """Item 11 on the card: ZeRO over ``ZERO_RANKS`` ranks sharing the
+    card (gloo) against one process's replicated AdamW on the same
+    global batch (the LM bench's model in fp32), the ranks' bytes, K1-K3
+    per rank per step in a profiled step; a one-rank NCCL ZeRO step
+    captured against eager; and the checkpoint restored at
+    ``ZERO_ELASTIC_RANKS`` ranks (``maybe_load_elastic``) for one more
+    step."""
     import shutil
     import tempfile
 
@@ -7442,13 +7834,8 @@ def phase_gan_convnet(dev, card, seed):
     """Item 8c on the card: the channel-parallel convnet and the DCGAN
     over 2 ranks sharing it (gloo), each against the same model in one
     process (in the rank) for ``GC_STEPS`` steps."""
-    import tempfile
-
-    out = tempfile.mkdtemp(prefix="cmn_gc_")
-    secs = launch_ranks(GC_RANKS, [os.path.abspath(__file__), "--rank-body",
-                                   "gc", out, "--rank-device", str(dev)],
-                        "gan_convnet", env={"CMN_SMOKE_SEED": str(seed)})
-    ranks = rank_results(out, "gc", GC_RANKS)
+    ranks, secs = body_results("gc", GC_RANKS, dev, "gan_convnet",
+                               env={"CMN_SMOKE_SEED": str(seed)})
     cnn_err = max(abs(a - b) / abs(b) for rk in ranks
                   for a, b in zip(rk["cnn"]["losses"], rk["cnn"]["ref"]))
     gan_err = max(abs(h[k] - f[k]) for rk in ranks
@@ -7936,11 +8323,14 @@ RANK_BODIES.update(hg=hg_rank)
 PRE_AT, PRE_STOP = 3, 6
 #: replicator cadences timed on the full-size LM state in one process.
 PRE_REP_CADENCES = 2
-#: ``replication``: 3 gloo ranks sharing the card, the LM cut to 2 layers
-#: (full widths), 2 rows of 2048 a rank, ZeRO AdamW 3e-4, a replicator
-#: every ``REP_EVERY`` iterations (factor 1), a checkpoint at the target
-#: ``REP_STOP``; the chaos schedule's failures, one per attempt.
-REP_RANKS, REP_LAYERS, REP_ROWS, REP_EVERY, REP_STOP = 3, 2, 2, 2, 8
+#: ``replication``: ``REP_RANKS`` gloo ranks sharing the card, the LM cut
+#: to 2 layers (full widths), 2 rows of 2048 a rank, ZeRO AdamW 3e-4, a
+#: replicator every ``REP_EVERY`` iterations (factor 1), a checkpoint at
+#: the target ``REP_STOP``; the chaos schedule's failures, one per
+#: attempt.  The target was cut for time from 8 to 6.
+REP_RANKS, REP_LAYERS, REP_ROWS, REP_EVERY, REP_STOP = 3, 2, 2, 2, 6
+#: the relaunch at another world size (falls back to the checkpoint).
+REP_ELASTIC_RANKS = 2
 REP_KINDS = ("crash", "preempt", "torn")
 #: the rank a ``crash`` kills (its spill is wiped: its host died) and the
 #: rank a ``preempt`` signals and a ``torn`` event tears frames from.
@@ -8363,8 +8753,9 @@ def phase_replication(dev, card, seed):
     frame (discarded by the receiver's crc), each attempt a fresh
     ``launch``; the final digest against the unfaulted run's on every
     rank, lost steps per failure <= the cadence, the replicator's ms per
-    cadence against the step; then a relaunch at 2 ranks falls back to
-    ``maybe_load_elastic`` and files ``replication_fallback``; the fleet
+    cadence against the step; then a relaunch at ``REP_ELASTIC_RANKS``
+    ranks falls back to ``maybe_load_elastic`` and files
+    ``replication_fallback``; the fleet
     clock's offsets and the merged trace's critical path."""
     import pickle
     import tempfile
@@ -8424,10 +8815,10 @@ def phase_replication(dev, card, seed):
     chaos_s = time.perf_counter() - t0
     # The relaunch at another world size.
     t1 = time.perf_counter()
-    rc2 = launch(2, argv, grace_s=10.0, env_extra={
+    rc2 = launch(REP_ELASTIC_RANKS, argv, grace_s=10.0, env_extra={
         **env, "CMN_LAUNCH_ATTEMPT": str(len(records)),
         "CMN_REP_ELASTIC": "1"}, timeout_s=MP_TIMEOUT_S)
-    elastic = load(len(records), 2)
+    elastic = load(len(records), REP_ELASTIC_RANKS)
     elastic_s = time.perf_counter() - t1
     sources = [[(x["rank"], (x.get("report") or {}).get("source"),
                  x.get("restored_step")) for x in rec["ranks"]]
@@ -8487,18 +8878,18 @@ def phase_replication(dev, card, seed):
           f"{row['final_digest_equals_oracle']}")
     crash_restore = sources[0]
     check(sorted(crash_restore) == [
-        (0, "local", crash_restore[0][2]),
-        (1, "peer", crash_restore[0][2]),
-        (2, "local", crash_restore[0][2])],
+        (r, "peer" if r == REP_CRASH_RANK else "local", crash_restore[0][2])
+        for r in range(REP_RANKS)],
         f"replication: the restore after the crash read {crash_restore}")
     check(row["torn_discarded"].get((REP_SIGNAL_RANK + 1) % REP_RANKS, 0)
           >= 1, f"replication: torn frames {row['torn_discarded']}")
-    check(rc2 == 0 and len(elastic) == 2 and all(
+    check(rc2 == 0 and len(elastic) == REP_ELASTIC_RANKS and all(
         e["report"]["reason"] == "world-size-changed"
         and e["report"]["source"] == "orbax"
         and "replication_fallback" in (e["incidents"] or [])
         and e["params_equal_oracle"] for e in row["elastic"]["ranks"]),
-        f"replication: the 2-rank relaunch read {row['elastic']}")
+        f"replication: the {REP_ELASTIC_RANKS}-rank relaunch read "
+        f"{row['elastic']}")
     check(row["fleet"]["trace_spans"] and row["fleet"]["critical_path"]
           and row["fleet"]["critical_path"]["steps"] > 0,
           f"replication: the merged fleet trace {row['fleet']}")
@@ -8893,8 +9284,10 @@ def main() -> int:
     args = ap.parse_args()
     if args.rank_body:
         # One rank of a model-parallel phase, started by launch_ranks.
-        name, out = args.rank_body
-        RANK_BODIES[name](out, args.rank_device)
+        names, out = args.rank_body
+        for name in names.split(","):
+            RANK_BODIES[name](out, args.rank_device)
+        run_twin(out)
         return 0
     phases = args.compare_phases.split(",")
     if any(ph not in COMPARE_PHASES for ph in phases):
@@ -8992,8 +9385,8 @@ def main() -> int:
     # The rest of the communicator and the model-parallel surface.
     torch.cuda.empty_cache()
     phase_collectives_nccl(dev, smi)
-    mp_row = phase_model_parallel(dev, smi)
-    phase_model_parallel_grid(dev, smi)
+    mp_row = phase_model_parallel(dev, smi, args.seed)
+    phase_model_parallel_grid(dev, smi, args.seed)
     # Pipelines, sequence parallelism and the 5-way-parallel LM.
     phase_pipeline(dev, smi, mp_row)
     sp = phase_sequence_parallel(dev, smi, args.seed)
@@ -9073,6 +9466,12 @@ def main() -> int:
     by_phase["paged_decode_attention"].update(
         {f"tp_serving_{name}_per_rank": r["k4_runs_per_rank"]
          for name, r in tp["gloo"].items()})
+    by_phase["paged_decode_attention"].update(
+        {f"tp_serving_policy_{case}_per_rank": r["k4_runs_per_rank"]
+         for case, r in tp["policy"].items()})
+    by_phase["paged_decode_attention"].update(
+        {f"tp_serving_router_{arm}_per_rank": r["k4_runs_per_rank"]
+         for arm, r in tp["router"].items()})
     by_phase["fused_decode_attention"].update(
         {f"tp_generate_{name}_per_rank": g["k5_runs_per_rank"]
          for name, g in tp["generate"].items()})

@@ -12,7 +12,11 @@ managers (no process singleton is touched).
   ``tests/serving_tests/test_serve_policy.py``);
 * the capture watch's blame diff equal to the JAX ``signature_diff`` and
   its budget gauge;
-* the strict-JSON sanitizer and the Prometheus rendering equal.
+* the strict-JSON sanitizer and the Prometheus rendering equal;
+* ``IncidentManager.add_rule`` and ``MetricsRegistry.reset`` equal on
+  the same sequence of calls;
+* a ``PlaneTape``'s record of one replica tick, replayed, equal to the
+  same calls made directly on the port's and the JAX plane.
 """
 
 import json
@@ -173,6 +177,52 @@ def test_incident_rules_fire_once_deduplicated(tmp_path):
     assert tinc.main(["report", str(tmp_path / "incidents"), "--json"]) == 0
 
 
+def test_incident_add_rule_equal():
+    """``IncidentManager.add_rule``: a rule added mid-run starts with a
+    fresh streak (it fires at its second breaching evaluation, not at
+    once), as the JAX manager's."""
+    jreg, treg = jmet.MetricsRegistry(), tmet.MetricsRegistry()
+    got = {}
+    for name, mod, reg in (("jax", jinc, jreg), ("port", tinc, treg)):
+        clock = _Clock()
+        mgr = mod.IncidentManager(registry=reg, rules=[], cooldown_s=10.0,
+                                  time_fn=clock)
+        fired = []
+        for i, v in enumerate((9.0, 9.0, 9.0, 9.0, 0.0)):
+            if i == 2:
+                mgr.add_rule(mod.Watch(name="deep_queue",
+                                       metric="serve.router.queue_depth",
+                                       predicate="> 4", hysteresis=2))
+            reg.gauge("serve.router.queue_depth").set(v)
+            clock.t += 20.0
+            fired.append([m["rule"]["name"] for m in mgr.evaluate()])
+        got[name] = (fired, [r.name for r in mgr.rules], mgr.count)
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == [[], [], [], ["deep_queue"], []]
+
+
+def test_metrics_registry_reset_equal():
+    """``MetricsRegistry.reset`` drops every instrument and sample: the
+    same calls before and after it leave the port's registry as the
+    JAX registry."""
+    out = {}
+    for name, mod in (("jax", jmet), ("port", tmet)):
+        reg = mod.MetricsRegistry()
+        reg.counter("a").inc(3)
+        reg.gauge("b").set(2.0)
+        reg.histogram("c").observe(1.5)
+        reg.sample(1)
+        before = (reg.snapshot(), len(reg.last_samples()))
+        reg.reset()
+        after = (reg.snapshot(), reg.last_samples(), reg.peek("a"))
+        reg.counter("a").inc()
+        reg.sample(2)
+        out[name] = (before, after, reg.snapshot(),
+                     [s["step"] for s in reg.last_samples()])
+    assert out["port"] == out["jax"]
+    assert out["port"][1] == ({}, [], None)
+
+
 # ---------------------------------------------------------------- ledger
 class _Req:
     def __init__(self, id, tenant, arrival=0.0):
@@ -293,6 +343,62 @@ def test_policy_latch_preempt_and_throttle_equal():
         plane.charge("r", "prefill_tokens", 50)
         assert plane.pick_index(q, now=1.0) is None
     assert tr.next_release(q, 1.0) == jr.next_release(q, 1.0) == 5.0
+
+
+def _replica_calls(plane):
+    """One replica tick's calls on its plane, as a scheduler makes them:
+    picks, admissions, charges, block levels, a queue wait, an SLO
+    verdict, a preemption pick, a deadline and a release bound."""
+    q = [Request(id=i, prompt=[1], max_new_tokens=1, tenant=t)
+         for i, t in enumerate("abab")]
+
+    class _Slot:
+        def __init__(self, req, seq):
+            self.entry = type("E", (), {"req": req})()
+            self.admit_seq = seq
+
+    plane.pick_index(q, 0.0)
+    plane.note_admission(q[0])
+    plane.charge("a", "prefill_tokens", 8)
+    plane.set_blocks(0, "a", 2, 0.001)
+    plane.note_queue_wait("a", 3.0)
+    plane.on_slo_check({"token": {"breached": True}})
+    plane.charge("b", "decode_iterations", 2)
+    plane.pick_index(q[1:], 0.002)
+    plane.note_admission(q[1])
+    plane.preempt_pick([_Slot(q[0], 0), _Slot(q[1], 1)],
+                       plane.effective_priority(q[2]))
+    plane.set_blocks(0, "a", 0, 0.003)
+    plane.deadline_ms("c")
+    plane.next_release(q, 0.004)
+
+
+def test_plane_tape_replay_equals_direct_calls():
+    """A ``PlaneTape`` runs a replica tick's calls against a fork of the
+    plane (the plane itself untouched) and records them; the record,
+    pickled as the router's gather sends it, replayed on the plane gives
+    the state and admission log that the same calls made directly give,
+    on the port's plane and on the JAX plane."""
+    import pickle
+
+    def make(mod, reg_mod):
+        return _plane(mod, reg_mod, drift_hysteresis=1, block_cost_us=0.5)
+
+    direct, jdirect = make(tpol, tmet), make(jpol, jmet)
+    _replica_calls(direct)
+    _replica_calls(jdirect)
+    plane = make(tpol, tmet)
+    before = plane.state()
+    tape = tpol.PlaneTape(plane)
+    tape.begin()
+    _replica_calls(tape)
+    ops = tape.end()
+    assert plane.state() == before and plane.admission_log == []
+    plane.replay(pickle.loads(pickle.dumps(ops)))
+    assert plane.state() == direct.state() == jdirect.state()
+    assert plane.admission_log == direct.admission_log == \
+        jdirect.admission_log
+    assert plane.prefill_cap_active and plane._m_cap_active.value == 1.0
 
 
 def test_tenant_spec_env_parse_equal(monkeypatch):

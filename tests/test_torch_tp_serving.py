@@ -14,6 +14,14 @@ Greedy tokens are compared exactly (as the JAX test compares its sharded
 engine with its one-device engine); sampling is compared within the port
 (fused against einsum, and against the one-rank engine): the two
 frameworks' generators differ.
+
+The same job runs the serving decisions that must agree across model
+ranks, on a fixed clock with every request arrived at 0: the policy
+plane on one 2-rank engine, its drift latch held by per-rank SLO targets
+(rank 0 breaching and rank 1 not, then the reverse) against the JAX
+sharded engine's scheduler with rank 0's target; and the router over two
+replicas of 2 model ranks against the JAX router over two 2-device
+meshes, then with a fleet policy plane.
 """
 
 import numpy as np
@@ -22,10 +30,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
+import chainermn_tpu.observability.metrics as jmet
+import chainermn_tpu.observability.slo as jslo
 from chainermn_tpu.models import TransformerLM as JaxLM
 from chainermn_tpu.serving import DecodeEngine as JaxEngine
+from chainermn_tpu.serving import PolicyPlane as JaxPlane
 from chainermn_tpu.serving import Request as JaxRequest
+from chainermn_tpu.serving import Router as JaxRouter
 from chainermn_tpu.serving import Scheduler as JaxScheduler
+from chainermn_tpu.serving import TenantPolicy as JaxTenant
 from chainermn_tpu.serving.sharding import serving_mesh as jax_mesh
 from chainermn_tpu.serving.sharding import shard_params as jax_shard_params
 
@@ -37,8 +50,19 @@ from chainermn_tpu_torch.serving.sharding import (
 )
 from chainermn_tpu_torch.utils import params_from_flax, tp_params_from_flax
 
+from torch_fleet_common import FixedClock, StepClock
 from torch_process_state import restore_process_state  # noqa: E402,F401
-from torch_rank_bodies import TP_ENGINE, TP_MODEL, tp_requests
+from torch_rank_bodies import (
+    TP_ARRIVALS,
+    TP_ENGINE,
+    TP_MODEL,
+    TP_PLANE,
+    TP_TENANTS,
+    tp_policy_requests,
+    tp_requests,
+    tp_router_requests,
+    tp_slo_targets,
+)
 from torch_ranks import run_ranks
 
 pytestmark = pytest.mark.tier1
@@ -101,6 +125,133 @@ def jax_tokens(params):
     out["m4"] = _serve(eng4, [JaxRequest(id=i, prompt=p, max_new_tokens=6)
                               for i, p in enumerate(pset4)])
     return out
+
+
+def _jax_plane():
+    return JaxPlane(tenants={t: JaxTenant(t, weight=w)
+                             for t, w in TP_TENANTS.items()},
+                    registry=jmet.MetricsRegistry(), **TP_PLANE)
+
+
+@pytest.fixture(scope="module")
+def jax_planes(params):
+    """The JAX side of the agreed decisions: its scheduler with a policy
+    plane on a 2-device sharded engine, the drift latch breaching or
+    not (rank 0's target of each case), and its router over two 2-device
+    meshes; the engines are reused with their prefix caches dropped."""
+    devs = jax.devices()
+    engs = [JaxEngine(_jax_lm(), params["params"], **TP_ENGINE,
+                      mesh=jax_mesh(2, devices=devs[2 * i:2 * i + 2]))
+            for i in range(2)]
+    out = {}
+    for case, breach in (("r0", True), ("r1", False)):
+        engs[0].drop_prefix_cache()
+        pol, reg = _jax_plane(), jmet.MetricsRegistry()
+        slo = jslo.SLOMonitor(registry=reg, min_samples=1, check_every=1,
+                              targets=tp_slo_targets(breach))
+        comps = JaxScheduler(engs[0], clock=FixedClock(), slo=slo,
+                             policy=pol, registry=reg).run(
+            tp_policy_requests(JaxRequest))
+        out[case] = dict(tokens={c.id: c.tokens for c in comps},
+                         log=list(pol.admission_log), state=pol.state(),
+                         capped=pol._m_capped.value)
+    for e in engs:
+        e.drop_prefix_cache()
+    reg = jmet.MetricsRegistry()
+    router = JaxRouter(engs, clock=FixedClock(), registry=reg)
+    comps = router.run(tp_router_requests(JaxRequest))
+    out["router"] = dict(tokens={c.id: c.tokens for c in comps},
+                         assignments=dict(router.assignments),
+                         migrated=reg.peek("serve.router.migrated").value)
+    for e in engs:
+        e.drop_prefix_cache()
+    router = JaxRouter(engs, clock=StepClock(),
+                       registry=jmet.MetricsRegistry())
+    comps = router.run(tp_router_requests(JaxRequest, arrivals=TP_ARRIVALS))
+    out["router_arrivals"] = dict(
+        tokens={c.id: c.tokens for c in comps},
+        admitted={c.id: c.first_admitted_at for c in comps},
+        assignments=dict(router.assignments), now=router.clock.now())
+    return out
+
+
+@pytest.mark.parametrize("case", ["r0", "r1"])
+def test_tp_policy_latch_follows_model_rank_zero(ranks, jax_planes, case):
+    """Item 2c: ``Scheduler(engine, policy=)`` over 2 model ranks.  Each
+    rank's SLO monitor judges its own target (``r0``: rank 0 breaches and
+    rank 1 not; ``r1``: the reverse), and the drift latch on both ranks
+    follows rank 0's verdict: the admission log (ids, tenants, virtual
+    clocks), the latch, the capped prefill count and the greedy tokens
+    are equal on every rank and to the JAX sharded engine's scheduler
+    under rank 0's target."""
+    want = jax_planes[case]
+    for r in ranks:
+        got = r[f"policy_{case}"]
+        assert got["tokens"] == want["tokens"], r["rank"]
+        assert [x[:2] for x in got["log"]] == [x[:2] for x in want["log"]]
+        np.testing.assert_allclose([x[2] for x in got["log"]],
+                                   [x[2] for x in want["log"]],
+                                   rtol=0, atol=1e-9)
+        assert got["state"]["prefill_cap_active"] == \
+            want["state"]["prefill_cap_active"]
+        assert got["state"]["tenants"] == want["state"]["tenants"]
+        for key in ("virtual", "charged"):
+            assert got["state"][key] == pytest.approx(want["state"][key],
+                                                      rel=0, abs=1e-9)
+        assert got["capped"] == want["capped"]
+        assert got["verdicts"] > 0
+        # The rank's own monitor kept its own verdict.
+        assert bool(got["own_breaches"]) == \
+            ((r["m2_rank"] == 0) == (case == "r0"))
+    assert (want["capped"] > 0) == (case == "r0")
+    assert want["state"]["prefill_cap_active"] == (case == "r0")
+
+
+def test_tp_router_equals_jax_router(ranks, jax_planes):
+    """The router over 2 replicas of 2 model ranks (ranks {0, 1} and
+    {2, 3}): every rank dispatches every request to the replica the JAX
+    router over two 2-device meshes picks, steals as often, and returns
+    the same completions with the JAX router's greedy tokens."""
+    want = jax_planes["router"]
+    assert want["migrated"] >= 1
+    for r in ranks:
+        got = r["router"]
+        assert got["local"] == r["rank"] // 2
+        assert got["assignments"] == want["assignments"], r["rank"]
+        assert got["migrated"] == want["migrated"]
+        assert got["dispatched"] == len(want["tokens"])
+        assert got["tokens"] == want["tokens"]
+        assert got["order"] == ranks[0]["router"]["order"]
+
+
+def test_tp_router_idle_skips_equal_jax_router(ranks, jax_planes):
+    """Staggered arrivals on a clock that moves only when the router
+    skips it: every rank skips to the same arrivals (world rank 0's
+    clock, latched at each skip), admits each request at the JAX
+    router's time on the replica it picks, and ends with its tokens."""
+    want = jax_planes["router_arrivals"]
+    assert want["now"] == TP_ARRIVALS[-1]
+    assert sorted(set(want["admitted"].values())) == sorted(set(
+        TP_ARRIVALS))
+    for r in ranks:
+        assert r["router_arrivals"] == want, r["rank"]
+
+
+def test_tp_router_fleet_plane_agrees_every_tick(ranks):
+    """With a fleet policy plane over the tensor-parallel replicas, the
+    plane's state and admission log are equal on every rank after every
+    tick, the dispatch and steals agree, and the tokens are the
+    plane-less run's."""
+    first = ranks[0]["router_plane"]
+    assert len(first["digests"]) >= 3
+    assert first["migrated"] >= 1
+    assert sorted(t for _, t in first["log"]) == ["a"] * 4 + ["b"] * 4
+    for r in ranks:
+        got = r["router_plane"]
+        for key in ("digests", "log", "assignments", "migrated", "order",
+                    "tokens"):
+            assert got[key] == first[key], (r["rank"], key)
+        assert got["tokens"] == r["router"]["tokens"]
 
 
 def test_tp_engine_greedy_equals_jax_sharded_engine(ranks, jax_tokens):
@@ -200,13 +351,16 @@ def test_tp_moe_odd_vocab_and_lm_generate(ranks):
 
 
 def test_tp_refusals(ranks):
-    """The geometry fails fast naming the axis (2 kv heads over 4 ranks),
-    and the policy plane, which budgets from each rank's own latencies,
-    is refused on a multi-rank engine."""
+    """The geometry fails fast naming the axis (2 kv heads over 4 ranks);
+    the policy plane is accepted on a multi-rank engine (its latch
+    follows model rank 0's verdict); the router over tensor-parallel
+    replicas refuses what it does not port (roles, the elastic seams)."""
     for r in ranks:
         assert "divisible by the mesh's 'model' axis (4)" in \
             r["geometry_error"]
-        assert "policy" in r["policy_error"]
+        assert r["policy_error"] == "no error"
+        assert "roles over tensor-parallel replicas" in r["roles_error"]
+        assert "drain_replica over tensor-parallel" in r["drain_error"]
 
 
 def test_param_spec_table_and_validate_geometry():

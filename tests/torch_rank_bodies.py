@@ -1153,6 +1153,161 @@ def tp_requests():
     return pset, pset4, prompts
 
 
+#: the policy plane's tenants (weights 1 : 3) and its latch: it engages
+#: at the first breaching SLO check (every decode iteration) and then
+#: lets one prefill chunk through per iteration.
+TP_TENANTS = {"a": 1.0, "b": 3.0}
+TP_PLANE = dict(prefill_cap=1, drift_hysteresis=1)
+#: SLO targets in ms: the token stream's p95 always breaches ``tiny``
+#: and never ``huge``; the fixed clock's TTFT and queue wait are 0.
+TP_SLO_TINY, TP_SLO_HUGE = 1e-6, 1e9
+
+
+def tp_slo_targets(breach: bool) -> dict:
+    return {"ttft": TP_SLO_HUGE, "queue_wait": TP_SLO_HUGE,
+            "token": TP_SLO_TINY if breach else TP_SLO_HUGE}
+
+
+def tp_policy_requests(Request):
+    """The policy scheduler's traffic: 8 requests of ``tp_requests``'s
+    shared-prefix prompts, tenants ``a``/``b`` alternating, all arrived
+    at 0 and of one length (slots free together, so refills prefill
+    together and the latched cap binds)."""
+    pset = tp_requests()[0]
+    return [Request(id=i, prompt=pset[i % len(pset)], max_new_tokens=5,
+                    tenant="ab"[i % 2]) for i in range(8)]
+
+
+def tp_router_requests(Request, tenants=False, arrivals=None):
+    """The router's traffic: 8 requests at 0 (or at ``arrivals``), the
+    even ones 2 tokens long and the odd ones 8, so least-loaded dispatch
+    alternates the replicas, replica 0 drains first and the rebalancer
+    steals replica 1's backlog."""
+    pset = tp_requests()[0]
+    return [Request(id=i, prompt=pset[i % len(pset)],
+                    max_new_tokens=2 if i % 2 == 0 else 8,
+                    tenant="ab"[i // 2 % 2] if tenants else "default",
+                    arrival=arrivals[i] if arrivals else 0.0)
+            for i in range(8)]
+
+
+#: staggered arrivals for the router's idle skips (seconds on a clock
+#: that moves only when the router skips it).
+TP_ARRIVALS = (0.0, 0.0, 0.0, 0.0, 1.0, 1.0, 2.5, 2.5)
+
+
+class _FixedClock:
+    """A scheduler clock that never moves."""
+
+    def now(self):
+        return 0.0
+
+    def skip_to(self, t):
+        pass
+
+
+class _StepClock:
+    """A scheduler clock that moves only when skipped forward."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def now(self):
+        return self.t
+
+    def skip_to(self, t):
+        self.t = max(self.t, float(t))
+
+
+def _tp_planes(comm, mesh2, model):
+    """Item 2c and the router over tensor-parallel replicas on ranks
+    {0, 1} / {2, 3}: the policy plane on one 2-rank engine with this
+    rank's own SLO target (rank 0 breaching and rank 1 not, then the
+    reverse); the router over both engines, without a plane and with a
+    fleet plane (its state digested after every tick)."""
+    import hashlib
+
+    from chainermn_tpu_torch.observability import MetricsRegistry, SLOMonitor
+    from chainermn_tpu_torch.serving import (
+        DecodeEngine,
+        PolicyPlane,
+        Request,
+        Router,
+        Scheduler,
+        TenantPolicy,
+    )
+
+    def plane():
+        return PolicyPlane(tenants={t: TenantPolicy(t, weight=w)
+                                    for t, w in TP_TENANTS.items()},
+                           registry=MetricsRegistry(), **TP_PLANE)
+
+    res = {}
+    for case in ("r0", "r1"):
+        breach = (mesh2.rank == 0) == (case == "r0")
+        pol, reg = plane(), MetricsRegistry()
+        slo = SLOMonitor(registry=reg, min_samples=1, check_every=1,
+                         targets=tp_slo_targets(breach))
+        sched = Scheduler(DecodeEngine(model, **TP_ENGINE, mesh=mesh2),
+                          clock=_FixedClock(), slo=slo, policy=pol,
+                          registry=reg)
+        comps = sched.run(tp_policy_requests(Request))
+        res[f"policy_{case}"] = dict(
+            tokens={c.id: c.tokens for c in comps},
+            log=list(pol.admission_log), state=pol.state(),
+            capped=pol._m_capped.value,
+            own_breaches=reg.peek("serve.slo.token.breaches").value,
+            verdicts=sched.verdict_broadcasts)
+
+    def digest(p):
+        return hashlib.sha256(repr((p.state(), p.admission_log)).encode()
+                              ).hexdigest()
+
+    for arm in ("router", "router_plane"):
+        pol = plane() if arm == "router_plane" else None
+        reg = MetricsRegistry()
+        router = Router(DecodeEngine(model, **TP_ENGINE, mesh=mesh2),
+                        comm=comm, clock=_FixedClock(), registry=reg,
+                        policy=pol)
+        for r in tp_router_requests(Request, tenants=pol is not None):
+            router.submit(r)
+        digests = []
+        while router.pending:
+            if not router.tick():
+                raise RuntimeError("router made no progress")
+            if pol is not None:
+                digests.append(digest(pol))
+        router.finish()
+        comps = router.completions
+        res[arm] = dict(
+            tokens={c.id: c.tokens for c in comps},
+            order=[(c.id, c.finished_at) for c in comps],
+            assignments=dict(router.assignments),
+            migrated=reg.peek("serve.router.migrated").value,
+            dispatched=reg.peek("serve.router.dispatched").value,
+            local=router._local, digests=digests,
+            log=[(i, t) for i, t, _ in pol.admission_log] if pol else None)
+    router = Router(DecodeEngine(model, **TP_ENGINE, mesh=mesh2),
+                    comm=comm, clock=_StepClock(), registry=MetricsRegistry())
+    comps = router.run(tp_router_requests(Request, arrivals=TP_ARRIVALS))
+    res["router_arrivals"] = dict(
+        tokens={c.id: c.tokens for c in comps},
+        admitted={c.id: c.first_admitted_at for c in comps},
+        assignments=dict(router.assignments), now=router.clock.now())
+    try:
+        Router(router.schedulers[router._local].engine, comm=comm,
+               roles=["prefill", "mixed"])
+        res["roles_error"] = "no error"
+    except ValueError as e:
+        res["roles_error"] = str(e)
+    try:
+        router.drain_replica(0)
+        res["drain_error"] = "no error"
+    except NotImplementedError as e:
+        res["drain_error"] = str(e)
+    return res
+
+
 def tp():
     """The tensor-parallel engine on 4 ranks: two 2-rank engines (ranks
     {0, 1} and {2, 3}) on the JAX test's geometry and traffic, einsum and
@@ -1255,6 +1410,8 @@ def tp():
         res[f"one_{name}"] = serve(DecodeEngine(m, **TP_ENGINE,
                                                 device="cpu"), greedy())[0]
         res[f"{name}_head"] = tuple(eng.model.lm_head.weight.shape)
+    res.update(_tp_planes(comm, mesh2, lm(inputs["params"],
+                                          decode_attention="fused")))
     res["all_tokens"] = comm.allgather_obj(
         {k: v for k, v in res.items() if k.startswith(("m2_", "m4_"))
          and isinstance(v, dict) and not k.endswith("books")})
