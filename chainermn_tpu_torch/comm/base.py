@@ -96,14 +96,19 @@ class CommunicatorBase:
         ``min``)."""
         return reduce_objs(self.allgather_obj(obj), op)
 
-    def send_obj(self, obj, dest: int, source=None):
+    def send_obj(self, obj, dest: int, source=None, op: str = "send_obj"):
         """Rank-addressed object send (reference anchor
-        ``MpiCommunicatorBase.send_obj``), FIFO per ``(source, dest)``."""
+        ``MpiCommunicatorBase.send_obj``), FIFO per ``(source, dest)``.
+        ``op`` names the caller's operation, as on
+        :class:`~chainermn_tpu_torch.hostcomm.HostComm`."""
         raise NotImplementedError
 
-    def recv_obj(self, source: int, dest=None, timeout=None):
+    def recv_obj(self, source: int, dest=None, timeout=None,
+                 timeout_ms=None, op: str = "recv_obj"):
         """The next object ``source`` sent to this rank; raises
-        ``TimeoutError`` after ``timeout`` seconds."""
+        ``TimeoutError`` after ``timeout`` seconds (or ``timeout_ms``
+        milliseconds, as :class:`~chainermn_tpu_torch.hostcomm.HostComm`
+        takes it)."""
         raise NotImplementedError
 
     def split(self, color, key=None):

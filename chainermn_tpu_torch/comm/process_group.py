@@ -120,11 +120,14 @@ class _ObjectPlane:
     def recv(self, key: tuple, source_world: int, timeout: float) -> Any:
         q = self.queue(key)
         deadline = time.monotonic() + timeout
+        looked = False
         while True:
             remaining = deadline - time.monotonic()
-            if remaining <= 0:
+            if remaining <= 0 and looked:
                 raise TimeoutError(f"recv_obj{key[1:]} timed out after "
                                    f"{timeout}s")
+            # A zero deadline still looks once (a poll).
+            remaining, looked = max(remaining, 0.0), True
             if not self._drain.acquire(timeout=min(remaining, 0.05)):
                 try:
                     return q.get(timeout=min(remaining, 0.05))
@@ -656,12 +659,13 @@ class ProcessGroupCommunicator(CommunicatorBase):
         return (self.members, int(source), int(dest))
 
     def send_obj(self, obj: Any, dest: int,
-                 source: Optional[int] = None) -> None:
+                 source: Optional[int] = None, op: str = "send_obj") -> None:
         """Send a picklable object to rank ``dest`` (reference anchor
         ``MpiCommunicatorBase.send_obj``); delivery matches on the exact
         ``(source, dest)`` pair and is FIFO per pair.  ``source`` is this
         rank (an explicit other rank raises: one process speaks for its
-        own rank only)."""
+        own rank only).  ``op`` (the caller's operation, a label on
+        ``HostComm``'s spans) is not recorded here."""
         src = self.rank if source is None else int(source)
         self._check_rank(src, "source")
         self._check_rank(dest, "dest")
@@ -675,10 +679,14 @@ class ProcessGroupCommunicator(CommunicatorBase):
         self._objects.send(key, obj, self._world(dest))
 
     def recv_obj(self, source: int, dest: Optional[int] = None,
-                 timeout: float = 60.0) -> Any:
+                 timeout: float = 60.0, timeout_ms: Optional[int] = None,
+                 op: str = "recv_obj") -> Any:
         """The next object rank ``source`` sent to this rank; raises
-        :class:`TimeoutError` after ``timeout`` seconds instead of
-        deadlocking a wedged job."""
+        :class:`TimeoutError` after ``timeout`` seconds (``timeout_ms``
+        milliseconds where given, as ``HostComm`` takes it) instead of
+        deadlocking a wedged job.  ``op`` is as in :meth:`send_obj`."""
+        if timeout_ms is not None:
+            timeout = timeout_ms / 1e3
         dst = self.rank if dest is None else int(dest)
         self._check_rank(source, "source")
         self._check_rank(dst, "dest")

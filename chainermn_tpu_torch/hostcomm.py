@@ -179,6 +179,7 @@ class HostComm:
         the detector's verdict is checked before each."""
         deadline = None if timeout_ms < 0 else \
             time.monotonic() + timeout_ms / 1000.0
+        looked = False
         while True:
             if self._detector is not None:
                 self._detector.check(op=op)
@@ -189,11 +190,15 @@ class HostComm:
                 wait_ms = slice_ms
             else:
                 remain_ms = int((deadline - time.monotonic()) * 1000)
-                if remain_ms <= 0:
+                if remain_ms <= 0 and looked:
                     raise self._peer_error(
                         source, op, f"recv timed out after {timeout_ms}ms")
+                # A deadline under a millisecond still looks once: a
+                # frame that has arrived is returned, not timed out.
+                remain_ms = max(remain_ms, 0)
                 wait_ms = remain_ms if slice_ms < 0 else \
                     min(remain_ms, slice_ms)
+            looked = True
             n = self._lib.hostcomm_recv(self._h, source, None, 0, wait_ms)
             if n >= 0:
                 return int(n)

@@ -103,17 +103,6 @@ class FleetClock:
         self.probes = int(probes)
         self.rank = int(getattr(comm, "rank", 0)) if comm is not None else 0
         self.size = int(getattr(comm, "size", 1)) if comm is not None else 1
-        # HostComm's point to point takes an ``op=`` label (span
-        # attribution); a communicator's does not.
-        self._op_kw = False
-        if comm is not None:
-            import inspect
-
-            try:
-                self._op_kw = "op" in inspect.signature(
-                    comm.send_obj).parameters
-            except (TypeError, ValueError):
-                self._op_kw = False
         #: one process per rank in the port, so every rank takes part.
         self.participants: List[int] = list(range(self.size)) \
             if comm is not None else [self.rank]
@@ -123,15 +112,10 @@ class FleetClock:
         self.synced_at: Optional[float] = None
 
     def _send(self, obj, dest: int) -> None:
-        if self._op_kw:
-            self.comm.send_obj(obj, dest, op="clock_sync")
-        else:
-            self.comm.send_obj(obj, dest)
+        self.comm.send_obj(obj, dest, op="clock_sync")
 
     def _recv(self, source: int):
-        if self._op_kw:
-            return self.comm.recv_obj(source, op="clock_sync")
-        return self.comm.recv_obj(source)
+        return self.comm.recv_obj(source, op="clock_sync")
 
     def sync(self) -> Optional[Dict[int, ClockOffset]]:
         """Collective offset (re-)estimation: rank 0 returns the offset

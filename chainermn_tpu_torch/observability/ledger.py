@@ -48,7 +48,7 @@ across replicas keeps one record.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 from chainermn_tpu_torch.observability.metrics import _env_float
 
@@ -454,3 +454,63 @@ class CostLedger:
             json.dump(self.export(), fh, indent=1, sort_keys=True)
             fh.write("\n")
         return path
+
+    def replay(self, ops: Sequence[tuple]) -> None:
+        """Apply a :class:`LedgerTape`'s recorded bookings, in order."""
+        for name, args in ops:
+            getattr(self, name)(*args)
+
+
+# ------------------------------------------------------------ LedgerTape
+class _Req(NamedTuple):
+    """What :meth:`CostLedger.begin` reads of a request."""
+
+    id: int
+    tenant: str
+    arrival: float
+
+
+#: the bookings a scheduler makes on its ledger, each with the converter
+#: of its arguments into what the ledger reads of them (picklable).
+_TAPED = {
+    "begin": lambda req, now: (
+        _Req(req.id, str(getattr(req, "tenant", "default")),
+             float(req.arrival)), now),
+    "book": None, "set_blocks": None, "admitted": None, "finalize": None,
+}
+
+
+class LedgerTape:
+    """The ledger a replica's scheduler holds in a tensor-parallel fleet.
+
+    Between :meth:`start` and :meth:`stop` (one replica tick, or one
+    step of a drain) every booking is recorded, its arguments reduced to
+    what the ledger reads, and NOT applied: :meth:`stop` returns the
+    record, which every rank of the fleet replays on its own
+    :class:`CostLedger` in replica order (:meth:`CostLedger.replay`), so
+    the ledgers stay equal.  A recorded ``finalize`` returns None; the
+    router sets each completion's ``usage`` after the replay.  Outside a
+    recording, calls go to ``ledger`` itself."""
+
+    def __init__(self, ledger: CostLedger):
+        self.ledger = ledger
+        self._ops: Optional[list] = None
+
+    def start(self) -> None:
+        self._ops = []
+
+    def stop(self) -> list:
+        ops, self._ops = self._ops or [], None
+        return ops
+
+    def __getattr__(self, name):
+        attr = getattr(self.ledger, name)
+        if self._ops is None or name not in _TAPED:
+            return attr
+        light = _TAPED[name]
+
+        def call(*args):
+            self._ops.append((name, light(*args) if light else args))
+            return None
+
+        return call

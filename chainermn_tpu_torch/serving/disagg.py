@@ -199,7 +199,12 @@ def pack_slots(sched: Scheduler, slots: Sequence[_Slot]) -> dict:
     blocks backing their tables (target and draft pools alike, read
     through the engine's ``read_block``).  Blocks
     shared across the packed slots (prefix sharing) appear ONCE."""
+    from chainermn_tpu_torch.serving.sharding import mesh_model_size
+
     eng = sched.engine
+    # A tensor-parallel engine reads its own KH/M heads; every model rank
+    # ships as many, so the request's bytes are M times this rank's.
+    ranks = mesh_model_size(getattr(eng, "mesh", None))
     blocks: Dict[int, dict] = {}
     recs = []
     for slot in slots:
@@ -220,7 +225,7 @@ def pack_slots(sched: Scheduler, slots: Sequence[_Slot]) -> dict:
             # deduped wire bytes ``serve.migration.bytes`` counts.
             sched.ledger.book(
                 slot.entry.req.id, "migration_bytes",
-                sum(_block_nbytes(blocks[b]) for b in slot.blocks),
+                ranks * sum(_block_nbytes(blocks[b]) for b in slot.blocks),
             )
         recs.append({
             **_pack_entry(slot.entry),
@@ -444,10 +449,17 @@ class MigrationTransport:
     Publishing follows the scheduler's latch: an explicit ``registry``
     always publishes ``serve.migration.*``; otherwise the ambient
     global registry rides the ``CMN_OBS`` master switch.
+
+    Between tensor-parallel engines (``model_rank``, the engine mesh's
+    rank): a peer is named by its group's model rank 0, and model rank
+    ``m`` sends to and receives from rank ``peer + m`` of the world, so
+    each model rank ships its own ``KH/M`` heads of every block in a
+    frame of its own, with its own checksum.  The slot records are the
+    same on every model rank (their schedulers are replicated).
     """
 
     def __init__(self, comm, registry=None, timeout_ms: Optional[int] = None,
-                 injector=None):
+                 injector=None, model_rank: int = 0):
         import chainermn_tpu_torch.observability as _obs
         from chainermn_tpu_torch.observability.metrics import (
             DEFAULT_MS_EDGES,
@@ -455,6 +467,7 @@ class MigrationTransport:
         )
 
         self.comm = comm
+        self.model_rank = int(model_rank)
         if timeout_ms is None:
             env = os.environ.get("CMN_DISAGG_TIMEOUT_MS", "")
             timeout_ms = int(env) if env else None
@@ -497,17 +510,29 @@ class MigrationTransport:
             # proceeds as delivered (seq consumed), the receiver sees a
             # sequence gap on the next frame.
             return
-        self.comm.send_obj(frame, dest, op="migrate")
+        self._send(frame, dest)
 
     def send_eof(self, dest: int) -> None:
         """Signal this source has no more migrations (role shutdown /
         drain complete) — receivers stop polling it."""
         seq = self._seq_out.get(dest, 0)
         self._seq_out[dest] = seq + 1
-        self.comm.send_obj(
-            {"schema": MIGRATION_SCHEMA, "seq": seq, "kind": "eof"},
-            dest, op="migrate",
-        )
+        self._send({"schema": MIGRATION_SCHEMA, "seq": seq, "kind": "eof"},
+                   dest)
+
+    def _send(self, frame: dict, dest: int) -> None:
+        self.comm.send_obj(frame, dest + self.model_rank, op="migrate")
+
+    def _recv(self, source: int, timeout_ms: Optional[int]):
+        kw = {} if timeout_ms is None else {"timeout_ms": timeout_ms}
+        return self.comm.recv_obj(source + self.model_rank, op="migrate",
+                                  **kw)
+
+    def received(self, source: int) -> int:
+        """The next sequence number expected from ``source``: every
+        frame below it has arrived here or is known lost (a gap or a
+        torn frame)."""
+        return self._seq_in.get(source, 0)
 
     def observe_ms(self, ms: float) -> None:
         """Book one end-to-end migration latency (pack + send +
@@ -522,8 +547,7 @@ class MigrationTransport:
         gone — the sender released them), or CRC mismatch (torn KV)."""
         if timeout_ms is None:
             timeout_ms = self.timeout_ms
-        kw = {} if timeout_ms is None else {"timeout_ms": timeout_ms}
-        frame = self.comm.recv_obj(source, op="migrate", **kw)
+        frame = self._recv(source, timeout_ms)
         if not isinstance(frame, dict) or \
                 frame.get("schema") != MIGRATION_SCHEMA:
             self._m_failed.inc()
@@ -721,6 +745,8 @@ class PrefillRole:
         self._ticks += 1
         if self.guard is not None:
             self.guard.poll_serving(self._ticks)
+        if self.sched._latches:
+            self.sched.clock.latch()
         progressed = False
         while self.sched._try_admit():
             progressed = True
@@ -787,7 +813,19 @@ class DecodeRole:
     :attr:`done` (waiting on an eof a healthy peer never emits would
     deadlock every unpreempted run).  Wiring a drain source into
     ``prefill_ranks`` instead is exactly that deadlock — use
-    ``peer_ranks``."""
+    ``peer_ranks``.
+
+    On a tensor-parallel engine every model rank receives its own frames
+    (a transport with ``model_rank``), each when the wire brings it and
+    each with its own checksum, but the ranks' schedulers must install
+    the same slots in the same tick or their collectives pair different
+    steps.  So each rank parks the valid frames it polled by sequence
+    number, and one all-gather over the engine's mesh per tick hands the
+    scheduler, per source, every sequence number that each model rank
+    has received or knows lost: a frame valid on every model rank is
+    installed, and one that any model rank lost (torn, or a gap on its
+    wire alone) is lost on every rank alike, as a one-rank engine loses
+    a torn frame."""
 
     def __init__(self, sched: Scheduler, transport: MigrationTransport,
                  prefill_ranks: Sequence[int], guard=None,
@@ -800,6 +838,13 @@ class DecodeRole:
         ]
         self.guard = guard
         self._eof = set()
+        #: sources whose eof arrived here (not necessarily agreed yet).
+        self._closed = set()
+        #: per source, the valid frames polled and not yet handed over,
+        #: by sequence number.
+        self._inbox: Dict[int, Dict[int, dict]] = {}
+        #: per source, the next sequence number to hand over.
+        self._next: Dict[int, int] = {}
         self._ticks = 0
         #: migration bodies waiting for a slot/blocks to free up (the
         #: KV is already paid for — deferring beats re-prefilling).
@@ -826,10 +871,10 @@ class DecodeRole:
             for body in backlog:
                 if self._install(body):
                     progressed = True
-        for src in (*self.prefill_ranks, *self.peer_ranks):
-            if src in self._eof:
-                continue
-            while True:
+        sources = (*self.prefill_ranks, *self.peer_ranks)
+        for src in sources:
+            inbox = self._inbox.setdefault(src, {})
+            while src not in self._closed:
                 try:
                     frame = self.transport.poll(src, timeout_ms=poll_ms)
                 except MigrationError as e:
@@ -846,20 +891,55 @@ class DecodeRole:
                         f"[chainermn_tpu_torch.serving.disagg] from rank "
                         f"{src}: {e}\n"
                     )
-                    progressed = True
-                    frame = e.frame
-                    if frame is None:
+                    if e.frame is None:
                         continue
+                    frame = e.frame
                 if frame is None:
                     break
+                inbox[frame["seq"]] = frame
                 if frame["kind"] == "eof":
-                    self._eof.add(src)
-                    break
-                if self._install(frame["body"]):
-                    progressed = True
+                    self._closed.add(src)
+        for src, frame in self._agreed(sources):
+            if frame is None:
+                progressed = True
+            elif frame["kind"] == "eof":
+                self._eof.add(src)
+            elif self._install(frame["body"]):
+                progressed = True
         if self.sched.tick():
             progressed = True
         return progressed
+
+    def _agreed(self, sources) -> List[Tuple[int, Optional[dict]]]:
+        """The frames to hand over now, in source and sequence order
+        (None for a lost one): on a one-rank engine every sequence
+        number received or known lost; on a tensor-parallel one (one
+        all-gather) those below every model rank's horizon, a frame
+        only where every model rank holds a valid copy."""
+        held = [(self.transport.received(src), sorted(self._inbox[src]))
+                for src in sources]
+        mesh = getattr(self.sched.engine, "mesh", None)
+        every = mesh.allgather_obj(held) \
+            if mesh is not None and mesh.size > 1 else [held]
+        out = []
+        for k, src in enumerate(sources):
+            upto = min(e[k][0] for e in every)
+            valid = set.intersection(*(set(e[k][1]) for e in every))
+            for seq in range(self._next.get(src, 0), upto):
+                frame = self._inbox[src].pop(seq, None)
+                if seq not in valid and frame is not None:
+                    # Valid here, lost on a peer model rank: lost here
+                    # too, counted as the peer counted it.
+                    import sys as _sys
+
+                    self.transport._m_failed.inc()
+                    _sys.stderr.write(
+                        f"[chainermn_tpu_torch.serving.disagg] from rank "
+                        f"{src} seq {seq}: lost on another model rank, "
+                        "dropped on every rank\n")
+                out.append((src, frame if seq in valid else None))
+            self._next[src] = upto
+        return out
 
     @property
     def done(self) -> bool:

@@ -39,7 +39,11 @@ the incident plane's watch-rule grammar.
 Both controllers are host-side supervisors over PUBLIC router seams
 (``add_replica`` / ``drain_replica`` / ``retire_replica`` /
 ``revive_replica`` / ``deregister_replica``); the chaos harness drives
-the same seams under fault schedules.
+the same seams under fault schedules.  Over tensor-parallel replicas
+(``Router(engine, comm=world)``) every rank runs the same controller:
+its signals are the gauges each replica's model rank 0 sent, so every
+rank decides alike, and the engine factory runs only on the ranks of
+the replica being built (:meth:`Router.builds`).
 """
 
 from __future__ import annotations
@@ -309,7 +313,8 @@ class Autoscaler:
         if direction > 0:
             if n >= self.max_replicas:
                 return None
-            i = self.router.add_replica(self.engine_factory())
+            i = self.router.add_replica(
+                self.engine_factory() if self.router.builds() else None)
             self._m_up.inc()
             action = "scale_up"
         else:
@@ -488,7 +493,8 @@ class RollingDeploy:
                 self._pause(i, "replica crashed during rollout drain")
                 return
             self.router.retire_replica(i)
-            self.router.revive_replica(i, self._new_engine())
+            self.router.revive_replica(
+                i, self._new_engine() if self.router.builds(i) else None)
             self.current = i
             self._step_ticks = 0
             return

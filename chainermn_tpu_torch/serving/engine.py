@@ -804,7 +804,9 @@ class DecodeEngine:
         # numpy has no bfloat16: ship its bits as int16 (byte-preserving).
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
-        return t.cpu().numpy()
+        # A copy on every device: on a CPU engine ``.cpu()`` is the pool
+        # itself, and a packed block would change when the pool does.
+        return t.to("cpu", copy=True).numpy()
 
     def read_block(self, block: int) -> dict:
         """One physical block's KV contents as host numpy arrays:

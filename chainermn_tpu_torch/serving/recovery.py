@@ -427,6 +427,12 @@ class ChaosHarness:
     tick at a time) between router ticks, so the crash/skew/drop
     faults land DURING drains and rollouts and the terminal invariant
     is checked across every elastic transition.
+
+    Over tensor-parallel replicas (``comm=`` among ``router_kw``) every
+    rank builds the harness alike, the world split in ``replicas``
+    groups; ``engine_factory`` is called only on the ranks of the
+    replica being built (:meth:`Router.builds`) and builds the engine on
+    the rank's own group.
     """
 
     def __init__(self, engine_factory: Callable[[], object],
@@ -453,11 +459,16 @@ class ChaosHarness:
         router_fault = (
             FaultInjector(parse_fault_spec(rf)) if rf else None
         )
+        engines = (engine_factory() if router_kw.get("comm") is not None
+                   else [engine_factory() for _ in range(replicas)])
         self.router = Router(
-            [engine_factory() for _ in range(replicas)],
-            registry=registry, faults=faults, fault=router_fault,
+            engines, registry=registry, faults=faults, fault=router_fault,
             **router_kw,
         )
+        if self.router.replicas != replicas:
+            raise ValueError(
+                f"the world holds {self.router.replicas} groups of model "
+                f"ranks, the harness was asked for {replicas} replicas")
         self.revive_after = max(1, revive_after)
         self.max_revives = max_revives
         self.revived = 0
@@ -484,13 +495,18 @@ class ChaosHarness:
                 self._revive_in[i] -= 1
                 if self._revive_in[i] <= 0 and \
                         self.revived < self.max_revives:
-                    self.router.revive_replica(i, self.engine_factory())
+                    self.router.revive_replica(i, self._engine(i))
                     self.revived += 1
                     del self._revive_in[i]
             else:
                 # Revived elsewhere, or deregistered (scale-down of a
                 # replica that crashed mid-drain) — stop counting.
                 del self._revive_in[i]
+
+    def _engine(self, i: Optional[int] = None):
+        """A fresh engine for replica ``i`` (None: the next scale-up) on
+        the ranks that build it, else None."""
+        return self.engine_factory() if self.router.builds(i) else None
 
     # ------------------------------------------- elastic events
     def _coldest_live(self) -> Optional[int]:
@@ -514,9 +530,7 @@ class ChaosHarness:
         while self._elastic and self._elastic[0]["tick"] <= self._tick_no:
             ev = dict(self._elastic.pop(0))
             if ev["event"] == "scale_up":
-                ev["replica"] = self.router.add_replica(
-                    self.engine_factory()
-                )
+                ev["replica"] = self.router.add_replica(self._engine())
             elif ev["event"] == "scale_down":
                 victim = self._coldest_live()
                 if victim is None:

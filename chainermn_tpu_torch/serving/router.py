@@ -46,23 +46,44 @@ and comes to the same dispatch, holdback, steal and idle-skip decisions;
 a rank steps only its own replica's scheduler, and sees every other one
 through a :class:`_ReplicaView`:
 
-* after the replicas tick, one object all-gather carries each replica's
-  summary from model rank 0 of its group: its gauges, live slots, queue
-  (whole entries, so a steal moves the entry itself; no device buffer
-  moves), the tick's completions and, under a policy plane, the tape of
-  the tick's plane calls (:class:`~chainermn_tpu_torch.serving.policy.
-  PlaneTape`), replayed in replica order on every rank;
+* after the replicas tick, one object all-gather carries every model
+  rank's outcome (None, or the error its tick raised) and, from model
+  rank 0 of each group, its replica's summary: its gauges (the signals
+  dispatch and the autoscaler read, for this rank's own replica too),
+  live and decode-ready slots, queue (whole entries, so a steal moves
+  the entry itself; no device buffer moves), the tick's completions,
+  and the tapes of the tick's fleet-plane and ledger calls
+  (:class:`~chainermn_tpu_torch.serving.policy.PlaneTape`,
+  :class:`~chainermn_tpu_torch.observability.ledger.LedgerTape`),
+  replayed in replica order on every rank;
 * the router's clock is world rank 0's: its reading rides the same
   gather, and every rank's rebalance and next tick read it (an idle
   skip latches it anew with one object broadcast);
 * :meth:`Router.run` returns the same completions on every rank.
 
-A replica's tick sees the fleet plane as the tick found it plus its own
-calls (the one-process router ticks replicas one after another, each
-seeing the calls of those before it).  Not over tensor-parallel
-replicas: the failure plane (a replica's error propagates), the elastic
-seams, roles other than ``"mixed"``, the fleet ledger and the merged
-fleet trace.
+The failure plane holds over them: a replica is dead when any of its
+ranks' tick raised a host-side error (an injected ``crash@serve_step``
+fires on the same iteration on every model rank, before the step's first
+collective); every rank of it harvests, model rank 0's harvest rides
+one more gather, and every rank recovers it alike.  An error on one
+model rank after its peers entered a collective hangs the group
+instead: the failure detector's domain
+(:mod:`~chainermn_tpu_torch.resilience.detector`).
+The elastic seams run on every rank: the world may hold more groups than
+the fleet starts with (standby groups, whose ranks pass no engine),
+:meth:`Router.add_replica` activates the lowest one and
+:meth:`Router.deregister_replica` returns a group to standby;
+:meth:`Router.drain_replica` hands each model rank's KV heads to the
+same model rank of the destination in a frame of its own.  Roles, the
+fleet ledger (equal on every rank after every tick) and the merged
+fleet trace (:meth:`Router.export_fleet_trace`) hold as well.
+
+Replica ticks overlap: a replica's tick sees the fleet plane as the tick
+found it plus its own calls (the one-process router ticks replicas one
+after another, each seeing the calls of those before it), and work
+harvested from a dead replica reaches the replicas before it in the
+next tick, where the one-process router's later replicas take it in the
+same tick.
 """
 
 from __future__ import annotations
@@ -90,8 +111,9 @@ from chainermn_tpu_torch.serving.scheduler import (
     terminal_completion,
 )
 
-#: the replica gauges the router's decisions read.
-_GAUGES = ("serve.slot_occupancy", "serve.queue_depth", "mem.kv.occupancy")
+#: the replica gauges the router's and the autoscaler's decisions read.
+_GAUGES = ("serve.slot_occupancy", "serve.queue_depth", "mem.kv.occupancy",
+           "serve.slo.p95_drift")
 
 
 def device_fault(exc: BaseException) -> bool:
@@ -106,40 +128,69 @@ def device_fault(exc: BaseException) -> bool:
         str(exc).startswith("CUDA error")
 
 
-class _ReplicaCapacity:
-    """The part of a replica's engine the router reads from a view."""
+def _geometry(engine) -> dict:
+    """What the router's admission gate and ``max_queue`` read of an
+    engine; tensor-parallel replicas must share it."""
+    from chainermn_tpu_torch.serving.sharding import mesh_model_size
 
-    def __init__(self, capacity: int):
-        self.capacity = capacity
+    return dict(M=mesh_model_size(engine.mesh), capacity=engine.capacity,
+                max_blocks=engine.max_blocks, block_len=engine.block_len,
+                num_blocks=engine.pool.num_blocks,
+                prefill_ladder=tuple(engine.prefill_ladder),
+                spec_k=engine.spec_k, pos_enc=engine.model.pos_enc,
+                max_len=engine.model.max_len)
+
+
+class _EngineShape:
+    """A replica's engine as a rank of another group sees it: the
+    geometry :meth:`Scheduler.check_fit` reads, and no device state."""
+
+    def __init__(self, g: dict):
+        from types import SimpleNamespace
+
+        self.capacity, self.max_blocks = g["capacity"], g["max_blocks"]
+        self.block_len, self.spec_k = g["block_len"], g["spec_k"]
+        self.prefill_ladder = list(g["prefill_ladder"])
+        self.pool = SimpleNamespace(num_blocks=g["num_blocks"])
+        self.model = SimpleNamespace(pos_enc=g["pos_enc"],
+                                     max_len=g["max_len"])
 
     def stats(self) -> None:
         return None
+
+    def release(self) -> None:
+        pass
 
 
 class _ReplicaView:
     """A replica of a tensor-parallel fleet held by other ranks, as this
     rank sees it: the host books its group's model rank 0 sent in the
-    last gather (:meth:`apply`), kept current through this tick's
-    dispatches and steals, which every rank makes alike.  It answers the
-    :class:`Scheduler` calls the router makes, and picks a steal and the
-    next arrival through the scheduler's own functions."""
+    last exchange (:meth:`apply`), kept current through the dispatches,
+    steals and re-dispatches every rank makes alike.  It answers the
+    :class:`Scheduler` calls the router makes: the admission gate is the
+    scheduler's own over the shared geometry, and a steal and the next
+    arrival are picked through the scheduler's own functions."""
 
-    def __init__(self, capacity: int, fit, clock, policy):
-        self.engine = _ReplicaCapacity(capacity)
-        self.check_fit = fit
+    check_fit = Scheduler.check_fit
+    _worst_prefill_end = Scheduler._worst_prefill_end
+    _padded_end = Scheduler._padded_end
+    _ladder_size = Scheduler._ladder_size
+
+    def __init__(self, shape: _EngineShape, clock, policy):
+        self.engine = shape
         self.clock, self.policy = clock, policy
         self.registry = MetricsRegistry()
         self.completions: List[Completion] = []
         self._queue: List[_QueueEntry] = []
         self._live = 0
+        #: request ids of the decode-ready slots, in slot order.
+        self.ready: List[int] = []
 
     def apply(self, summary: dict) -> None:
         self._queue = summary["queue"]
         self._live = summary["live"]
+        self.ready = summary["ready"]
         self.completions.extend(summary["done"])
-        for name, v in summary["gauges"].items():
-            if v is not None:
-                self.registry.gauge(name).set(v)
 
     @property
     def queue_depth(self) -> int:
@@ -217,9 +268,14 @@ class Router:
       comm: the world communicator of a fleet of tensor-parallel
         replicas (module docstring): ``engines`` is then this rank's own
         engine (or a one-element list), whose ``mesh`` is its replica's
-        group of ``M`` consecutive ranks, and the fleet has
-        ``comm.size / M`` replicas.  Every rank constructs the router
-        and calls the same methods in the same order.
+        group of ``M`` consecutive ranks, or None on the ranks of a
+        standby group; the groups with engines are the replicas, in
+        group order.  ``roles`` and ``faults`` are the whole fleet's
+        lists on every rank (each rank arms its own replica's fault),
+        ``ledger`` this rank's copy of the fleet ledger.  Every rank
+        constructs the router and calls the same methods in the same
+        order; a seam that builds an engine takes it on the ranks of
+        the replica it builds (:meth:`builds`) and None elsewhere.
     """
 
     def __init__(self, engines, registry=None,
@@ -238,10 +294,6 @@ class Router:
             DEFAULT_MS_EDGES,
             registry as global_registry,
         )
-        from chainermn_tpu_torch.observability.tracing import (
-            RequestTimeline,
-            SpanRing,
-        )
         from chainermn_tpu_torch.resilience import faults as _faults
         from chainermn_tpu_torch.serving.recovery import (
             FleetHealth,
@@ -250,9 +302,7 @@ class Router:
 
         self.comm = comm
         if comm is not None:
-            engines = self._tensor_parallel_fleet(
-                engines, roles, faults, ledger
-            )
+            engines = self._tensor_parallel_fleet(engines)
         engines = list(engines)
         if not engines:
             raise ValueError("router needs at least one engine")
@@ -281,11 +331,6 @@ class Router:
         self.clock = clock or _Clock()
         if comm is not None:
             self.clock = _AgreedClock(self.clock, comm)
-        #: per-replica span rings: each replica is one "rank" in the
-        #: merged fleet trace (the timeline mirrors every lifecycle
-        #: event as a ``serve.<kind>`` span carrying ``req=<id>``).
-        self.rings = [SpanRing(4096) for _ in engines]
-        self.replica_registries = [MetricsRegistry() for _ in engines]
         if faults is None:
             faults = [None] * len(engines)
         faults = list(faults)
@@ -306,9 +351,7 @@ class Router:
         #: books would then miss.
         from chainermn_tpu_torch.observability import ledger as _oledger
 
-        if comm is not None:
-            self.ledger = None
-        elif ledger is not None:
+        if ledger is not None:
             self.ledger = ledger
         elif (registry is not None or _obs.enabled()) \
                 and _oledger.ledger_enabled():
@@ -325,33 +368,33 @@ class Router:
         self.policy = policy
         if policy is not None:
             policy.fleet = True
-        #: over tensor-parallel replicas, the plane this rank's replica
-        #: ticks against (recorded, then replayed fleet-wide).
-        self._tape = None
+        #: over tensor-parallel replicas, the plane and the ledger this
+        #: rank's replica books into (recorded, then replayed fleet-wide).
+        self._tape = self._ledger_tape = None
         if comm is not None and policy is not None:
             from chainermn_tpu_torch.serving.policy import PlaneTape
 
             self._tape = PlaneTape(policy)
-        self.schedulers: List[Scheduler] = [
-            Scheduler(
-                eng, registry=reg, clock=self.clock,
-                timeline=RequestTimeline(ring=ring), fault=fi,
-                ledger=(
-                    self.ledger if self.ledger is not None else False
-                ),
-                policy=self._tape or policy,
-            ) if eng is not None else None
-            for eng, reg, ring, fi in zip(
-                engines, self.replica_registries, self.rings, faults
-            )
-        ]
-        if comm is not None:
-            self._attach_views()
+        if comm is not None and self.ledger is not None:
+            self._ledger_tape = _oledger.LedgerTape(self.ledger)
+        #: per-replica span rings: each replica is one "rank" in the
+        #: merged fleet trace (the timeline mirrors every lifecycle
+        #: event as a ``serve.<kind>`` span carrying ``req=<id>``); and
+        #: per-replica registries, over tensor-parallel replicas the
+        #: gauges model rank 0 of each sent.
+        self.schedulers, self.rings, self.replica_registries = [], [], []
+        for i, (eng, fi) in enumerate(zip(engines, faults)):
+            if comm is not None and i != self._local:
+                eng, fi = None, None
+            s, ring, reg = self._new_replica(eng, fi)
+            self.schedulers.append(s)
+            self.rings.append(ring)
+            self.replica_registries.append(reg)
         if max_queue is None:
             env = os.environ.get("CMN_ROUTER_MAX_QUEUE", "")
             max_queue = (
                 int(env) if env.isdigit() and int(env) > 0
-                else 2 * max(e.capacity for e in engines if e is not None)
+                else 2 * max(s.engine.capacity for s in self.schedulers)
             )
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
@@ -395,6 +438,8 @@ class Router:
                 "serve.router.dispatch_ms", edges=DEFAULT_MS_EDGES
             )
             health_reg = reg
+        #: where the drain's ``serve.migration.*`` publish.
+        self._obs_registry = health_reg
         #: The failure plane: per-replica live/probation/dead
         #: state + the serve.health.* instruments; the fault boundary in
         #: :meth:`tick` drives it.
@@ -435,103 +480,274 @@ class Router:
         self._inc_every = 16
 
     # ------------------------------------------- tensor-parallel replicas
-    def _tensor_parallel_fleet(self, engines, roles, faults, ledger):
+    def _tensor_parallel_fleet(self, engines) -> list:
         """Check this rank's engine against the world communicator and
         return the fleet's engine list: this rank's engine at its
-        replica's index, None at the others'.  Every replica's geometry
-        must be this one's (one all-gather)."""
-        from chainermn_tpu_torch.serving.sharding import mesh_model_size
-
+        replica's index, None at the others'.  One all-gather: every
+        replica's geometry must be this one's, and the groups whose
+        ranks passed no engine stand by."""
         if isinstance(engines, (list, tuple)):
-            if len(engines) != 1:
+            if len(engines) > 1:
                 raise ValueError(
                     "over tensor-parallel replicas each rank passes its "
                     f"own engine, got {len(engines)}")
-            engines = engines[0]
+            engines = engines[0] if engines else None
         eng, comm = engines, self.comm
-        M = mesh_model_size(eng.mesh)
-        if comm.size % M or (M > 1 and eng.mesh.rank != comm.rank % M):
+        mine = None if eng is None else _geometry(eng)
+        if mine is not None and (comm.size % mine["M"] or (
+                mine["M"] > 1 and eng.mesh.rank != comm.rank % mine["M"])):
             raise ValueError(
-                f"the engine's mesh ({M} ranks, model rank "
+                f"the engine's mesh ({mine['M']} ranks, model rank "
                 f"{getattr(eng.mesh, 'rank', 0)}) is not the group "
-                f"serving_mesh({M}, comm) cuts for rank {comm.rank} of "
-                f"{comm.size}")
-        for what, given in (("roles", roles and set(roles) != {"mixed"}),
-                            ("faults", faults), ("a ledger", ledger)):
-            if given:
-                raise ValueError(
-                    f"{what} over tensor-parallel replicas is not ported: "
-                    "the failure plane, the roles and the fleet ledger "
-                    "are the one-process fleet's")
-        geometry = (M, eng.capacity, eng.max_blocks, eng.block_len,
-                    eng.pool.num_blocks, tuple(eng.prefill_ladder),
-                    eng.spec_k)
-        if len(set(comm.allgather_obj(geometry))) != 1:
+                f"serving_mesh({mine['M']}, comm) cuts for rank "
+                f"{comm.rank} of {comm.size}")
+        every = comm.allgather_obj(mine)
+        shapes = [g for g in every if g is not None]
+        if not shapes:
+            raise ValueError("router needs at least one engine")
+        if any(g != shapes[0] for g in shapes):
             raise ValueError(
                 "tensor-parallel replicas must share one geometry (model "
                 "ranks, capacity, blocks, ladder, spec_k): any replica's "
                 "check_fit speaks for all")
-        #: this rank's replica, its model rank, and ranks per replica.
-        self._local, self._model_rank, self._M = (
-            comm.rank // M, comm.rank % M, M
-        )
-        #: the router's per-tick gathers: count and summed ms (waits for
-        #: the slowest replica's tick included).
+        M = shapes[0]["M"]
+        active = []
+        for g in range(comm.size // M):
+            have = {every[g * M + m] is not None for m in range(M)}
+            if len(have) > 1:
+                raise ValueError(
+                    f"group {g} (ranks {g * M}..{g * M + M - 1}): some "
+                    "ranks passed an engine and some did not")
+            if have == {True}:
+                active.append(g)
+        #: ranks per replica, this rank's model rank and group, and the
+        #: fleet's geometry.
+        self._M, self._model_rank, self._group = M, comm.rank % M, \
+            comm.rank // M
+        self._shape = shapes[0]
+        #: replica index -> its group (None once deregistered), and the
+        #: standby groups (lowest first).
+        self._group_of: List[Optional[int]] = list(active)
+        self._standby = [g for g in range(comm.size // M)
+                         if g not in active]
+        #: this rank's replica (None on a standby group).
+        self._local = (active.index(self._group) if self._group in active
+                       else None)
+        #: the router's gathers: count and summed ms (waits for the
+        #: slowest replica's tick included).
         self.exchanges, self.exchange_ms_total = 0, 0.0
+        #: this rank's replica's completions already sent.
         self._sent = 0
-        out = [None] * (comm.size // M)
-        out[self._local] = eng
+        self._transport = None
+        out = [None] * len(active)
+        if self._local is not None:
+            out[self._local] = eng
         return out
 
-    def _attach_views(self) -> None:
-        local = self.schedulers[self._local]
-        for j, s in enumerate(self.schedulers):
-            if s is None:
-                view = _ReplicaView(local.engine.capacity, local.check_fit,
-                                    self.clock, self.policy)
-                self.schedulers[j] = view
-                self.replica_registries[j] = view.registry
-                self.rings[j] = None
+    def _new_replica(self, engine, fault):
+        """A fresh replica: its scheduler over ``engine`` sharing the
+        fleet clock, ledger and plane, its span ring and its registry.
+        Over tensor-parallel replicas, a :class:`_ReplicaView` when
+        ``engine`` is None (another group's replica), and the registry
+        is the one the gathered gauges land in (the scheduler publishes
+        into a registry of its own)."""
+        from chainermn_tpu_torch.observability.tracing import (
+            RequestTimeline,
+            SpanRing,
+        )
 
-    def _tick_tensor_parallel(self) -> bool:
-        """Tick this rank's replica, then exchange every replica's
-        summary (one all-gather over the world) and bring the views, the
-        fleet plane and the health rows up to date alike on every rank.
-        Returns whether any replica progressed."""
-        s = self.schedulers[self._local]
-        if self._tape is not None:
-            self._tape.begin()
-        ticked = s.tick()
-        ops = self._tape.end() if self._tape is not None else None
-        mine = None
-        if self._model_rank == 0:
-            mine = dict(
-                progressed=ticked, queue=list(s._queue), ops=ops,
-                live=sum(x is not None for x in s._slots),
-                done=s.completions[self._sent:],
-                gauges={n: self._gauge(self._local, n) for n in _GAUGES},
-                now=self.clock.inner.now() if self.comm.rank == 0 else None,
-            )
-            self._sent = len(s.completions)
+        if engine is None:
+            view = _ReplicaView(_EngineShape(self._shape), self.clock,
+                                self.policy)
+            return view, None, view.registry
+        ring, reg = SpanRing(4096), MetricsRegistry()
+        ledger = self._ledger_tape if self.comm is not None else None
+        sched = Scheduler(
+            engine, registry=reg, clock=self.clock,
+            timeline=RequestTimeline(ring=ring), fault=fault,
+            ledger=ledger or (
+                self.ledger if self.ledger is not None else False),
+            policy=self._tape or self.policy,
+        )
+        if self.comm is None:
+            return sched, ring, reg
+        self._own_registry, self._sent = reg, 0
+        return sched, ring, MetricsRegistry()
+
+    def builds(self, i: Optional[int] = None) -> bool:
+        """Whether this rank builds the engine of a seam: for
+        :meth:`revive_replica` of replica ``i``, or (``i`` None) for the
+        next :meth:`add_replica`.  Always True in one process; over
+        tensor-parallel replicas, on the ranks of that replica's group
+        (the lowest standby group for an add)."""
+        if self.comm is None:
+            return True
+        if i is None:
+            return bool(self._standby) and self._standby[0] == self._group
+        return self._group_of[i] == self._group
+
+    def _check_engine(self, i: Optional[int], engine) -> None:
+        """A seam's engine is given on the ranks that build it
+        (:meth:`builds`) and None on the others."""
+        if self.comm is None:
+            return
+        if self.builds(i) != (engine is not None):
+            what = "add_replica" if i is None else f"replica {i}"
+            raise ValueError(
+                f"rank {self.comm.rank}: {what} "
+                + ("is built on this rank's group: pass its engine"
+                   if engine is None else
+                   "is another group's: pass None"))
+        if engine is not None and _geometry(engine) != self._shape:
+            raise ValueError(
+                f"rank {self.comm.rank}: the engine's geometry "
+                f"{_geometry(engine)} is not the fleet's {self._shape}")
+
+    def _gather(self, obj) -> list:
         t0 = time.perf_counter()
-        summaries = self.comm.allgather_obj(mine)[::self._M]
+        out = self.comm.allgather_obj(obj)
         self.exchange_ms_total += (time.perf_counter() - t0) * 1e3
         self.exchanges += 1
-        self.clock.adopt(summaries[0]["now"])
-        progressed = False
-        for j, summary in enumerate(summaries):
-            progressed = progressed or summary["progressed"]
-            if j != self._local:
-                self.schedulers[j].apply(summary)
-            if summary["ops"]:
-                self.policy.replay(summary["ops"])
-            self.health.clean_tick(j)
-        return progressed
+        return out
 
-    def _one_process(self, what: str) -> None:
-        if self.comm is not None:
-            raise NotImplementedError(
-                f"{what} over tensor-parallel replicas is not ported")
+    def _first_error(self, got: list, j: int) -> Optional[str]:
+        """The error a rank of replica ``j`` sent in gather ``got``."""
+        g = self._group_of[j] * self._M
+        return next((x["err"] for x in got[g:g + self._M]
+                     if x is not None and x.get("err")), None)
+
+    def _record(self) -> None:
+        if self._tape is not None:
+            self._tape.begin()
+        if self._ledger_tape is not None:
+            self._ledger_tape.start()
+
+    def _recorded(self) -> tuple:
+        return (self._tape.end() if self._tape is not None else [],
+                self._ledger_tape.stop() if self._ledger_tape is not None
+                else [])
+
+    def _replay(self, ops) -> None:
+        plane, ledger = ops
+        if plane:
+            self.policy.replay(plane)
+        if ledger:
+            self.ledger.replay(ledger)
+
+    def _summary(self, s) -> dict:
+        """Model rank 0's account of this rank's replica."""
+        done = s.completions[self._sent:]
+        self._sent = len(s.completions)
+        gauges = {}
+        for name in _GAUGES:
+            inst = self._own_registry.peek(name)
+            v = inst.value if inst is not None else None
+            gauges[name] = None if v is None else float(v)
+        return dict(queue=list(s._queue), done=done, gauges=gauges,
+                    live=sum(x is not None for x in s._slots),
+                    ready=[x.entry.req.id for x in s.ready_slots()])
+
+    def _apply(self, j: int, summary: dict) -> list:
+        """Bring replica ``j``'s view (another group's) or agreed gauges
+        (every replica's) up to ``summary``; returns the completions it
+        carries (this rank's own objects for its own replica)."""
+        if j == self._local:
+            done = self.schedulers[j].completions[
+                len(self.schedulers[j].completions) - len(summary["done"]):
+            ] if summary["done"] else []
+        else:
+            self.schedulers[j].apply(summary)
+            done = summary["done"]
+        for name, v in summary["gauges"].items():
+            if v is not None:
+                self.replica_registries[j].gauge(name).set(v)
+        return done
+
+    def _settle_usage(self, done) -> None:
+        """Completions finished inside a recorded tick carry no usage
+        (the booking was taped): their records, after the replay."""
+        if self.ledger is not None:
+            for c in done:
+                c.usage = self.ledger.record(c.id)
+
+    def _take_completions(self, i: int) -> None:
+        """Move replica ``i``'s finished completions to the router's
+        books (its scheduler is about to be replaced or dropped)."""
+        s = self.schedulers[i]
+        if s is not None:
+            self._router_completions.extend(s.completions)
+            s.completions = []
+            if self.comm is not None and i == self._local:
+                self._sent = 0
+
+    def _tick_tensor_parallel(self) -> bool:
+        """Tick this rank's replica inside the fault boundary, then
+        exchange every model rank's outcome and every replica's summary
+        (one all-gather over the world) and bring the views, the fleet
+        plane, the ledger and the health rows up to date alike on every
+        rank.  A tick in which a replica died takes one more all-gather:
+        every rank of the dead replica harvests it, and model rank 0's
+        harvest is recovered in replica order.  Returns whether any
+        replica progressed."""
+        i, M = self._local, self._M
+        mine = {"err": None}
+        if self.comm.rank == 0:
+            mine["now"] = self.clock.inner.now()
+        up = [j for j, s in enumerate(self.schedulers)
+              if s is not None and self.health.is_up(j)]
+        if i in up:
+            s = self.schedulers[i]
+            self._record()
+            progressed = False
+            try:
+                progressed = s.tick()
+            except Exception as exc:
+                if device_fault(exc):
+                    raise
+                mine["err"] = f"{type(exc).__name__}: {exc}"
+            ops = self._recorded()
+            if self._model_rank == 0:
+                mine.update(self._summary(s), progressed=progressed,
+                            ops=ops)
+        got = self._gather(mine)
+        self.clock.adopt(got[0]["now"])
+        heads = {j: got[self._group_of[j] * M] for j in up}
+        errs = {j: self._first_error(got, j) for j in up}
+        harvests = {}
+        if any(errs.values()):
+            # Every rank of a dead replica empties its scheduler alike,
+            # inside a recording; model rank 0's entries and tapes ride
+            # one more gather.
+            mine = None
+            if i in up and errs[i]:
+                self._record()
+                entries = self.schedulers[i].harvest_entries()
+                ops = self._recorded()
+                if self._model_rank == 0:
+                    mine = dict(entries=entries, ops=ops)
+            more = self._gather(mine)
+            for j in up:
+                if errs[j]:
+                    harvests[j] = more[self._group_of[j] * M]
+                    # The view holds what the harvest left: nothing.
+                    heads[j].update(queue=[], live=0, ready=[])
+        done = {j: self._apply(j, heads[j]) for j in up}
+        progressed = False
+        for j in up:
+            self._replay(heads[j]["ops"])
+            if errs[j]:
+                self._replay(harvests[j]["ops"])
+            self._settle_usage(done[j])
+            if errs[j]:
+                self._on_replica_death(j, errs[j], harvests[j]["entries"])
+                progressed = True
+                continue
+            progressed = progressed or heads[j]["progressed"]
+            was_probation = self.health.in_probation(j)
+            self.health.clean_tick(j)
+            if was_probation and self._recovered:
+                progressed = True
+        return progressed
 
     # ---------------------------------------------------------- dispatch
     @property
@@ -828,7 +1044,7 @@ class Router:
         return moved
 
     # ---------------------------------------------------------- recovery
-    def _on_replica_death(self, i: int, exc: BaseException) -> None:
+    def _on_replica_death(self, i: int, exc, entries=None) -> None:
         """The fault boundary: replica ``i``'s tick escaped.
         Mark it dead, harvest its queued entries AND live slots into
         recompute entries (carried + generated tokens preserved — the
@@ -836,21 +1052,25 @@ class Router:
         greedy-identical), and re-dispatch each to a survivor — unless
         the entry has now killed ``retry_budget`` replicas, in which
         case it is the likely cause and is quarantined as a poisoned
-        Completion with the attributed error."""
-        err = f"{type(exc).__name__}: {exc}"
+        Completion with the attributed error.
+
+        Over tensor-parallel replicas every rank calls it alike, with
+        the error text and the harvest model rank 0 of the dead replica
+        sent (``entries``; its bookings already replayed)."""
+        err = exc if isinstance(exc, str) else f"{type(exc).__name__}: {exc}"
         self.health.mark_dead(i, err)
-        try:
-            entries = self.schedulers[i].harvest_entries()
-        except Exception:  # pragma: no cover - defensive harvest
-            entries = []
+        if entries is None:
+            try:
+                entries = self.schedulers[i].harvest_entries()
+            except Exception:  # pragma: no cover - defensive harvest
+                entries = []
         # The dead engine's device state is garbage: free its graphs and
         # pools now, not when a revival replaces the scheduler.
         self._release_engine(i)
         # Requests this replica FINISHED before dying are history, not
         # casualties — move them to the router's books so a revival
         # (which replaces the scheduler) cannot lose them.
-        self._router_completions.extend(self.schedulers[i].completions)
-        self.schedulers[i].completions = []
+        self._take_completions(i)
         for entry in entries:
             entry.retries += 1
             entry.last_error = err
@@ -953,29 +1173,19 @@ class Router:
         are closed — its harvest already moved every request it held).
         The revived replica receives only fresh admissions at reduced
         dispatch weight until ``CMN_SERVE_PROBATION_TICKS`` clean ticks
-        pass, so a flapping replica cannot thrash the fleet."""
-        self._one_process("revive_replica")
-        from chainermn_tpu_torch.observability.metrics import MetricsRegistry
-        from chainermn_tpu_torch.observability.tracing import (
-            RequestTimeline,
-            SpanRing,
-        )
+        pass, so a flapping replica cannot thrash the fleet.
 
+        Over tensor-parallel replicas every rank calls it: the ranks of
+        replica ``i``'s group pass the new engine on the same group (a
+        host-side fault leaves the processes alive), the others None."""
         if self.health.state(i) != "dead":
             raise ValueError(
                 f"replica {i} is {self.health.state(i)!r} — only a dead "
                 "replica can be revived"
             )
-        ring = SpanRing(4096)
-        reg = MetricsRegistry()
-        self.rings[i] = ring
-        self.replica_registries[i] = reg
-        self.schedulers[i] = Scheduler(
-            engine, registry=reg, clock=self.clock,
-            timeline=RequestTimeline(ring=ring), fault=fault,
-            ledger=self.ledger if self.ledger is not None else False,
-            policy=self.policy,
-        )
+        self._check_engine(i, engine)
+        (self.schedulers[i], self.rings[i],
+         self.replica_registries[i]) = self._new_replica(engine, fault)
         self._since_gauge[i] = 0
         self.health.start_probation(i)
 
@@ -988,29 +1198,31 @@ class Router:
         ``CMN_SERVE_PROBATION_TICKS`` clean ticks exactly like a
         revival replacement (a cold newcomer must not immediately soak
         up recovered work or rebalance steals).  Returns the new
-        replica index."""
-        self._one_process("add_replica")
-        from chainermn_tpu_torch.observability.metrics import MetricsRegistry
-        from chainermn_tpu_torch.observability.tracing import (
-            RequestTimeline,
-            SpanRing,
-        )
+        replica index.
+
+        Over tensor-parallel replicas every rank calls it: the new
+        replica is the lowest standby group, whose ranks pass an engine
+        on their group (:meth:`builds`), the others None."""
         from chainermn_tpu_torch.serving.disagg import ROLES as _ROLES
 
         if role not in _ROLES:
             raise ValueError(f"unknown role {role!r} (one of {_ROLES})")
         i = len(self.schedulers)
-        ring = SpanRing(4096)
-        reg = MetricsRegistry()
+        if self.comm is not None:
+            if not self._standby:
+                raise ValueError(
+                    "no standby group left: every group of the world "
+                    "serves a replica")
+            self._check_engine(None, engine)
+            g = self._standby.pop(0)
+            self._group_of.append(g)
+            if g == self._group:
+                self._local = i
+        sched, ring, reg = self._new_replica(engine, fault)
+        self.schedulers.append(sched)
         self.rings.append(ring)
         self.replica_registries.append(reg)
         self.roles.append(role)
-        self.schedulers.append(Scheduler(
-            engine, registry=reg, clock=self.clock,
-            timeline=RequestTimeline(ring=ring), fault=fault,
-            ledger=self.ledger if self.ledger is not None else False,
-            policy=self.policy,
-        ))
         self._since_gauge.append(0)
         self._occ_sum.append(0.0)
         self.health.add_replica()
@@ -1038,8 +1250,14 @@ class Router:
         immediately, zero loss.  A replica that crashes mid-drain
         downgrades to the fault boundary (:meth:`_on_replica_death`):
         marked dead, work harvested — the terminal invariant holds
-        either way."""
-        self._one_process("drain_replica")
+        either way.
+
+        Over tensor-parallel replicas every rank calls it: model rank
+        ``m`` of the replica packs its own KV heads and sends them in a
+        frame of its own to model rank ``m`` of the destination, which
+        installs them (the same block ids on every model rank, their
+        allocators being replicated); two gathers then carry the
+        bookings, the harvest and both replicas' books to every rank."""
         from chainermn_tpu_torch.serving import disagg as _disagg
 
         if not self.health.is_draining(i):
@@ -1049,6 +1267,8 @@ class Router:
             "replica": i, "slots_migrated": 0, "entries_requeued": 0,
             "dropped_frames": 0,
         }
+        if self.comm is not None:
+            return self._drain_tensor_parallel(i, summary)
         try:
             ready = s.ready_slots()
             survivors = [
@@ -1089,6 +1309,116 @@ class Router:
         s.finish()
         return summary
 
+    def _drain_tensor_parallel(self, i: int, summary: dict) -> dict:
+        """:meth:`drain_replica` over tensor-parallel replicas."""
+        from chainermn_tpu_torch.serving import disagg as _disagg
+
+        M, s = self._M, self.schedulers[i]
+        ready = ([x.entry.req.id for x in s.ready_slots()]
+                 if i == self._local else list(s.ready))
+        survivors = [
+            j for j in self._admitting
+            if j != i and self.health.state(j) == "live"
+        ]
+        dest = err = None
+        if ready and survivors:
+            if self._fault is not None and \
+                    self._fault.hook("migrate") == "drop":
+                summary["dropped_frames"] += 1
+                self.health.m_retries.inc()
+            else:
+                dest = min(survivors, key=self._load)
+        if dest is not None:
+            t0 = time.perf_counter()
+            tr = self._migration_transport()
+            mine = {"err": None}
+            if i == self._local:
+                self._record()
+                body = {"slots": [], "entries": [], "blocks": {}}
+                try:
+                    body = _disagg.pack_slots(s, s.ready_slots())
+                except Exception as exc:
+                    if device_fault(exc):
+                        raise
+                    mine["err"] = f"{type(exc).__name__}: {exc}"
+                mine["ops"] = self._recorded()
+                # Sent even when the pack failed: the peer must not wait.
+                tr.send(body, self._group_of[dest] * M)
+            elif dest == self._local:
+                self._record()
+                try:
+                    body = tr.recv(self._group_of[i] * M)["body"]
+                    installed, queued, _ = _disagg.install_payload(
+                        self.schedulers[dest], body)
+                    mine.update(installed=installed, queued=queued,
+                                bytes=_disagg.payload_bytes(body))
+                except Exception as exc:
+                    if device_fault(exc):
+                        raise
+                    mine["err"] = f"{type(exc).__name__}: {exc}"
+                mine["ops"] = self._recorded()
+            got = self._gather(mine)
+            head = got[self._group_of[dest] * M]
+            err = self._first_error(got, i) or self._first_error(got, dest)
+            self._replay(got[self._group_of[i] * M]["ops"])
+            self._replay(head["ops"])
+            summary.update(frame_bytes=head.get("bytes"),
+                           migrate_ms=(time.perf_counter() - t0) * 1e3)
+        # The source detaches what the destination installed (or, after
+        # a failure, keeps it for the harvest) and empties its queue.
+        mine = None
+        if i == self._local:
+            self._record()
+            if dest is not None and err is None:
+                _disagg.detach_slots(s, s.ready_slots())
+            entries = s.harvest_entries()
+            ops = self._recorded()
+            if self._model_rank == 0:
+                mine = dict(self._summary(s), ops=ops, harvest=entries)
+        elif dest is not None and dest == self._local \
+                and self._model_rank == 0:
+            mine = self._summary(self.schedulers[dest])
+        got = self._gather(mine)
+        src = got[self._group_of[i] * M]
+        self._replay(src["ops"])
+        self._apply(i, src)
+        if dest is not None:
+            self._apply(dest, got[self._group_of[dest] * M])
+        if err is not None:
+            self._on_replica_death(i, err, src["harvest"])
+            summary["crashed"] = err
+            return summary
+        if dest is not None:
+            for rid in ready:
+                self.assignments.setdefault(rid, []).append(dest)
+                self._m_migr.inc()
+            self._since_gauge[dest] += head["installed"]
+            summary["slots_migrated"] = head["installed"]
+            summary["entries_requeued"] += head["queued"]
+            summary["dest"] = dest
+        for entry in src["harvest"]:
+            summary["entries_requeued"] += 1
+            self._redispatch(entry)
+        s.finish()
+        return summary
+
+    def _migration_transport(self):
+        """The drain's frames: this rank to the same model rank of the
+        destination, over the world's object plane (joined on every
+        rank first).  The router's ``migrate`` hook decides a drop
+        before any pack, so the transport itself drops nothing."""
+        if self._transport is None:
+            from chainermn_tpu_torch.resilience.faults import FaultInjector
+            from chainermn_tpu_torch.serving.disagg import MigrationTransport
+
+            connect = getattr(self.comm, "connect_object_plane", None)
+            if connect is not None:
+                connect()
+            self._transport = MigrationTransport(
+                self.comm, registry=self._obs_registry,
+                injector=FaultInjector([]), model_rank=self._model_rank)
+        return self._transport
+
     def retire_replica(self, i: int) -> None:
         """Rolling-deploy seam: a DRAINED replica steps aside (state
         ``dead``, orderly — not a counted failure) so
@@ -1097,15 +1427,12 @@ class Router:
         router's books first — ``revive_replica`` replaces the
         Scheduler wholesale, and the old incarnation's terminals must
         survive that."""
-        self._one_process("retire_replica")
         s = self.schedulers[i]
         if s is not None and s.pending:
             raise ValueError(
                 f"replica {i} still holds work — drain it first"
             )
-        if s is not None:
-            self._router_completions.extend(s.completions)
-            s.completions = []
+        self._take_completions(i)
         self.health.mark_retired(i)
         self._release_engine(i)
 
@@ -1117,8 +1444,8 @@ class Router:
         FleetHealth row (tombstoned ``removed`` so historical indices
         stay stable).  Its finished completions move to the router's
         books first, so :attr:`completions` and the fleet ledger's
-        conservation hold across the removal."""
-        self._one_process("deregister_replica")
+        conservation hold across the removal.  Over tensor-parallel
+        replicas its group returns to standby."""
         st = self.health.state(i)
         if st not in ("draining", "dead"):
             raise ValueError(
@@ -1130,15 +1457,18 @@ class Router:
             raise ValueError(
                 f"replica {i} still holds work — drain it first"
             )
-        if s is not None:
-            self._router_completions.extend(s.completions)
-            s.completions = []
+        self._take_completions(i)
         self.health.remove_replica(i)
         self._release_engine(i)
         self.schedulers[i] = None
         self.rings[i] = None
         self.replica_registries[i] = None
         self._admitting = [j for j in self._admitting if j != i]
+        if self.comm is not None:
+            self._standby = sorted(self._standby + [self._group_of[i]])
+            self._group_of[i] = None
+            if self._local == i:
+                self._local = None
 
     def _release_engine(self, i: int) -> None:
         """Free replica ``i``'s device state — its captured graphs, their
@@ -1166,8 +1496,10 @@ class Router:
         feeds the probation counter of a revived replica.
 
         Over tensor-parallel replicas (``comm=``) each rank ticks its own
-        replica, with no fault boundary (an error propagates), then the
-        replicas' summaries are exchanged (:meth:`_tick_tensor_parallel`)."""
+        replica inside the same boundary, then every model rank's
+        outcome and every replica's summary are exchanged and a dead
+        replica is recovered alike on every rank
+        (:meth:`_tick_tensor_parallel`)."""
         progressed = self._dispatch()
         if self.comm is not None:
             progressed = self._tick_tensor_parallel() or progressed
@@ -1333,7 +1665,7 @@ class Router:
             })
         return out
 
-    def export_fleet_trace(self, path: str) -> dict:
+    def export_fleet_trace(self, path: str) -> Optional[dict]:
         """Merge the per-replica span rings through the fleet merge
         (:mod:`~chainermn_tpu_torch.observability.fleet`) — one replica
         = one "rank" (pid) — and write ONE
@@ -1341,23 +1673,51 @@ class Router:
         spans (each carrying ``req=<id>`` detail) appear under every
         replica that touched it.  Replicas share one process and one
         monotonic clock, so no offset correction is needed (offsets
-        default to zero).  Returns the merge summary (with ``path``)."""
-        self._one_process("export_fleet_trace")
+        default to zero).  Returns the merge summary (with ``path``).
+
+        Over tensor-parallel replicas it is a collective: each replica's
+        ring lives on its model rank 0, which sends it to world rank 0
+        with its process's epochs, and the merge rebases each onto
+        world rank 0's clock with the fleet clock's offsets
+        (:class:`~chainermn_tpu_torch.observability.fleet.FleetClock`,
+        synced here).  World rank 0 writes the file and returns the
+        summary; the others return None."""
         from chainermn_tpu_torch.observability import fleet as _fleet
         from chainermn_tpu_torch.observability import tracing as _tracing
 
-        dumps = [
-            {
+        def dump(i, ring):
+            return {
                 "rank": i,
                 "spans": ring.snapshot(),
                 "spans_total": ring.total,
                 "epoch_wall": _tracing.EPOCH_WALL,
                 "epoch_perf": _tracing.EPOCH_PERF,
             }
-            for i, ring in enumerate(self.rings)
-            if ring is not None  # deregistered replicas released theirs
-        ]
-        merged = _fleet.merge_fleet_trace(dumps)
+
+        offsets = None
+        if self.comm is None:
+            dumps = [
+                dump(i, ring) for i, ring in enumerate(self.rings)
+                if ring is not None  # deregistered replicas released theirs
+            ]
+        else:
+            import dataclasses
+
+            clock = _fleet.FleetClock(self.comm)
+            clock.sync()
+            i = self._local
+            mine = (dump(i, self.rings[i])
+                    if i is not None and self._model_rank == 0 else None)
+            got = self.comm.gather_obj(mine, root=0)
+            if self.comm.rank != 0:
+                return None
+            dumps = [d for d in got if d is not None]
+            offsets = {
+                d["rank"]: dataclasses.replace(clock.offsets[w],
+                                               rank=d["rank"])
+                for w, d in enumerate(got) if d is not None
+            }
+        merged = _fleet.merge_fleet_trace(dumps, offsets)
         merged["summary"]["path"] = _fleet.write_fleet_trace(
             path, merged["payload"]
         )

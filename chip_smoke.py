@@ -6750,6 +6750,18 @@ TP_SLO_TINY, TP_SLO_HUGE = 1e-6, 1e9
 #: new tokens cut to at most ``TP_ROUTER_NEW`` (16-64 drawn; cut for
 #: time).
 TP_ROUTER_M, TP_ROUTER_REQUESTS, TP_ROUTER_NEW = 2, 16, 32
+#: the fleet arms (items 2d-2h) after the router arm, on the same 2
+#: groups of ``TP_ROUTER_M`` ranks and the same requests: ``chaos``
+#: crashes replica 1 at its ``TP_FLEET_CRASH``-th decode step, loses the
+#: first re-dispatch frame (``drop@migrate:1``) and revives the replica
+#: ``TP_FLEET_REVIVE`` ticks later, with the fleet ledger and the merged
+#: trace; ``disagg`` serves the requests with group 0 prefilling and
+#: group 1 decoding; ``elastic`` starts with group 1 standing by, adds it
+#: at tick 2, rolls both replicas over to new engines of the same weights
+#: from tick 8, then drains and deregisters replica 1.  Probation is
+#: ``TP_FLEET_PROBATION`` clean ticks (32 by default; cut for time).
+TP_FLEET_CRASH, TP_FLEET_REVIVE, TP_FLEET_PROBATION = 6, 2, 4
+TP_FLEET_SCALE_UP, TP_FLEET_ROLLOUT = 2, 8
 TP_NOTE = ("model ranks share one card over gloo, each wire message "
            "staged through pinned host memory: the path and its "
            "arithmetic, not a scaling figure")
@@ -6854,6 +6866,7 @@ def tp_rank(out: str, device: str) -> None:
     res["generate"] = tp_generate(ops, dev, seed, model, mesh)
     if M == 4:
         res["router"] = tp_router_arm(ops, dev, seed, model, comm)
+        res["fleet"] = tp_fleet_arms(ops, dev, seed, model, comm, out)
     with open(os.path.join(out, f"tp.rank{comm.rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
     comm.barrier()
@@ -6954,6 +6967,18 @@ def tp_plane_digest(plane) -> str:
                           .encode()).hexdigest()
 
 
+def tp_router_requests(seed):
+    """The router and fleet arms' requests: the ``router`` phase's draw,
+    its first ``TP_ROUTER_REQUESTS``, new tokens cut to ``TP_ROUTER_NEW``."""
+    import dataclasses
+
+    return [dataclasses.replace(r, max_new_tokens=min(r.max_new_tokens,
+                                                      TP_ROUTER_NEW))
+            for r in draw_requests(np.random.RandomState(seed + 20),
+                                   FLEET_REQUESTS, FULL["vocab"])
+            [:TP_ROUTER_REQUESTS]]
+
+
 def tp_router_arm(ops, dev, seed, model, comm):
     """The router over 2 tensor-parallel replicas of ``TP_ROUTER_M``
     model ranks in the 4-rank job (``Router(engine, comm=world)``), on the
@@ -6965,13 +6990,7 @@ def tp_router_arm(ops, dev, seed, model, comm):
     from chainermn_tpu_torch.serving import DecodeEngine, Router, Scheduler
     from chainermn_tpu_torch.serving.sharding import serving_mesh
 
-    import dataclasses
-
-    reqs = [dataclasses.replace(r, max_new_tokens=min(r.max_new_tokens,
-                                                      TP_ROUTER_NEW))
-            for r in draw_requests(np.random.RandomState(seed + 20),
-                                   FLEET_REQUESTS, FULL["vocab"])
-            [:TP_ROUTER_REQUESTS]]
+    reqs = tp_router_requests(seed)
     kw = tp_engine_kw(reqs)
     mesh2 = serving_mesh(TP_ROUTER_M, comm)
     out = {"want": None, "replica": comm.rank // TP_ROUTER_M}
@@ -7024,6 +7043,242 @@ def tp_router_arm(ops, dev, seed, model, comm):
                  if plane is not None else None),
             **tp_counts(ops, dev))
         eng.release()
+    return out
+
+
+class TpSteps:
+    """Every scheduler this rank's replica ran on in an arm (a revival
+    or a redeploy replaces it), noted after each router tick: their
+    decode steps are what K4's runs on this rank must match."""
+
+    def __init__(self):
+        self.seen = []
+
+    def note(self, router):
+        i = router._local
+        s = router.schedulers[i] if i is not None else None
+        if s is not None and hasattr(s, "decode_iterations") and \
+                not any(x is s for x in self.seen):
+            self.seen.append(s)
+
+    @property
+    def steps(self) -> int:
+        return sum(s.decode_iterations for s in self.seen)
+
+
+def tp_drive(router, reqs, every=None):
+    """Submit ``reqs`` and tick the router until it drains, ``every(tick)``
+    after each tick (each rank of the fleet runs the same loop)."""
+    for r in reqs:
+        router.submit(r)
+    tick = 0
+    while router.pending:
+        if not router.tick():
+            nxt = [t for t in (s.next_arrival() for s in router.schedulers
+                               if s is not None) if t is not None]
+            nxt += [r.arrival for r in router.queued_requests()]
+            if nxt:
+                router.clock.skip_to(min(nxt))
+        tick += 1
+        if every is not None:
+            every(tick)
+    return tick
+
+
+def tp_fleet_common(router, comps, reqs, steps, ops, dev, wall):
+    """What every fleet arm reports of a router run on this rank."""
+    from chainermn_tpu_torch.serving import verify_terminal_invariant
+
+    return dict(
+        tokens={c.id: c.tokens for c in comps},
+        statuses={c.id: c.status for c in comps},
+        assignments=dict(router.assignments),
+        health=[(h["replica"], h["state"],
+                 None if h["error"] is None else h["error"].split(":")[0])
+                for h in router.health.snapshot()],
+        holds=verify_terminal_invariant(reqs, comps)["holds"],
+        steps=steps.steps, incarnations=len(steps.seen), wall_s=wall,
+        gather_ms=router.exchange_ms_total / max(router.exchanges, 1),
+        gathers=router.exchanges, **tp_counts(ops, dev))
+
+
+def tp_fleet_arms(ops, dev, seed, model, comm, out_dir):
+    """Items 2d-2h on the 4-rank job's 2 groups of ``TP_ROUTER_M`` ranks:
+    the ``chaos``, ``disagg`` and ``elastic`` arms (``TP_FLEET_*``), each
+    timed from a zeroed K4 counter."""
+    import hashlib
+
+    from chainermn_tpu_torch.observability import MetricsRegistry
+    from chainermn_tpu_torch.observability.ledger import (
+        DIMENSIONS,
+        CostLedger,
+    )
+    from chainermn_tpu_torch.serving import (
+        ChaosHarness,
+        DecodeEngine,
+        DecodeRole,
+        MigrationTransport,
+        PrefillRole,
+        RollingDeploy,
+        Router,
+        Scheduler,
+    )
+    from chainermn_tpu_torch.serving.sharding import serving_mesh
+
+    reqs = tp_router_requests(seed)
+    kw = tp_engine_kw(reqs)
+    mesh2 = serving_mesh(TP_ROUTER_M, comm)
+    comm.connect_object_plane()
+
+    def factory():
+        return DecodeEngine(model, **kw, mesh=mesh2)
+
+    def start():
+        _sync(dev)
+        ops.paged_decode_attention.launches = 0
+        ops.zero_kernel_runs(dev)
+        return time.perf_counter()
+
+    out = {}
+    # chaos: 2d with the fleet ledger (2g) and the merged trace (2h).
+    steps = TpSteps()
+    t0 = start()
+    harness = ChaosHarness(
+        factory, replicas=2, revive_after=TP_FLEET_REVIVE,
+        schedule={"seed": seed, "router_faults": "drop@migrate:1",
+                  "replica_faults": [None,
+                                     f"crash@serve_step:{TP_FLEET_CRASH}"]},
+        comm=comm, registry=MetricsRegistry(),
+        ledger=CostLedger(registry=MetricsRegistry()),
+        probation_ticks=TP_FLEET_PROBATION)
+    router, tick = harness.router, harness.router.tick
+
+    def counted():
+        progressed = tick()
+        steps.note(router)
+        return progressed
+
+    router.tick = counted
+    report = harness.run(reqs)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    led = router.ledger
+    records = sorted((r.id, r.tenant, r.status) + tuple(
+        getattr(r, d) for d in DIMENSIONS) for r in led.records)
+    t1 = time.perf_counter()
+    trace = router.export_fleet_trace(os.path.join(out_dir,
+                                                   "fleet_trace.json"))
+    out["chaos"] = dict(
+        tp_fleet_common(router, router.completions, reqs, steps, ops, dev,
+                        wall),
+        revived=report["revived"],
+        ledger=hashlib.sha256(repr(records).encode()).hexdigest(),
+        ledger_tokens=led.totals["tokens"],
+        retries=led.totals["retries"],
+        conservation=led.verify_conservation(reqs)["holds"],
+        trace=None if trace is None else dict(
+            nranks=trace["nranks"], spans=trace["spans"],
+            offsets={k: v["offset_s"] for k, v in
+                     trace["clock_offsets"].items()}),
+        trace_s=time.perf_counter() - t1)
+    router.schedulers[router._local].engine.release()
+
+    # disagg: group 0 prefills, group 1 decodes; one frame per model rank.
+    reg = MetricsRegistry()
+    tr = MigrationTransport(comm, registry=reg, model_rank=mesh2.rank)
+    eng = factory()
+    box = {"s": 0.0, "n": 0}
+    gather = mesh2.allgather_obj
+
+    def timed_gather(obj):
+        t = time.perf_counter()
+        try:
+            return gather(obj)
+        finally:
+            box["s"] += time.perf_counter() - t
+            box["n"] += 1
+
+    t0 = start()
+    if comm.rank < TP_ROUTER_M:
+        role = PrefillRole(Scheduler(eng), tr, decode_ranks=[TP_ROUTER_M])
+        for r in reqs:
+            role.submit(r)
+        while role.pending:
+            role.tick()
+        role.finish()
+    else:
+        mesh2.allgather_obj = timed_gather
+        role = DecodeRole(Scheduler(eng), tr, prefill_ranks=[0])
+        role.run_loop(poll_ms=2)
+        mesh2.allgather_obj = gather
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    mig = reg.peek("serve.migration.migrate_ms")
+    mig = mig.to_dict() if mig is not None else {"count": 0}
+    out["disagg"] = dict(
+        tokens={c.id: c.tokens for c in role.sched.completions},
+        statuses={c.id: c.status for c in role.sched.completions},
+        steps=role.sched.decode_iterations, wall_s=wall,
+        role="prefill" if comm.rank < TP_ROUTER_M else "decode",
+        frames=reg.peek("serve.migration.slots_migrated").value
+        if reg.peek("serve.migration.slots_migrated") else 0,
+        frame_bytes=reg.peek("serve.migration.bytes").value
+        if reg.peek("serve.migration.bytes") else 0,
+        migrate_ms=mig["sum"] / mig["count"] if mig["count"] else None,
+        gather_ms=box["s"] * 1e3 / max(box["n"], 1), gathers=box["n"],
+        **tp_counts(ops, dev))
+    eng.release()
+
+    # elastic: a standby group scaled up, a rolling deploy, a scale-down.
+    steps = TpSteps()
+    events, rollout, drains = [], [], []
+    router = Router(factory() if comm.rank < TP_ROUTER_M else None,
+                    comm=comm, registry=MetricsRegistry(),
+                    probation_ticks=TP_FLEET_PROBATION)
+    drain = router.drain_replica
+
+    def recorded(i):
+        d = drain(i)
+        drains.append({k: d.get(k) for k in (
+            "replica", "slots_migrated", "entries_requeued", "dest",
+            "frame_bytes", "migrate_ms")})
+        return d
+
+    router.drain_replica = recorded
+
+    def every(tick):
+        steps.note(router)
+        if tick == TP_FLEET_SCALE_UP:
+            events.append(["scale_up", router.add_replica(
+                factory() if router.builds() else None)])
+        if tick == TP_FLEET_ROLLOUT:
+            rollout.append(RollingDeploy(router, factory,
+                                         registry=MetricsRegistry()))
+        if rollout and not rollout[0].done:
+            rollout[0].tick()
+        elif rollout and len(events) == 1:
+            router.drain_replica(1)
+            router.deregister_replica(1)
+            events.append(["scale_down", 1, list(router._standby)])
+
+    t0 = start()
+    drive = tp_drive(router, reqs, every)
+    tick = 0
+    while not rollout or len(events) < 2:
+        router.tick()
+        tick += 1
+        every(drive + tick)
+        check(tick < 100, "tp_serving elastic: the rollout did not end")
+    router.finish()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    out["elastic"] = dict(
+        tp_fleet_common(router, router.completions, reqs, steps, ops, dev,
+                        wall),
+        events=events, replaced=list(rollout[0].replaced), drains=drains,
+        ticks=drive + tick, standby=list(router._standby))
+    if router._local is not None:
+        router.schedulers[router._local].engine.release()
     return out
 
 
@@ -7218,6 +7473,139 @@ def tp_router_rows(ranks):
     return out
 
 
+def tp_fleet_rows(ranks):
+    """``tp_serving``'s ``fleet`` entry from the 4-rank launch: per arm,
+    agreement across ranks and with the one-rank engine, the terminal
+    invariant, K4's runs per rank against its replicas' decode steps,
+    and the arm's wall time, gather ms per tick, ``migrate_ms`` and frame
+    bytes."""
+    want = ranks[0]["router"]["want"]
+    fl = [r["fleet"] for r in ranks]
+    out = {}
+    for arm in ("chaos", "disagg", "elastic"):
+        a = [f[arm] for f in fl]
+        # A router's completions are the fleet's on every rank; a role's
+        # are its own group's, held equal within the group and joined.
+        M = TP_ROUTER_M if arm == "disagg" else len(a)
+        groups = [a[g:g + M] for g in range(0, len(a), M)]
+        tokens = {k: v for g in groups for k, v in g[0]["tokens"].items()}
+        statuses = {k: v for g in groups
+                    for k, v in g[0]["statuses"].items()}
+        exact, div = greedy_agreement(tokens, want)
+        row = dict(
+            replicas=2, model_ranks_per_replica=TP_ROUTER_M,
+            requests=TP_ROUTER_REQUESTS, completed=len(tokens),
+            statuses=sorted(set(statuses.values())),
+            completions_equal_on_every_rank=all(
+                (x["tokens"], x["statuses"]) == (g[0]["tokens"],
+                                                 g[0]["statuses"])
+                for g in groups for x in g),
+            rows_exact=exact, first_divergences=div,
+            decode_steps_per_rank=[x["steps"] for x in a],
+            k4_runs_per_rank=[x["runs"] for x in a],
+            k4_wrapper_per_rank=[x["wrapper"] for x in a],
+            k4_predicted_per_rank=[x["steps"] * DECODE["n_layers"]
+                                   for x in a],
+            wall_s_per_rank=[x["wall_s"] for x in a],
+            gather_ms_per_tick_per_rank=[x["gather_ms"] for x in a])
+        if arm == "disagg":
+            row.update(
+                roles=[x["role"] for x in a],
+                # Every request finished once, on one group, as every
+                # model rank saw it.
+                invariant_per_rank=[
+                    sorted(k for g in groups for k in g[r % M]["tokens"])
+                    == list(range(TP_ROUTER_REQUESTS))
+                    for r in range(len(a))],
+                slots_shipped_per_rank=[x["frames"] for x in a],
+                frame_bytes_per_rank=[x["frame_bytes"] for x in a],
+                migrate_ms_per_rank=[x["migrate_ms"] for x in a],
+                agreement_gathers_per_rank=[x["gathers"] for x in a])
+        else:
+            row.update(
+                decisions_equal_on_every_rank=all(
+                    (x["assignments"], x["health"]) == (a[0]["assignments"],
+                                                        a[0]["health"])
+                    for x in a),
+                invariant_per_rank=[x["holds"] for x in a],
+                health=a[0]["health"], gathers=a[0]["gathers"],
+                moved=sum(len(v) > 1 for v in a[0]["assignments"].values()),
+                incarnations_per_rank=[x["incarnations"] for x in a])
+        if arm == "chaos":
+            row.update(
+                revived=a[0]["revived"], ledger_retries=a[0]["retries"],
+                ledger_tokens=a[0]["ledger_tokens"],
+                ledger_equal_on_every_rank=all(
+                    x["ledger"] == a[0]["ledger"] for x in a),
+                conservation_per_rank=[x["conservation"] for x in a],
+                trace_per_rank=[x["trace"] for x in a],
+                trace_s_per_rank=[x["trace_s"] for x in a])
+        if arm == "elastic":
+            row.update(
+                events_equal_on_every_rank=all(
+                    (x["events"], x["replaced"], x["standby"],
+                     [{k: v for k, v in d.items() if k != "migrate_ms"}
+                      for d in x["drains"]])
+                    == (a[0]["events"], a[0]["replaced"], a[0]["standby"],
+                        [{k: v for k, v in d.items() if k != "migrate_ms"}
+                         for d in a[0]["drains"]]) for x in a),
+                events=a[0]["events"], replaced=a[0]["replaced"],
+                standby=a[0]["standby"], ticks=a[0]["ticks"],
+                drains_per_rank=[x["drains"] for x in a])
+        out[arm] = row
+    return out
+
+
+def tp_fleet_checks(fleet):
+    for arm, r in fleet.items():
+        name = f"tp_serving fleet {arm}"
+        check(r["completed"] == r["requests"] and r["statuses"] == ["ok"],
+              f"{name}: {r['completed']} of {r['requests']} completed "
+              f"({r['statuses']})")
+        check(r["completions_equal_on_every_rank"]
+              and r.get("decisions_equal_on_every_rank", True)
+              and r.get("events_equal_on_every_rank", True)
+              and r.get("ledger_equal_on_every_rank", True),
+              f"{name}: decisions or completions differ across ranks")
+        check(all(r["invariant_per_rank"]),
+              f"{name}: the terminal invariant fails "
+              f"({r['invariant_per_rank']})")
+        check(all(d >= TP_MIN_FIRST_DIVERGENCE
+                  for d in r["first_divergences"]),
+              f"{name}: first divergences {r['first_divergences']} against "
+              "the one-rank engine")
+        check(r["k4_runs_per_rank"] == r["k4_predicted_per_rank"]
+              and r["k4_runs_per_rank"] == r["k4_wrapper_per_rank"]
+              and sum(k > 0 for k in r["k4_runs_per_rank"])
+              >= (2 if arm == "disagg" else 4),
+              f"{name}: K4 ran {r['k4_runs_per_rank']} times per rank "
+              f"(wrappers {r['k4_wrapper_per_rank']}), predicted "
+              f"{r['k4_predicted_per_rank']}")
+    c, d, e = fleet["chaos"], fleet["disagg"], fleet["elastic"]
+    check(c["revived"] >= 1 and c["ledger_retries"] > 0
+          and all(c["conservation_per_rank"])
+          and c["incarnations_per_rank"][TP_ROUTER_M:] == [2, 2],
+          f"tp_serving fleet chaos: revived {c['revived']}, retries "
+          f"{c['ledger_retries']}, conservation {c['conservation_per_rank']}"
+          f", incarnations {c['incarnations_per_rank']}")
+    check(c["trace_per_rank"][0] is not None
+          and c["trace_per_rank"][0]["nranks"] == 2
+          and all(t is None for t in c["trace_per_rank"][1:]),
+          f"tp_serving fleet chaos: the merged trace {c['trace_per_rank']}")
+    check(d["roles"] == ["prefill"] * TP_ROUTER_M + ["decode"] * TP_ROUTER_M
+          and all(f > 0 for f in d["frame_bytes_per_rank"][:TP_ROUTER_M])
+          and d["k4_runs_per_rank"][:TP_ROUTER_M] == [0] * TP_ROUTER_M,
+          f"tp_serving fleet disagg: frames {d['frame_bytes_per_rank']} B, "
+          f"K4 {d['k4_runs_per_rank']}")
+    check(e["replaced"] == [0, 1] and e["standby"] == [1]
+          and e["events"][0] == ["scale_up", 1]
+          and any(x["frame_bytes"] for x in e["drains_per_rank"][0])
+          and e["incarnations_per_rank"] == [2, 2, 2, 2],
+          f"tp_serving fleet elastic: events {e['events']}, replaced "
+          f"{e['replaced']}, drains {e['drains_per_rank'][0]}, "
+          f"incarnations {e['incarnations_per_rank']}")
+
+
 def tp_router_checks(router):
     for arm, r in router.items():
         name = f"tp_serving router {arm}"
@@ -7257,7 +7645,11 @@ def phase_tp_serving(ops, dev, card, seed):
     17 speculative).  The 2-rank launch also serves under a policy plane
     with each rank's own SLO target breaching or not
     (:func:`tp_policy_arm`), and the 4-rank launch ends with the router
-    over 2 replicas of 2 model ranks (:func:`tp_router_arm`)."""
+    over 2 replicas of 2 model ranks (:func:`tp_router_arm`) and the
+    fleet planes over them (:func:`tp_fleet_arms`: a crash and a revival
+    with the ledger and the merged trace, a prefill group feeding a
+    decode group, a scale-up from a standby group, a rolling deploy and a
+    scale-down), K4's runs per rank = its replicas' decode steps x 12."""
     import tempfile
 
     reqs = tp_requests(seed)
@@ -7309,6 +7701,7 @@ def phase_tp_serving(ops, dev, card, seed):
             wall_s_per_rank=[x["wall_s"] for x in g])
     policy = tp_policy_rows(ranks[2])
     router = tp_router_rows(ranks[4])
+    fleet = tp_fleet_rows(ranks[4])
     row = dict(phase="tp_serving", card=card,
                config=f"{DECODE}, {len(reqs)} requests ({TP_FAMILIES} "
                f"families sharing a {TP_PREFIX}-token prefix), "
@@ -7318,12 +7711,20 @@ def phase_tp_serving(ops, dev, card, seed):
                f"{TP_SLO_EVERY}, latch at the first breach; router: 2 "
                f"replicas x {TP_ROUTER_M} model ranks of the 4-kv-head "
                f"model, the router phase's first {TP_ROUTER_REQUESTS} "
-               f"requests, at most {TP_ROUTER_NEW} new each",
+               f"requests, at most {TP_ROUTER_NEW} new each; fleet: the "
+               f"router's groups and requests, chaos crash@serve_step:"
+               f"{TP_FLEET_CRASH} on replica 1 + drop@migrate:1, revived "
+               f"after {TP_FLEET_REVIVE} ticks; disagg group 0 prefill, "
+               f"group 1 decode; elastic group 1 standby, added at tick "
+               f"{TP_FLEET_SCALE_UP}, rolling deploy from tick "
+               f"{TP_FLEET_ROLLOUT}, then replica 1 drained and "
+               f"deregistered; probation {TP_FLEET_PROBATION} ticks",
                nccl_one_rank=row1, gloo=rows, generate=gen, policy=policy,
-               router=router, note=TP_NOTE)
+               router=router, fleet=fleet, note=TP_NOTE)
     emit(row)
     tp_policy_checks(policy)
     tp_router_checks(router)
+    tp_fleet_checks(fleet)
     for name, g in gen.items():
         check(g["tokens_equal_one_rank"] and g["equal_on_every_rank"],
               f"tp_serving lm_generate {name}: tokens differ from the "
@@ -8896,6 +9297,57 @@ def phase_replication(dev, card, seed):
     return row
 
 
+#: the phases ``--phase-alone`` runs in a process of their own.
+PHASES_ALONE = {"replication": phase_replication}
+
+
+def start_phase_alone(name: str, seed: int) -> dict:
+    """Start phase ``name`` in a process of its own (``--phase-alone``):
+    its lines and errors go to this process's standard error, its row to
+    a file."""
+    import tempfile
+
+    fd, path = tempfile.mkstemp(prefix=f"cmn_{name}_", suffix=".pkl")
+    os.close(fd)
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase-alone", name,
+         path, "--seed", str(seed)], stdout=sys.stderr)
+    return dict(name=name, proc=proc, path=path, t0=time.perf_counter())
+
+
+def finish_phase_alone(job: dict, beside) -> dict:
+    """Wait for the phase ``job`` started; fail unless it exited 0, and
+    emit its row here with the seconds its process took and the phases
+    it ran beside."""
+    import pickle
+
+    rc = job["proc"].wait()
+    seconds = time.perf_counter() - job["t0"]
+    row = None
+    if rc == 0:
+        with open(job["path"], "rb") as f:
+            row = pickle.load(f)
+    os.unlink(job["path"])
+    check(isinstance(row, dict), f"{job['name']}: its process exited {rc} "
+          "(its errors are above)")
+    row.update(own_process_s=seconds, beside=list(beside))
+    emit(row)
+    return row
+
+
+def stop_phase_alone(job: dict) -> None:
+    """End the phase's process if it still runs (another phase failed);
+    its launcher ends the ranks it started."""
+    proc = job["proc"]
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
 def phase_serving_drain(ops, dev, card, seed):
     """The disaggregated roles of ``disagg`` at the serving bench's
     widths, three of them over the in-process ``LocalComm``: a prefill
@@ -9281,6 +9733,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--rank-device", default="cuda:0",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--phase-alone", nargs=2, metavar=("NAME", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank_body:
         # One rank of a model-parallel phase, started by launch_ranks.
@@ -9298,6 +9752,17 @@ def main() -> int:
         return 2
     if args.compare_with:
         return compare_trees(args.compare_with, args.seed, phases)
+    if args.phase_alone:
+        # One phase in a process of its own, started by start_phase_alone:
+        # its row goes back pickled.
+        import pickle
+
+        name, out = args.phase_alone
+        row = PHASES_ALONE[name](torch.device("cuda", 0), nvidia_smi(),
+                                 args.seed)
+        with open(out, "wb") as f:
+            pickle.dump(row, f)
+        return 0
 
     import importlib
 
@@ -9393,14 +9858,22 @@ def main() -> int:
     plm = phase_parallel_lm(dev, smi, args.seed)
     # Tensor-parallel serving, the ZeRO tier, the convnets and DCGAN.
     tp = phase_tp_serving(ops, dev, smi, args.seed)
-    zero = phase_zero(dev, smi, args.seed)
-    phase_gan_convnet(dev, smi, args.seed)
-    # The failure detector, the consistency vote and the health guard.
+    # Peer replication and the chaos harness run in a process of their
+    # own beside the ZeRO tier, the convnets and DCGAN, and preemption:
+    # the replication phase's time is its ranks' process starts.
+    rep_job = start_phase_alone("replication", args.seed)
+    try:
+        zero = phase_zero(dev, smi, args.seed)
+        phase_gan_convnet(dev, smi, args.seed)
+        pre = phase_preemption(fa, dev, smi, args.seed)
+        rep = finish_phase_alone(rep_job, ["zero", "gan_convnet",
+                                           "preemption"])
+    finally:
+        stop_phase_alone(rep_job)
+    # The failure detector, the consistency vote and the health guard
+    # (alone: its heartbeats are timed); the serving drain; the fleet
+    # clock, the device gauges and the perf sentinel.
     hg = phase_health_guard(fa, dev, smi, args.seed)
-    # Preemption, peer replication and the chaos harness, the serving
-    # drain; the fleet clock, the device gauges and the perf sentinel.
-    pre = phase_preemption(fa, dev, smi, args.seed)
-    rep = phase_replication(dev, smi, args.seed)
     drain = phase_serving_drain(ops, dev, smi, args.seed)
     phase_perf_sentinel(smi, name, [
         ("lm_train_step_ms", train["step_ms_median"], "ms"),

@@ -69,6 +69,12 @@ def test_large_frames_and_timeouts(ranks):
     assert ranks[1]["late"] == "done"
 
 
+def test_poll_takes_an_arrived_frame(ranks):
+    """A receive with a zero deadline looks at the wire once: a frame
+    that has arrived is returned, not timed out."""
+    assert ranks[1]["poll"] == "polled"
+
+
 def test_detector_is_not_ported_yet(ranks):
     """The failure detector is ported now (ROADMAP item 12a; the test
     keeps its name): attached to a HostComm, it slices the waits, and a

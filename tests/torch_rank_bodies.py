@@ -461,6 +461,13 @@ def hostcomm():
         hc.send_obj("done", 1)
     elif r == 1:
         res["late"] = hc.recv_obj(0)
+    # A poll (a zero deadline) takes a frame that has already arrived (no
+    # barrier between: its frames share the pair's stream).
+    if r == 0:
+        hc.send_obj("polled", 1)
+    elif r == 1:
+        time.sleep(0.5)
+        res["poll"] = hc.recv_obj(0, timeout_ms=0)
     # A detector that watches no peer: the waits are now sliced by its
     # interval and keep their deadline.
     FailureDetector(_NoPeers(), interval_s=0.05).attach(hc)
@@ -1178,17 +1185,17 @@ def tp_policy_requests(Request):
                     tenant="ab"[i % 2]) for i in range(8)]
 
 
-def tp_router_requests(Request, tenants=False, arrivals=None):
-    """The router's traffic: 8 requests at 0 (or at ``arrivals``), the
-    even ones 2 tokens long and the odd ones 8, so least-loaded dispatch
-    alternates the replicas, replica 0 drains first and the rebalancer
-    steals replica 1's backlog."""
+def tp_router_requests(Request, tenants=False, arrivals=None, n=8):
+    """The router's traffic: ``n`` requests at 0 (or at ``arrivals``),
+    the even ones 2 tokens long and the odd ones 8, so least-loaded
+    dispatch alternates the replicas, replica 0 drains first and the
+    rebalancer steals replica 1's backlog."""
     pset = tp_requests()[0]
     return [Request(id=i, prompt=pset[i % len(pset)],
                     max_new_tokens=2 if i % 2 == 0 else 8,
                     tenant="ab"[i // 2 % 2] if tenants else "default",
                     arrival=arrivals[i] if arrivals else 0.0)
-            for i in range(8)]
+            for i in range(n)]
 
 
 #: staggered arrivals for the router's idle skips (seconds on a clock
@@ -1300,11 +1307,7 @@ def _tp_planes(comm, mesh2, model):
         res["roles_error"] = "no error"
     except ValueError as e:
         res["roles_error"] = str(e)
-    try:
-        router.drain_replica(0)
-        res["drain_error"] = "no error"
-    except NotImplementedError as e:
-        res["drain_error"] = str(e)
+    res["drain"] = router.drain_replica(0)
     return res
 
 
@@ -2164,4 +2167,375 @@ def replicate_elastic():
     mgr.evaluate()
     res["incidents"] = [m["rule"]["name"] if isinstance(m.get("rule"), dict)
                         else m.get("rule") for m in mgr.incidents]
+    return res
+
+
+# ------------------------- fleet planes over tensor-parallel replicas (2d-2h)
+#: the crash of the failure-plane case: replica 1 dies at its third
+#: decode iteration (every model rank's injector fires there), and is
+#: revived ``TP_FLEET_REVIVE_AFTER`` ticks later.
+TP_FLEET_CRASH = "crash@serve_step:3"
+TP_FLEET_REVIVE_AFTER = 2
+#: the crash case's traffic: 16 requests, so the router still holds
+#: some back when the revived replica comes (it takes fresh work only).
+TP_FLEET_REQUESTS = 16
+#: the chaos harness's seeded schedule (its crash lands on replica 0, so
+#: the survivor takes the harvest a tick later than in one process).
+TP_FLEET_CHAOS_SEED = 1
+#: the version-2 weights of the rolling deploy come from this Flax seed.
+TP_FLEET_V2_SEED = 7
+
+
+class LateFault:
+    """A replica's occupancy gauge whose ``at``-th ``set`` raises: an
+    error at the very end of a tick, after the step's collectives."""
+
+    def __init__(self, gauge, at=3):
+        self.gauge, self.n, self.at = gauge, 0, at
+
+    def set(self, v):
+        self.n += 1
+        if self.n == self.at:
+            raise RuntimeError("late fault")
+        self.gauge.set(v)
+
+
+def fleet_drive(router, reqs, revive=None, after=TP_FLEET_REVIVE_AFTER,
+                every=None):
+    """Submit ``reqs`` and tick ``router`` until the fleet drains (the
+    same loop over either package's router); ``revive()`` runs
+    ``after`` ticks after replica 1 died; ``every(router, tick)`` after
+    every tick.  Returns the completions."""
+    for r in reqs:
+        router.submit(r)
+    dead_at, ticks = None, 0
+    while router.pending:
+        if not router.tick():
+            raise RuntimeError("router made no progress")
+        ticks += 1
+        if every is not None:
+            every(router, ticks)
+        if revive is not None and router.health.state(1) == "dead":
+            dead_at = ticks if dead_at is None else dead_at
+            if ticks - dead_at >= after:
+                revive()
+                revive = None
+    router.finish()
+    return router.completions
+
+
+def fleet_summary(router, comps, reg) -> dict:
+    """What the fleet cases compare, from either package's router."""
+    from chainermn_tpu_torch.observability.ledger import DIMENSIONS
+
+    def counter(name):
+        inst = reg.peek(name)
+        return None if inst is None else inst.value
+
+    out = dict(
+        tokens={c.id: list(c.tokens) for c in comps},
+        completions={c.id: (c.status, c.retries, c.evictions)
+                     for c in comps},
+        assignments={k: list(v) for k, v in router.assignments.items()},
+        health=[(h["replica"], h["state"], h["probation_left"],
+                 None if h["error"] is None else h["error"].split(":")[0])
+                for h in router.health.snapshot()],
+        counters={n: counter(n) for n in (
+            "serve.router.dispatched", "serve.router.migrated",
+            "serve.health.retries", "serve.health.poisoned",
+            "serve.health.recovered")})
+    if router.ledger is not None:
+        led = router.ledger
+        out["ledger"] = dict(
+            records={r.id: (r.tenant, r.status) + tuple(
+                getattr(r, d) for d in DIMENSIONS) for r in led.records},
+            tenants={t: {d: a[d] for d in DIMENSIONS + ("requests",)}
+                     for t, a in led.aggregate().items()},
+            totals=dict(led.totals))
+    return out
+
+
+def trace_rows(path) -> dict:
+    """Per replica (the merged trace's pid), the ``serve.*`` span names
+    and request ids in order."""
+    import json
+    import re
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for ev in events:
+        if ev.get("ph") != "X" or not ev["name"].startswith("serve."):
+            continue
+        m = re.match(r"req=(\d+)", str(ev["args"].get("detail", "")))
+        out.setdefault(ev["pid"], []).append(
+            (ev["name"], int(m.group(1)) if m else None))
+    return out
+
+
+def _fleet_frames(transport, box):
+    """Keep the first frame body ``transport`` sends (as plain numpy)."""
+    send = transport.send
+
+    def keep(body, dest):
+        if box.get("body") is None and body["slots"]:
+            box["body"] = body
+        return send(body, dest)
+
+    transport.send = keep
+
+
+def _tear_first_frame(transport):
+    """Tear the first slots frame ``transport`` sends (its checksum no
+    longer matches its KV)."""
+    send = transport._send
+
+    def torn(frame, dest):
+        if frame["kind"] == "slots" and not transport.__dict__.get("torn"):
+            transport.torn = True
+            frame = dict(frame, crc=frame["crc"] ^ 1)
+        return send(frame, dest)
+
+    transport._send = torn
+
+
+def tp_fleet():
+    """The fleet planes over tensor-parallel replicas on 4 ranks, two
+    groups of 2 model ranks ({0, 1} and {2, 3}), the ``tp`` body's model:
+    the failure plane with the fleet ledger and the merged trace (2d, 2g,
+    2h), the chaos harness, the disaggregated roles and the drain's
+    per-model-rank frames (2f), and the elastic seams over a standby
+    group (2e)."""
+    import dataclasses
+
+    from chainermn_tpu_torch.comm import create_communicator
+    from chainermn_tpu_torch.models import TransformerLM
+    from chainermn_tpu_torch.observability import MetricsRegistry
+    from chainermn_tpu_torch.observability.ledger import CostLedger
+    from chainermn_tpu_torch.resilience.faults import (
+        FaultInjector,
+        parse_fault_spec,
+    )
+    from chainermn_tpu_torch.serving import (
+        Autoscaler,
+        ChaosHarness,
+        DecodeEngine,
+        DecodeRole,
+        MigrationTransport,
+        PrefillRole,
+        Request,
+        RollingDeploy,
+        Router,
+        Scheduler,
+        verify_terminal_invariant,
+    )
+    from chainermn_tpu_torch.serving.recovery import chaos_schedule
+    from chainermn_tpu_torch.serving.sharding import serving_mesh
+    from chainermn_tpu_torch.utils import params_from_flax
+
+    inputs = _inputs()
+    comm = create_communicator("naive", device="cpu")
+    mesh2 = serving_mesh(2, comm)
+
+    def lm(params):
+        m = TransformerLM(**TP_MODEL, dtype=torch.float32,
+                          decode_attention="fused", device="cpu")
+        m.load_state_dict(params_from_flax(params, device="cpu"))
+        return m
+
+    model, model_v2 = lm(inputs["params"]), lm(inputs["params_v2"])
+
+    def factory(params=None):
+        return DecodeEngine(model_v2 if params is not None else model,
+                            **TP_ENGINE, mesh=mesh2)
+
+    def inj(spec):
+        return FaultInjector(parse_fault_spec(spec)) if spec else None
+
+    reqs = tp_router_requests(Request, tenants=True)
+    res = {"rank": comm.rank, "group": comm.rank // 2}
+    t_start = time.perf_counter()
+
+    # 2d + 2g + 2h: a crash on replica 1, a revival, the ledger, the trace.
+    reg = MetricsRegistry()
+    router = Router(factory(), comm=comm, clock=_FixedClock(), registry=reg,
+                    faults=[None, inj(TP_FLEET_CRASH)],
+                    ledger=CostLedger(registry=MetricsRegistry()))
+    crash_reqs = tp_router_requests(Request, tenants=True,
+                                    n=TP_FLEET_REQUESTS)
+    comps = fleet_drive(router, crash_reqs,
+                        revive=lambda: router.revive_replica(
+                            1, factory() if router.builds(1) else None))
+    res["crash"] = fleet_summary(router, comps, reg)
+    res["crash"]["invariant"] = verify_terminal_invariant(crash_reqs, comps)
+    res["crash"]["conservation"] = router.ledger.verify_conservation(
+        crash_reqs)
+    path = os.path.join(_OUT, "fleet_trace.json")
+    res["trace_summary"] = router.export_fleet_trace(path)
+    res["trace"] = trace_rows(path) if comm.rank == 0 else None
+    res["exchanges"] = router.exchanges
+
+    # 2d: only model rank 1 of replica 1 raises, after the step's
+    # collectives: model rank 0 ticked cleanly and harvests after the
+    # gather.
+    reg = MetricsRegistry()
+    router = Router(factory(), comm=comm, clock=_FixedClock(), registry=reg)
+    if comm.rank == 3:
+        s = router.schedulers[1]
+        s._m_occ = LateFault(s._m_occ)
+    comps = fleet_drive(router, reqs)
+    res["late"] = fleet_summary(router, comps, reg)
+    res["late"]["invariant"] = verify_terminal_invariant(reqs, comps)
+    res["late"]["exchanges"] = router.exchanges
+
+    # The chaos harness over the seeded schedule, minus its elastic list.
+    sched = chaos_schedule(TP_FLEET_CHAOS_SEED, 2)
+    sched.pop("elastic", None)
+    harness = ChaosHarness(factory, replicas=2, schedule=sched, comm=comm,
+                           clock=_FixedClock(), registry=MetricsRegistry())
+    report = harness.run(reqs)
+    res["chaos"] = dict(
+        holds=report["holds"], by_status=report["by_status"],
+        revived=report["revived"],
+        tokens={c.id: list(c.tokens) for c in harness.router.completions},
+        statuses={c.id: c.status for c in harness.router.completions})
+
+    # 2f: roles over the fleet (dispatch among admitting replicas only).
+    reg = MetricsRegistry()
+    router = Router(factory(), comm=comm, clock=_FixedClock(), registry=reg,
+                    roles=["decode", "mixed"])
+    res["roles"] = fleet_summary(router, fleet_drive(router, reqs), reg)
+
+    # A poll (a zero deadline) still takes a frame that has arrived.
+    comm.connect_object_plane()
+    if comm.rank == 0:
+        comm.send_obj("polled", 1)
+    comm.barrier()
+    if comm.rank == 1:
+        time.sleep(0.2)
+        res["poll"] = comm.recv_obj(0, timeout=0)
+
+    # 2f: a prefill group and a decode group, frames per model rank; then
+    # the first frame of prefill model rank 1 alone torn, or lost on its
+    # wire alone.  Each rank reports its own role's completions.
+    for name in ("disagg", "disagg_torn", "disagg_gap"):
+        reg = MetricsRegistry()
+        tr = MigrationTransport(
+            comm, registry=reg, model_rank=mesh2.rank,
+            injector=inj("drop@migrate:1")
+            if name == "disagg_gap" and comm.rank == 1 else None)
+        box = {}
+        eng = factory()
+        if comm.rank < 2:
+            if name == "disagg":
+                _fleet_frames(tr, box)
+            if name == "disagg_torn" and comm.rank == 1:
+                _tear_first_frame(tr)
+            role = PrefillRole(Scheduler(eng, clock=_FixedClock()), tr,
+                               decode_ranks=[2])
+            for r in reqs:
+                role.submit(r)
+            while role.pending:
+                role.tick()
+            role.finish()
+        else:
+            role = DecodeRole(Scheduler(eng, clock=_FixedClock()), tr,
+                              prefill_ranks=[0])
+            role.run_loop(poll_ms=0)
+        failed = reg.peek("serve.migration.failed")
+        res[name] = dict(tokens={c.id: list(c.tokens)
+                                 for c in role.sched.completions},
+                         failed=0 if failed is None else failed.value,
+                         frame=box.get("body"))
+        eng.release()
+        comm.barrier()
+
+    # A harness asked for more replicas than the world has groups.
+    try:
+        ChaosHarness(factory, replicas=3, schedule=sched, comm=comm,
+                     clock=_FixedClock(), registry=MetricsRegistry())
+        res["chaos_groups"] = "no error"
+    except ValueError as e:
+        res["chaos_groups"] = str(e)
+
+    # 2f: drains between groups, with and without a dropped frame.
+    for name, spec in (("drain", None), ("drain_drop", "drop@migrate:1")):
+        reg = MetricsRegistry()
+        router = Router(factory(), comm=comm, clock=_FixedClock(),
+                        registry=reg, fault=inj(spec))
+        drained = []
+
+        def drain(rt, tick):
+            if tick == 3:
+                drained.append(rt.drain_replica(1))
+                rt.deregister_replica(1)
+
+        comps = fleet_drive(router, reqs, every=drain)
+        res[name] = fleet_summary(router, comps, reg)
+        res[name]["drain"] = drained[0]
+        res[name]["invariant"] = verify_terminal_invariant(reqs, comps)
+        res[name]["standby"] = list(router._standby)
+
+    # 2e: one active group and one standby group; a scale-up, then the
+    # new replica drained and deregistered (its group back to standby).
+    reg = MetricsRegistry()
+    router = Router(factory() if comm.rank < 2 else None, comm=comm,
+                    clock=_FixedClock(), registry=reg)
+    events = []
+
+    def elastic(rt, tick):
+        if tick == 2:
+            events.append(rt.add_replica(
+                factory() if rt.builds() else None))
+        if tick == 6:
+            events.append(rt.drain_replica(1))
+            rt.deregister_replica(1)
+            events.append(list(rt._standby))
+
+    comps = fleet_drive(router, reqs, every=elastic)
+    res["elastic"] = fleet_summary(router, comps, reg)
+    res["elastic"]["events"] = events
+    res["elastic"]["invariant"] = verify_terminal_invariant(reqs, comps)
+
+    # 2e: a rolling deploy of version-2 weights over both replicas.
+    reg = MetricsRegistry()
+    router = Router(factory(), comm=comm, clock=_FixedClock(), registry=reg)
+    rollout = []
+
+    def roll(rt, tick):
+        if tick == 2:
+            rollout.append(RollingDeploy(rt, factory, params="v2",
+                                         registry=MetricsRegistry()))
+        if rollout:
+            rollout[0].tick()
+
+    comps = fleet_drive(router, reqs, every=roll)
+    while not rollout[0].done:
+        router.tick()
+        rollout[0].tick()
+    res["rollout"] = fleet_summary(router, comps, reg)
+    res["rollout"]["replaced"] = list(rollout[0].replaced)
+    res["rollout"]["invariant"] = verify_terminal_invariant(reqs, comps)
+
+    # 2e: the autoscaler, its drift signal breaching on rank 1 alone (its
+    # own registry); the backlog scales the fleet up alike on every rank.
+    router = Router(factory() if comm.rank < 2 else None, comm=comm,
+                    clock=_FixedClock(), registry=MetricsRegistry())
+    scaler = Autoscaler(router, factory, registry=MetricsRegistry(),
+                        max_replicas=2, up_depth=2, up_drift=0.25,
+                        hysteresis=1, cooldown_ticks=100)
+
+    def scale(rt, tick):
+        if comm.rank == 1:
+            rt._own_registry.gauge("serve.slo.p95_drift").set(10.0)
+        scaler.tick()
+
+    comps = fleet_drive(router, [dataclasses.replace(r, tenant="default")
+                                 for r in reqs], every=scale)
+    res["autoscale"] = dict(
+        decisions=list(scaler.decisions),
+        tokens={c.id: list(c.tokens) for c in comps},
+        drift=router._gauge(0, "serve.slo.p95_drift"))
+    res["wall_s"] = time.perf_counter() - t_start
+    comm.barrier()
     return res
