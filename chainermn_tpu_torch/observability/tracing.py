@@ -19,6 +19,9 @@ Three integration layers:
   :func:`named_scope` open a ``torch.profiler.record_function`` range, so
   the names show in a ``torch.profiler`` trace beside the device
   kernels.
+* **Phase spans** — :class:`PhaseSpan` names a phase of a loop (the
+  serving scheduler's tick): its duration into a histogram bound once,
+  and a :func:`named_scope` range only while a profiler records.
 
 Overhead discipline: a span is one ``perf_counter`` pair, one small object,
 one deque append, and three instrument updates.  Nothing here ever touches
@@ -27,6 +30,7 @@ a device buffer.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -499,6 +503,51 @@ def named_scope(name: str):
     import torch
 
     return torch.profiler.record_function(name)
+
+
+class PhaseSpan:
+    """One named phase of a loop: ``with span: ...``.
+
+    Each use adds its ``perf_counter`` duration (ms) to the histogram it
+    was bound to at construction (none: a range only), and opens
+    :func:`named_scope` (``name``) while a ``torch.profiler`` records, so
+    that in a profile the phase sits on the host timeline beside the
+    kernels it launched.  The profiler's flag is read as the span is
+    entered.  No name formatting and no registry lookup per use; phase
+    spans are not appended to the span ring."""
+
+    __slots__ = ("name", "_observe", "_recording", "_t0", "_range")
+
+    def __init__(self, name: str, hist=None):
+        import torch
+
+        self.name = name
+        self._observe = hist.observe if hist is not None else None
+        self._recording = torch.autograd._profiler_enabled
+        self._t0 = 0.0
+        self._range = None
+
+    def __enter__(self) -> "PhaseSpan":
+        if self._recording():
+            self._range = named_scope(self.name)
+            self._range.__enter__()
+        if self._observe is not None:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._observe is not None:
+            self._observe((time.perf_counter() - self._t0) * 1e3)
+        r = self._range
+        if r is not None:
+            self._range = None
+            r.__exit__(exc_type, exc, tb)
+        return False
+
+
+#: The phase span of a loop whose observability is off: no clock read,
+#: no range.
+NOOP_SPAN = contextlib.nullcontext()
 
 
 #: Process-wide tracer (lazy singleton, like the metrics registry).

@@ -38,7 +38,11 @@ Metrics publish into the port's registry (``serve.queue_depth``,
 reads its tokens back, so it is timed end to end; a non-final prefill
 chunk is queued only, so a decode step that follows such chunks books to
 ``serve.mixed_ms`` and ``serve.decode_ms`` holds only clean decode
-iterations.
+iterations.  Phase spans tile each tick (``serve.admit_ms``,
+``serve.prefill_round_ms``, ``serve.decode_prep_ms``, ``serve.emit_ms``,
+``serve.planes_ms``; profiler ranges only while a profiler records,
+:meth:`Scheduler.tick`), with the counters ``serve.prefill.tokens`` and
+``serve.prefill.padded_tokens`` at the prefill chunks.
 
 **The planes**, all riding the ``CMN_OBS`` master switch as in the JAX
 package (each explicit argument wins; ``ledger=False`` forces the ledger
@@ -396,7 +400,11 @@ class Scheduler:
             self._m_px_evicted = self._m_mig_install = noop
             self._m_spec_prop = self._m_spec_acc = noop
             self._m_spec_rate = self._m_deadline = noop
+            self._m_pf_tokens = self._m_pf_padded = noop
             reg = None
+            (self._sp_tick, self._sp_admit, self._sp_prefill_round,
+             self._sp_eng_prefill, self._sp_decode_prep, self._sp_eng_step,
+             self._sp_emit, self._sp_planes) = (_tracing.NOOP_SPAN,) * 8
         else:
             reg = registry if registry is not None else global_registry()
             self._m_queue = reg.gauge("serve.queue_depth")
@@ -423,6 +431,31 @@ class Scheduler:
             self._m_deadline = reg.counter(
                 "serve.health.deadline_cancels"
             )
+            self._m_pf_tokens = reg.counter("serve.prefill.tokens")
+            self._m_pf_padded = reg.counter("serve.prefill.padded_tokens")
+            # The tick's phase spans (see tick()): each bound here to its
+            # histogram.  The tick's and the engine calls' spans are
+            # ranges only: the engine's time already lands in
+            # serve.prefill_ms / decode_ms / mixed_ms.
+            span = _tracing.PhaseSpan
+            self._sp_tick = span("serve.tick")
+            self._sp_admit = span("serve.admit", reg.histogram(
+                "serve.admit_ms", edges=DEFAULT_MS_EDGES))
+            self._sp_prefill_round = span(
+                "serve.prefill_round", reg.histogram(
+                    "serve.prefill_round_ms", edges=DEFAULT_MS_EDGES))
+            self._sp_decode_prep = span(
+                "serve.decode_prep", reg.histogram(
+                    "serve.decode_prep_ms", edges=DEFAULT_MS_EDGES))
+            self._sp_emit = span("serve.emit", reg.histogram(
+                "serve.emit_ms", edges=DEFAULT_MS_EDGES))
+            # Two intervals a tick with a decode step (the step's booking
+            # and cadence, then the closing gauges), one without: its sum
+            # a tick is the planes' time, its count is not the ticks.
+            self._sp_planes = span("serve.planes", reg.histogram(
+                "serve.planes_ms", edges=DEFAULT_MS_EDGES))
+            self._sp_eng_prefill = span("serve.engine.prefill")
+            self._sp_eng_step = span("serve.engine.step")
         #: lifetime host-side accounting (``chip_smoke.py`` reads these).
         self.prefix_lookup_tokens = 0
         self.prefix_hit_tokens = 0
@@ -1174,13 +1207,17 @@ class Scheduler:
         chunk[: end - p0] = slot.text[p0:end]
         last = end == len(slot.text)
         tc = self.clock.now()
-        t0 = time.perf_counter()
-        tok = eng.prefill(
-            slot.idx, chunk, p0, slot.table,
-            last_idx=(end - p0 - 1) if last else -1,
-        )
-        dur_ms = (time.perf_counter() - t0) * 1e3
+        with self._sp_eng_prefill:
+            t0 = time.perf_counter()
+            tok = eng.prefill(
+                slot.idx, chunk, p0, slot.table,
+                last_idx=(end - p0 - 1) if last else -1,
+            )
+            dur_ms = (time.perf_counter() - t0) * 1e3
         self._m_prefill.observe(dur_ms)
+        # Tokens computed, and the ladder geometry launched for them.
+        self._m_pf_tokens.inc(end - p0)
+        self._m_pf_padded.inc(size)
         if self.ledger is not None:
             # Tokens actually COMPUTED this chunk (pad positions are
             # geometry, not work anyone is billed for).  Eviction-
@@ -1229,49 +1266,67 @@ class Scheduler:
 
     # ------------------------------------------------------------- decode
     def _decode_step(self) -> bool:
-        live = [
-            s for s in self._slots if s is not None and not s.prefilling
-        ]
-        if not live:
-            return False
-        S = self.engine.capacity
-        k = self.engine.spec_k
-        tokens = np.zeros((S,), np.int32)
-        pos = np.zeros((S,), np.int32)
-        tables = np.zeros((S, self.engine.max_blocks), np.int32)
-        active = np.zeros((S,), bool)
-        for s in live:
-            # The step writes position `pos` (a speculative round writes
-            # through `pos + spec_k`) — make sure those blocks exist.
-            self._alloc_for(
-                s, blocks_for(s.pos + 1 + k, self.engine.block_len)
-            )
-        live = [
-            s for s in self._slots if s is not None and not s.prefilling
-        ]
-        if not live:
-            return True  # everything evicted itself; still progress
-        for s in live:
-            tokens[s.idx] = s.last_token
-            pos[s.idx] = s.pos
-            tables[s.idx] = s.table
-            active[s.idx] = True
-        mixed = self._unsynced_prefill
-        self._iterations += 1
-        tc = self.clock.now()
-        t0 = time.perf_counter()
-        if self._fault is not None:
-            # ``skew@serve_step:N:ms`` — inside the timed window, so an
-            # injected stretch lands in this iteration's histogram
-            # exactly like a real slowdown would.
-            self._fault.hook("serve_step", count=self._iterations)
-        if k:
-            out, n_accept = self.engine.spec_step(
-                tokens, pos, tables, active
-            )
-        else:
-            out = self.engine.step(tokens, pos, tables, active)
-        dur_ms = (time.perf_counter() - t0) * 1e3
+        """One decode step (or speculative round) for every live slot,
+        in the tick's phases: the step's inputs (``serve.decode_prep``),
+        the engine call (``serve.engine.step``), its bookkeeping and the
+        planes' cadence (``serve.planes``), then each slot's tokens
+        (``serve.emit``)."""
+        with self._sp_decode_prep:
+            live = [
+                s for s in self._slots if s is not None and not s.prefilling
+            ]
+            if not live:
+                return False
+            S = self.engine.capacity
+            k = self.engine.spec_k
+            tokens = np.zeros((S,), np.int32)
+            pos = np.zeros((S,), np.int32)
+            tables = np.zeros((S, self.engine.max_blocks), np.int32)
+            active = np.zeros((S,), bool)
+            for s in live:
+                # The step writes position `pos` (a speculative round writes
+                # through `pos + spec_k`) — make sure those blocks exist.
+                self._alloc_for(
+                    s, blocks_for(s.pos + 1 + k, self.engine.block_len)
+                )
+            live = [
+                s for s in self._slots if s is not None and not s.prefilling
+            ]
+            if not live:
+                return True  # everything evicted itself; still progress
+            for s in live:
+                tokens[s.idx] = s.last_token
+                pos[s.idx] = s.pos
+                tables[s.idx] = s.table
+                active[s.idx] = True
+            mixed = self._unsynced_prefill
+            self._iterations += 1
+            tc = self.clock.now()
+        n_accept = None
+        with self._sp_eng_step:
+            t0 = time.perf_counter()
+            if self._fault is not None:
+                # ``skew@serve_step:N:ms`` — inside the timed window, so an
+                # injected stretch lands in this iteration's histogram
+                # exactly like a real slowdown would.
+                self._fault.hook("serve_step", count=self._iterations)
+            if k:
+                out, n_accept = self.engine.spec_step(
+                    tokens, pos, tables, active
+                )
+            else:
+                out = self.engine.step(tokens, pos, tables, active)
+            dur_ms = (time.perf_counter() - t0) * 1e3
+        with self._sp_planes:
+            self._book_step(live, mixed, tc, dur_ms, pos, active)
+        with self._sp_emit:
+            self._emit_step(live, out, n_accept)
+        return True
+
+    def _book_step(self, live, mixed, tc, dur_ms, pos, active) -> None:
+        """A decode step's histograms, timeline event and the planes'
+        cadence (SLO check, policy latch, incidents, memory sample,
+        device publish)."""
         # The token readback above drained the queued work: any prefill
         # work queued before this step has now been absorbed into dur_ms
         # — book the contaminated iteration separately so
@@ -1320,6 +1375,12 @@ class Scheduler:
             # right here — the one-time cost model build runs an eager
             # step and belongs at drain, never mid-traffic.
             self._publish_device(capture=False)
+
+    def _emit_step(self, live, out, n_accept) -> None:
+        """Book and emit each live slot's tokens from a decode step or
+        speculative round: ledger and policy charges, ``_emit``
+        (retirement, prefix insert, block release)."""
+        k = self.engine.spec_k
         for s in live:
             if self.ledger is not None:
                 # Booked AFTER the step completed: a crash at serve_step
@@ -1374,7 +1435,6 @@ class Scheduler:
             else:
                 s.pos += 1
                 self._emit(s, int(out[s.idx]))
-        return True
 
     def _agreed_report(self) -> dict:
         """The SLO verdict the drift latch follows: this scheduler's own,
@@ -1462,27 +1522,43 @@ class Scheduler:
         occupancy gauge refresh.  Returns whether anything progressed
         (False = idle: the queue head hasn't arrived yet, or there is no
         work at all).  :meth:`run` is a tick loop over one scheduler;
-        the router interleaves ticks across replicas on a shared clock."""
+        the router interleaves ticks across replicas on a shared clock.
+
+        Phase spans tile the tick (``serve.tick`` around it all):
+        ``serve.admit`` (deadlines and admissions), ``serve.prefill_round``
+        (with ``serve.engine.prefill`` around each engine call),
+        ``serve.decode_prep``, ``serve.engine.step``, ``serve.emit``, and
+        ``serve.planes`` (the step's bookkeeping and the planes' cadence,
+        then the closing gauges: two observations of ``serve.planes_ms``
+        in a tick with a decode step, so only its sum reads a tick's
+        planes).  Each phase adds its time to ``<span>_ms``; under a
+        recording profiler each span, ``serve.tick`` included, is also a
+        range."""
         progressed = False
-        if self._latches:
-            self.clock.latch()
-        if self._cancel_deadlines():
-            progressed = True
-        while self._try_admit():
-            progressed = True
-        if self._prefill_round():
-            progressed = True
-        if self._decode_step():
-            progressed = True
-        self._m_queue.set(len(self._queue))
-        self._m_occ.set(self.slot_occupancy)
-        if self.policy is not None and not self.policy.fleet:
-            # Standalone: this queue IS the fleet view.  Under a router
-            # (``policy.fleet``) the router publishes the fleet-wide
-            # census; per-replica publishes would thrash its gauges.
-            self.policy.publish_queue(
-                [e.req.tenant for e in self._queue]
-            )
+        with self._sp_tick:
+            if self._latches:
+                self.clock.latch()
+            with self._sp_admit:
+                if self._cancel_deadlines():
+                    progressed = True
+                while self._try_admit():
+                    progressed = True
+            with self._sp_prefill_round:
+                if self._prefill_round():
+                    progressed = True
+            if self._decode_step():
+                progressed = True
+            with self._sp_planes:
+                self._m_queue.set(len(self._queue))
+                self._m_occ.set(self.slot_occupancy)
+                if self.policy is not None and not self.policy.fleet:
+                    # Standalone: this queue IS the fleet view.  Under a
+                    # router (``policy.fleet``) the router publishes the
+                    # fleet-wide census; per-replica publishes would
+                    # thrash its gauges.
+                    self.policy.publish_queue(
+                        [e.req.tenant for e in self._queue]
+                    )
         return progressed
 
     def run(self, requests: Optional[Sequence[Request]] = None
